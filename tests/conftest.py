@@ -23,6 +23,9 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: long cross-process comm benches excluded from "
                    "the tier-1 budget")
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA card (the port's hand-written "
+                   "kernels); skips where none is present")
 
 
 @pytest.fixture(autouse=True)
