@@ -6,16 +6,27 @@ Run from the root of a checkout:
     python3 chip_smoke.py
 
 It builds the port's hand-written kernels from ``paddle_tpu_torch/csrc``
-with ``nvcc`` (one process per source, all at once), holds each kernel
-against its plain PyTorch version at the serving path's shapes, serves
-GPT-124M at full width (random weights from a seed) through
-``ServingEngine`` with and without speculative decoding, checks the fp32
-engine's greedy tokens against the port's own ``generate`` and a
-full-width forward against the dense path, and times each kernel beside
-its bound, its plain version and, where one exists, a PyTorch call that
-computes the same function. Each phase prints one JSON line; any failure
-raises and the script exits non-zero. It needs a CUDA card: without one
-it exits 2 and prints no result.
+with ``nvcc`` (one process per source, all at once) and holds each
+kernel against its plain PyTorch version (K1 paged attention, K2 flash
+forward and K3 flash backward, each in fp32 and bf16). Then it drives the
+port's two main paths, each with the launch counts set to 0 just before
+it and read just after:
+
+- serving: GPT-124M at full width (random weights from a seed) through
+  ``ServingEngine`` with and without speculative decoding, and the fp32
+  engine's greedy tokens against the port's own ``generate`` plus a
+  full-width forward against the dense path;
+- training: GPT-124M pretraining steps as ``bench.py`` runs them (batch
+  16 x 1024 tokens, bf16 O2, AdamW at lr 1e-4) through
+  ``CompiledTrainStep``, per call and through ``run_steps``; then a
+  full-width, 2-layer fp32 step on the card against the same step on the
+  CPU (loss and every gradient).
+
+Last, it times each kernel beside its bound, its plain version and,
+where one exists, a PyTorch call that computes the same function. Each
+phase prints one JSON line; any failure raises and the script exits
+non-zero. It needs a CUDA card: without one it exits 2 and prints no
+result.
 
 fp32 comparisons run with TF32 off in cuBLAS and cuDNN
 (``torch.backends.cuda.matmul.allow_tf32 = False``,
@@ -23,13 +34,13 @@ fp32 comparisons run with TF32 off in cuBLAS and cuDNN
 
 The last line is ``{"ok": true, "device": {"platform": "gpu", "kind":
 <torch.cuda.get_device_name(0)>, "count": <device count>}}``; the line
-before it lists every kernel with its launches on the main path
-(serving plus the fp32 model phase), time, bound, plain time and library
-time.
+before it lists every kernel with its launches on the main paths, time,
+bound, plain time and library time.
 """
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -125,6 +136,9 @@ FLASH_CASES = [   # (label, b, sq, sk, h, kh, d, causal)
     ("d128_causal", 1, 512, 512, 8, 8, 128, True),
     ("noncausal", 1, 256, 512, 12, 12, 64, False),
 ]
+# K3: the forward's cases and one with an lse cotangent
+FLASH_BWD_CASES = FLASH_CASES + [
+    ("dlse_causal", 1, 256, 256, 12, 12, 64, True)]
 
 
 def phase_kernels_vs_plain(torch, ck):
@@ -163,12 +177,49 @@ def phase_kernels_vs_plain(torch, ck):
                             "lse_max_abs_err": err_lse, "tol": tol,
                             "lse_tol": 1e-4,
                             "pass": err_o <= tol and err_lse <= 1e-4})
+    for dtype in (torch.bfloat16, torch.float32):
+        for label, b, sq, sk, h, kh, d, causal in FLASH_BWD_CASES:
+            results.append(flash_bwd_case(torch, ck, label, b, sq, sk, h, kh,
+                                          d, causal, dtype))
     emit({"phase": "kernels_vs_plain", "cases": results})
     bad = [r for r in results if not r["pass"]]
     if bad:
         raise AssertionError(f"kernel disagrees with its plain version: "
                              f"{bad}")
     return results
+
+
+def flash_bwd_inputs(torch, ck, b, sq, sk, h, kh, d, causal, dtype, dlse,
+                     seed=0):
+    """q, k, v, o, lse, do and (for dlse) an lse cotangent on the card."""
+    q, k, v = flash_case(torch, b, sq, sk, h, kh, d, dtype, seed)
+    g = torch.Generator(device="cpu").manual_seed(seed + 1)
+    do = torch.randn(b, sq, h, d, generator=g).to("cuda", dtype)
+    dl = torch.randn(b, h, sq, generator=g).to("cuda") if dlse else None
+    o, lse = ck.flash_attention_with_lse(q, k, v, causal=causal)
+    return q, k, v, o, lse, do, dl
+
+
+def flash_bwd_case(torch, ck, label, b, sq, sk, h, kh, d, causal, dtype):
+    args = flash_bwd_inputs(torch, ck, b, sq, sk, h, kh, d, causal, dtype,
+                            dlse=label.startswith("dlse"))
+    got = ck.flash_attention_bwd(*args, causal=causal)
+    again = ck.flash_attention_bwd(*args, causal=causal)
+    torch.cuda.synchronize()
+    ref = ck.flash_attention_bwd_reference(*args, causal=causal)
+    errs = [max_err(a, r) for a, r in zip(got, ref)]
+    top = max(float(r.float().abs().max()) for r in ref)
+    # fp32: the JAX package's flash-backward bounds (atol 5e-5, 2e-4 where
+    # kv heads are shared); bf16: one ulp at the outputs' largest
+    # magnitude (kernel and plain version both round one fp32 result)
+    if dtype == torch.float32:
+        tol = 2e-4 if kh != h else 5e-5
+    else:
+        tol = 2.0 ** (math.floor(math.log2(top)) - 7)
+    same = all(torch.equal(a, r) for a, r in zip(got, again))
+    return {"kernel": "flash_bwd", "case": label, "dtype": str(dtype)[6:],
+            "max_abs_err": max(errs), "dq_dk_dv_err": errs, "tol": tol,
+            "deterministic": same, "pass": max(errs) <= tol and same}
 
 
 # -- phase 3 ------------------------------------------------------------------
@@ -306,6 +357,126 @@ def phase_exactness_fp32(torch, ck):
 
 
 # -- phase 5 ------------------------------------------------------------------
+PEAK_BF16_FLOPS = PEAK_OPS_PER_S["bfloat16"]
+TRAIN_BATCH, TRAIN_WARMUP, TRAIN_TIMED, TRAIN_K = 16, 3, 10, 8
+
+
+def phase_training_bf16(torch, ck, smi):
+    """GPT-124M pretraining as ``bench.py`` runs it: batch 16 x 1024,
+    bf16 O2, AdamW at lr 1e-4; 3 warm-up steps, 10 timed calls, then one
+    timed ``run_steps`` block of K=8."""
+    import numpy as np
+    from paddle_tpu_torch.jit import CompiledTrainStep
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.text.gpt import GPTForPretraining, gpt_small
+    cfg = gpt_small()
+    model = GPTForPretraining(cfg, device="cuda", seed=0)
+    opt = AdamW(learning_rate=1e-4, parameters=model.parameters())
+
+    def loss_fn(ids, labels):
+        _, loss = model(ids, labels=labels)
+        return loss
+
+    step = CompiledTrainStep(loss_fn, model, opt, amp_level="O2")
+    rng = np.random.default_rng(0)
+    shape = (TRAIN_BATCH, cfg.max_seq_len)
+    ids, labels = (torch.from_numpy(rng.integers(0, cfg.vocab_size, shape))
+                   .to("cuda") for _ in range(2))
+    ids_k, labels_k = (torch.from_numpy(
+        rng.integers(0, cfg.vocab_size, (TRAIN_K,) + shape)).to("cuda")
+        for _ in range(2))
+    tokens = TRAIN_BATCH * cfg.max_seq_len
+    flops_per_token = model.flops_per_token()
+    torch.cuda.reset_peak_memory_stats()
+    before = {k.name: k.launches for k in ck.KERNELS}
+    losses = [step(ids, labels) for _ in range(TRAIN_WARMUP)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses += [step(ids, labels) for _ in range(TRAIN_TIMED)]
+    torch.cuda.synchronize()
+    per_call_s = (time.perf_counter() - t0) / TRAIN_TIMED
+    t0 = time.perf_counter()
+    block = step.run_steps(ids_k, labels_k)
+    torch.cuda.synchronize()
+    run_steps_s = (time.perf_counter() - t0) / TRAIN_K
+    losses = [float(x) for x in losses] + block.tolist()
+    launches = {k.name: k.launches - before[k.name] for k in ck.KERNELS}
+    steps = TRAIN_WARMUP + TRAIN_TIMED + TRAIN_K
+
+    def rates(step_s):
+        tps = tokens / step_s
+        return {"step_ms": step_s * 1e3, "tokens_per_s": tps,
+                "mfu": tps * flops_per_token / PEAK_BF16_FLOPS}
+
+    out = {"phase": "training_bf16", "nvidia_smi": smi,
+           "model": "gpt_small (GPT-124M), fp32 params, O2 bf16 compute, "
+                    "AdamW lr 1e-4, random weights seed 0",
+           "batch": TRAIN_BATCH, "seq": cfg.max_seq_len,
+           "num_parameters": model.num_parameters(),
+           "flops_per_token": flops_per_token,
+           "mfu_peak_flops": PEAK_BF16_FLOPS,
+           "per_call": rates(per_call_s),
+           "run_steps_k8": rates(run_steps_s),
+           "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+           "steps": steps, "losses": losses, "launches": launches}
+    emit(out)
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"a training loss is not finite: {losses}")
+    want = cfg.num_layers * steps
+    if launches["flash_bwd"] != want or launches["flash_fwd"] < want:
+        raise AssertionError(
+            f"{steps} steps of {cfg.num_layers} layers launched flash_bwd "
+            f"{launches['flash_bwd']} and flash_fwd {launches['flash_fwd']} "
+            f"times; want {want} and at least {want}")
+
+
+def phase_training_exactness_fp32(torch, ck):
+    """One fp32 step (loss and every gradient) of GPT at full width and 2
+    layers, batch 2 x 1024: on the card through K2/K3, and on the CPU
+    through their plain versions, from the same weights and batch."""
+    import numpy as np
+    from paddle_tpu_torch.text.gpt import GPTConfig, GPTForPretraining
+    cfg = GPTConfig(hidden_size=768, num_layers=2, num_heads=12)
+    rng = np.random.default_rng(1)
+    ids, labels = (torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                                 (2, cfg.max_seq_len)))
+                   for _ in range(2))
+    results = {}
+    before = {k.name: k.launches for k in ck.KERNELS}
+    for dev in ("cuda", "cpu"):
+        model = GPTForPretraining(cfg, device=dev, seed=0)
+        _, loss = model(ids.to(dev), labels=labels.to(dev))
+        loss.backward()
+        results[dev] = (loss.item(), {n: p.grad.cpu() for n, p in
+                                      model.named_parameters()})
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            launches = {k.name: k.launches - before[k.name]
+                        for k in ck.KERNELS}
+    loss_err = abs(results["cuda"][0] - results["cpu"][0])
+    # every gradient within 1e-4 of its own largest entry: fp32 sums over
+    # 2048 tokens taken in different orders on the two devices
+    grad_rel = {n: max_err(g, results["cpu"][1][n]) /
+                max(float(results["cpu"][1][n].abs().max()), 1e-30)
+                for n, g in results["cuda"][1].items()}
+    worst = max(grad_rel, key=grad_rel.get)
+    out = {"phase": "training_exactness_fp32", "tf32": False,
+           "model": "GPT-124M widths, 2 layers, fp32, batch 2 x 1024",
+           "loss_cuda": results["cuda"][0], "loss_cpu": results["cpu"][0],
+           "loss_abs_err": loss_err, "loss_tol": 1e-4,
+           "grad_max_rel_err": grad_rel[worst], "grad_worst": worst,
+           "grad_rel_tol": 1e-4, "params": len(grad_rel),
+           "launches": launches}
+    emit(out)
+    if launches["flash_fwd"] != cfg.num_layers or \
+            launches["flash_bwd"] != cfg.num_layers:
+        raise AssertionError(f"the fp32 step launched {launches}")
+    if loss_err > 1e-4 or grad_rel[worst] > 1e-4:
+        raise AssertionError(f"card step differs from the CPU step: loss "
+                             f"{loss_err}, {worst} {grad_rel[worst]}")
+
+
+# -- phase 6 ------------------------------------------------------------------
 def paged_bound(torch, q, kp, bt, cl):
     """Least time for K1 on these inputs: bytes each slot's visible rows
     need (K and V once, the table entries it reads, q, lens, out) versus
@@ -382,14 +553,65 @@ def time_flash(torch, ck, case, dtype, launches):
                      f"causal={causal} {str(dtype)[6:]}"}
 
 
+def flash_bwd_bound(q, k, causal):
+    """Least time for K3: q, k, v, o, do read and dq, dk, dv written once,
+    lse read once, against 10 * d flops per visible (q, kv) pair."""
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    elt = q.element_size()
+    nbytes = 5 * q.numel() * elt + 3 * k.numel() * elt + 4 * b * h * sq
+    pairs = sum(min(sk, r + sk - sq + 1) for r in range(sq)) if causal \
+        else sq * sk
+    return bound_of(nbytes, 10 * b * h * d * pairs, q.dtype)
+
+
+def time_flash_bwd(torch, ck, case, dtype, launches):
+    label, b, sq, sk, h, kh, d, causal = case
+    args = flash_bwd_inputs(torch, ck, b, sq, sk, h, kh, d, causal, dtype,
+                            dlse=False)
+    q, k, v, o, lse, do, _ = args
+    ms = cuda_time_ms(lambda: ck.flash_attention_bwd(*args, causal=causal),
+                      20)
+    plain_ms = cuda_time_ms(
+        lambda: ck.flash_attention_bwd_reference(*args, causal=causal), 5,
+        warmup=1)
+    # yardstick: the backward alone of PyTorch's fused attention
+    qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_(True)
+                  for t in (q, k, v))
+    out = torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=causal)
+    dot = do.transpose(1, 2).contiguous()
+    library_ms = cuda_time_ms(
+        lambda: torch.autograd.grad(out, (qt, kt, vt), dot,
+                                    retain_graph=True), 20)
+    bound_ms, bound_by = flash_bwd_bound(q, k, causal)
+    err = max(max_err(a, r) for a, r in zip(
+        ck.flash_attention_bwd(*args, causal=causal),
+        ck.flash_attention_bwd_reference(*args, causal=causal)))
+    return {"name": "flash_bwd", "route": "cuda",
+            "source": ck.FLASH_BWD.source, "replaces": ck.FLASH_BWD.replaces,
+            "launches": launches, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library_ms,
+            "shape": f"[{b}, {sq}, {h}, {d}] kv [{b}, {sk}, {kh}, {d}] "
+                     f"causal={causal} {str(dtype)[6:]}"}
+
+
+TRAIN_ATTENTION = ("gpt124m_train", TRAIN_BATCH, 1024, 1024, 12, 12, 64,
+                   True)
+
+
 def phase_timing(torch, ck, launches, smi):
     bf16, f32 = torch.bfloat16, torch.float32
     main = [time_paged(torch, ck, 1, bf16, launches["paged_attention"]),
             time_flash(torch, ck, FLASH_CASES[0], bf16,
-                       launches["flash_fwd"])]
+                       launches["flash_fwd"]),
+            time_flash_bwd(torch, ck, TRAIN_ATTENTION, bf16,
+                           launches["flash_bwd"])]
     variants = [time_paged(torch, ck, 5, bf16, None),
                 time_paged(torch, ck, 1, f32, None),
-                time_flash(torch, ck, FLASH_CASES[0], f32, None)]
+                time_flash(torch, ck, FLASH_CASES[0], f32, None),
+                time_flash(torch, ck, TRAIN_ATTENTION, bf16, None)]
     emit({"phase": "kernel_variants", "nvidia_smi": smi,
           "kernels": variants})
     return main
@@ -408,16 +630,25 @@ def main():
     t0 = time.perf_counter()
     smi = phase_environment(torch, ck)
     phase_kernels_vs_plain(torch, ck)
-    # the main path: serving (K1) and the fp32 model phase (K2), counted
-    # from zero
-    ck.reset_launch_counts()
-    phase_serving(torch, ck, smi)
-    phase_exactness_fp32(torch, ck)
-    launches = {k.name: k.launches for k in ck.KERNELS}
-    missing = [n for n, c in launches.items() if c == 0]
-    if missing:
-        raise AssertionError(f"kernels never launched on the main path: "
-                             f"{missing}")
+    # the main paths, each counted from zero: serving (K1) with the fp32
+    # model phase (K2), then training (K2, K3)
+    paths = (("serving", ("paged_attention", "flash_fwd"),
+              lambda: (phase_serving(torch, ck, smi),
+                       phase_exactness_fp32(torch, ck))),
+             ("training", ("flash_fwd", "flash_bwd"),
+              lambda: (phase_training_bf16(torch, ck, smi),
+                       phase_training_exactness_fp32(torch, ck))))
+    launches = {k.name: 0 for k in ck.KERNELS}
+    for path, kernels, drive in paths:
+        ck.reset_launch_counts()
+        drive()
+        counts = {k.name: k.launches for k in ck.KERNELS}
+        missing = [n for n in kernels if counts[n] == 0]
+        if missing:
+            raise AssertionError(f"kernels never launched on the {path} "
+                                 f"path: {missing}")
+        for name, c in counts.items():
+            launches[name] += c
     kernels = phase_timing(torch, ck, launches, smi)
     emit({"phase": "done", "seconds": time.perf_counter() - t0})
     emit({"kernels": kernels})

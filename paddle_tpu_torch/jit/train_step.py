@@ -1,0 +1,160 @@
+"""CompiledTrainStep: forward, backward, gradient clip and optimizer update
+of one training step (counterpart: ``paddle_tpu/jit/train_step.py``).
+
+The JAX package compiles the step into one donated XLA program; the port
+runs the same step eagerly. Attention goes through the hand-written
+kernels on the card (forward K2, backward K3, through
+``ops.cuda_kernels.FlashAttention``), matrix products through cuBLAS.
+Parameters and optimizer state are updated in place, which is what the
+reference's buffer donation achieves. Capturing the step in a CUDA graph
+is later work.
+
+``amp_level="O2"`` means what it means in the reference: every floating
+parameter is cast to bf16 (or fp16) for the forward, through
+``torch.func.functional_call`` over the casts, and the gradients land on
+the fp32 parameters through the casts. Buffers and inputs keep their
+dtypes. This is not ``torch.autocast`` (O1's per-op cast list), which
+computes a different result.
+
+Not in this slice: ``FLAGS_check_nan_inf``, the DGC/LocalSGD
+meta-optimizers and the StepMeter hook (``set_meter_info``), each refused
+with an error; mesh and ZeRO placements (the port has no mesh yet).
+"""
+from __future__ import annotations
+
+import os
+
+import torch
+from torch import nn
+
+from ..nn.clip import ClipGradByGlobalNorm, ClipGradByNorm, ClipGradByValue
+
+
+def _functional_clip(clip, grads):
+    """The train step's clip, as the reference applies it in its step."""
+    if clip is None:
+        return grads
+    if isinstance(clip, ClipGradByValue):
+        return [torch.clamp(g, clip.min, clip.max) for g in grads]
+    if isinstance(clip, ClipGradByNorm):
+        return [clip([(None, g)])[0][1] for g in grads]
+    if isinstance(clip, ClipGradByGlobalNorm):
+        scale = clip.global_scale(grads)
+        return [g * scale.to(g.dtype) for g in grads]
+    raise TypeError(f"unsupported grad clip in the train step: {clip!r}")
+
+
+class _Bound(nn.Module):
+    """The step's layers as one module whose forward is the loss function,
+    so ``functional_call`` can swap every parameter for its cast."""
+
+    def __init__(self, layers, fn):
+        super().__init__()
+        self.layers = nn.ModuleList(layers)
+        self.fn = fn
+
+    def forward(self, args, kwargs):
+        return self.fn(*args, **kwargs)
+
+
+_COMPUTE_DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16}
+
+
+class CompiledTrainStep:
+    """One training step per call.
+
+    ``fn(*batch) -> loss`` (a scalar tensor, or a tuple whose first
+    element is the loss) closes over ``layers``. Each call runs the
+    forward, the backward (``torch.autograd.grad``, so ``.grad`` is left
+    alone), the optimizer's clip and its update, and returns the loss in
+    fp32. ``donate`` is accepted for the reference's signature: parameters
+    and optimizer state are updated in place either way.
+    """
+
+    def __init__(self, fn, layers, optimizer, amp_level="O0",
+                 amp_dtype="bfloat16", donate=True):
+        if not isinstance(layers, (list, tuple)):
+            layers = [layers]
+        if type(optimizer).__name__ in ("DGCOptimizer",
+                                        "LocalSGDOptimizer"):
+            raise NotImplementedError(
+                f"{type(optimizer).__name__} is not ported; the port's "
+                "train step runs the plain optimizers")
+        if os.environ.get("FLAGS_check_nan_inf", "").lower() in (
+                "1", "true", "yes", "on"):
+            raise NotImplementedError(
+                "FLAGS_check_nan_inf is not ported to the port's train step")
+        if amp_level not in ("O0", "O2"):
+            raise ValueError(f"amp_level {amp_level!r}: the train step "
+                             "takes 'O0' or 'O2'")
+        self.fn = fn
+        self.optimizer = optimizer
+        self.amp_level = amp_level
+        self.compute_dtype = _COMPUTE_DTYPES[amp_dtype]
+        self._module = _Bound(layers, fn)
+        self._named = list(self._module.named_parameters())
+        self.trainable = [p for _, p in self._named if p.requires_grad]
+        self._clip = getattr(optimizer, "_grad_clip", None)
+        for p in self.trainable:
+            optimizer._get_accumulators(p)
+
+    def set_meter_info(self, tokens_per_step=None, flops_per_step=None):
+        raise NotImplementedError(
+            "the StepMeter (observability/perf.py) is not ported yet")
+
+    def _loss(self, args, kwargs):
+        if self.amp_level == "O2":
+            cast = {name: p.to(self.compute_dtype) if p.is_floating_point()
+                    else p for name, p in self._named}
+            out = torch.func.functional_call(self._module, cast,
+                                             (args, kwargs))
+        else:
+            out = self.fn(*args, **kwargs)
+        if isinstance(out, (tuple, list)):
+            return out[0].float(), tuple(out[1:])
+        return out.float(), ()
+
+    def _step(self, args, kwargs, lr):
+        loss, aux = self._loss(args, kwargs)
+        grads = torch.autograd.grad(loss, self.trainable, allow_unused=True)
+        with torch.no_grad():
+            grads = [torch.zeros_like(p) if g is None else g.to(p.dtype)
+                     for g, p in zip(grads, self.trainable)]
+            grads = _functional_clip(self._clip, grads)
+            for p, g in zip(self.trainable, grads):
+                self.optimizer._apply(p, g, lr)
+        return loss.detach(), tuple(a.detach() if torch.is_tensor(a) else a
+                                    for a in aux)
+
+    def __call__(self, *args, **kwargs):
+        loss, aux = self._step(args, kwargs, self.optimizer.get_lr())
+        self.optimizer._step_count += 1
+        return (loss,) + aux if aux else loss
+
+    def run_steps(self, *args, **kwargs):
+        """K steps, one per slice of the leading [K, ...] axis of every
+        tensor argument (``run_steps(ids_k, labels_k)`` with ids_k
+        [K, b, s]), in a Python loop. Returns the [K] fp32 losses. As in
+        the reference: the learning rate is read once for the block,
+        auxiliary outputs are dropped, and fp32 master weights exist
+        before the first step."""
+        leaves = [a for a in (*args, *kwargs.values()) if torch.is_tensor(a)]
+        if not leaves:
+            raise ValueError("run_steps needs at least one tensor input")
+        k = int(leaves[0].shape[0])
+        lr = self.optimizer.get_lr()
+        if self.optimizer._multi_precision:
+            for p in self.trainable:
+                if p.dtype != torch.float32 and p.is_floating_point():
+                    accs = self.optimizer._get_accumulators(p)
+                    if "master_weight" not in accs:
+                        accs["master_weight"] = p.detach().float()
+        pick = lambda a, i: a[i] if torch.is_tensor(a) else a  # noqa: E731
+        losses = []
+        for i in range(k):
+            loss, _ = self._step(tuple(pick(a, i) for a in args),
+                                 {n: pick(a, i) for n, a in kwargs.items()},
+                                 lr)
+            losses.append(loss)
+        self.optimizer._step_count += k
+        return torch.stack(losses)

@@ -2,11 +2,12 @@
 attention.py``). Layout follows the reference's flash-attention API:
 [batch, seq, num_heads, head_dim].
 
-``scaled_dot_product_attention`` runs the flash-forward kernel (K2,
-``ops/cuda_kernels.py``) where its gate admits the shapes, and the dense
-``_sdpa_impl`` elsewhere — the same dense path the JAX package takes
-there (for example ``generate``'s one-token steps, whose sq is not a
-multiple of 128).
+``scaled_dot_product_attention`` runs the flash kernels
+(``ops/cuda_kernels.py``: K2 forward, K3 backward) where their gate
+admits the shapes, and the dense ``_sdpa_impl`` elsewhere — the same
+dense path the JAX package takes there (for example ``generate``'s
+one-token steps, whose sq is not a multiple of 128, and any call with a
+mask or dropout).
 """
 from __future__ import annotations
 
@@ -46,8 +47,8 @@ def _sdpa_impl(q, k, v, mask, scale, is_causal):
 def scaled_dot_product_attention(query, key, value, attn_mask=None,
                                  dropout_p=0.0, is_causal=False,
                                  training=True):
-    """[b, s, h, d] attention; the flash-forward kernel when no mask or
-    dropout is asked for and the gate admits the shapes."""
+    """[b, s, h, d] attention; the flash kernels (forward and backward)
+    when no mask or dropout is asked for and the gate admits the shapes."""
     scale = 1.0 / math.sqrt(query.shape[-1])
     if attn_mask is None and dropout_p == 0.0 and \
             ck.flash_attention_available(query, key, value,

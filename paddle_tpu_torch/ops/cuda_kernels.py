@@ -1,14 +1,19 @@
 """The port's hand-written Hopper kernels, their gates, wrappers and
 plain PyTorch versions.
 
-Counterpart: ``paddle_tpu/ops/pallas_kernels.py``. Two of its five TPU
-kernels lie on the serving slice and are ported here:
+Counterpart: ``paddle_tpu/ops/pallas_kernels.py``. Three of its five TPU
+kernels lie on the serving and training slices and are ported here:
 
 - K1 ``_paged_verify_kernel`` -> ``csrc/paged_attention.cu``
   (``paged_attention*``): ragged paged attention for decode (one query
   row per slot) and speculative verify (k + 1 rows per slot);
 - K2 ``_fwd_kernel`` -> ``csrc/flash_fwd.cu`` (``flash_attention*``):
-  the flash-attention forward, returning o and the natural-log lse.
+  the flash-attention forward, returning o and the natural-log lse;
+- K3 ``_bwd_fused_kernel`` -> ``csrc/flash_bwd.cu``
+  (``flash_attention_bwd``): the flash-attention backward, dq and dk/dv
+  from the saved q, k, v, o and lse. K2 and K3 are the forward and
+  backward of one ``torch.autograd.Function``, the counterpart of the
+  JAX package's custom-vjp ``_flash_core_lse``.
 
 Each kernel sits beside its plain PyTorch version (``*_reference``),
 which the CPU tests and ``chip_smoke.py`` hold the kernel against. A
@@ -78,7 +83,12 @@ FLASH_FWD = Kernel(
     "flash_fwd", "flash_fwd",
     [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P],
     "paddle_tpu/ops/pallas_kernels.py:195")
-KERNELS = (PAGED_ATTENTION, FLASH_FWD)
+FLASH_BWD = Kernel(
+    "flash_bwd", "flash_bwd",
+    [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I,
+     _P],
+    "paddle_tpu/ops/pallas_kernels.py:398")
+KERNELS = (PAGED_ATTENTION, FLASH_FWD, FLASH_BWD)
 
 
 def build_kernels():
@@ -328,23 +338,8 @@ def flash_attention_reference(q, k, v, causal=False, sm_scale=None):
     return o.to(q.dtype), lse
 
 
-def flash_attention_with_lse(q, k, v, causal=False, sm_scale=None):
-    """K2: (o [b, sq, h, d], lse [b, h, sq] fp32). On CUDA tensors this
-    launches ``csrc/flash_fwd.cu``; strided q, k, v (column slices of the
-    packed qkv) are made contiguous here. The kernel is forward only: on
-    CUDA with grad mode on and an input that requires grad it raises, as
-    the backward kernel belongs to the training slice. On CPU tensors it
-    runs the plain version."""
-    if sm_scale is None:
-        sm_scale = 1.0 / math.sqrt(q.shape[-1])
-    if _on_cpu(q, k, v):
-        return flash_attention_reference(q, k, v, causal, sm_scale)
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
-                                    or v.requires_grad):
-        raise NotImplementedError(
-            "the CUDA flash-attention kernel is forward only; its backward "
-            "comes with the training slice of the port — run under "
-            "torch.no_grad()")
+def _flash_fwd(q, k, v, causal, sm_scale):
+    """K2 on contiguous CUDA tensors: (o, lse)."""
     if not flash_attention_available(q, k, v, causal):
         raise ValueError("flash attention kernel does not take these shapes "
                          f"(q {tuple(q.shape)}, k {tuple(k.shape)}, "
@@ -352,7 +347,6 @@ def flash_attention_with_lse(q, k, v, causal=False, sm_scale=None):
     dtype = _kernel_dtype(q, k, v)
     b, sq, h, d = q.shape
     sk, kh = k.shape[1], k.shape[2]
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     o = torch.empty_like(q)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     FLASH_FWD.launch(q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
@@ -361,6 +355,153 @@ def flash_attention_with_lse(q, k, v, causal=False, sm_scale=None):
     return o, lse
 
 
+# -- K3: flash-attention backward --------------------------------------------
+# From the saved q, k, v, o, lse and the cotangents (do, dlse):
+#   delta = rowsum(do * o) - dlse          (outside the kernel, as in JAX)
+#   p = exp(s - lse), dv = p^T do, ds = p * (do v^T - delta),
+#   dk = sm_scale * ds^T q, dq = sm_scale * ds k
+# per q head; for GQA the per-q-head dk/dv are summed over the head group
+# outside the kernel (in fp32, from per-head values in the input dtype, as
+# the JAX package sums them).
+
+def _flash_delta(o, do, dlse):
+    """[b, h, sq] fp32: rowsum(do * o) minus the lse cotangent (a missing
+    one counts as zero)."""
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2)
+    if dlse is not None:
+        delta = delta - dlse.float()
+    return delta.contiguous()
+
+
+def _sum_head_groups(d_h, kh):
+    """Per-q-head [b, sk, h, d] gradients summed over each kv head's group
+    of q heads, in fp32, returned in d_h's dtype."""
+    b, sk, h, d = d_h.shape
+    if h == kh:
+        return d_h
+    return d_h.reshape(b, sk, kh, h // kh, d).sum(3, dtype=torch.float32) \
+        .to(d_h.dtype)
+
+
+def flash_attention_bwd_reference(q, k, v, o, lse, do, dlse=None,
+                                  causal=False, sm_scale=None):
+    """Plain PyTorch version of K3: (dq, dk, dv) in the inputs' dtypes,
+    from the explicit backward formulas in fp32 (not autograd of the
+    dense forward)."""
+    b, sq, h, d = q.shape
+    sk, kh = k.shape[1], k.shape[2]
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(d)
+    kf = k.float().repeat_interleave(h // kh, dim=2)
+    vf = v.float().repeat_interleave(h // kh, dim=2)
+    qf, dof = q.float(), do.float()
+    s = torch.einsum("bqhd,bkhd->bhqk", qf * sm_scale, kf)
+    if causal:
+        keep = torch.ones(sq, sk, dtype=torch.bool, device=q.device) \
+            .tril(diagonal=sk - sq)
+        s = s.masked_fill(~keep, float("-inf"))
+    p = torch.exp(s - lse.float()[..., None])
+    delta = _flash_delta(o, do, dlse)
+    dv_h = torch.einsum("bhqk,bqhd->bkhd", p, dof)
+    dp = torch.einsum("bqhd,bkhd->bhqk", dof, vf)
+    ds = p * (dp - delta[..., None])
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf) * sm_scale
+    dk_h = torch.einsum("bhqk,bqhd->bkhd", ds, qf) * sm_scale
+    return (dq.to(q.dtype), _sum_head_groups(dk_h.to(k.dtype), kh),
+            _sum_head_groups(dv_h.to(v.dtype), kh))
+
+
+def _flash_bwd_smem(d):
+    """Shared memory of either K3 pass: four [rows, d + 1] operand tiles,
+    two [rows, rows + 1] score tiles and two [rows] statistics, fp32;
+    64-row tiles, 32 at d = 256 (``csrc/flash_bwd.cu``)."""
+    rows = 32 if d == 256 else 64
+    return 4 * (4 * rows * (d + 1) + 2 * rows * (rows + 1) + 2 * rows)
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, dlse=None, causal=False,
+                        sm_scale=None):
+    """K3: (dq, dk, dv) of ``flash_attention_with_lse`` given the
+    cotangents do of o and dlse of lse (None counts as zero). On CUDA
+    tensors this launches ``csrc/flash_bwd.cu``; q, k, v, o and do are
+    made contiguous here. On CPU tensors it runs the plain version."""
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(q.shape[-1])
+    if _on_cpu(q, k, v, o, lse, do):
+        return flash_attention_bwd_reference(q, k, v, o, lse, do, dlse,
+                                             causal, sm_scale)
+    if not flash_attention_available(q, k, v, causal) or \
+            o.shape != q.shape or do.shape != q.shape:
+        raise ValueError("flash attention backward kernel does not take "
+                         f"these shapes (q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, o {tuple(o.shape)}, do "
+                         f"{tuple(do.shape)}, causal={causal})")
+    dtype = _kernel_dtype(q, k, v, o, do)
+    b, sq, h, d = q.shape
+    sk, kh = k.shape[1], k.shape[2]
+    if lse.dtype != torch.float32 or tuple(lse.shape) != (b, h, sq):
+        raise ValueError(f"lse must be fp32 [{b}, {h}, {sq}], got "
+                         f"{lse.dtype} {tuple(lse.shape)}")
+    smem = _flash_bwd_smem(d)
+    if smem > _MAX_SMEM:
+        raise ValueError(f"d={d} needs {smem} bytes of shared memory, more "
+                         f"than a block has")
+    q, k, v, do = q.contiguous(), k.contiguous(), v.contiguous(), \
+        do.contiguous()
+    lse = lse.contiguous()
+    delta = _flash_delta(o, do, dlse)
+    dq = torch.empty_like(q)
+    dk_h = torch.empty((b, sk, h, d), dtype=k.dtype, device=k.device)
+    dv_h = torch.empty_like(dk_h)
+    FLASH_BWD.launch(q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                     do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                     dq.data_ptr(), dk_h.data_ptr(), dv_h.data_ptr(),
+                     b, sq, sk, h, kh, d, float(sm_scale),
+                     int(bool(causal)), dtype)
+    return dq, _sum_head_groups(dk_h, kh), _sum_head_groups(dv_h, kh)
+
+
+class FlashAttention(torch.autograd.Function):
+    """Flash attention with both outputs differentiable: the counterpart
+    of the JAX package's custom-vjp ``_flash_core_lse``. Forward: K2 on
+    CUDA tensors, the plain version on CPU ones; it saves q, k, v, o and
+    lse. Backward: K3 likewise, with the lse cotangent folded into delta
+    (a missing cotangent counts as zero)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, sm_scale):
+        # q, k, v arrive as column slices of the packed qkv: one copy each
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        if _on_cpu(q, k, v):
+            o, lse = flash_attention_reference(q, k, v, causal, sm_scale)
+        else:
+            o, lse = _flash_fwd(q, k, v, causal, sm_scale)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal, ctx.sm_scale = causal, sm_scale
+        ctx.set_materialize_grads(False)
+        return o, lse
+
+    @staticmethod
+    def backward(ctx, do, dlse):
+        q, k, v, o, lse = ctx.saved_tensors
+        if do is None:
+            do = torch.zeros_like(o)
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do, dlse,
+                                         ctx.causal, ctx.sm_scale)
+        return dq, dk, dv, None, None
+
+
+def flash_attention_with_lse(q, k, v, causal=False, sm_scale=None):
+    """(o [b, sq, h, d], lse [b, h, sq] fp32), both differentiable. On
+    CUDA tensors the forward launches K2 (``csrc/flash_fwd.cu``) and the
+    backward K3 (``csrc/flash_bwd.cu``); strided q, k, v (column slices of
+    the packed qkv) are made contiguous once. On CPU tensors both run
+    their plain versions."""
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(q.shape[-1])
+    return FlashAttention.apply(q, k, v, bool(causal), float(sm_scale))
+
+
 def flash_attention_values(q, k, v, causal=False, sm_scale=None):
-    """K2's o alone."""
+    """K2's o alone; its backward is K3 with a zero lse cotangent."""
     return flash_attention_with_lse(q, k, v, causal, sm_scale)[0]

@@ -1,0 +1,222 @@
+"""Optimizer base and the concrete optimizers of the training slice
+(counterpart: ``paddle_tpu/optimizer/optimizer.py``: ``Optimizer``,
+``SGD``, ``Adam``, ``AdamW``).
+
+Each optimizer defines one per-parameter update, ``_update(p, g, accs,
+lr)``, used both by the eager ``step()`` and by ``CompiledTrainStep``.
+Where the JAX package returns new arrays, the port updates ``p`` and the
+accumulators in place, in the reference's arithmetic and order of
+operations (not ``torch.optim``), so that fp32 runs of the two packages
+agree to a few ulps.
+
+Parameters may be given as tensors or as (name, tensor) pairs
+(``model.named_parameters()``). A parameter's name is the one from its
+pair, else ``getattr(param, "name", None)``; AdamW's
+``apply_decay_param_fun`` receives that name or ``""``, and
+``state_dict`` keys use it or ``param_<i>``. Learning-rate schedulers are
+not ported yet (``optimizer/lr.py``): the learning rate is a float.
+"""
+from __future__ import annotations
+
+import torch
+
+
+class Optimizer:
+    def __init__(self, learning_rate=0.001, parameters=None,
+                 weight_decay=None, grad_clip=None, name=None,
+                 multi_precision=False):
+        if parameters is None:
+            raise ValueError("parameters must be given (pass "
+                             "model.parameters())")
+        self._parameters, self._names = [], []
+        for entry in parameters:
+            if isinstance(entry, tuple):
+                pname, p = entry
+            else:
+                pname, p = getattr(entry, "name", None), entry
+            self._parameters.append(p)
+            self._names.append(pname)
+        self._name_of = {id(p): pname
+                         for p, pname in zip(self._parameters, self._names)}
+        self._learning_rate = learning_rate
+        self._grad_clip = grad_clip
+        self._multi_precision = multi_precision
+        self._weight_decay = weight_decay
+        self._accumulators: dict = {}
+        self._step_count = 0
+
+    # -- lr ------------------------------------------------------------------
+    def get_lr(self):
+        if isinstance(self._learning_rate, (int, float)):
+            return float(self._learning_rate)
+        raise TypeError(
+            f"learning_rate {self._learning_rate!r}: the port takes a float "
+            "learning rate; schedulers come with the port of optimizer/lr.py")
+
+    def set_lr(self, value):
+        self._learning_rate = float(value)
+
+    def set_lr_scheduler(self, scheduler):
+        raise NotImplementedError(
+            "learning-rate schedulers come with the port of optimizer/lr.py")
+
+    # -- accumulators --------------------------------------------------------
+    def _get_accumulators(self, p):
+        key = id(p)
+        if key not in self._accumulators:
+            self._accumulators[key] = self._create_accumulators(p)
+        return self._accumulators[key]
+
+    def _create_accumulators(self, p):
+        return {}
+
+    def _acc_dtype(self, p):
+        return torch.float32 if self._multi_precision else p.dtype
+
+    # -- core step -----------------------------------------------------------
+    @torch.no_grad()
+    def step(self):
+        lr = self.get_lr()
+        params_grads = [(p, p.grad) for p in self._parameters
+                        if p.requires_grad and p.grad is not None]
+        if self._grad_clip is not None:
+            params_grads = self._grad_clip(params_grads)
+        self._step_count += 1
+        for p, g in params_grads:
+            if g is not None:
+                self._apply(p, g, lr)
+
+    @torch.no_grad()
+    def _apply(self, param, g, lr):
+        """Update ``param`` in place from its gradient: through an fp32
+        master copy when ``multi_precision`` and the parameter is not
+        fp32, else directly."""
+        accs = self._get_accumulators(param)
+        if g.dtype != param.dtype:
+            g = g.to(param.dtype)
+        if self._multi_precision and param.dtype != torch.float32 and \
+                param.is_floating_point():
+            master = accs.get("master_weight")
+            if master is None:
+                master = accs["master_weight"] = param.detach().float()
+            self._update_named(param, master, g.float(), accs, lr)
+            param.copy_(master)
+        else:
+            self._update_named(param, param.data, g, accs, lr)
+
+    def _update(self, p, g, accs, lr):
+        raise NotImplementedError
+
+    def _update_named(self, param, p, g, accs, lr):
+        """Per-parameter update consulted by ``step`` and the train step.
+        ``param`` is the parameter object, so AdamW can look up its name
+        for the decay exclusion."""
+        self._update(p, g, accs, lr)
+
+    def clear_grad(self, set_to_zero=True):
+        for p in self._parameters:
+            p.grad = None
+
+    # -- state ---------------------------------------------------------------
+    def _state_names(self):
+        return [pname or f"param_{i}"
+                for i, pname in enumerate(self._names)]
+
+    def state_dict(self):
+        state = {}
+        for pname, p in zip(self._state_names(), self._parameters):
+            for aname, aval in self._accumulators.get(id(p), {}).items():
+                state[f"{pname}.{aname}"] = aval
+        state["@step"] = self._step_count
+        return state
+
+    def set_state_dict(self, state):
+        self._step_count = int(state.get("@step", 0))
+        for pname, p in zip(self._state_names(), self._parameters):
+            accs = {}
+            for key, value in state.items():
+                if key.startswith(pname + "."):
+                    accs[key[len(pname) + 1:]] = torch.as_tensor(
+                        value, device=p.device).clone()
+            if accs:
+                self._accumulators[id(p)] = accs
+
+    # decay helper shared by subclasses -------------------------------------
+    def _apply_decay(self, p, g):
+        if self._weight_decay:
+            return g + self._weight_decay * p
+        return g
+
+
+class SGD(Optimizer):
+    def _update(self, p, g, accs, lr):
+        g = self._apply_decay(p, g)
+        p.sub_(lr * g)
+
+
+class Adam(Optimizer):
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-8, parameters=None, weight_decay=None,
+                 grad_clip=None, lazy_mode=False, multi_precision=False,
+                 use_multi_tensor=False, name=None):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
+                         name, multi_precision)
+        self._beta1 = beta1
+        self._beta2 = beta2
+        self._epsilon = epsilon
+
+    def _create_accumulators(self, p):
+        dt = self._acc_dtype(p)
+        return {"moment1": torch.zeros_like(p, dtype=dt),
+                "moment2": torch.zeros_like(p, dtype=dt),
+                "beta1_pow": torch.ones((), dtype=dt, device=p.device),
+                "beta2_pow": torch.ones((), dtype=dt, device=p.device)}
+
+    def _moments(self, g, accs):
+        """m, v and the beta powers advanced one step, in place."""
+        b1, b2 = self._beta1, self._beta2
+        m = accs["moment1"].mul_(b1).add_((1 - b1) * g)
+        v = accs["moment2"].mul_(b2).add_((1 - b2) * torch.square(g))
+        b1p = accs["beta1_pow"].mul_(b1)
+        b2p = accs["beta2_pow"].mul_(b2)
+        return m, v, b1p, b2p
+
+    def _update(self, p, g, accs, lr):
+        g = self._apply_decay(p, g)
+        m, v, b1p, b2p = self._moments(g, accs)
+        mhat = m / (1 - b1p)
+        vhat = v / (1 - b2p)
+        p.sub_(lr * mhat / (torch.sqrt(vhat) + self._epsilon))
+
+
+class AdamW(Adam):
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-8, parameters=None, weight_decay=0.01,
+                 lr_ratio=None, apply_decay_param_fun=None, grad_clip=None,
+                 lazy_mode=False, multi_precision=False, name=None):
+        super().__init__(learning_rate, beta1, beta2, epsilon, parameters,
+                         None, grad_clip, lazy_mode, multi_precision,
+                         name=name)
+        self._coeff = float(weight_decay)
+        self._apply_decay_param_fun = apply_decay_param_fun
+
+    def _adamw_update(self, p, g, accs, lr, decay):
+        if decay and self._coeff:
+            p.mul_(1.0 - lr * self._coeff)   # decoupled decay
+        m, v, b1p, b2p = self._moments(g, accs)
+        # bias corrections folded into scalars, as the reference does:
+        # lr * mhat / (sqrt(vhat) + eps) == c3 * m / (sqrt(v) + eps * s2)
+        s2 = torch.sqrt(1.0 - b2p)
+        c3 = lr * s2 / (1.0 - b1p)
+        p.sub_(c3 * m / (torch.sqrt(v) + self._epsilon * s2))
+
+    def _update(self, p, g, accs, lr):
+        self._adamw_update(p, g, accs, lr, True)
+
+    def _update_named(self, param, p, g, accs, lr):
+        decay = True
+        if self._apply_decay_param_fun is not None:
+            # reference signature: fn(param_name) -> False to skip decay
+            decay = self._apply_decay_param_fun(
+                self._name_of.get(id(param)) or "")
+        self._adamw_update(p, g, accs, lr, decay)

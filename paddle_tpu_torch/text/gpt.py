@@ -7,8 +7,8 @@ the port's parameters are the JAX model's arrays as they are, and the
 serving engine's ``a @ W + b`` reads the same arrays as the JAX engine's
 (``convert.py`` carries weights across without a transpose). Attention
 runs through ``nn.functional.scaled_dot_product_attention``: the
-flash-forward kernel where its gate admits the shape, the dense path
-elsewhere.
+flash kernels (forward and backward) where their gate admits the shape,
+the dense path elsewhere. ``jit.CompiledTrainStep`` trains it.
 
 Weights are random, drawn from ``seed`` with a ``torch.Generator`` on the
 CPU: embeddings and every projection at normal(0, 0.02)
@@ -260,6 +260,16 @@ class GPTForPretraining(nn.Module):
             cur += 1
         return torch.cat(out_tokens, dim=1)
 
+    def num_parameters(self):
+        return sum(p.numel() for p in self.parameters())
+
+    def flops_per_token(self):
+        """6N + attention term, as the JAX package counts it, so MFU
+        means the same thing in both packages."""
+        n = self.num_parameters()
+        cfg = self.config
+        attn = 12 * cfg.num_layers * cfg.hidden_size * cfg.max_seq_len
+        return 6 * n + attn
 
 
 def gpt_small(**kw):

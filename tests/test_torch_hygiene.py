@@ -1,6 +1,6 @@
-"""Import hygiene of the port: ``paddle_tpu_torch`` and ``chip_smoke.py``
-import neither ``jax`` nor anything of ``paddle_tpu`` — not even its
-modules that do not import JAX. Later slices that reach into the JAX
+"""Import hygiene of the port: ``paddle_tpu_torch``, ``chip_smoke.py`` and
+``scripts/profile_torch_train_step.py`` import neither ``jax`` nor
+anything of ``paddle_tpu`` — not even its modules that do not import JAX. Later slices that reach into the JAX
 package fail here."""
 import ast
 import os
@@ -16,7 +16,8 @@ FORBIDDEN = ("jax", "jaxlib", "paddle_tpu")
 
 def _port_files():
     files = sorted((ROOT / "paddle_tpu_torch").rglob("*.py"))
-    return files + [ROOT / "chip_smoke.py"]
+    return files + [ROOT / "chip_smoke.py",
+                    ROOT / "scripts" / "profile_torch_train_step.py"]
 
 
 def _imported_roots(path):
@@ -46,6 +47,8 @@ def test_importing_the_port_loads_neither_package():
         "import paddle_tpu_torch, paddle_tpu_torch.convert\n"
         "import paddle_tpu_torch.inference.serving\n"
         "import paddle_tpu_torch.text.gpt, paddle_tpu_torch.ops\n"
+        "import paddle_tpu_torch.optimizer, paddle_tpu_torch.jit\n"
+        "import paddle_tpu_torch.nn.clip\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in %r)\n"
