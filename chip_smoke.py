@@ -129,12 +129,18 @@ def flash_case(torch, b, sq, sk, h, kh, d, dtype, seed=0):
 # ragged contexts up to 1024 (the model length), one inactive slot
 PAGED_CTXS = {1: [0, 1, 17, 130, 511, 700, 1000, 1024],
               5: [0, 1, 17, 130, 511, 700, 1000, 1020]}
-FLASH_CASES = [   # (label, b, sq, sk, h, kh, d, causal)
+TRAIN_BATCH, TRAIN_WARMUP, TRAIN_TIMED, TRAIN_K = 16, 3, 10, 8
+# (label, b, sq, sk, h, kh, d, causal); the last is the training path's
+# attention, GPT-124M at batch 16
+TRAIN_ATTENTION = ("gpt124m_train", TRAIN_BATCH, 1024, 1024, 12, 12, 64,
+                   True)
+FLASH_CASES = [
     ("gpt124m_causal", 1, 1024, 1024, 12, 12, 64, True),
     ("gqa_causal", 2, 256, 256, 12, 4, 64, True),
     ("nonsquare_causal", 1, 128, 384, 12, 12, 64, True),
     ("d128_causal", 1, 512, 512, 8, 8, 128, True),
     ("noncausal", 1, 256, 512, 12, 12, 64, False),
+    TRAIN_ATTENTION,
 ]
 # K3: the forward's cases and one with an lse cotangent
 FLASH_BWD_CASES = FLASH_CASES + [
@@ -358,13 +364,14 @@ def phase_exactness_fp32(torch, ck):
 
 # -- phase 5 ------------------------------------------------------------------
 PEAK_BF16_FLOPS = PEAK_OPS_PER_S["bfloat16"]
-TRAIN_BATCH, TRAIN_WARMUP, TRAIN_TIMED, TRAIN_K = 16, 3, 10, 8
 
 
-def phase_training_bf16(torch, ck, smi):
-    """GPT-124M pretraining as ``bench.py`` runs it: batch 16 x 1024,
-    bf16 O2, AdamW at lr 1e-4; 3 warm-up steps, 10 timed calls, then one
-    timed ``run_steps`` block of K=8."""
+def gpt124m_training(torch):
+    """GPT-124M pretraining as ``bench.py`` runs it: fp32 parameters from
+    seed 0, AdamW at lr 1e-4, a bf16 O2 ``CompiledTrainStep``. Returns
+    (model, step, batch); ``batch(*lead)`` draws (ids, labels) of shape
+    lead + (16, 1024) on the card from one ``numpy.random.default_rng(0)``.
+    ``scripts/profile_torch_train_step.py`` traces this same workload."""
     import numpy as np
     from paddle_tpu_torch.jit import CompiledTrainStep
     from paddle_tpu_torch.optimizer import AdamW
@@ -372,19 +379,25 @@ def phase_training_bf16(torch, ck, smi):
     cfg = gpt_small()
     model = GPTForPretraining(cfg, device="cuda", seed=0)
     opt = AdamW(learning_rate=1e-4, parameters=model.parameters())
-
-    def loss_fn(ids, labels):
-        _, loss = model(ids, labels=labels)
-        return loss
-
-    step = CompiledTrainStep(loss_fn, model, opt, amp_level="O2")
+    step = CompiledTrainStep(lambda ids, labels: model(ids, labels=labels)[1],
+                             model, opt, amp_level="O2")
     rng = np.random.default_rng(0)
-    shape = (TRAIN_BATCH, cfg.max_seq_len)
-    ids, labels = (torch.from_numpy(rng.integers(0, cfg.vocab_size, shape))
-                   .to("cuda") for _ in range(2))
-    ids_k, labels_k = (torch.from_numpy(
-        rng.integers(0, cfg.vocab_size, (TRAIN_K,) + shape)).to("cuda")
-        for _ in range(2))
+
+    def batch(*lead):
+        shape = lead + (TRAIN_BATCH, cfg.max_seq_len)
+        return tuple(torch.from_numpy(rng.integers(0, cfg.vocab_size, shape))
+                     .to("cuda") for _ in range(2))
+
+    return model, step, batch
+
+
+def phase_training_bf16(torch, ck, smi):
+    """The ``gpt124m_training`` workload: 3 warm-up steps, 10 timed calls,
+    then one timed ``run_steps`` block of K=8."""
+    model, step, batch = gpt124m_training(torch)
+    cfg = model.config
+    ids, labels = batch()
+    ids_k, labels_k = batch(TRAIN_K)
     tokens = TRAIN_BATCH * cfg.max_seq_len
     flops_per_token = model.flops_per_token()
     torch.cuda.reset_peak_memory_stats()
@@ -595,10 +608,6 @@ def time_flash_bwd(torch, ck, case, dtype, launches):
             "bound_by": bound_by, "library_ms": library_ms,
             "shape": f"[{b}, {sq}, {h}, {d}] kv [{b}, {sk}, {kh}, {d}] "
                      f"causal={causal} {str(dtype)[6:]}"}
-
-
-TRAIN_ATTENTION = ("gpt124m_train", TRAIN_BATCH, 1024, 1024, 12, 12, 64,
-                   True)
 
 
 def phase_timing(torch, ck, launches, smi):

@@ -27,10 +27,15 @@
 //   - dq pass: one block per (b*h, q tile). It keeps q and do in shared
 //     memory and loops over the visible kv tiles, recomputing p and ds.
 // Tiles are 64 x 64 for d = 64 and 128, and 32 x 32 for d = 256, so that
-// four fp32 operand tiles plus two score tiles fit a block's 227 KB of
-// shared memory: 100,352 bytes at d = 64, 165,888 at d = 128 and 140,288
-// at d = 256 (smem_bytes below; the wrapper in ops/cuda_kernels.py checks
-// the same figure). Each row of the block's own tile is owned by
+// each pass's fp32 tiles fit a block's 227 KB (232,448 bytes) of shared
+// memory. The dk/dv pass holds four operand tiles, two score tiles and
+// two row statistics: 100,352 bytes at d = 64, 165,888 at d = 128 and
+// 140,288 at d = 256. The dq pass holds four operand tiles and one score
+// tile: 83,200, 148,736 and 135,808 bytes (dkdv_smem_bytes and
+// dq_smem_bytes below; a static_assert holds both to the limit, and a
+// launch over it would fail in cudaFuncSetAttribute, which the C entry
+// returns and the wrapper raises on). Each row of the block's own tile is
+// owned by
 // 256 / rows threads of one warp: each computes an interleaved share of the
 // row's scores and owns an interleaved share of its accumulator dims, so a
 // row's p and ds pass between its threads through shared memory with only
@@ -73,12 +78,22 @@ __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
 
-// both passes: four [rows][D + 1] operand tiles, two [rows][rows + 1]
+constexpr size_t kMaxSmem = 232448;  // bytes one H100 block can opt into
+
+// dk/dv pass: four [rows][D + 1] operand tiles, two [rows][rows + 1]
 // score tiles and two [rows] row statistics, all fp32
 template <int D>
-constexpr size_t smem_bytes() {
+constexpr size_t dkdv_smem_bytes() {
   constexpr size_t R = Tile<D>::kRows;
   return sizeof(float) * (4 * R * (D + 1) + 2 * R * (R + 1) + 2 * R);
+}
+
+// dq pass: four [rows][D + 1] operand tiles and one [rows][rows + 1]
+// score tile, all fp32
+template <int D>
+constexpr size_t dq_smem_bytes() {
+  constexpr size_t R = Tile<D>::kRows;
+  return sizeof(float) * (4 * R * (D + 1) + R * (R + 1));
 }
 
 // rows x D tile of a [*, row_stride] tensor starting at row r0 into
@@ -330,14 +345,17 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
            int batch, int sq, int sk, int num_heads, int num_kv_heads,
            float sm_scale, int causal, cudaStream_t stream) {
   constexpr int R = Tile<D>::kRows;
-  constexpr size_t smem = smem_bytes<D>();
+  constexpr size_t smem_dkdv = dkdv_smem_bytes<D>();
+  constexpr size_t smem_dq = dq_smem_bytes<D>();
+  static_assert(smem_dkdv <= kMaxSmem && smem_dq <= kMaxSmem,
+                "a pass's tiles exceed a block's shared memory");
   cudaError_t err = cudaFuncSetAttribute(
       flash_bwd_dkdv_kernel<T, D>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_dkdv);
   if (err != cudaSuccess) return (int)err;
   err = cudaFuncSetAttribute(flash_bwd_dq_kernel<T, D>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
+                             (int)smem_dq);
   if (err != cudaSuccess) return (int)err;
   const T* qt = static_cast<const T*>(q);
   const T* kt = static_cast<const T*>(k);
@@ -346,13 +364,13 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
   const float* lt = static_cast<const float*>(lse);
   const float* dt = static_cast<const float*>(delta);
   flash_bwd_dkdv_kernel<T, D><<<dim3(sk / R, batch * num_heads), kThreads,
-                                smem, stream>>>(
+                                smem_dkdv, stream>>>(
       qt, kt, vt, dot, lt, dt, static_cast<T*>(dk), static_cast<T*>(dv), sq,
       sk, num_heads, num_kv_heads, sm_scale, causal);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  flash_bwd_dq_kernel<T, D><<<dim3(sq / R, batch * num_heads), kThreads, smem,
-                              stream>>>(qt, kt, vt, dot, lt, dt,
+  flash_bwd_dq_kernel<T, D><<<dim3(sq / R, batch * num_heads), kThreads,
+                              smem_dq, stream>>>(qt, kt, vt, dot, lt, dt,
                                         static_cast<T*>(dq), sq, sk,
                                         num_heads, num_kv_heads, sm_scale,
                                         causal);

@@ -3,11 +3,12 @@
 
 Run from the root of a checkout, on a machine with one NVIDIA card:
 
-    python3 scripts/profile_torch_train_step.py [--steps 3]
+    python3 scripts/profile_torch_train_step.py
 
-It builds GPT-124M as ``chip_smoke.py``'s ``training_bf16`` phase does
-(batch 16 x 1024 tokens, bf16 O2, AdamW at lr 1e-4, random weights from
-seed 0), warms up three steps, then traces ``--steps`` steps with
+It takes the training workload from ``chip_smoke.gpt124m_training`` (the
+one ``chip_smoke.py``'s ``training_bf16`` phase times: GPT-124M, batch
+16 x 1024 tokens, bf16 O2, AdamW at lr 1e-4, random weights from seed 0),
+warms up as that phase does, then traces three steps with
 ``torch.profiler`` (CPU and CUDA activities). It prints one JSON line:
 the traced window's wall time, the device time summed over every kernel
 and its share of the window (the rest is the device's idle share), the
@@ -19,7 +20,6 @@ holds no device time it exits 1.
 """
 from __future__ import annotations
 
-import argparse
 import json
 import os
 import subprocess
@@ -28,6 +28,10 @@ import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
+
+from chip_smoke import TRAIN_WARMUP, gpt124m_training  # noqa: E402
+
+STEPS = 3
 
 GROUPS = (("flash_fwd (K2)", ("flash_fwd_kernel",)),
           ("flash_bwd dk/dv pass (K3)", ("flash_bwd_dkdv_kernel",)),
@@ -44,33 +48,19 @@ def group_of(name):
 
 
 def main():
-    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--steps", type=int, default=3)
-    args = parser.parse_args()
-    import numpy as np
     import torch
     if not torch.cuda.is_available():
         print("profile_torch_train_step: no CUDA card", file=sys.stderr)
         return 2
-    from paddle_tpu_torch.jit import CompiledTrainStep
-    from paddle_tpu_torch.optimizer import AdamW
-    from paddle_tpu_torch.text.gpt import GPTForPretraining, gpt_small
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
     print(smi, flush=True)
 
-    cfg = gpt_small()
-    model = GPTForPretraining(cfg, device="cuda", seed=0)
-    opt = AdamW(learning_rate=1e-4, parameters=model.parameters())
-    step = CompiledTrainStep(lambda ids, labels: model(ids, labels=labels)[1],
-                             model, opt, amp_level="O2")
-    rng = np.random.default_rng(0)
-    ids, labels = (torch.from_numpy(rng.integers(0, cfg.vocab_size,
-                                                 (16, cfg.max_seq_len)))
-                   .to("cuda") for _ in range(2))
-    for _ in range(3):
+    _, step, batch = gpt124m_training(torch)
+    ids, labels = batch()
+    for _ in range(TRAIN_WARMUP):
         step(ids, labels)
     torch.cuda.synchronize()
 
@@ -78,7 +68,7 @@ def main():
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        for _ in range(args.steps):
+        for _ in range(STEPS):
             step(ids, labels)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
@@ -102,13 +92,13 @@ def main():
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:15]
     print(json.dumps({
         "nvidia_smi": smi, "device": torch.cuda.get_device_name(0),
-        "steps": args.steps, "window_wall_ms": wall_us / 1e3,
+        "steps": STEPS, "window_wall_ms": wall_us / 1e3,
         "device_busy_ms": device_us / 1e3,
         "device_busy_share": device_us / wall_us,
-        "per_step_device_ms": {g: us / 1e3 / args.steps
+        "per_step_device_ms": {g: us / 1e3 / STEPS
                                for g, us in sorted(groups.items(),
                                                    key=lambda kv: -kv[1])},
-        "top_kernels_ms_per_step": [[n[:120], us / 1e3 / args.steps]
+        "top_kernels_ms_per_step": [[n[:120], us / 1e3 / STEPS]
                                     for n, us in top]}), flush=True)
     return 0
 

@@ -16,6 +16,7 @@ dense fp32 path, and the autograd function against the plain K3.
 same plain version on the card.
 """
 import math
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -150,6 +151,14 @@ def test_values_backward_is_the_zero_lse_cotangent_case():
 
 @pytest.mark.parametrize("d", [64, 128, 256])
 def test_backward_shared_memory_fits_a_block(d):
-    # the figures the kernel's note states: 100,352 / 165,888 / 140,288
-    want = {64: 100352, 128: 165888, 256: 140288}[d]
-    assert ck._flash_bwd_smem(d) == want <= ck._MAX_SMEM
+    # the kernel's note states each pass's fp32 tiles per d (64-row tiles,
+    # 32 at d = 256): dk/dv four [r, d + 1] operand tiles, two [r, r + 1]
+    # score tiles and two [r] statistics; dq four operand tiles and one
+    # score tile. Both fit the 232,448 bytes a block can opt into.
+    r = 32 if d == 256 else 64
+    dkdv = 4 * (4 * r * (d + 1) + 2 * r * (r + 1) + 2 * r)
+    dq = 4 * (4 * r * (d + 1) + r * (r + 1))
+    assert max(dkdv, dq) <= 232448
+    note = (Path(ck.__file__).parents[1] / "csrc" / "flash_bwd.cu") \
+        .read_text()
+    assert f"{dkdv:,}" in note and f"{dq:,}" in note

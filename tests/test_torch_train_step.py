@@ -15,7 +15,9 @@ at O0 at rtol 1e-5, the JAX package's own bound for its compiled step
 (``tests/test_train_step_and_flash.py``). At O2 both compute in bf16
 with rounding at different places (the port's loss upcasts the logits to
 fp32, the JAX loss works in bf16), so the trajectory agrees at rtol 2e-2,
-a few bf16 ulps of a loss near 4.8.
+a few bf16 ulps of a loss near 4.8; that bound alone would not catch a
+step that left some products in fp32, so the O2 test also checks the
+dtype of every matrix product and of the logits.
 """
 import numpy as np
 import pytest
@@ -28,6 +30,7 @@ from paddle_tpu_torch import optimizer as port_opt
 from paddle_tpu_torch.jit import CompiledTrainStep
 from paddle_tpu_torch.nn.clip import ClipGradByValue
 from paddle_tpu_torch.ops import cuda_kernels as ck
+from paddle_tpu_torch.text import gpt
 
 
 @pytest.fixture(autouse=True)
@@ -113,6 +116,16 @@ def test_o2_trajectory_matches_jax_and_keeps_fp32_params(monkeypatch):
     monkeypatch.setattr(ck, "flash_attention_bwd",
                         lambda *a, **kw: dtypes.append(a[0].dtype)
                         or real(*a, **kw))
+    # the rtol below cannot tell a half-cast step from a bf16 one, so the
+    # dtypes are checked where they are computed: every matrix product's
+    # input, weight and output, and the logits
+    seen = []
+    for mod in pm.modules():
+        if isinstance(mod, gpt.Linear):
+            mod.register_forward_hook(lambda m, inp, out: seen.append(
+                (inp[0].dtype, m.weight.dtype, out.dtype)))
+    pm.register_forward_hook(lambda m, inp, out: seen.append(
+        (out[0].dtype,)))
     want, got = [], []
     for i in range(3):
         ids, labels = _batch(20 + i)
@@ -122,6 +135,9 @@ def test_o2_trajectory_matches_jax_and_keeps_fp32_params(monkeypatch):
                               torch.from_numpy(labels))))
     np.testing.assert_allclose(got, want, rtol=2e-2)
     assert dtypes == [torch.bfloat16] * 6   # 2 layers x 3 steps, in bf16
+    # 3 steps x (2 layers x 4 Linears + the logits)
+    assert len(seen) == 27
+    assert all(dt == torch.bfloat16 for rec in seen for dt in rec)
     for p in pm.parameters():
         assert p.dtype == torch.float32
     accs = step.optimizer._get_accumulators(pm.gpt.wte.weight)
