@@ -8,9 +8,10 @@ Run from the root of a checkout:
 It builds the port's hand-written kernels from ``paddle_tpu_torch/csrc``
 with ``nvcc`` (one process per source, all at once) and holds each
 kernel against its plain PyTorch version (K1 paged attention, K2 flash
-forward and K3 flash backward, each in fp32 and bf16). Then it drives the
-port's two main paths, each with the launch counts set to 0 just before
-it and read just after:
+forward, K3 flash backward, K4 and K5 packed varlen forward and
+backward, each in fp32 and bf16). Then it drives the port's three main
+paths, each with the launch counts set to 0 just before it and read just
+after:
 
 - serving: GPT-124M at full width (random weights from a seed) through
   ``ServingEngine`` with and without speculative decoding, and the fp32
@@ -20,7 +21,11 @@ it and read just after:
   16 x 1024 tokens, bf16 O2, AdamW at lr 1e-4) through
   ``CompiledTrainStep``, per call and through ``run_steps``; then a
   full-width, 2-layer fp32 step on the card against the same step on the
-  CPU (loss and every gradient).
+  CPU (loss and every gradient);
+- packed attention: ``F.flash_attn_unpadded`` forward and backward over
+  16,384 packed tokens of ragged documents at GPT-124M's attention width
+  (12 heads of 64), causal, bf16; then the same in fp32 against the
+  per-segment plain versions.
 
 Last, it times each kernel beside its bound, its plain version and,
 where one exists, a PyTorch call that computes the same function. Each
@@ -39,6 +44,7 @@ bound, plain time and library time.
 """
 from __future__ import annotations
 
+import itertools
 import json
 import math
 import subprocess
@@ -187,6 +193,9 @@ def phase_kernels_vs_plain(torch, ck):
         for label, b, sq, sk, h, kh, d, causal in FLASH_BWD_CASES:
             results.append(flash_bwd_case(torch, ck, label, b, sq, sk, h, kh,
                                           d, causal, dtype))
+    for dtype in (torch.bfloat16, torch.float32):
+        for case in VARLEN_CASES:
+            results.extend(varlen_kernel_cases(torch, ck, case, dtype))
     emit({"phase": "kernels_vs_plain", "cases": results})
     bad = [r for r in results if not r["pass"]]
     if bad:
@@ -226,6 +235,96 @@ def flash_bwd_case(torch, ck, label, b, sq, sk, h, kh, d, causal, dtype):
     return {"kernel": "flash_bwd", "case": label, "dtype": str(dtype)[6:],
             "max_abs_err": max(errs), "dq_dk_dv_err": errs, "tol": tol,
             "deterministic": same, "pass": max(errs) <= tol and same}
+
+
+# K4/K5: (label, q lengths, k lengths or None for cu_k is cu_q, d, causal),
+# 12 heads; the cross-attention case has a ragged q stream (T = 4228)
+# against 4 x 1024 keys
+VARLEN_CASES = [
+    ("ragged_causal", [700, 1800, 300, 1296], None, 64, True),
+    ("ragged_noncausal", [700, 1800, 300, 1296], None, 64, False),
+    ("ragged_tail_causal", [1, 977, 2400, 850], None, 64, True),
+    ("uniform_causal", [512] * 6, None, 64, True),
+    ("d128_causal", [700, 1800, 300, 1296], None, 128, True),
+    ("cross_noncausal", [1, 977, 2400, 850], [1024] * 4, 64, False),
+]
+PACKED_TOKENS, PACKED_HEADS, PACKED_DIM = 16384, 12, 64
+PACKED_WARMUP, PACKED_TIMED = 3, 10
+
+
+def packed_lengths(total=PACKED_TOKENS, seed=0):
+    """Document lengths drawn from ``numpy.random.default_rng(seed)
+    .integers(32, 2049)`` until they reach ``total``; the last is cut to
+    fit. Ragged, not multiples of 64 or 128, so segments straddle tiles."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    lens = []
+    while sum(lens) < total:
+        lens.append(int(rng.integers(32, 2049)))
+    lens[-1] -= sum(lens) - total
+    return lens
+
+
+def visible_pairs(lq, lk, causal):
+    """(q, kv) pairs one head sees: L (L + 1) / 2 per segment when causal
+    (cu_q == cu_k), Lq * Lk per segment otherwise."""
+    if causal:
+        return sum(n * (n + 1) // 2 for n in lq)
+    return sum(a * b for a, b in zip(lq, lk))
+
+
+def varlen_case(torch, lq, lk, h, d, dtype, seed=0):
+    """q, k, v, do and int32 cu_seqlens on the card; cu_k is cu_q itself
+    when ``lk`` is None."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    tk = sum(lq if lk is None else lk)
+    q = torch.randn(sum(lq), h, d, generator=g).to("cuda", dtype)
+    k = torch.randn(tk, h, d, generator=g).to("cuda", dtype)
+    v = torch.randn(tk, h, d, generator=g).to("cuda", dtype)
+    do = torch.randn(sum(lq), h, d, generator=g).to("cuda", dtype)
+
+    def cu(lens):
+        return torch.tensor([0, *itertools.accumulate(lens)],
+                            dtype=torch.int32, device="cuda")
+
+    cu_q = cu(lq)
+    return q, k, v, do, cu_q, cu_q if lk is None else cu(lk)
+
+
+def varlen_kernel_cases(torch, ck, case, dtype):
+    """K4 and K5 against their plain versions, each run twice for
+    bit-identity; K5's inputs are K4's o and lse, as K3's are K2's."""
+    label, lq, lk, d, causal = case
+    q, k, v, do, cu_q, cu_k = varlen_case(torch, lq, lk, 12, d, dtype)
+    o, lse = ck.flash_attention_varlen_fwd(q, k, v, cu_q, cu_k, causal)
+    o2, lse2 = ck.flash_attention_varlen_fwd(q, k, v, cu_q, cu_k, causal)
+    args = (q, k, v, o, lse, do, cu_q, cu_k, causal)
+    got = ck.flash_attention_varlen_bwd(*args)
+    again = ck.flash_attention_varlen_bwd(*args)
+    torch.cuda.synchronize()
+    ro, rlse = ck.flash_attention_varlen_reference(q, k, v, cu_q, cu_k,
+                                                   causal)
+    ref = ck.flash_attention_varlen_bwd_reference(*args)
+    # K4 as K2: fp32 2e-5, bf16 two ulps of an output below 2, lse 1e-4;
+    # K5 as K3: fp32 5e-5, bf16 one ulp at the outputs' largest magnitude
+    tol = 2e-5 if dtype == torch.float32 else 2.0 ** -6
+    err_o, err_lse = max_err(o, ro), max_err(lse, rlse)
+    same = torch.equal(o, o2) and torch.equal(lse, lse2)
+    errs = [max_err(a, r) for a, r in zip(got, ref)]
+    top = max(float(r.float().abs().max()) for r in ref)
+    btol = 5e-5 if dtype == torch.float32 else \
+        2.0 ** (math.floor(math.log2(top)) - 7)
+    bsame = all(torch.equal(a, b) for a, b in zip(got, again))
+    finite = all(bool(torch.isfinite(a).all()) for a in (o, *got))
+    dt = str(dtype)[6:]
+    return [{"kernel": "flash_varlen_fwd", "case": label, "dtype": dt,
+             "max_abs_err": err_o, "lse_max_abs_err": err_lse, "tol": tol,
+             "lse_tol": 1e-4, "deterministic": same,
+             "pass": err_o <= tol and err_lse <= 1e-4 and same and finite},
+            {"kernel": "flash_varlen_bwd", "case": label, "dtype": dt,
+             "max_abs_err": max(errs), "dq_dk_dv_err": errs, "tol": btol,
+             "deterministic": bsame,
+             "pass": max(errs) <= btol and bsame and finite}]
 
 
 # -- phase 3 ------------------------------------------------------------------
@@ -490,6 +589,108 @@ def phase_training_exactness_fp32(torch, ck):
 
 
 # -- phase 6 ------------------------------------------------------------------
+def packed_attention(torch, dtype):
+    """The packed-attention workload: ``packed_lengths()`` documents, 12
+    heads of 64, causal, with cu_k is cu_q. Returns (lens, q, k, v, do,
+    cu) with q, k, v requiring gradients."""
+    lens = packed_lengths()
+    q, k, v, do, cu, _ = varlen_case(torch, lens, None, PACKED_HEADS,
+                                     PACKED_DIM, dtype)
+    q, k, v = (t.requires_grad_(True) for t in (q, k, v))
+    return lens, q, k, v, do, cu
+
+
+def phase_packed_attention_bf16(torch, ck, smi):
+    """``F.flash_attn_unpadded`` at full width: 3 warm-up forward +
+    backward calls, 10 timed forwards, then 10 timed forward + backward
+    calls (``torch.autograd.grad`` for dq, dk, dv against a seeded do)."""
+    from paddle_tpu_torch.nn.functional import flash_attn_unpadded
+    lens, q, k, v, do, cu = packed_attention(torch, torch.bfloat16)
+    longest = max(lens)
+
+    def forward():
+        return flash_attn_unpadded(q, k, v, cu, cu, longest, longest,
+                                   causal=True)[0]
+
+    def step():
+        out = forward()
+        return out, torch.autograd.grad(out, (q, k, v), do)
+
+    torch.cuda.reset_peak_memory_stats()
+    before = {k_.name: k_.launches for k_ in ck.KERNELS}
+    for _ in range(PACKED_WARMUP):
+        step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(PACKED_TIMED):
+        forward()
+    torch.cuda.synchronize()
+    fwd_s = (time.perf_counter() - t0) / PACKED_TIMED
+    t0 = time.perf_counter()
+    for _ in range(PACKED_TIMED):
+        out, grads = step()
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / PACKED_TIMED
+    launches = {k_.name: k_.launches - before[k_.name] for k_ in ck.KERNELS}
+    finite = all(bool(torch.isfinite(t).all()) for t in (out, *grads))
+    pairs = visible_pairs(lens, lens, True)
+    out_ = {"phase": "packed_attention_bf16", "nvidia_smi": smi,
+            "workload": "flash_attn_unpadded, causal, bf16, 12 heads of 64, "
+                        "random inputs seed 0",
+            "tokens": PACKED_TOKENS, "segments": len(lens),
+            "lengths": lens, "visible_pairs_per_head": pairs,
+            "visible_pairs": pairs * PACKED_HEADS,
+            "forward_ms": fwd_s * 1e3, "forward_backward_ms": step_s * 1e3,
+            "forward_backward_tokens_per_s": PACKED_TOKENS / step_s,
+            "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+            "launches": launches, "finite": finite,
+            "out_shape": list(out.shape)}
+    emit(out_)
+    want_fwd = PACKED_WARMUP + 2 * PACKED_TIMED
+    want_bwd = PACKED_WARMUP + PACKED_TIMED
+    if launches["flash_varlen_fwd"] != want_fwd or \
+            launches["flash_varlen_bwd"] != want_bwd:
+        raise AssertionError(
+            f"{want_fwd} forwards and {want_bwd} backwards launched K4 "
+            f"{launches['flash_varlen_fwd']} and K5 "
+            f"{launches['flash_varlen_bwd']} times")
+    if not finite or list(out.shape) != [PACKED_TOKENS, PACKED_HEADS,
+                                         PACKED_DIM]:
+        raise AssertionError("packed attention output or a gradient is not "
+                             "finite, or the output is mis-shaped")
+
+
+def phase_packed_attention_exactness_fp32(torch, ck):
+    """The same workload in fp32 (TF32 off): ``flash_attn_unpadded``'s o,
+    dq, dk and dv on the card against the per-segment plain versions,
+    each within 1e-4 of its largest entry."""
+    from paddle_tpu_torch.nn.functional import flash_attn_unpadded
+    lens, q, k, v, do, cu = packed_attention(torch, torch.float32)
+    before = {k_.name: k_.launches for k_ in ck.KERNELS}
+    out = flash_attn_unpadded(q, k, v, cu, cu, max(lens), max(lens),
+                              causal=True)[0]
+    grads = torch.autograd.grad(out, (q, k, v), do)
+    torch.cuda.synchronize()
+    launches = {k_.name: k_.launches - before[k_.name] for k_ in ck.KERNELS}
+    out, q, k, v = out.detach(), q.detach(), k.detach(), v.detach()
+    ro, rlse = ck.flash_attention_varlen_reference(q, k, v, cu, cu, True)
+    ref = ck.flash_attention_varlen_bwd_reference(q, k, v, ro, rlse, do, cu,
+                                                  cu, True)
+    rel = {name: max_err(a, r) / max(float(r.abs().max()), 1e-30)
+           for name, a, r in zip(("o", "dq", "dk", "dv"), (out, *grads),
+                                 (ro, *ref))}
+    out_ = {"phase": "packed_attention_exactness_fp32", "tf32": False,
+            "workload": "packed_attention_bf16's lengths and inputs in fp32",
+            "max_rel_err": rel, "rel_tol": 1e-4, "launches": launches}
+    emit(out_)
+    if launches["flash_varlen_fwd"] != 1 or launches["flash_varlen_bwd"] != 1:
+        raise AssertionError(f"one forward and backward launched {launches}")
+    if max(rel.values()) > 1e-4:
+        raise AssertionError(f"packed attention on the card differs from the "
+                             f"plain versions: {rel}")
+
+
+# -- phase 7 ------------------------------------------------------------------
 def paged_bound(torch, q, kp, bt, cl):
     """Least time for K1 on these inputs: bytes each slot's visible rows
     need (K and V once, the table entries it reads, q, lens, out) versus
@@ -610,13 +811,97 @@ def time_flash_bwd(torch, ck, case, dtype, launches):
                      f"causal={causal} {str(dtype)[6:]}"}
 
 
+def packed_bound(q, k, cu, pairs, backward):
+    """Least time for K4 (q, k, v, o, lse and cu moved once against
+    4 * d flops per visible pair and head) or K5 (q, k, v, o, do, dq, dk,
+    dv, lse, delta and cu against 10 * d)."""
+    tq, h, d = q.shape
+    elt = q.element_size()
+    stats = 4 * h * tq
+    if backward:
+        nbytes = 4 * q.numel() * elt + 4 * k.numel() * elt + 2 * stats
+    else:
+        nbytes = 2 * q.numel() * elt + 2 * k.numel() * elt + stats
+    flops = (10 if backward else 4) * d * h * pairs
+    return bound_of(nbytes + 4 * cu.numel(), flops, q.dtype)
+
+
+def time_packed(torch, ck, launches):
+    """K4 and K5 at the packed-attention shape, each beside its plain
+    version and the varlen flash op PyTorch ships
+    (``torch.ops.aten._flash_attention_forward`` / ``_backward`` with
+    cum_seq_q / cum_seq_k), which the port never calls."""
+    lens, q, k, v, do, cu = packed_attention(torch, torch.bfloat16)
+    q, k, v = q.detach(), k.detach(), v.detach()
+    tq, h, d = q.shape
+    longest, scale = max(lens), 1.0 / math.sqrt(d)
+    pairs = visible_pairs(lens, lens, True)
+    plan = ck.varlen_plan(cu, cu, tq, tq, True)
+    plan_ms = cuda_time_ms(lambda: ck.varlen_plan(cu, cu, tq, tq, True), 20)
+    o, lse = ck.flash_attention_varlen_fwd(q, k, v, cu, cu, True, plan=plan)
+    ro, rlse = ck.flash_attention_varlen_reference(q, k, v, cu, cu, True)
+    bargs = (q, k, v, o, lse, do, cu, cu, True)
+    dgot = ck.flash_attention_varlen_bwd(*bargs, plan=plan)
+    dref = ck.flash_attention_varlen_bwd_reference(*bargs)
+    aten = torch.ops.aten
+    lib = aten._flash_attention_forward(q, k, v, cu, cu, longest, longest,
+                                        0.0, True, False, scale=scale)
+    lib_grads = aten._flash_attention_backward(
+        do, q, k, v, lib[0], lib[1], cu, cu, longest, longest, 0.0, True,
+        lib[2], lib[3], scale=scale)
+    shape = (f"T={tq} ({len(lens)} causal segments of {min(lens)} to "
+             f"{longest}) h={h} d={d} bf16")
+    fwd_bound, fwd_by = packed_bound(q, k, cu, pairs, backward=False)
+    bwd_bound, bwd_by = packed_bound(q, k, cu, pairs, backward=True)
+    rows = [
+        {"name": "flash_varlen_fwd", "route": "cuda",
+         "source": ck.FLASH_VARLEN_FWD.source,
+         "replaces": ck.FLASH_VARLEN_FWD.replaces,
+         "launches": launches["flash_varlen_fwd"],
+         "max_abs_err": max_err(o, ro),
+         "ms": cuda_time_ms(lambda: ck.flash_attention_varlen_fwd(
+             q, k, v, cu, cu, True, plan=plan), 20),
+         "plain_ms": cuda_time_ms(lambda: ck.flash_attention_varlen_reference(
+             q, k, v, cu, cu, True), 5, warmup=1),
+         "bound_ms": fwd_bound, "bound_by": fwd_by,
+         "library_ms": cuda_time_ms(lambda: aten._flash_attention_forward(
+             q, k, v, cu, cu, longest, longest, 0.0, True, False,
+             scale=scale), 20),
+         "library_call": "torch.ops.aten._flash_attention_forward "
+                         "(cum_seq_q, cum_seq_k)",
+         "library_max_abs_err": max_err(lib[0], ro),
+         "plan_ms": plan_ms, "visible_pairs_per_head": pairs,
+         "shape": shape},
+        {"name": "flash_varlen_bwd", "route": "cuda",
+         "source": ck.FLASH_VARLEN_BWD.source,
+         "replaces": ck.FLASH_VARLEN_BWD.replaces,
+         "launches": launches["flash_varlen_bwd"],
+         "max_abs_err": max(max_err(a, r) for a, r in zip(dgot, dref)),
+         "ms": cuda_time_ms(lambda: ck.flash_attention_varlen_bwd(
+             *bargs, plan=plan), 20),
+         "plain_ms": cuda_time_ms(
+             lambda: ck.flash_attention_varlen_bwd_reference(*bargs), 5,
+             warmup=1),
+         "bound_ms": bwd_bound, "bound_by": bwd_by,
+         "library_ms": cuda_time_ms(lambda: aten._flash_attention_backward(
+             do, q, k, v, lib[0], lib[1], cu, cu, longest, longest, 0.0,
+             True, lib[2], lib[3], scale=scale), 20),
+         "library_call": "torch.ops.aten._flash_attention_backward "
+                         "(cum_seq_q, cum_seq_k)",
+         "library_max_abs_err": max(max_err(a, r)
+                                    for a, r in zip(lib_grads, dref)),
+         "visible_pairs_per_head": pairs, "shape": shape}]
+    return rows
+
+
 def phase_timing(torch, ck, launches, smi):
     bf16, f32 = torch.bfloat16, torch.float32
     main = [time_paged(torch, ck, 1, bf16, launches["paged_attention"]),
             time_flash(torch, ck, FLASH_CASES[0], bf16,
                        launches["flash_fwd"]),
             time_flash_bwd(torch, ck, TRAIN_ATTENTION, bf16,
-                           launches["flash_bwd"])]
+                           launches["flash_bwd"]),
+            *time_packed(torch, ck, launches)]
     variants = [time_paged(torch, ck, 5, bf16, None),
                 time_paged(torch, ck, 1, f32, None),
                 time_flash(torch, ck, FLASH_CASES[0], f32, None),
@@ -640,13 +925,16 @@ def main():
     smi = phase_environment(torch, ck)
     phase_kernels_vs_plain(torch, ck)
     # the main paths, each counted from zero: serving (K1) with the fp32
-    # model phase (K2), then training (K2, K3)
+    # model phase (K2), training (K2, K3), then packed attention (K4, K5)
     paths = (("serving", ("paged_attention", "flash_fwd"),
               lambda: (phase_serving(torch, ck, smi),
                        phase_exactness_fp32(torch, ck))),
              ("training", ("flash_fwd", "flash_bwd"),
               lambda: (phase_training_bf16(torch, ck, smi),
-                       phase_training_exactness_fp32(torch, ck))))
+                       phase_training_exactness_fp32(torch, ck))),
+             ("packed_attention", ("flash_varlen_fwd", "flash_varlen_bwd"),
+              lambda: (phase_packed_attention_bf16(torch, ck, smi),
+                       phase_packed_attention_exactness_fp32(torch, ck))))
     launches = {k.name: 0 for k in ck.KERNELS}
     for path, kernels, drive in paths:
         ck.reset_launch_counts()

@@ -1,3 +1,5 @@
-from .attention import _sdpa_impl, scaled_dot_product_attention
+from .attention import (_sdpa_impl, _unpadded_impl, flash_attention,
+                        flash_attn_unpadded, scaled_dot_product_attention)
 
-__all__ = ["scaled_dot_product_attention", "_sdpa_impl"]
+__all__ = ["scaled_dot_product_attention", "flash_attention",
+           "flash_attn_unpadded", "_sdpa_impl", "_unpadded_impl"]

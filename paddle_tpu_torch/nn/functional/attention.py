@@ -8,6 +8,11 @@ admits the shapes, and the dense ``_sdpa_impl`` elsewhere — the same
 dense path the JAX package takes there (for example ``generate``'s
 one-token steps, whose sq is not a multiple of 128, and any call with a
 mask or dropout).
+
+``flash_attn_unpadded`` is packed varlen attention over [T, h, d] tokens
+with cu_seqlens prefix offsets: the varlen kernels (K4 forward, K5
+backward) where their gate admits the call and dropout is 0, the dense
+``_unpadded_impl`` elsewhere, as the JAX package routes it.
 """
 from __future__ import annotations
 
@@ -59,3 +64,64 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
     if dropout_p > 0.0 and training:
         out = torch.nn.functional.dropout(out, dropout_p, training=True)
     return out
+
+
+def flash_attention(query, key, value, dropout=0.0, causal=False,
+                    return_softmax=False, fixed_seed_offset=None, rng_name="",
+                    training=True, name=None):
+    """[b, s, h, d] attention through ``scaled_dot_product_attention``;
+    returns (out, None) as the reference does."""
+    out = scaled_dot_product_attention(query, key, value, None, dropout,
+                                       causal, training)
+    return out, None
+
+
+def _unpadded_impl(q, k, v, cu_q, cu_k, scale, causal, max_seqlen_q,
+                   max_seqlen_k):
+    """Dense packed varlen attention: q [Tq, h, d], k/v [Tk, h, d], a
+    block-diagonal mask over segment ids (searchsorted over cu_seqlens),
+    causal per segment and top-left aligned (pos_q >= pos_k), masked
+    logits at finfo.min, softmax in fp32, products in q's dtype."""
+    tq, tk = q.shape[0], k.shape[0]
+    seg_q = torch.searchsorted(
+        cu_q, torch.arange(tq, device=q.device, dtype=cu_q.dtype),
+        right=True)
+    seg_k = torch.searchsorted(
+        cu_k, torch.arange(tk, device=k.device, dtype=cu_k.dtype),
+        right=True)
+    logits = torch.einsum("qhd,khd->hqk", q, k) * scale
+    mask = seg_q[:, None] == seg_k[None, :]
+    if causal:
+        pos_q = torch.arange(tq, device=q.device) - cu_q[seg_q - 1]
+        pos_k = torch.arange(tk, device=k.device) - cu_k[seg_k - 1]
+        mask = mask & (pos_q[:, None] >= pos_k[None, :])
+    logits = logits.masked_fill(~mask[None], torch.finfo(logits.dtype).min)
+    probs = torch.softmax(logits.float(), dim=-1).to(q.dtype)
+    return torch.einsum("hqk,khd->qhd", probs, v)
+
+
+def flash_attn_unpadded(query, key, value, cu_seqlens_q, cu_seqlens_k,
+                        max_seqlen_q, max_seqlen_k, scale=None,
+                        dropout=0.0, causal=False, return_softmax=False,
+                        fixed_seed_offset=None, rng_name="", training=True,
+                        name=None):
+    """Varlen (packed) attention: query/key/value [total_tokens, h, d],
+    cu_seqlens [B + 1] int32 prefix sums. Returns (out, None) as the JAX
+    package does. With dropout 0 and the gate admitting the call, the
+    varlen kernels run: on CUDA tensors the forward launches K4 and the
+    backward K5, on CPU tensors their plain versions. Otherwise (dropout,
+    or causal with cu_seqlens_q unequal to cu_seqlens_k) the dense
+    ``_unpadded_impl`` runs, which, as in the JAX package, applies no
+    dropout."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(query.shape[-1])
+    if dropout == 0.0 and ck.flash_attention_varlen_available(
+            query, key, value, cu_seqlens_q, cu_seqlens_k, bool(causal)):
+        out = ck.flash_attention_varlen_values(
+            query, key, value, cu_seqlens_q, cu_seqlens_k, float(scale),
+            bool(causal))
+        return out, None
+    out = _unpadded_impl(query, key, value, cu_seqlens_q, cu_seqlens_k,
+                         float(scale), bool(causal), int(max_seqlen_q),
+                         int(max_seqlen_k))
+    return out, None

@@ -1,8 +1,8 @@
 """The port's hand-written Hopper kernels, their gates, wrappers and
 plain PyTorch versions.
 
-Counterpart: ``paddle_tpu/ops/pallas_kernels.py``. Three of its five TPU
-kernels lie on the serving and training slices and are ported here:
+Counterpart: ``paddle_tpu/ops/pallas_kernels.py``. All five of its TPU
+kernels are ported here:
 
 - K1 ``_paged_verify_kernel`` -> ``csrc/paged_attention.cu``
   (``paged_attention*``): ragged paged attention for decode (one query
@@ -13,7 +13,12 @@ kernels lie on the serving and training slices and are ported here:
   (``flash_attention_bwd``): the flash-attention backward, dq and dk/dv
   from the saved q, k, v, o and lse. K2 and K3 are the forward and
   backward of one ``torch.autograd.Function``, the counterpart of the
-  JAX package's custom-vjp ``_flash_core_lse``.
+  JAX package's custom-vjp ``_flash_core_lse``;
+- K4 ``_vl_fwd_kernel`` -> ``csrc/flash_varlen_fwd.cu`` and K5
+  ``_vl_bwd_kernel`` -> ``csrc/flash_varlen_bwd.cu``
+  (``flash_attention_varlen*``): packed varlen attention over
+  block-diagonal segments, forward and backward of
+  ``FlashAttentionVarlen``, the counterpart of ``_flash_varlen_core``.
 
 Each kernel sits beside its plain PyTorch version (``*_reference``),
 which the CPU tests and ``chip_smoke.py`` hold the kernel against. A
@@ -29,6 +34,8 @@ from __future__ import annotations
 
 import ctypes
 import math
+import weakref
+from typing import NamedTuple
 
 import torch
 
@@ -88,7 +95,16 @@ FLASH_BWD = Kernel(
     [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I,
      _P],
     "paddle_tpu/ops/pallas_kernels.py:398")
-KERNELS = (PAGED_ATTENTION, FLASH_FWD, FLASH_BWD)
+FLASH_VARLEN_FWD = Kernel(
+    "flash_varlen_fwd", "flash_varlen_fwd",
+    [_P] * 9 + [_I, _I, _I, _I, _F, _I, _I, _P],
+    "paddle_tpu/ops/pallas_kernels.py:714")
+FLASH_VARLEN_BWD = Kernel(
+    "flash_varlen_bwd", "flash_varlen_bwd",
+    [_P] * 15 + [_I, _I, _I, _I, _I, _F, _I, _I, _P],
+    "paddle_tpu/ops/pallas_kernels.py:769")
+KERNELS = (PAGED_ATTENTION, FLASH_FWD, FLASH_BWD, FLASH_VARLEN_FWD,
+           FLASH_VARLEN_BWD)
 
 
 def build_kernels():
@@ -496,3 +512,341 @@ def flash_attention_with_lse(q, k, v, causal=False, sm_scale=None):
 def flash_attention_values(q, k, v, causal=False, sm_scale=None):
     """K2's o alone; its backward is K3 with a zero lse cotangent."""
     return flash_attention_with_lse(q, k, v, causal, sm_scale)[0]
+
+
+# -- K4/K5: packed varlen attention ------------------------------------------
+# Layout q [Tq, h, d], k/v [Tk, h, d] (kv heads == q heads), cu_seqlens
+# [B + 1] int32 prefix offsets. Token t belongs to segment
+# searchsorted(cu, t, right=True): 1..B for the packed sequences, B + 1
+# for tokens at or past cu[B] (as in the JAX package). A q token sees the
+# k tokens of its own segment; causal is absolute i >= j, which is the
+# per-segment causal mask when cu_q == cu_k (the gate's condition).
+# Rows and columns past T are bound-checked in the kernels: the JAX
+# package's 128-token padding is a tile device and is not ported.
+
+_NEG_INF = -1e30   # the reference's finite mask value (pallas_kernels.py:34)
+_VL_BLOCK = 64     # K4's q and kv tile; K5's at d <= 128
+
+
+def _vl_bwd_block(d):
+    """K5's tile rows: 64, or 32 at d = 256 so each pass's fp32 tiles fit
+    a block's shared memory."""
+    return 32 if d == 256 else _VL_BLOCK
+
+
+_CU_EQ_CACHE = []  # [(weakref(cu_q), weakref(cu_k), equal)], by identity
+
+
+def _cu_seqlens_equal(cu_q, cu_k):
+    """cu_q == cu_k by value. CPU tensors compare directly; a CUDA pair
+    is compared once (one sync) and the verdict cached by identity, with
+    weakrefs so the cache pins no tensor (the JAX package's
+    ``_cu_seqlens_equal``)."""
+    if cu_q.shape != cu_k.shape:
+        return False
+    if cu_q.device.type == "cpu" and cu_k.device.type == "cpu":
+        return torch.equal(cu_q.long(), cu_k.long())
+    for ref_q, ref_k, eq in _CU_EQ_CACHE:
+        if ref_q() is cu_q and ref_k() is cu_k:
+            return eq
+    eq = torch.equal(cu_q.long(), cu_k.long().to(cu_q.device))
+    _CU_EQ_CACHE.append((weakref.ref(cu_q), weakref.ref(cu_k), eq))
+    del _CU_EQ_CACHE[:-16]  # bound the scan; dead refs age out with it
+    return eq
+
+
+def flash_attention_varlen_available(q, k, v, cu_q, cu_k, causal):
+    """Shape gate for K4/K5 (the JAX package's contract minus its backend
+    check and 512-token floor): [T, h, d] operands with d in (64, 128,
+    256), k and v [Tk, h, d], and for causal cu_q is cu_k or equal to it
+    by value (self-attention packing)."""
+    for t in (q, k, v):
+        if getattr(t, "ndim", 0) != 3:
+            return False
+    _, h, d = q.shape
+    if d not in (64, 128, 256):
+        return False
+    if tuple(k.shape[1:]) != (h, d) or v.shape != k.shape:
+        return False
+    if causal:
+        return cu_q is cu_k or _cu_seqlens_equal(cu_q, cu_k)
+    return True
+
+
+def _segment_ids(cu, t):
+    """[t] int32: each packed token's segment, searchsorted(cu, i,
+    right=True)."""
+    pos = torch.arange(t, device=cu.device, dtype=cu.dtype)
+    return torch.searchsorted(cu, pos, right=True, out_int32=True)
+
+
+def _segment_bounds(cu, t):
+    """[B + 3] int64: segment s spans tokens [bounds[s], bounds[s + 1])
+    for s in 0..B+1 (segment 0 is empty when cu[0] == 0)."""
+    cu = cu.long()
+    return torch.cat([cu.new_zeros(1), cu, cu.new_full((1,), t)])
+
+
+def _tile_spans(seg, t, block):
+    """Per tile of ``block`` tokens: (first token, last token, segment of
+    the first, segment of the last). Segments are consecutive, so these
+    bound every segment the tile holds."""
+    first = torch.arange(0, t, block, device=seg.device)
+    last = (first + block).clamp(max=t) - 1
+    return first, last, seg[first].long(), seg[last].long()
+
+
+def _to_tiles(lo, hi, block, n_tiles):
+    """Token range [lo, hi) as the tile range that covers it, empty when
+    the token range is."""
+    lo_t = lo // block
+    hi_t = torch.where(hi > lo, (hi + block - 1) // block, lo_t)
+    hi_t = hi_t.clamp(0, n_tiles)
+    return torch.minimum(lo_t, hi_t).int(), hi_t.int()
+
+
+class VarlenPlan(NamedTuple):
+    """What K4 and K5 read besides the operands, all int32 on the
+    operands' device: segment ids per token, per q tile the kv tile range
+    [kv_lo, kv_hi), and per kv tile the q tile range [q_lo, q_hi), at
+    ``block`` tokens per tile."""
+    seg_q: torch.Tensor
+    seg_k: torch.Tensor
+    kv_lo: torch.Tensor
+    kv_hi: torch.Tensor
+    q_lo: torch.Tensor
+    q_hi: torch.Tensor
+    block: int
+
+
+def varlen_plan(cu_q, cu_k, tq, tk, causal, block=_VL_BLOCK):
+    """Segment ids and tile ranges, by torch ops on cu's device with no
+    host sync. Per q tile (the counterpart of ``_vl_ranges``): the k
+    tokens of its first through last segment, clipped to its last row
+    when causal. Per kv tile (its inverse, for the dk/dv pass): the q
+    tokens of its first through last segment, raised to its first column
+    when causal."""
+    seg_q, seg_k = _segment_ids(cu_q, tq), _segment_ids(cu_k, tk)
+    bounds_q, bounds_k = _segment_bounds(cu_q, tq), _segment_bounds(cu_k, tk)
+    n_q, n_k = -(-tq // block), -(-tk // block)
+    top_q, top_k = len(bounds_q) - 1, len(bounds_k) - 1
+
+    _, last, smin, smax = _tile_spans(seg_q, tq, block)
+    lo = bounds_k[smin.clamp(max=top_k)]
+    hi = bounds_k[(smax + 1).clamp(max=top_k)]
+    if causal:
+        hi = torch.minimum(hi, last + 1)
+    kv_lo, kv_hi = _to_tiles(lo, hi, block, n_k)
+
+    first, _, smin, smax = _tile_spans(seg_k, tk, block)
+    lo = bounds_q[smin.clamp(max=top_q)]
+    hi = bounds_q[(smax + 1).clamp(max=top_q)]
+    if causal:
+        lo = torch.maximum(lo, first)
+    q_lo, q_hi = _to_tiles(lo, hi, block, n_q)
+    return VarlenPlan(seg_q, seg_k, kv_lo, kv_hi, q_lo, q_hi, block)
+
+
+def _segment_pairs(cu_q, cu_k, tq, tk):
+    """[(q0, q1, k0, k1)] of every segment with tokens on both sides (one
+    host sync: the plain versions loop over segments)."""
+    bq = _segment_bounds(cu_q, tq).tolist()
+    bk = _segment_bounds(cu_k, tk).tolist()
+    return [(bq[s], bq[s + 1], bk[s], bk[s + 1])
+            for s in range(min(len(bq), len(bk)) - 1)
+            if bq[s + 1] > bq[s] and bk[s + 1] > bk[s]]
+
+
+def _segment_scores(q, k, q0, q1, k0, k1, causal, sm_scale):
+    """fp32 [h, Lq, Lk] scores of one segment and its visibility mask
+    (absolute i >= j when causal)."""
+    s = torch.einsum("qhd,khd->hqk", q[q0:q1].float() * sm_scale,
+                     k[k0:k1].float())
+    keep = None
+    if causal:
+        rows = torch.arange(q0, q1, device=q.device)
+        cols = torch.arange(k0, k1, device=q.device)
+        keep = rows[:, None] >= cols[None, :]
+    return s, keep
+
+
+def flash_attention_varlen_reference(q, k, v, cu_q, cu_k, causal=False,
+                                     sm_scale=None):
+    """Plain PyTorch version of K4: (o [Tq, h, d] in q's dtype, lse
+    [h, Tq] fp32 natural-log), dense fp32 attention of each q segment
+    against its k segment, so memory is the sum of Lq * Lk, not Tq * Tk.
+    A row that sees no key gets o = +0 and lse = -1e30."""
+    tq, h, d = q.shape
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(d)
+    o = torch.zeros(tq, h, d, dtype=torch.float32, device=q.device)
+    lse = torch.full((h, tq), _NEG_INF, dtype=torch.float32,
+                     device=q.device)
+    for q0, q1, k0, k1 in _segment_pairs(cu_q, cu_k, tq, k.shape[0]):
+        s, keep = _segment_scores(q, k, q0, q1, k0, k1, causal, sm_scale)
+        if keep is not None:
+            s = s.masked_fill(~keep, float("-inf"))
+        seg_lse = torch.logsumexp(s, dim=-1)              # [h, Lq]
+        seen = torch.isfinite(seg_lse)
+        p = torch.where(seen[..., None], torch.exp(s - seg_lse[..., None]),
+                        torch.zeros_like(s))
+        o[q0:q1] = torch.einsum("hqk,khd->qhd", p, v[k0:k1].float())
+        lse[:, q0:q1] = torch.where(seen, seg_lse,
+                                    torch.full_like(seg_lse, _NEG_INF))
+    return o.to(q.dtype), lse
+
+
+def _varlen_delta(o, do):
+    """[h, Tq] fp32: rowsum(do * o), outside the kernel as in JAX."""
+    return (do.float() * o.float()).sum(-1).transpose(0, 1).contiguous()
+
+
+def flash_attention_varlen_bwd_reference(q, k, v, o, lse, do, cu_q, cu_k,
+                                         causal=False, sm_scale=None):
+    """Plain PyTorch version of K5: (dq, dk, dv) in the inputs' dtypes,
+    from the explicit backward formulas in fp32 per segment, with the
+    reference's guard p = exp(min(s - lse, 0))."""
+    tq, h, d = q.shape
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(d)
+    delta = _varlen_delta(o, do)
+    dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+    dk = torch.zeros(k.shape, dtype=torch.float32, device=q.device)
+    dv = torch.zeros_like(dk)
+    lse = lse.float()
+    for q0, q1, k0, k1 in _segment_pairs(cu_q, cu_k, tq, k.shape[0]):
+        s, keep = _segment_scores(q, k, q0, q1, k0, k1, causal, sm_scale)
+        p = torch.exp(torch.clamp(s - lse[:, q0:q1, None], max=0.0))
+        if keep is not None:
+            p = torch.where(keep, p, torch.zeros_like(p))
+        dof = do[q0:q1].float()
+        dv[k0:k1] = torch.einsum("hqk,qhd->khd", p, dof)
+        dp = torch.einsum("qhd,khd->hqk", dof, v[k0:k1].float())
+        ds = p * (dp - delta[:, q0:q1, None])
+        dq[q0:q1] = torch.einsum("hqk,khd->qhd", ds, k[k0:k1].float()) \
+            * sm_scale
+        dk[k0:k1] = torch.einsum("hqk,qhd->khd", ds, q[q0:q1].float()) \
+            * sm_scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _check_varlen(q, k, v, cu_q, cu_k, causal, *same_dtype):
+    """Raise on what K4/K5 do not take; return the dtype code of q, k, v
+    and ``same_dtype``."""
+    if not flash_attention_varlen_available(q, k, v, cu_q, cu_k, causal):
+        raise ValueError("varlen flash attention kernel does not take these "
+                         f"shapes (q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)}, causal={causal})")
+    if cu_q.dtype != torch.int32 or cu_k.dtype != torch.int32:
+        raise TypeError("cu_seqlens must be int32")
+    return _kernel_dtype(q, k, v, *same_dtype)
+
+
+def flash_attention_varlen_fwd(q, k, v, cu_q, cu_k, causal=False,
+                               sm_scale=None, plan=None):
+    """K4: (o [Tq, h, d], lse [h, Tq] fp32). On CUDA tensors this
+    launches ``csrc/flash_varlen_fwd.cu`` over ``plan`` (made here at 64
+    tokens per tile when not given); q, k and v are made contiguous. On
+    CPU tensors it runs the plain version."""
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(q.shape[-1])
+    if _on_cpu(q, k, v, cu_q, cu_k):
+        return flash_attention_varlen_reference(q, k, v, cu_q, cu_k, causal,
+                                                sm_scale)
+    dtype = _check_varlen(q, k, v, cu_q, cu_k, causal)
+    tq, h, d = q.shape
+    tk = k.shape[0]
+    if plan is None:
+        plan = varlen_plan(cu_q, cu_k, tq, tk, causal)
+    if plan.block != _VL_BLOCK:
+        raise ValueError(f"K4 takes {_VL_BLOCK}-token tiles, the plan has "
+                         f"{plan.block}")
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    o = torch.empty_like(q)
+    lse = torch.empty((h, tq), dtype=torch.float32, device=q.device)
+    FLASH_VARLEN_FWD.launch(
+        q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        plan.seg_q.data_ptr(), plan.seg_k.data_ptr(), plan.kv_lo.data_ptr(),
+        plan.kv_hi.data_ptr(), o.data_ptr(), lse.data_ptr(), tq, tk, h, d,
+        float(sm_scale), int(bool(causal)), dtype)
+    return o, lse
+
+
+def flash_attention_varlen_bwd(q, k, v, o, lse, do, cu_q, cu_k,
+                               causal=False, sm_scale=None, plan=None):
+    """K5: (dq, dk, dv) of K4's o given its cotangent do. On CUDA tensors
+    this launches ``csrc/flash_varlen_bwd.cu`` (a dk/dv pass over the
+    plan's per-kv-tile q ranges, then a dq pass over its per-q-tile kv
+    ranges); a plan at another tile size than K5's is made anew. On CPU
+    tensors it runs the plain version."""
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(q.shape[-1])
+    if _on_cpu(q, k, v, o, lse, do, cu_q, cu_k):
+        return flash_attention_varlen_bwd_reference(q, k, v, o, lse, do,
+                                                    cu_q, cu_k, causal,
+                                                    sm_scale)
+    dtype = _check_varlen(q, k, v, cu_q, cu_k, causal, o, do)
+    if o.shape != q.shape or do.shape != q.shape:
+        raise ValueError(f"o {tuple(o.shape)} and do {tuple(do.shape)} must "
+                         f"be shaped like q {tuple(q.shape)}")
+    tq, h, d = q.shape
+    tk = k.shape[0]
+    if lse.dtype != torch.float32 or tuple(lse.shape) != (h, tq):
+        raise ValueError(f"lse must be fp32 [{h}, {tq}], got {lse.dtype} "
+                         f"{tuple(lse.shape)}")
+    block = _vl_bwd_block(d)
+    if plan is None or plan.block != block:
+        plan = varlen_plan(cu_q, cu_k, tq, tk, causal, block)
+    q, k, v, do = (t.contiguous() for t in (q, k, v, do))
+    lse = lse.contiguous()
+    delta = _varlen_delta(o, do)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), \
+        torch.empty_like(v)
+    FLASH_VARLEN_BWD.launch(
+        q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), plan.seg_q.data_ptr(),
+        plan.seg_k.data_ptr(), plan.kv_lo.data_ptr(), plan.kv_hi.data_ptr(),
+        plan.q_lo.data_ptr(), plan.q_hi.data_ptr(), dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), tq, tk, h, d, block, float(sm_scale),
+        int(bool(causal)), dtype)
+    return dq, dk, dv
+
+
+class FlashAttentionVarlen(torch.autograd.Function):
+    """Packed varlen flash attention: the counterpart of the JAX package's
+    custom-vjp ``_flash_varlen_core``: returns o. Forward: K4 on CUDA
+    tensors, the plain version on CPU ones; it saves q, k, v, o, lse, cu
+    and (on the card) the plan of segment ids and tile ranges. Backward:
+    K5 likewise. The integer cu_seqlens get no gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, cu_q, cu_k, causal, sm_scale):
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        plan = None
+        if not _on_cpu(q, k, v, cu_q, cu_k):
+            plan = varlen_plan(cu_q, cu_k, q.shape[0], k.shape[0], causal)
+        o, lse = flash_attention_varlen_fwd(q, k, v, cu_q, cu_k, causal,
+                                            sm_scale, plan)
+        ctx.save_for_backward(q, k, v, o, lse, cu_q, cu_k,
+                              *(plan[:6] if plan is not None else ()))
+        ctx.causal, ctx.sm_scale = causal, sm_scale
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse, cu_q, cu_k, *ranges = ctx.saved_tensors
+        plan = VarlenPlan(*ranges, _VL_BLOCK) if ranges else None
+        dq, dk, dv = flash_attention_varlen_bwd(
+            q, k, v, o, lse, do, cu_q, cu_k, ctx.causal, ctx.sm_scale, plan)
+        return dq, dk, dv, None, None, None, None
+
+
+def flash_attention_varlen_values(q, k, v, cu_q, cu_k, sm_scale,
+                                  causal=False):
+    """Packed varlen flash attention on [T, h, d] tensors with [B + 1]
+    int32 cu_seqlens: o [Tq, h, d], differentiable in q, k and v. On CUDA
+    tensors the forward launches K4 (``csrc/flash_varlen_fwd.cu``) and the
+    backward K5 (``csrc/flash_varlen_bwd.cu``); on CPU tensors both run
+    their plain versions."""
+    return FlashAttentionVarlen.apply(q, k, v, cu_q, cu_k, bool(causal),
+                                      float(sm_scale))

@@ -50,6 +50,21 @@ def flash_inputs(b, sq, sk, h, kh, d, seed=0):
                                (b, sk, kh, d)))
 
 
+def varlen_inputs(lengths_q, lengths_k=None, h=2, d=64, seed=0):
+    """numpy q [Tq, h, d], k/v [Tk, h, d] and int32 cu_seqlens for
+    sequences packed end to end; k takes q's lengths when none are
+    given."""
+    lengths_k = lengths_q if lengths_k is None else lengths_k
+    rng = np.random.default_rng(seed)
+    tq, tk = int(sum(lengths_q)), int(sum(lengths_k))
+    q = rng.standard_normal((tq, h, d)).astype(np.float32)
+    k = rng.standard_normal((tk, h, d)).astype(np.float32)
+    v = rng.standard_normal((tk, h, d)).astype(np.float32)
+    cu = [np.concatenate([[0], np.cumsum(n)]).astype(np.int32)
+          for n in (lengths_q, lengths_k)]
+    return q, k, v, cu[0], cu[1]
+
+
 def jax_state(model):
     """A JAX model's weights as {name: numpy array}."""
     return {k: np.asarray(v._value) for k, v in model.state_dict().items()}

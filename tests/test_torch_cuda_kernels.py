@@ -14,7 +14,8 @@ Tolerances: K1 fp32 at K*eps with K the longest context, bf16 at
 below 2: kernel and plain version both round one fp32 result); K3 fp32
 at atol 5e-5 (2e-4 where kv heads are shared), the JAX package's
 flash-backward bounds, bf16 at one ulp of the outputs' largest
-magnitude. TF32 is off for every fp32 comparison (the ``cuda_device``
+magnitude; K4 as K2 and K5 as K3 (fp32 at 5e-5: no shared kv heads).
+Every K4/K5 case runs twice and must give the same bits. TF32 is off for every fp32 comparison (the ``cuda_device``
 fixture sets it).
 """
 import numpy as np
@@ -22,7 +23,7 @@ import pytest
 import torch
 
 from _torch_helpers import (F32_EPS, cuda_device, flash_inputs,  # noqa: F401
-                            paged_inputs)
+                            paged_inputs, varlen_inputs)
 from paddle_tpu_torch.ops import cuda_kernels as ck
 
 pytestmark = pytest.mark.cuda
@@ -226,3 +227,109 @@ def test_engine_runs_every_layer_through_the_paged_kernel(cuda_device):
             ids = torch.tensor([p], device=cuda_device)
             want = model.generate(ids, max_new_tokens=8)[0, len(p):]
             assert r.output_tokens == want.tolist()
+
+
+# K4/K5, packed varlen attention: (q lengths, k lengths or None for q's,
+# d, causal). Tolerances as K2's and K3's.
+VARLEN_CASES = {
+    "ragged_causal": ([700, 1800, 300, 1296], None, 64, True),
+    "ragged_noncausal": ([700, 1800, 300, 1296], None, 64, False),
+    "ragged_tail_causal": ([1, 977, 2400, 850], None, 64, True),
+    "uniform_causal": ([512] * 6, None, 64, True),
+    "d128_causal": ([130, 70, 300], None, 128, True),
+    "d256_causal": ([130, 70, 300], None, 256, True),
+    "cross_noncausal": ([1, 977, 2400, 850], [1024] * 4, 64, False),
+    "empty_k_segment": ([40, 90, 33], [50, 0, 77], 64, False),
+}
+
+
+def _varlen_args(case, dtype, device):
+    lq, lk, d, causal = VARLEN_CASES[case]
+    tdt = getattr(torch, dtype)
+    q, k, v, cu_q, cu_k = varlen_inputs(lq, lk, h=2, d=d)
+    q, k, v = (torch.from_numpy(x).to(device, tdt) for x in (q, k, v))
+    cu_q = torch.from_numpy(cu_q).to(device)
+    cu_k = cu_q if lk is None else torch.from_numpy(cu_k).to(device)
+    do = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        tuple(q.shape)).astype(np.float32)).to(device, tdt)
+    return q, k, v, cu_q, cu_k, do, causal
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", list(VARLEN_CASES))
+def test_varlen_fwd_kernel_matches_plain_version(cuda_device, case, dtype):
+    q, k, v, cu_q, cu_k, _, causal = _varlen_args(case, dtype, cuda_device)
+    before = ck.FLASH_VARLEN_FWD.launches
+    o, lse = ck.flash_attention_varlen_fwd(q, k, v, cu_q, cu_k, causal)
+    again = ck.flash_attention_varlen_fwd(q, k, v, cu_q, cu_k, causal)
+    torch.cuda.synchronize()
+    assert ck.FLASH_VARLEN_FWD.launches == before + 2
+    assert torch.equal(o, again[0]) and torch.equal(lse, again[1])
+    ro, rlse = ck.flash_attention_varlen_reference(q, k, v, cu_q, cu_k,
+                                                   causal)
+    tol = 2e-5 if dtype == "float32" else 2 ** -6
+    torch.testing.assert_close(o.float(), ro.float(), atol=tol, rtol=0)
+    torch.testing.assert_close(lse, rlse, atol=1e-4, rtol=0)
+    # a row that sees no key writes +0
+    assert not torch.signbit(o[(rlse == -1e30).T].float()).any()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", list(VARLEN_CASES))
+def test_varlen_bwd_kernel_matches_plain_version(cuda_device, case, dtype):
+    q, k, v, cu_q, cu_k, do, causal = _varlen_args(case, dtype, cuda_device)
+    o, lse = ck.flash_attention_varlen_fwd(q, k, v, cu_q, cu_k, causal)
+    before = ck.FLASH_VARLEN_BWD.launches
+    got = ck.flash_attention_varlen_bwd(q, k, v, o, lse, do, cu_q, cu_k,
+                                        causal)
+    again = ck.flash_attention_varlen_bwd(q, k, v, o, lse, do, cu_q, cu_k,
+                                          causal)
+    torch.cuda.synchronize()
+    assert ck.FLASH_VARLEN_BWD.launches == before + 2
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    ref = ck.flash_attention_varlen_bwd_reference(q, k, v, o, lse, do, cu_q,
+                                                  cu_k, causal)
+    if dtype == "float32":
+        tol = 5e-5
+    else:
+        top = max(float(r.float().abs().max()) for r in ref)
+        tol = 2.0 ** (np.floor(np.log2(top)) - 7)
+    for g, r, x in zip(got, ref, (q, k, v)):
+        assert g.shape == x.shape and g.dtype == x.dtype
+        assert torch.isfinite(g).all()
+        torch.testing.assert_close(g.float(), r.float(), atol=tol, rtol=0)
+
+
+def test_flash_attn_unpadded_runs_both_varlen_kernels(cuda_device):
+    from paddle_tpu_torch.nn.functional import flash_attn_unpadded
+    q, k, v, cu, _, do, _ = _varlen_args("ragged_tail_causal", "float32",
+                                         cuda_device)
+    q, k, v = (t.clone().requires_grad_(True) for t in (q, k, v))
+    fwd, bwd = ck.FLASH_VARLEN_FWD.launches, ck.FLASH_VARLEN_BWD.launches
+    out, none = flash_attn_unpadded(q, k, v, cu, cu, 2400, 2400, causal=True)
+    grads = torch.autograd.grad(out, (q, k, v), do)
+    torch.cuda.synchronize()
+    assert none is None
+    assert ck.FLASH_VARLEN_FWD.launches == fwd + 1
+    assert ck.FLASH_VARLEN_BWD.launches == bwd + 1
+    o, lse = ck.flash_attention_varlen_reference(q.detach(), k.detach(),
+                                                 v.detach(), cu, cu, True)
+    want = ck.flash_attention_varlen_bwd_reference(
+        q.detach(), k.detach(), v.detach(), o, lse, do, cu, cu, True)
+    torch.testing.assert_close(out.detach(), o, atol=2e-5, rtol=0)
+    for g, w in zip(grads, want):
+        torch.testing.assert_close(g, w, atol=5e-5, rtol=0)
+
+
+def test_varlen_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
+    q, k, v, cu, _, do, _ = _varlen_args("uniform_causal", "float32",
+                                         cuda_device)
+    with pytest.raises(TypeError):
+        ck.flash_attention_varlen_fwd(q, k, v, cu.long(), cu.long(), True)
+    with pytest.raises(TypeError):
+        ck.flash_attention_varlen_fwd(q.half(), k.half(), v.half(), cu, cu)
+    with pytest.raises(ValueError):
+        ck.flash_attention_varlen_fwd(q, k, v, cu.cpu(), cu.cpu())
+    o, lse = ck.flash_attention_varlen_fwd(q, k, v, cu, cu, True)
+    with pytest.raises(ValueError):
+        ck.flash_attention_varlen_bwd(q, k, v, o, lse.T, do, cu, cu, True)

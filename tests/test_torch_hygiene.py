@@ -48,7 +48,7 @@ def test_importing_the_port_loads_neither_package():
         "import paddle_tpu_torch.inference.serving\n"
         "import paddle_tpu_torch.text.gpt, paddle_tpu_torch.ops\n"
         "import paddle_tpu_torch.optimizer, paddle_tpu_torch.jit\n"
-        "import paddle_tpu_torch.nn.clip\n"
+        "import paddle_tpu_torch.nn.clip, paddle_tpu_torch.nn.functional\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in %r)\n"
