@@ -8,8 +8,8 @@ so ``nvcc`` builds it in seconds:
          -Xcompiler -fPIC -Xptxas=-v -o build/kernels/lib<name>-<hash>.so
 
 The library lands in ``build/kernels/`` at the root of the checkout, named
-by a hash of its source and flags, so an edited source never loads a
-stale build. The build runs at first use (``load``); ``build`` starts
+by a hash of its source, the ``csrc`` headers it includes and the flags,
+so an edited source or header never loads a stale build. The build runs at first use (``load``); ``build`` starts
 one ``nvcc`` per missing source, all at once, and is what a caller uses
 to build every kernel up front. A failed build raises with the
 compiler's output; nothing falls back to a plain version.
@@ -19,6 +19,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -45,11 +46,31 @@ def nvcc_path():
         "from source with the CUDA toolkit")
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def _sources(name):
+    """``csrc/<name>.cu`` and every ``csrc`` header it includes, directly
+    or through another header, in the order first included."""
+    seen, todo = [], [f"{name}.cu"]
+    while todo:
+        rel = todo.pop(0)
+        if rel in seen or not (CSRC / rel).exists():
+            continue
+        seen.append(rel)
+        todo += [m.decode() for m in
+                 _INCLUDE.findall((CSRC / rel).read_bytes())]
+    return seen
+
+
 def library_path(name):
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()) \
-        .hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    """Where the library lands: named by a hash of the source, the
+    headers it includes and the flags, so that editing any of them
+    never loads a stale build."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for rel in _sources(name):
+        h.update(rel.encode() + b"\0" + (CSRC / rel).read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def build(names):

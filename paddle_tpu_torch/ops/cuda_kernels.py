@@ -147,6 +147,14 @@ def _need_contiguous(**tensors):
             raise ValueError(f"{name} must be contiguous")
 
 
+def _need_aligned(**tensors):
+    """The tensor-core routes load and store 16 bytes at a time."""
+    for name, t in tensors.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must start on a 16-byte boundary for "
+                             f"the bf16 kernel")
+
+
 # -- K1: ragged paged attention ----------------------------------------------
 # Layout contract (the pool the serving engine writes into):
 #   q            [B, KQ, h, d]  (decode: [B, h, d], KQ = 1)
@@ -361,6 +369,8 @@ def _flash_fwd(q, k, v, causal, sm_scale):
                          f"(q {tuple(q.shape)}, k {tuple(k.shape)}, "
                          f"causal={causal})")
     dtype = _kernel_dtype(q, k, v)
+    if dtype == _DTYPE_CODE[torch.bfloat16]:
+        _need_aligned(q=q, k=k, v=v)
     b, sq, h, d = q.shape
     sk, kh = k.shape[1], k.shape[2]
     o = torch.empty_like(q)
@@ -456,6 +466,8 @@ def flash_attention_bwd(q, k, v, o, lse, do, dlse=None, causal=False,
     q, k, v, do = q.contiguous(), k.contiguous(), v.contiguous(), \
         do.contiguous()
     lse = lse.contiguous()
+    if dtype == _DTYPE_CODE[torch.bfloat16]:
+        _need_aligned(q=q, k=k, v=v, do=do)
     delta = _flash_delta(o, do, dlse)
     dq = torch.empty_like(q)
     dk_h = torch.empty((b, sk, h, d), dtype=k.dtype, device=k.device)

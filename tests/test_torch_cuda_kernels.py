@@ -10,13 +10,18 @@ machine with only PyTorch and the CUDA toolkit:
         tests/test_torch_cuda_kernels.py
 
 Tolerances: K1 fp32 at K*eps with K the longest context, bf16 at
-48 * 2**-8; K2 fp32 at atol 2e-5, bf16 at 2**-6 (two ulps of an output
-below 2: kernel and plain version both round one fp32 result); K3 fp32
-at atol 5e-5 (2e-4 where kv heads are shared), the JAX package's
-flash-backward bounds, bf16 at one ulp of the outputs' largest
-magnitude; K4 as K2 and K5 as K3 (fp32 at 5e-5: no shared kv heads).
-Every K4/K5 case runs twice and must give the same bits. TF32 is off for every fp32 comparison (the ``cuda_device``
-fixture sets it).
+48 * 2**-8; K2 fp32 at atol 2e-5; K3 fp32 at atol 5e-5 (2e-4 where kv
+heads are shared), the JAX package's flash-backward bounds. K2 and K3
+in bf16 run the tensor-core route, which rounds p (and in K3 ds) to
+bf16 before the products that take them, as the JAX kernels do, and
+rounds each output once: each is held at one ulp of its outputs'
+largest magnitude (``chip_smoke.py`` also holds these bounds to twice
+the error of ``scaled_dot_product_attention`` against the same plain
+version). K4 fp32 at 2e-5 and bf16 at 2**-6 (two ulps of an output below
+2: kernel and plain version both round one fp32 result); K5 as K3 (fp32
+at 5e-5: no shared kv heads). K3, K4 and K5 runs repeat with the same
+bits. TF32 is off for every fp32 comparison (the ``cuda_device`` fixture
+sets it).
 """
 import numpy as np
 import pytest
@@ -37,7 +42,19 @@ FLASH_CASES = {   # b, sq, sk, h, kh, d, causal
     "nonsquare_causal": (1, 128, 384, 2, 2, 64, True),
     "d128": (1, 256, 256, 2, 2, 128, True),
     "d256": (1, 128, 128, 2, 2, 256, True),
+    # offset 128 (the smallest nonzero one the gate admits) where the
+    # tensor-core K3's dk/dv pass steps 32 q rows over its kv tile, and
+    # where the dq pass steps 32-row kv tiles (d = 256)
+    "nonsquare_d128": (1, 256, 384, 2, 2, 128, True),
+    "nonsquare_d256": (1, 128, 256, 2, 2, 256, True),
 }
+# the training path's attention, GPT-124M at batch 16
+TRAIN_CASE = (16, 1024, 1024, 12, 12, 64, True)
+
+
+def _bf16_ulp(x):
+    """The spacing of bf16 values at magnitude x (8 significant bits)."""
+    return 2.0 ** (np.floor(np.log2(x)) - 7)
 
 
 def _paged(ctxs, kq, dtype, device):
@@ -101,13 +118,18 @@ def test_flash_kernel_matches_plain_version(cuda_device, case, dtype):
     torch.cuda.synchronize()
     assert ck.FLASH_FWD.launches == before + 1
     ro, rlse = ck.flash_attention_reference(q, k, v, causal=causal)
-    tol = 2e-5 if dtype == "float32" else 2 ** -6
+    # bf16: one ulp at the largest |o|, half from rounding o and the rest
+    # for the bf16 p the kernel feeds to P V (each weight off by at most
+    # 2**-9 of itself; the errors average out along the row)
+    tol = 2e-5 if dtype == "float32" else \
+        _bf16_ulp(float(ro.float().abs().max()))
     torch.testing.assert_close(o.float(), ro.float(), atol=tol, rtol=0)
     torch.testing.assert_close(lse, rlse, atol=1e-4, rtol=0)
 
 
 def _flash_bwd_args(case, dtype, device, dlse):
-    b, sq, sk, h, kh, d, causal = FLASH_CASES[case]
+    b, sq, sk, h, kh, d, causal = TRAIN_CASE if case == "gpt124m_train" \
+        else FLASH_CASES[case]
     tdt = getattr(torch, dtype)
     q, k, v = (torch.from_numpy(x).to(device, tdt)
                for x in flash_inputs(b, sq, sk, h, kh, d))
@@ -135,15 +157,20 @@ def test_flash_bwd_kernel_matches_plain_version(cuda_device, case, dtype,
     if dtype == "float32":
         tol = 2e-4 if kh != h else 5e-5
     else:
-        top = max(float(r.float().abs().max()) for r in ref)
-        tol = 2.0 ** (np.floor(np.log2(top)) - 7)
+        # one ulp at the outputs' largest magnitude, half from rounding
+        # dq, dk, dv and the rest for the bf16 p and ds the kernel feeds to
+        # its products (each off by at most 2**-9 of itself; the errors
+        # average out over the summed rows)
+        tol = _bf16_ulp(max(float(r.float().abs().max()) for r in ref))
     for g, r, x in zip(got, ref, args[:3]):
         assert g.shape == x.shape and g.dtype == x.dtype
         torch.testing.assert_close(g.float(), r.float(), atol=tol, rtol=0)
 
 
-def test_flash_bwd_kernel_is_deterministic(cuda_device):
-    args, causal = _flash_bwd_args("gqa", "float32", cuda_device, True)
+@pytest.mark.parametrize("case,dtype", [("gqa", "float32"),
+                                        ("gpt124m_train", "bfloat16")])
+def test_flash_bwd_kernel_is_deterministic(cuda_device, case, dtype):
+    args, causal = _flash_bwd_args(case, dtype, cuda_device, True)
     first = ck.flash_attention_bwd(*args, causal=causal)
     for _ in range(2):
         again = ck.flash_attention_bwd(*args, causal=causal)

@@ -10,7 +10,9 @@ Tolerance: atol 5e-5 in fp32, and 2e-4 where kv heads are shared (GQA,
 MQA): the JAX package's own bounds for its flash backward
 (``tests/test_train_step_and_flash.py``); the shared-head gradients sum
 more terms. The plain K3 is also held against torch autograd of the
-dense fp32 path, and the autograd function against the plain K3.
+dense fp32 path, and the autograd function against the plain K3. In
+bf16, the training path's dtype, the plain K3 is held against the JAX
+kernel in bf16, with the bound stated at that test.
 
 ``tests/test_torch_cuda_kernels.py`` holds the CUDA kernel against the
 same plain version on the card.
@@ -81,6 +83,46 @@ def test_plain_backward_matches_jax_kernel(case, interpret):
                                    rtol=0, err_msg=f"d{name}")
 
 
+def _bf16_ulp(x):
+    """The spacing of bf16 values at magnitude x (8 significant bits)."""
+    return 2.0 ** (np.floor(np.log2(x)) - 7)
+
+
+@pytest.mark.parametrize("case", ["causal", "gqa", "nonsquare_causal",
+                                  "dlse"])
+def test_plain_backward_matches_jax_kernel_in_bf16(case, interpret):
+    """The plain K3 in bf16 (what the card's bf16 kernel is held against)
+    against ``jax.vjp`` of the JAX kernels in bf16, from the JAX forward's
+    own o and lse and the same bf16 cotangents. Within two ulps at the
+    outputs' largest magnitude: both round dq, dk and dv once (half an
+    ulp each), and the JAX kernel also rounds the scaled q, p and ds to
+    bf16 (each off by at most 2**-9 of itself) where the plain version
+    keeps fp32."""
+    b, sq, sk, h, kh, d, causal, _ = CASES[case]
+    q, k, v = (x.astype(jnp.bfloat16).astype(np.float32)
+               for x in flash_inputs(b, sq, sk, h, kh, d))
+    do, dlse = _cotangents(case)
+    do = do.astype(jnp.bfloat16).astype(np.float32)
+    (jo, jlse), vjp = jax.vjp(
+        lambda q_, k_, v_: pk.flash_attention_with_lse(q_, k_, v_,
+                                                       causal=causal),
+        *(jnp.asarray(x, jnp.bfloat16) for x in (q, k, v)))
+    want = [np.asarray(w.astype(jnp.float32)) for w in
+            vjp((jnp.asarray(do, jnp.bfloat16), jnp.asarray(dlse)))]
+    to = torch.from_numpy(np.array(jo.astype(jnp.float32))).to(
+        torch.bfloat16)
+    got = ck.flash_attention_bwd_reference(
+        *(torch.from_numpy(x).to(torch.bfloat16) for x in (q, k, v)), to,
+        torch.from_numpy(np.array(jlse)),
+        torch.from_numpy(do).to(torch.bfloat16), torch.from_numpy(dlse),
+        causal=causal)
+    tol = 2 * _bf16_ulp(max(np.abs(w).max() for w in want))
+    for name, g, w in zip("qkv", got, want):
+        assert g.dtype == torch.bfloat16 and g.shape == w.shape
+        np.testing.assert_allclose(g.float().numpy(), w, atol=tol, rtol=0,
+                                   err_msg=f"d{name}")
+
+
 @pytest.mark.parametrize("case", ["causal", "gqa", "nonsquare_causal",
                                   "dlse"])
 def test_plain_backward_matches_dense_autograd(case):
@@ -149,15 +191,26 @@ def test_values_backward_is_the_zero_lse_cotangent_case():
         assert torch.equal(g, w)
 
 
-@pytest.mark.parametrize("d", [64, 128, 256])
-def test_backward_shared_memory_fits_a_block(d):
-    # the kernel's note states each pass's fp32 tiles per d (64-row tiles,
-    # 32 at d = 256): dk/dv four [r, d + 1] operand tiles, two [r, r + 1]
-    # score tiles and two [r] statistics; dq four operand tiles and one
-    # score tile. Both fit the 232,448 bytes a block can opt into.
-    r = 32 if d == 256 else 64
-    dkdv = 4 * (4 * r * (d + 1) + 2 * r * (r + 1) + 2 * r)
-    dq = 4 * (4 * r * (d + 1) + r * (r + 1))
+@pytest.mark.parametrize(
+    "route,d", [pytest.param("fp32", d, id=str(d)) for d in (64, 128, 256)]
+    + [pytest.param("bf16", d, id=f"bf16-{d}") for d in (64, 128, 256)])
+def test_backward_shared_memory_fits_a_block(route, d):
+    # the kernel's note states each pass's tiles per d and route. fp32
+    # (64-row tiles, 32 at d = 256): dk/dv four [r, d + 1] operand tiles,
+    # two [r, r + 1] score tiles and two [r] statistics; dq four operand
+    # tiles and one score tile. bf16: dk/dv the 64-row k and v tiles and
+    # two stages of [m, d] q and do tiles (m = 64 at d = 64, else 32) and
+    # of [m] lse and delta rows; dq the 64-row q and do tiles and two
+    # stages of [n, d] k and v tiles (n = 32 at d = 256, else 64). Both
+    # fit the 232,448 bytes a block can opt into.
+    if route == "fp32":
+        r = 32 if d == 256 else 64
+        dkdv = 4 * (4 * r * (d + 1) + 2 * r * (r + 1) + 2 * r)
+        dq = 4 * (4 * r * (d + 1) + r * (r + 1))
+    else:
+        m, n = (64 if d == 64 else 32), (32 if d == 256 else 64)
+        dkdv = 2 * (2 * 64 * d + 4 * m * d) + 4 * 4 * m
+        dq = 2 * (2 * 64 * d + 4 * n * d)
     assert max(dkdv, dq) <= 232448
     note = (Path(ck.__file__).parents[1] / "csrc" / "flash_bwd.cu") \
         .read_text()

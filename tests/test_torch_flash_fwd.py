@@ -6,12 +6,15 @@ the port's plain version ``(o, lse)`` against the JAX package's
 Cases: causal and non-causal, GQA and MQA, non-square causal (sq=128,
 sk=384, bottom-right aligned), d in {64, 128}. Tolerance: atol 2e-5 in
 fp32, the JAX package's own flash-forward bound
-(``tests/test_train_step_and_flash.py``).
+(``tests/test_train_step_and_flash.py``). The plain version is also held
+in bf16, the training path's dtype, against the JAX kernel in bf16, with
+the bounds stated at that test.
 
 ``tests/test_torch_cuda_kernels.py`` holds the CUDA kernel against the
 same plain version on the card.
 """
 import math
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -62,6 +65,55 @@ def test_plain_matches_jax_kernel_and_dense(case, interpret):
                                    rtol=0)
         np.testing.assert_allclose(lse.numpy(), np.asarray(jlse),
                                    atol=ATOL, rtol=0)
+
+
+def _bf16_ulp(x):
+    """The spacing of bf16 values at magnitude x (8 significant bits)."""
+    return 2.0 ** (np.floor(np.log2(x)) - 7)
+
+
+@pytest.mark.parametrize("case", ["causal", "noncausal", "gqa",
+                                  "nonsquare_causal"])
+def test_plain_matches_jax_kernel_in_bf16(case, interpret):
+    """The plain K2 in bf16 (what the card's bf16 kernel is held against)
+    against the JAX kernel in bf16, on the seeded inputs rounded to bf16
+    alike. o within two ulps at its largest magnitude: both round o once
+    (half an ulp each), and the JAX kernel also rounds the scaled q and p
+    to bf16 (each off by at most 2**-9 of itself) where the plain version
+    keeps fp32. lse within the largest move those roundings can make: the
+    scaled q moves a score by at most 2**-9 * sm_scale * sum_d |q k|, and
+    the row sum the JAX kernel takes over the bf16 p by at most 2**-9 of
+    itself, 2**-9 in lse."""
+    b, sq, sk, h, kh, d, causal, _ = CASES[case]
+    q, k, v = (x.astype(jnp.bfloat16).astype(np.float32)
+               for x in flash_inputs(b, sq, sk, h, kh, d))
+    tq, tk, tv = (torch.from_numpy(x).to(torch.bfloat16) for x in (q, k, v))
+    o, lse = ck.flash_attention_with_lse(tq, tk, tv, causal=causal)
+    assert o.dtype == torch.bfloat16 and lse.dtype == torch.float32
+    jo, jlse = pk.flash_attention_with_lse(
+        *(jnp.asarray(x, jnp.bfloat16) for x in (q, k, v)), causal=causal)
+    assert jo.dtype == jnp.bfloat16
+    jo = np.asarray(jo.astype(jnp.float32))
+    np.testing.assert_allclose(o.float().numpy(), jo, rtol=0,
+                               atol=2 * _bf16_ulp(np.abs(jo).max()))
+    qk = np.einsum("bqhd,bkhd->bhqk", np.abs(q),
+                   np.abs(np.repeat(k, h // kh, axis=2)))
+    lse_tol = 2.0 ** -9 * (qk.max() / math.sqrt(d) + 1)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(jlse), rtol=0,
+                               atol=lse_tol)
+
+
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_forward_shared_memory_fits_a_block(d):
+    # the bf16 route's note states its tiles per d: a 64-row q tile and two
+    # stages of k and v tiles of n rows (128, 64 and 32 at d = 64, 128 and
+    # 256), all bf16
+    n = {64: 128, 128: 64, 256: 32}[d]
+    smem = 2 * (64 * d + 4 * n * d)
+    assert smem <= 232448
+    note = (Path(ck.__file__).parents[1] / "csrc" / "flash_fwd.cu") \
+        .read_text()
+    assert f"{smem:,} bytes" in note
 
 
 @pytest.mark.parametrize("case", ["causal", "gqa", "nonsquare_causal"])
