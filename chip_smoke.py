@@ -6,15 +6,16 @@ Run from the root of a checkout:
     python3 chip_smoke.py
 
 It builds the port's hand-written kernels from ``paddle_tpu_torch/csrc``
-with ``nvcc`` (one process per source, all at once) and holds each
-kernel against its plain PyTorch version (K1 paged attention, K2 flash
-forward, K3 flash backward, K4 and K5 packed varlen forward and
-backward, each in fp32 and bf16; K2 and K3 run their scalar fp32 route
-and their tensor-core bf16 route, and each bf16 K2/K3 bound is held to
-twice the error of ``scaled_dot_product_attention`` against the same
-plain version, printed beside it). Then it drives the port's three main
-paths, each with the launch counts set to 0 just before it and read just
-after:
+with ``nvcc`` (one process per source, all at once; it fails if a
+tensor-core kernel spills registers) and holds each kernel against its
+plain PyTorch version (K1 paged attention, K2 flash forward, K3 flash
+backward, K4 and K5 packed varlen forward and backward, each in fp32 and
+bf16; K2 to K5 run their scalar fp32 route and their tensor-core bf16
+route, and each bf16 K2/K3 bound is held to twice the error of
+``scaled_dot_product_attention``, each bf16 K4/K5 bound to twice that of
+PyTorch's varlen flash op, against the same plain version, printed
+beside it). Then it drives the port's three main paths, each with the
+launch counts set to 0 just before it and read just after:
 
 - serving: GPT-124M at full width (random weights from a seed) through
   ``ServingEngine`` with and without speculative decoding, and the fp32
@@ -31,9 +32,9 @@ after:
   per-segment plain versions.
 
 Last, it times each kernel beside its bound, its plain version and,
-where one exists, a PyTorch call that computes the same function (K2
-and K3 also by their device time alone, which leaves out the host's
-launch gaps). Each
+where one exists, a PyTorch call that computes the same function (K2 to
+K5 also by their device time alone, which leaves out the host's launch
+gaps). Each
 phase prints one JSON line; any failure raises and the script exits
 non-zero. It needs a CUDA card: without one it exits 2 and prints no
 result.
@@ -52,6 +53,7 @@ from __future__ import annotations
 import itertools
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -113,8 +115,7 @@ def phase_environment(torch, ck):
     t0 = time.perf_counter()
     built = ck.build_kernels()
     wall = time.perf_counter() - t0
-    ptxas = {name: [ln.split(":", 1)[1].strip() for ln in log.splitlines()
-                    if "Used" in ln]
+    ptxas = {name: ptxas_instantiations(log)
              for name, (_, log) in built.items()}
     emit({"phase": "environment", "nvidia_smi": smi,
           "device": torch.cuda.get_device_name(0),
@@ -122,7 +123,45 @@ def phase_environment(torch, ck):
           "build_wall_s": wall,
           "build_s": {n: s for n, (s, _) in built.items()},
           "ptxas": ptxas})
+    spilled = [f"{name}: {fn}" for name, fns in ptxas.items()
+               for fn, info in fns.items()
+               if fn.split("<")[0].endswith("_tc") and info["spill_stores"]]
+    if spilled:
+        raise AssertionError(f"tensor-core kernels spill: {spilled}")
     return smi
+
+
+_KERNEL_NAME = re.compile(r"([a-z_]+kernel(?:_tc)?)I(\w+?)E+v")
+_TEMPLATE_ARG = re.compile(r"13__nv_bfloat16|f|Li(\d+)")
+
+
+def kernel_name(mangled):
+    """``flash_bwd_dq_kernel_tc<64>`` from a mangled entry function's name
+    (None for a name that is not one of the port's kernels)."""
+    m = _KERNEL_NAME.search(mangled)
+    if not m:
+        return None
+    args = [a[1] or {"f": "float"}.get(a[0], "bf16")
+            for a in _TEMPLATE_ARG.finditer(m[2])]
+    return f"{m[1]}<{', '.join(args)}>"
+
+
+def ptxas_instantiations(log):
+    """{kernel<dtype, d>: {"registers", "spill_stores"}} from ``nvcc
+    -Xptxas=-v`` output: each entry function's properties line, then its
+    spill line, then its "Used" line."""
+    out, fn = {}, None
+    for ln in log.splitlines():
+        if "Function properties for" in ln:
+            fn = kernel_name(ln)
+        elif fn and "spill stores" in ln:
+            out[fn] = {"spill_stores": int(re.search(
+                r"(\d+) bytes spill stores", ln)[1])}
+        elif fn and "Used" in ln and fn in out:
+            out[fn]["registers"] = int(re.search(r"Used (\d+) registers",
+                                                 ln)[1])
+            fn = None
+    return out
 
 
 # -- phase 2 ------------------------------------------------------------------
@@ -218,9 +257,10 @@ def sdpa_backward(torch, q, k, v, do, causal):
 
 
 def hold_bf16_to_library(rows):
-    """Each bf16 K2/K3 row's bound is its rounding bound, and no looser
-    than twice the largest error of the library call against the same
-    plain version at that kernel and d; then each row passes or fails."""
+    """Each bf16 K2/K3 (or K4/K5) row's bound is its rounding bound, and
+    no looser than twice the largest error of the library call against
+    the same plain version at that kernel and d; then each row passes or
+    fails."""
     lib = {}
     for r in rows:
         if r.get("library_max_abs_err") is not None:
@@ -265,8 +305,11 @@ def phase_kernels_vs_plain(torch, ck):
             hold_bf16_to_library(rows)
         results.extend(rows)
     for dtype in (torch.bfloat16, torch.float32):
-        for case in VARLEN_CASES:
-            results.extend(varlen_kernel_cases(torch, ck, case, dtype))
+        rows = [row for case in VARLEN_CASES
+                for row in varlen_kernel_cases(torch, ck, case, dtype)]
+        if dtype == torch.bfloat16:
+            hold_bf16_to_library(rows)
+        results.extend(rows)
     emit({"phase": "kernels_vs_plain", "cases": results})
     bad = [r for r in results if not r["pass"]]
     if bad:
@@ -351,14 +394,18 @@ def flash_bwd_case(torch, ck, label, b, sq, sk, h, kh, d, causal, dtype):
 
 # K4/K5: (label, q lengths, k lengths or None for cu_k is cu_q, d, causal),
 # 12 heads; the cross-attention case has a ragged q stream (T = 4228)
-# against 4 x 1024 keys
+# against 4 x 1024 keys; d = 256 steps 32 rows in the tensor-core K4 and
+# in K5's passes; the empty k segment leaves 90 q rows that see no key
+# (T = 163, so lse's rows are not 16-byte aligned)
 VARLEN_CASES = [
     ("ragged_causal", [700, 1800, 300, 1296], None, 64, True),
     ("ragged_noncausal", [700, 1800, 300, 1296], None, 64, False),
     ("ragged_tail_causal", [1, 977, 2400, 850], None, 64, True),
     ("uniform_causal", [512] * 6, None, 64, True),
     ("d128_causal", [700, 1800, 300, 1296], None, 128, True),
+    ("d256_causal", [700, 1800, 300, 1296], None, 256, True),
     ("cross_noncausal", [1, 977, 2400, 850], [1024] * 4, 64, False),
+    ("empty_k_segment", [40, 90, 33], [50, 0, 77], 64, False),
 ]
 PACKED_TOKENS, PACKED_HEADS, PACKED_DIM = 16384, 12, 64
 PACKED_WARMUP, PACKED_TIMED = 3, 10
@@ -403,9 +450,42 @@ def varlen_case(torch, lq, lk, h, d, dtype, seed=0):
     return q, k, v, do, cu_q, cu_q if lk is None else cu(lk)
 
 
+def varlen_library_fwd(torch, q, k, v, cu_q, cu_k, max_q, max_k, causal):
+    """PyTorch's varlen flash forward (``torch.ops.aten.
+    _flash_attention_forward`` with cum_seq_q / cum_seq_k): (o, lse,
+    philox seed, philox offset, debug mask)."""
+    return torch.ops.aten._flash_attention_forward(
+        q, k, v, cu_q, cu_k, max_q, max_k, 0.0, causal, False,
+        scale=1.0 / math.sqrt(q.shape[-1]))
+
+
+def varlen_library_bwd(torch, do, q, k, v, fwd, cu_q, cu_k, max_q, max_k,
+                       causal):
+    """(dq, dk, dv) of PyTorch's varlen flash op from its forward's
+    outputs ``fwd``."""
+    return torch.ops.aten._flash_attention_backward(
+        do, q, k, v, fwd[0], fwd[1], cu_q, cu_k, max_q, max_k, 0.0, causal,
+        fwd[2], fwd[3], scale=1.0 / math.sqrt(q.shape[-1]))[:3]
+
+
+def varlen_library(torch, q, k, v, do, cu_q, cu_k, lq, lk, causal):
+    """(o, (dq, dk, dv)) of PyTorch's varlen flash op for the cotangent
+    do, or None where it does not compute K4's function: a q segment
+    whose k segment is empty."""
+    lk = lq if lk is None else lk
+    if any(a and not b for a, b in zip(lq, lk)):
+        return None
+    fwd = varlen_library_fwd(torch, q, k, v, cu_q, cu_k, max(lq), max(lk),
+                             causal)
+    return fwd[0], varlen_library_bwd(torch, do, q, k, v, fwd, cu_q, cu_k,
+                                      max(lq), max(lk), causal)
+
+
 def varlen_kernel_cases(torch, ck, case, dtype):
     """K4 and K5 against their plain versions, each run twice for
-    bit-identity; K5's inputs are K4's o and lse, as K3's are K2's."""
+    bit-identity; K5's inputs are K4's o and lse, as K3's are K2's. bf16
+    rows also carry the varlen library call's error against the same
+    plain versions, which ``hold_bf16_to_library`` holds them to."""
     label, lq, lk, d, causal = case
     q, k, v, do, cu_q, cu_k = varlen_case(torch, lq, lk, 12, d, dtype)
     o, lse = ck.flash_attention_varlen_fwd(q, k, v, cu_q, cu_k, causal)
@@ -429,14 +509,21 @@ def varlen_kernel_cases(torch, ck, case, dtype):
     bsame = all(torch.equal(a, b) for a, b in zip(got, again))
     finite = all(bool(torch.isfinite(a).all()) for a in (o, *got))
     dt = str(dtype)[6:]
-    return [{"kernel": "flash_varlen_fwd", "case": label, "dtype": dt,
-             "max_abs_err": err_o, "lse_max_abs_err": err_lse, "tol": tol,
-             "lse_tol": 1e-4, "deterministic": same,
-             "pass": err_o <= tol and err_lse <= 1e-4 and same and finite},
-            {"kernel": "flash_varlen_bwd", "case": label, "dtype": dt,
-             "max_abs_err": max(errs), "dq_dk_dv_err": errs, "tol": btol,
-             "deterministic": bsame,
-             "pass": max(errs) <= btol and bsame and finite}]
+    fwd = {"kernel": "flash_varlen_fwd", "case": label, "d": d, "dtype": dt,
+           "max_abs_err": err_o, "lse_max_abs_err": err_lse, "tol": tol,
+           "lse_tol": 1e-4, "deterministic": same,
+           "pass": err_o <= tol and err_lse <= 1e-4 and same and finite}
+    bwd = {"kernel": "flash_varlen_bwd", "case": label, "d": d, "dtype": dt,
+           "max_abs_err": max(errs), "dq_dk_dv_err": errs, "tol": btol,
+           "deterministic": bsame,
+           "pass": max(errs) <= btol and bsame and finite}
+    if dtype == torch.bfloat16:
+        lib = varlen_library(torch, q, k, v, do, cu_q, cu_k, lq, lk, causal)
+        fwd["rounding_tol"], bwd["rounding_tol"] = tol, btol
+        fwd["library_max_abs_err"] = max_err(lib[0], ro) if lib else None
+        bwd["library_max_abs_err"] = max(
+            max_err(a, r) for a, r in zip(lib[1], ref)) if lib else None
+    return [fwd, bwd]
 
 
 # -- phase 3 ------------------------------------------------------------------
@@ -964,11 +1051,13 @@ def time_packed(torch, ck, launches):
     """K4 and K5 at the packed-attention shape, each beside its plain
     version and the varlen flash op PyTorch ships
     (``torch.ops.aten._flash_attention_forward`` / ``_backward`` with
-    cum_seq_q / cum_seq_k), which the port never calls."""
+    cum_seq_q / cum_seq_k), which the port never calls; by CUDA events and
+    by profiler device time (the library's backward reads host-bound on
+    the events)."""
     lens, q, k, v, do, cu = packed_attention(torch, torch.bfloat16)
     q, k, v = q.detach(), k.detach(), v.detach()
     tq, h, d = q.shape
-    longest, scale = max(lens), 1.0 / math.sqrt(d)
+    longest = max(lens)
     pairs = visible_pairs(lens, lens, True)
     plan = ck.varlen_plan(cu, cu, tq, tq, True)
     plan_ms = cuda_time_ms(lambda: ck.varlen_plan(cu, cu, tq, tq, True), 20)
@@ -977,12 +1066,23 @@ def time_packed(torch, ck, launches):
     bargs = (q, k, v, o, lse, do, cu, cu, True)
     dgot = ck.flash_attention_varlen_bwd(*bargs, plan=plan)
     dref = ck.flash_attention_varlen_bwd_reference(*bargs)
-    aten = torch.ops.aten
-    lib = aten._flash_attention_forward(q, k, v, cu, cu, longest, longest,
-                                        0.0, True, False, scale=scale)
-    lib_grads = aten._flash_attention_backward(
-        do, q, k, v, lib[0], lib[1], cu, cu, longest, longest, 0.0, True,
-        lib[2], lib[3], scale=scale)
+    lib = varlen_library_fwd(torch, q, k, v, cu, cu, longest, longest, True)
+
+    def kernel_fwd():
+        return ck.flash_attention_varlen_fwd(q, k, v, cu, cu, True,
+                                             plan=plan)
+
+    def kernel_bwd():
+        return ck.flash_attention_varlen_bwd(*bargs, plan=plan)
+
+    def library_fwd():
+        return varlen_library_fwd(torch, q, k, v, cu, cu, longest, longest,
+                                  True)
+
+    def library_bwd():
+        return varlen_library_bwd(torch, do, q, k, v, lib, cu, cu, longest,
+                                  longest, True)
+
     shape = (f"T={tq} ({len(lens)} causal segments of {min(lens)} to "
              f"{longest}) h={h} d={d} bf16")
     fwd_bound, fwd_by = packed_bound(q, k, cu, pairs, backward=False)
@@ -993,17 +1093,16 @@ def time_packed(torch, ck, launches):
          "replaces": ck.FLASH_VARLEN_FWD.replaces,
          "launches": launches["flash_varlen_fwd"],
          "max_abs_err": max_err(o, ro),
-         "ms": cuda_time_ms(lambda: ck.flash_attention_varlen_fwd(
-             q, k, v, cu, cu, True, plan=plan), 20),
+         "ms": cuda_time_ms(kernel_fwd, 20),
          "plain_ms": cuda_time_ms(lambda: ck.flash_attention_varlen_reference(
              q, k, v, cu, cu, True), 5, warmup=1),
          "bound_ms": fwd_bound, "bound_by": fwd_by,
-         "library_ms": cuda_time_ms(lambda: aten._flash_attention_forward(
-             q, k, v, cu, cu, longest, longest, 0.0, True, False,
-             scale=scale), 20),
+         "library_ms": cuda_time_ms(library_fwd, 20),
          "library_call": "torch.ops.aten._flash_attention_forward "
                          "(cum_seq_q, cum_seq_k)",
          "library_max_abs_err": max_err(lib[0], ro),
+         "device_ms": device_time_ms(kernel_fwd),
+         "library_device_ms": device_time_ms(library_fwd),
          "plan_ms": plan_ms, "visible_pairs_per_head": pairs,
          "shape": shape},
         {"name": "flash_varlen_bwd", "route": "cuda",
@@ -1011,19 +1110,20 @@ def time_packed(torch, ck, launches):
          "replaces": ck.FLASH_VARLEN_BWD.replaces,
          "launches": launches["flash_varlen_bwd"],
          "max_abs_err": max(max_err(a, r) for a, r in zip(dgot, dref)),
-         "ms": cuda_time_ms(lambda: ck.flash_attention_varlen_bwd(
-             *bargs, plan=plan), 20),
+         "ms": cuda_time_ms(kernel_bwd, 20),
          "plain_ms": cuda_time_ms(
              lambda: ck.flash_attention_varlen_bwd_reference(*bargs), 5,
              warmup=1),
          "bound_ms": bwd_bound, "bound_by": bwd_by,
-         "library_ms": cuda_time_ms(lambda: aten._flash_attention_backward(
-             do, q, k, v, lib[0], lib[1], cu, cu, longest, longest, 0.0,
-             True, lib[2], lib[3], scale=scale), 20),
+         "library_ms": cuda_time_ms(library_bwd, 20),
          "library_call": "torch.ops.aten._flash_attention_backward "
                          "(cum_seq_q, cum_seq_k)",
          "library_max_abs_err": max(max_err(a, r)
-                                    for a, r in zip(lib_grads, dref)),
+                                    for a, r in zip(library_bwd(), dref)),
+         # the wrapper's device time: delta = rowsum(do * o), then the two
+         # passes; the library's its own preprocessing and passes
+         "device_ms": device_time_ms(kernel_bwd),
+         "library_device_ms": device_time_ms(library_bwd),
          "visible_pairs_per_head": pairs, "shape": shape}]
     return rows
 

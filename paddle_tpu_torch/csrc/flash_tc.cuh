@@ -1,9 +1,12 @@
 // Tensor-core tile routines shared by the bf16 routes of the flash-attention
-// kernels (flash_fwd.cu, flash_bwd.cu): tiles in shared memory in the
-// 128-byte-swizzled layout that Hopper's wgmma descriptors read, 16-byte
-// cp.async loads into them, the descriptors, the wgmma instructions
-// (m64nNk16, bf16 operands, fp32 accumulators) and their fences, and the
-// conversion of an fp32 accumulator into a bf16 A operand in registers.
+// kernels (flash_fwd.cu, flash_bwd.cu, flash_varlen_fwd.cu,
+// flash_varlen_bwd.cu): tiles in shared memory in the 128-byte-swizzled
+// layout that Hopper's wgmma descriptors read, 16-byte cp.async loads into
+// them (and bounded variants for the ragged end of a packed stream, which
+// zero-fill rows past the end and store none of them), the descriptors,
+// the wgmma instructions (m64nNk16, bf16 operands, fp32 accumulators) and
+// their fences, and the conversion of an fp32 accumulator into a bf16 A
+// operand in registers.
 //
 // One warpgroup (4 warps, 128 threads) issues each wgmma for a 64-row
 // tile; warp w holds rows [16w, 16w + 16). Accumulator layout, lane =
@@ -56,6 +59,22 @@ __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
+// 16 bytes when src_bytes is 16; 16 zero bytes (nothing read) when it is 0
+__device__ __forceinline__ void cp_async_16_zfill(void* dst, const void* src,
+                                                  int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(src_bytes));
+}
+
+// one 4-byte word when src_bytes is 4; a zero word (nothing read) when 0
+__device__ __forceinline__ void cp_async_4_zfill(void* dst, const void* src,
+                                                 int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(src_bytes));
+}
+
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
@@ -74,6 +93,44 @@ __device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
     const int r = e / (D / 8);
     const int c = (e % (D / 8)) * 8;
     cp_async_16(dst + tile_off<ROWS>(r, c), src + (size_t)r * row_stride + c);
+  }
+}
+
+// load_tile for the ragged end of a stream: rows at or past n_rows (n_rows
+// >= 1, so row 0 is a valid address) are zero-filled and never read (a
+// separate routine: load_tile written as this of all ROWS rows changed
+// K2's and K3's register allocation)
+template <int ROWS, int D, int kThreads>
+__device__ __forceinline__ void load_tile_rows(bf16* dst, const bf16* src,
+                                               size_t row_stride,
+                                               int n_rows) {
+  constexpr int kChunks = ROWS * D / 8;
+  static_assert(kChunks % kThreads == 0, "tile chunks must split evenly");
+#pragma unroll
+  for (int i = 0; i < kChunks / kThreads; ++i) {
+    const int e = i * kThreads + threadIdx.x;
+    const int r = e / (D / 8);
+    const int c = (e % (D / 8)) * 8;
+    const bool in = r < n_rows;
+    cp_async_16_zfill(dst + tile_off<ROWS>(r, c),
+                      in ? src + (size_t)r * row_stride + c : src,
+                      in ? 16 : 0);
+  }
+}
+
+// N 4-byte words (fp32 row statistics, int32 segment ids) into shared
+// memory, one cp.async each, by the first N threads; words at or past n
+// (n >= 1) are zero. No alignment beyond 4 bytes is needed, so a row
+// statistic of any row of an [h, T] array loads as it lies.
+template <int N>
+__device__ __forceinline__ void load_words(void* dst, const void* src,
+                                           int n) {
+  if (threadIdx.x < N) {
+    const bool in = (int)threadIdx.x < n;
+    cp_async_4_zfill(static_cast<uint32_t*>(dst) + threadIdx.x,
+                     static_cast<const uint32_t*>(src) +
+                         (in ? threadIdx.x : 0),
+                     in ? 4 : 0);
   }
 }
 
@@ -200,6 +257,38 @@ __device__ __forceinline__ void store_rows(bf16* stage,
     const int c = col0 + (e % kRowChunks) * 8;
     *reinterpret_cast<uint4*>(dst + (size_t)r * row_stride + c) =
         *reinterpret_cast<const uint4*>(stage + tile_off<64>(r, c));
+  }
+}
+
+// store_rows for the ragged end of a stream: rows at or past n_rows are
+// not stored (a separate routine, as load_tile_rows is)
+template <int D, int W>
+__device__ __forceinline__ void store_rows_upto(bf16* stage,
+                                                const float (&acc)[W / 2],
+                                                float scale0, float scale1,
+                                                bf16* dst, size_t row_stride,
+                                                int col0, int n_rows) {
+  const int lane = threadIdx.x & 31;
+  const int r0 = (threadIdx.x >> 5) * 16;
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int j = 0; j < W / 8; ++j) {
+    const int c = col0 + 8 * j + 2 * t;
+    *reinterpret_cast<uint32_t*>(stage + tile_off<64>(r0 + g, c)) =
+        pack_bf16(acc[4 * j] * scale0, acc[4 * j + 1] * scale0);
+    *reinterpret_cast<uint32_t*>(stage + tile_off<64>(r0 + g + 8, c)) =
+        pack_bf16(acc[4 * j + 2] * scale1, acc[4 * j + 3] * scale1);
+  }
+  __syncwarp();
+  constexpr int kRowChunks = W / 8;
+#pragma unroll
+  for (int i = 0; i < 16 * kRowChunks / 32; ++i) {
+    const int e = i * 32 + lane;
+    const int r = r0 + e / kRowChunks;
+    const int c = col0 + (e % kRowChunks) * 8;
+    if (r < n_rows)
+      *reinterpret_cast<uint4*>(dst + (size_t)r * row_stride + c) =
+          *reinterpret_cast<const uint4*>(stage + tile_off<64>(r, c));
   }
 }
 

@@ -97,11 +97,11 @@ FLASH_BWD = Kernel(
     "paddle_tpu/ops/pallas_kernels.py:398")
 FLASH_VARLEN_FWD = Kernel(
     "flash_varlen_fwd", "flash_varlen_fwd",
-    [_P] * 9 + [_I, _I, _I, _I, _F, _I, _I, _P],
+    [_P] * 10 + [_I, _I, _I, _I, _F, _I, _I, _P],
     "paddle_tpu/ops/pallas_kernels.py:714")
 FLASH_VARLEN_BWD = Kernel(
     "flash_varlen_bwd", "flash_varlen_bwd",
-    [_P] * 15 + [_I, _I, _I, _I, _I, _F, _I, _I, _P],
+    [_P] * 17 + [_I, _I, _I, _I, _I, _F, _I, _I, _P],
     "paddle_tpu/ops/pallas_kernels.py:769")
 KERNELS = (PAGED_ATTENTION, FLASH_FWD, FLASH_BWD, FLASH_VARLEN_FWD,
            FLASH_VARLEN_BWD)
@@ -537,13 +537,14 @@ def flash_attention_values(q, k, v, causal=False, sm_scale=None):
 # package's 128-token padding is a tile device and is not ported.
 
 _NEG_INF = -1e30   # the reference's finite mask value (pallas_kernels.py:34)
-_VL_BLOCK = 64     # K4's q and kv tile; K5's at d <= 128
+_VL_BLOCK = 64     # K4's q and kv tile; K5's but for fp32 at d = 256
 
 
-def _vl_bwd_block(d):
-    """K5's tile rows: 64, or 32 at d = 256 so each pass's fp32 tiles fit
-    a block's shared memory."""
-    return 32 if d == 256 else _VL_BLOCK
+def _vl_bwd_block(d, dtype):
+    """K5's tile rows: 64, or 32 for the fp32 route at d = 256 so each
+    pass's fp32 tiles fit a block's shared memory (the bf16 route's tiles
+    fit 64 rows at every d)."""
+    return 32 if d == 256 and dtype == torch.float32 else _VL_BLOCK
 
 
 _CU_EQ_CACHE = []  # [(weakref(cu_q), weakref(cu_k), equal)], by identity
@@ -758,8 +759,10 @@ def flash_attention_varlen_fwd(q, k, v, cu_q, cu_k, causal=False,
                                sm_scale=None, plan=None):
     """K4: (o [Tq, h, d], lse [h, Tq] fp32). On CUDA tensors this
     launches ``csrc/flash_varlen_fwd.cu`` over ``plan`` (made here at 64
-    tokens per tile when not given); q, k and v are made contiguous. On
-    CPU tensors it runs the plain version."""
+    tokens per tile when not given): bf16 on its tensor-core route, fp32
+    on its scalar route; q, k and v are made contiguous, and bf16 ones
+    must start on a 16-byte boundary. On CPU tensors it runs the plain
+    version."""
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
     if _on_cpu(q, k, v, cu_q, cu_k):
@@ -774,23 +777,32 @@ def flash_attention_varlen_fwd(q, k, v, cu_q, cu_k, causal=False,
         raise ValueError(f"K4 takes {_VL_BLOCK}-token tiles, the plan has "
                          f"{plan.block}")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    if dtype == _DTYPE_CODE[torch.bfloat16]:
+        _need_aligned(q=q, k=k, v=v)
     o = torch.empty_like(q)
     lse = torch.empty((h, tq), dtype=torch.float32, device=q.device)
+    # scratch: the order in which the bf16 route starts the q tiles
+    order = torch.empty(plan.kv_lo.numel(), dtype=torch.int32,
+                        device=q.device)
     FLASH_VARLEN_FWD.launch(
         q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
         plan.seg_q.data_ptr(), plan.seg_k.data_ptr(), plan.kv_lo.data_ptr(),
-        plan.kv_hi.data_ptr(), o.data_ptr(), lse.data_ptr(), tq, tk, h, d,
-        float(sm_scale), int(bool(causal)), dtype)
+        plan.kv_hi.data_ptr(), order.data_ptr(), o.data_ptr(),
+        lse.data_ptr(), tq, tk, h, d, float(sm_scale), int(bool(causal)),
+        dtype)
     return o, lse
 
 
 def flash_attention_varlen_bwd(q, k, v, o, lse, do, cu_q, cu_k,
                                causal=False, sm_scale=None, plan=None):
     """K5: (dq, dk, dv) of K4's o given its cotangent do. On CUDA tensors
-    this launches ``csrc/flash_varlen_bwd.cu`` (a dk/dv pass over the
-    plan's per-kv-tile q ranges, then a dq pass over its per-q-tile kv
-    ranges); a plan at another tile size than K5's is made anew. On CPU
-    tensors it runs the plain version."""
+    this launches ``csrc/flash_varlen_bwd.cu``: bf16 on its tensor-core
+    route (a dq pass over the plan's per-q-tile kv ranges, which also
+    computes delta = rowsum(do * o), then a dk/dv pass over its
+    per-kv-tile q ranges), fp32 on its scalar route (delta computed here,
+    then the dk/dv and the dq pass); a plan at another tile size than the
+    route's (``_vl_bwd_block``) is made anew, and bf16 operands must start
+    on a 16-byte boundary. On CPU tensors it runs the plain version."""
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
     if _on_cpu(q, k, v, o, lse, do, cu_q, cu_k):
@@ -806,21 +818,30 @@ def flash_attention_varlen_bwd(q, k, v, o, lse, do, cu_q, cu_k,
     if lse.dtype != torch.float32 or tuple(lse.shape) != (h, tq):
         raise ValueError(f"lse must be fp32 [{h}, {tq}], got {lse.dtype} "
                          f"{tuple(lse.shape)}")
-    block = _vl_bwd_block(d)
+    block = _vl_bwd_block(d, q.dtype)
     if plan is None or plan.block != block:
         plan = varlen_plan(cu_q, cu_k, tq, tk, causal, block)
-    q, k, v, do = (t.contiguous() for t in (q, k, v, do))
+    q, k, v, o, do = (t.contiguous() for t in (q, k, v, o, do))
     lse = lse.contiguous()
-    delta = _varlen_delta(o, do)
+    if dtype == _DTYPE_CODE[torch.bfloat16]:
+        _need_aligned(q=q, k=k, v=v, o=o, do=do)
+        # the bf16 route's dq pass computes delta from do and o
+        delta = torch.empty((h, tq), dtype=torch.float32, device=q.device)
+    else:
+        delta = _varlen_delta(o, do)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), \
         torch.empty_like(v)
+    # scratch: the orders in which the bf16 route starts the kv tiles of
+    # the dk/dv pass and the q tiles of the dq pass
+    order = torch.empty(plan.q_lo.numel() + plan.kv_lo.numel(),
+                        dtype=torch.int32, device=q.device)
     FLASH_VARLEN_BWD.launch(
         q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), plan.seg_q.data_ptr(),
+        o.data_ptr(), lse.data_ptr(), delta.data_ptr(), plan.seg_q.data_ptr(),
         plan.seg_k.data_ptr(), plan.kv_lo.data_ptr(), plan.kv_hi.data_ptr(),
-        plan.q_lo.data_ptr(), plan.q_hi.data_ptr(), dq.data_ptr(),
-        dk.data_ptr(), dv.data_ptr(), tq, tk, h, d, block, float(sm_scale),
-        int(bool(causal)), dtype)
+        plan.q_lo.data_ptr(), plan.q_hi.data_ptr(), order.data_ptr(),
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), tq, tk, h, d, block,
+        float(sm_scale), int(bool(causal)), dtype)
     return dq, dk, dv
 
 
@@ -829,7 +850,9 @@ class FlashAttentionVarlen(torch.autograd.Function):
     custom-vjp ``_flash_varlen_core``: returns o. Forward: K4 on CUDA
     tensors, the plain version on CPU ones; it saves q, k, v, o, lse, cu
     and (on the card) the plan of segment ids and tile ranges. Backward:
-    K5 likewise. The integer cu_seqlens get no gradient."""
+    K5 likewise, over the forward's plan (made anew only for the fp32
+    route at d = 256, whose tiles are 32 rows). The integer cu_seqlens
+    get no gradient."""
 
     @staticmethod
     def forward(ctx, q, k, v, cu_q, cu_k, causal, sm_scale):

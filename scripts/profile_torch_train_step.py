@@ -3,23 +3,28 @@
 
 Run from the root of a checkout, on a machine with one NVIDIA card:
 
-    python3 scripts/profile_torch_train_step.py
+    python3 scripts/profile_torch_train_step.py [--workload packed_attention]
 
-It takes the training workload from ``chip_smoke.gpt124m_training`` (the
-one ``chip_smoke.py``'s ``training_bf16`` phase times: GPT-124M, batch
-16 x 1024 tokens, bf16 O2, AdamW at lr 1e-4, random weights from seed 0),
+By default it takes the training workload from
+``chip_smoke.gpt124m_training`` (the one ``chip_smoke.py``'s
+``training_bf16`` phase times: GPT-124M, batch 16 x 1024 tokens, bf16 O2,
+AdamW at lr 1e-4, random weights from seed 0); ``--workload
+packed_attention`` takes ``chip_smoke.packed_attention`` instead (one
+``flash_attn_unpadded`` forward and backward over 16,384 packed tokens,
+12 heads of 64, causal, bf16, as ``packed_attention_bf16`` times it). It
 warms up as that phase does, then traces three steps with
 ``torch.profiler`` (CPU and CUDA activities). It prints one JSON line:
 the traced window's wall time, the device time summed over every kernel
 and its share of the window (the rest is the device's idle share), the
-device time by group (the hand-written flash forward, the two passes of
-the flash backward, cuBLAS GEMMs, everything else) and the fifteen kernels
-that took longest. The card's name and power limit come first, as
-``nvidia-smi`` reports them. Without a card it exits 2; if the trace
-holds no device time it exits 1.
+device time by group (the hand-written flash and varlen kernels, pass by
+pass, cuBLAS GEMMs, everything else) and the fifteen kernels that took
+longest. The card's name and power limit come first, as ``nvidia-smi``
+reports them. Without a card it exits 2; if the trace holds no device
+time it exits 1.
 """
 from __future__ import annotations
 
+import argparse
 import json
 import os
 import subprocess
@@ -29,13 +34,18 @@ import time
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
-from chip_smoke import TRAIN_WARMUP, gpt124m_training  # noqa: E402
+from chip_smoke import (PACKED_WARMUP, TRAIN_WARMUP,  # noqa: E402
+                        gpt124m_training, packed_attention)
 
 STEPS = 3
 
 GROUPS = (("flash_fwd (K2)", ("flash_fwd_kernel",)),
           ("flash_bwd dk/dv pass (K3)", ("flash_bwd_dkdv_kernel",)),
           ("flash_bwd dq pass (K3)", ("flash_bwd_dq_kernel",)),
+          ("flash_varlen_fwd (K4)", ("flash_varlen_fwd_kernel",)),
+          ("flash_varlen_bwd dk/dv pass (K5)",
+           ("flash_varlen_bwd_dkdv_kernel",)),
+          ("flash_varlen_bwd dq pass (K5)", ("flash_varlen_bwd_dq_kernel",)),
           ("cuBLAS GEMM", ("gemm", "nvjet", "xmma", "cutlass", "sm90_")))
 
 
@@ -44,10 +54,40 @@ def group_of(name):
     for group, keys in GROUPS:
         if any(k in low for k in keys):
             return group
-    return "other (elementwise, norms, softmax/loss, optimizer)"
+    return ("other (elementwise, norms, softmax/loss, optimizer, the "
+            "varlen plan)")
+
+
+def training_step(torch):
+    """(step, warm-up count) of ``chip_smoke``'s training workload."""
+    _, step, batch = gpt124m_training(torch)
+    ids, labels = batch()
+    return (lambda: step(ids, labels)), TRAIN_WARMUP
+
+
+def packed_attention_step(torch):
+    """(step, warm-up count) of ``chip_smoke``'s packed-attention
+    workload: one forward and backward, as its bf16 phase runs them."""
+    from paddle_tpu_torch.nn.functional import flash_attn_unpadded
+    lens, q, k, v, do, cu = packed_attention(torch, torch.bfloat16)
+
+    def step():
+        out = flash_attn_unpadded(q, k, v, cu, cu, max(lens), max(lens),
+                                  causal=True)[0]
+        return torch.autograd.grad(out, (q, k, v), do)
+
+    return step, PACKED_WARMUP
+
+
+WORKLOADS = {"training": training_step,
+             "packed_attention": packed_attention_step}
 
 
 def main():
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--workload", choices=sorted(WORKLOADS),
+                        default="training")
+    args = parser.parse_args()
     import torch
     if not torch.cuda.is_available():
         print("profile_torch_train_step: no CUDA card", file=sys.stderr)
@@ -58,10 +98,9 @@ def main():
         check=True, timeout=60).stdout.strip().splitlines()[0]
     print(smi, flush=True)
 
-    _, step, batch = gpt124m_training(torch)
-    ids, labels = batch()
-    for _ in range(TRAIN_WARMUP):
-        step(ids, labels)
+    step, warmup = WORKLOADS[args.workload](torch)
+    for _ in range(warmup):
+        step()
     torch.cuda.synchronize()
 
     acts = [torch.profiler.ProfilerActivity.CPU,
@@ -69,7 +108,7 @@ def main():
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
         for _ in range(STEPS):
-            step(ids, labels)
+            step()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
 
@@ -92,7 +131,8 @@ def main():
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:15]
     print(json.dumps({
         "nvidia_smi": smi, "device": torch.cuda.get_device_name(0),
-        "steps": STEPS, "window_wall_ms": wall_us / 1e3,
+        "workload": args.workload, "steps": STEPS,
+        "window_wall_ms": wall_us / 1e3,
         "device_busy_ms": device_us / 1e3,
         "device_busy_share": device_us / wall_us,
         "per_step_device_ms": {g: us / 1e3 / STEPS

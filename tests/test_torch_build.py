@@ -24,13 +24,20 @@ def test_flash_sources_include_the_shared_tile_header():
     assert _build._sources("paged_attention") == ["paged_attention.cu"]
 
 
+def test_varlen_sources_include_the_tile_and_order_headers():
+    for name in ("flash_varlen_fwd", "flash_varlen_bwd"):
+        assert _build._sources(name) == [f"{name}.cu", "flash_tc.cuh",
+                                         "varlen_order.cuh"]
+
+
 def test_every_header_is_included_by_a_kernel():
     included = {h for k in ck.KERNELS for h in _build._sources(k.name)}
     headers = {p.name for p in _build.CSRC.glob("*.cuh")}
     assert headers and headers <= included
 
 
-@pytest.mark.parametrize("name", ["flash_fwd", "flash_bwd"])
+@pytest.mark.parametrize("name", ["flash_fwd", "flash_bwd",
+                                  "flash_varlen_fwd", "flash_varlen_bwd"])
 def test_editing_an_included_header_renames_the_library(csrc_copy, name):
     before = _build.library_path(name)
     header = csrc_copy / "flash_tc.cuh"
@@ -47,3 +54,29 @@ def test_a_header_a_kernel_does_not_include_leaves_its_name(csrc_copy):
 
 def test_libraries_target_hopper():
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
+
+
+def test_chip_smoke_reads_registers_and_spills_per_instantiation():
+    # what nvcc -Xptxas=-v prints per entry function; chip_smoke.py fails
+    # when a tensor-core (_tc) instantiation spills
+    import chip_smoke
+    log = "\n".join([
+        "ptxas info    : Function properties for _ZN12_GLOBAL__N_131"
+        "flash_varlen_bwd_dkdv_kernel_tcILi64EEEvPK13__nv_bfloat16S3_",
+        "    0 bytes stack frame, 54 bytes spill stores, 54 bytes spill loads",
+        "ptxas info    : Used 168 registers, used 1 barriers",
+        "ptxas info    : Function properties for _ZN12_GLOBAL__N_123"
+        "flash_varlen_fwd_kernelIfLi256EEEvPKT_S3_",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 127 registers, used 1 barriers",
+        "ptxas info    : Function properties for _ZN12_GLOBAL__N_122"
+        "paged_attention_kernelI13__nv_bfloat16EEvPKT_",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 40 registers, used 1 barriers"])
+    assert chip_smoke.ptxas_instantiations(log) == {
+        "flash_varlen_bwd_dkdv_kernel_tc<64>": {"spill_stores": 54,
+                                                "registers": 168},
+        "flash_varlen_fwd_kernel<float, 256>": {"spill_stores": 0,
+                                                "registers": 127},
+        "paged_attention_kernel<bf16>": {"spill_stores": 0,
+                                         "registers": 40}}

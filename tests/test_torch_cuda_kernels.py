@@ -18,10 +18,12 @@ rounds each output once: each is held at one ulp of its outputs'
 largest magnitude (``chip_smoke.py`` also holds these bounds to twice
 the error of ``scaled_dot_product_attention`` against the same plain
 version). K4 fp32 at 2e-5 and bf16 at 2**-6 (two ulps of an output below
-2: kernel and plain version both round one fp32 result); K5 as K3 (fp32
-at 5e-5: no shared kv heads). K3, K4 and K5 runs repeat with the same
-bits. TF32 is off for every fp32 comparison (the ``cuda_device`` fixture
-sets it).
+2: the bf16 route, on tensor cores like K2's, rounds p to bf16 before
+P v and o once); K5 as K3 (fp32 at 5e-5: no shared kv heads; bf16 one ulp
+at the outputs' largest magnitude). K3, K4 and K5 runs repeat with the
+same bits, K4 and K5 also at the packed-attention workload's shape.
+Misaligned bf16 operands are refused. TF32 is off for every fp32
+comparison (the ``cuda_device`` fixture sets it).
 """
 import numpy as np
 import pytest
@@ -257,7 +259,12 @@ def test_engine_runs_every_layer_through_the_paged_kernel(cuda_device):
 
 
 # K4/K5, packed varlen attention: (q lengths, k lengths or None for q's,
-# d, causal). Tolerances as K2's and K3's.
+# d, causal). Tolerances as K2's and K3's. The last five sit at the edges
+# of the tensor-core route's tiles: T = 163 (not a multiple of 4 or 64:
+# the stream's last tile is ragged and lse's rows are not 16-byte
+# aligned), a 64-row tile holding four segments, segments of one token, a
+# causal segment starting mid-tile, and d = 256's 32-row steps on a
+# ragged stream.
 VARLEN_CASES = {
     "ragged_causal": ([700, 1800, 300, 1296], None, 64, True),
     "ragged_noncausal": ([700, 1800, 300, 1296], None, 64, False),
@@ -267,6 +274,11 @@ VARLEN_CASES = {
     "d256_causal": ([130, 70, 300], None, 256, True),
     "cross_noncausal": ([1, 977, 2400, 850], [1024] * 4, 64, False),
     "empty_k_segment": ([40, 90, 33], [50, 0, 77], 64, False),
+    "t163_causal": ([37, 70, 56], None, 64, True),
+    "four_segments_one_tile": ([10, 20, 15, 30, 90, 3], None, 64, True),
+    "unit_segments": ([1, 1, 1, 61, 1, 1, 70, 1], None, 64, True),
+    "mid_tile_causal_d128": ([37, 100, 50], None, 128, True),
+    "t163_d256_causal": ([37, 100, 26], None, 256, True),
 }
 
 
@@ -346,6 +358,57 @@ def test_flash_attn_unpadded_runs_both_varlen_kernels(cuda_device):
     torch.testing.assert_close(out.detach(), o, atol=2e-5, rtol=0)
     for g, w in zip(grads, want):
         torch.testing.assert_close(g, w, atol=5e-5, rtol=0)
+
+
+def test_varlen_kernels_rerun_bit_identical_at_the_packed_shape(
+        cuda_device):
+    # the packed-attention workload of chip_smoke.py: 16,384 tokens of
+    # documents of 32 to 2048 tokens, 12 heads of 64, causal, bf16
+    rng = np.random.default_rng(0)
+    lens = []
+    while sum(lens) < 16384:
+        lens.append(int(rng.integers(32, 2049)))
+    lens[-1] -= sum(lens) - 16384
+    q, k, v, cu, _ = varlen_inputs(lens, h=12, d=64)
+    q, k, v = (torch.from_numpy(x).to(cuda_device, torch.bfloat16)
+               for x in (q, k, v))
+    cu = torch.from_numpy(cu).to(cuda_device)
+    do = torch.randn(q.shape, generator=torch.Generator().manual_seed(1)) \
+        .to(cuda_device, torch.bfloat16)
+    o, lse = ck.flash_attention_varlen_fwd(q, k, v, cu, cu, True)
+    grads = ck.flash_attention_varlen_bwd(q, k, v, o, lse, do, cu, cu, True)
+    for _ in range(2):
+        o2, lse2 = ck.flash_attention_varlen_fwd(q, k, v, cu, cu, True)
+        again = ck.flash_attention_varlen_bwd(q, k, v, o2, lse2, do, cu, cu,
+                                              True)
+        assert torch.equal(o, o2) and torch.equal(lse, lse2)
+        assert all(torch.equal(a, b) for a, b in zip(grads, again))
+    assert all(torch.isfinite(t).all() for t in (o, *grads))
+
+
+def _misaligned(t):
+    """t's values in a contiguous tensor that starts 2 bytes past a
+    16-byte boundary."""
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = flat[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def test_varlen_wrappers_refuse_misaligned_bf16(cuda_device):
+    q, k, v, cu, _, do, causal = _varlen_args("ragged_causal", "bfloat16",
+                                              cuda_device)
+    with pytest.raises(ValueError, match="16-byte"):
+        ck.flash_attention_varlen_fwd(_misaligned(q), k, v, cu, cu, causal)
+    with pytest.raises(ValueError, match="16-byte"):
+        ck.flash_attention_varlen_fwd(q, k, _misaligned(v), cu, cu, causal)
+    o, lse = ck.flash_attention_varlen_fwd(q, k, v, cu, cu, causal)
+    with pytest.raises(ValueError, match="16-byte"):
+        ck.flash_attention_varlen_bwd(q, k, v, o, lse, _misaligned(do), cu,
+                                      cu, causal)
+    with pytest.raises(ValueError, match="16-byte"):
+        ck.flash_attention_varlen_bwd(q, _misaligned(k), v, o, lse, do, cu,
+                                      cu, causal)
 
 
 def test_varlen_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):

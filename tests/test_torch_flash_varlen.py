@@ -143,6 +143,49 @@ def test_plain_backward_matches_jax_kernel_grad(name, causal, d, interpret):
                                    err_msg=f"d{nm}")
 
 
+def _bf16_ulp(x):
+    """The spacing of bf16 values at magnitude x (8 significant bits)."""
+    return 2.0 ** (np.floor(np.log2(x)) - 7)
+
+
+@pytest.mark.parametrize("name,causal", [("pads", True), ("pads", False),
+                                         ("one_token", True)])
+def test_plain_backward_bf16_matches_jax_kernel_grad(name, causal,
+                                                     interpret):
+    """The plain K5 in bf16 (what the card's bf16 kernel is held against)
+    against ``jax.vjp`` of the JAX varlen kernels in bf16, on the same
+    bf16 inputs and cotangent. The plain version takes the JAX forward's
+    own bf16 o (for delta) and the plain forward's fp32 lse (the JAX lse
+    stays inside its custom vjp). Within two ulps at the outputs' largest
+    magnitude: both round dq, dk and dv once (half an ulp each), and the
+    JAX kernel also rounds the scaled q, p and ds to bf16 (each off by at
+    most 2**-9 of itself) where the plain version keeps fp32."""
+    q, k, v, cu, _ = varlen_inputs(LENGTHS[name])
+    q, k, v = (x.astype(jnp.bfloat16).astype(np.float32) for x in (q, k, v))
+    do = _do(q.shape).astype(jnp.bfloat16).astype(np.float32)
+    jcu = jnp.asarray(cu)
+    jo, vjp = jax.vjp(
+        lambda q_, k_, v_: pk.flash_attention_varlen_values(
+            q_, k_, v_, jcu, jcu, 0.125, causal=causal),
+        *(jnp.asarray(x, jnp.bfloat16) for x in (q, k, v)))
+    want = [np.asarray(w.astype(jnp.float32))
+            for w in vjp(jnp.asarray(do, jnp.bfloat16))]
+    tq, tk, tv, tdo = (torch.from_numpy(x).to(torch.bfloat16)
+                       for x in (q, k, v, do))
+    tcu = torch.from_numpy(cu)
+    _, lse = ck.flash_attention_varlen_reference(tq, tk, tv, tcu, tcu,
+                                                 causal, 0.125)
+    to = torch.from_numpy(np.array(jo.astype(jnp.float32))).to(
+        torch.bfloat16)
+    got = ck.flash_attention_varlen_bwd_reference(tq, tk, tv, to, lse, tdo,
+                                                  tcu, tcu, causal, 0.125)
+    tol = 2 * _bf16_ulp(max(np.abs(w).max() for w in want))
+    for nm, g, w in zip("qkv", got, want):
+        assert g.dtype == torch.bfloat16 and g.shape == w.shape
+        np.testing.assert_allclose(g.float().numpy(), w, atol=tol, rtol=0,
+                                   err_msg=f"d{nm}")
+
+
 @pytest.mark.parametrize("name,causal,d", CASES)
 def test_plain_backward_matches_autograd_of_dense(name, causal, d):
     q, k, v, cu, _ = varlen_inputs(LENGTHS[name], d=d)
@@ -373,17 +416,33 @@ def test_varlen_entry_point_and_flash_attention_wrapper():
     np.testing.assert_allclose(got.numpy(), want.numpy(), **JAX_FWD)
 
 
-@pytest.mark.parametrize("d", [64, 128, 256])
-def test_varlen_shared_memory_fits_a_block(d):
-    # the kernels' notes state each pass's bytes: K4 fp32 q/k tiles
-    # [64, d + 1], v [64, d], probs [64, 65] and 128 int32 segment ids; K5
-    # as K3 (64-row tiles, 32 at d = 256) plus 2 r int32 segment ids
-    fwd = 4 * (2 * 64 * (d + 1) + 64 * d + 64 * 65) + 4 * 128
-    r = 32 if d == 256 else 64
-    dkdv = 4 * (4 * r * (d + 1) + 2 * r * (r + 1) + 2 * r) + 4 * 2 * r
-    dq = 4 * (4 * r * (d + 1) + r * (r + 1)) + 4 * 2 * r
+@pytest.mark.parametrize(
+    "route,d", [pytest.param("fp32", d, id=str(d)) for d in (64, 128, 256)]
+    + [pytest.param("bf16", d, id=f"bf16-{d}") for d in (64, 128, 256)])
+def test_varlen_shared_memory_fits_a_block(route, d):
+    # the kernels' notes state each pass's bytes per d and route. fp32: K4
+    # q/k tiles [64, d + 1], v [64, d], probs [64, 65] and 128 int32
+    # segment ids; K5 as K3 (64-row tiles, 32 at d = 256) plus 2 r int32
+    # segment ids. bf16: K4 the 64-row q tile and two stages of [n, d] k
+    # and v tiles and n seg_k ids (n = 32 at d = 256, else 64); K5 dk/dv
+    # the 64-row k and v tiles and two stages of [m, d] q and do tiles and
+    # of m lse, delta and seg_q words (m = 64 at d = 64, else 32); dq the
+    # 64-row q and do tiles and two stages of [n, d] k and v tiles and n
+    # seg_k ids. The bf16 route's plan tile is 64 at every d.
+    if route == "fp32":
+        fwd = 4 * (2 * 64 * (d + 1) + 64 * d + 64 * 65) + 4 * 128
+        r = 32 if d == 256 else 64
+        dkdv = 4 * (4 * r * (d + 1) + 2 * r * (r + 1) + 2 * r) + 4 * 2 * r
+        dq = 4 * (4 * r * (d + 1) + r * (r + 1)) + 4 * 2 * r
+        dtype = torch.float32
+    else:
+        m, n = (64 if d == 64 else 32), (32 if d == 256 else 64)
+        fwd = 2 * (64 * d + 4 * n * d) + 4 * 2 * n
+        dkdv = 2 * (2 * 64 * d + 4 * m * d) + 4 * 4 * m + 4 * 2 * m
+        dq = 2 * (2 * 64 * d + 4 * n * d) + 4 * 2 * n
+        r, dtype = 64, torch.bfloat16
     assert max(fwd, dkdv, dq) <= 232448
-    assert ck._vl_bwd_block(d) == r
+    assert ck._vl_bwd_block(d, dtype) == r
     csrc = Path(ck.__file__).parents[1] / "csrc"
     assert f"{fwd:,}" in (csrc / "flash_varlen_fwd.cu").read_text()
     bwd = (csrc / "flash_varlen_bwd.cu").read_text()
