@@ -7,20 +7,23 @@ Run from the root of a checkout:
 
 It builds the port's hand-written kernels from ``paddle_tpu_torch/csrc``
 with ``nvcc`` (one process per source, all at once; it fails if a
-tensor-core kernel spills registers) and holds each kernel against its
-plain PyTorch version (K1 paged attention, K2 flash forward, K3 flash
-backward, K4 and K5 packed varlen forward and backward, each in fp32 and
-bf16; K2 to K5 run their scalar fp32 route and their tensor-core bf16
-route, and each bf16 K2/K3 bound is held to twice the error of
-``scaled_dot_product_attention``, each bf16 K4/K5 bound to twice that of
-PyTorch's varlen flash op, against the same plain version, printed
-beside it). Then it drives the port's three main paths, each with the
-launch counts set to 0 just before it and read just after:
+tensor-core kernel or K1's split-context pair spills registers) and holds
+each kernel against its plain PyTorch version (K1 paged attention, K2
+flash forward, K3 flash backward, K4 and K5 packed varlen forward and
+backward, each in fp32 and bf16; K1 runs its scalar fp32 route and its
+split-context bf16 route, at serving's contexts and at the edges of a
+split, twice for bit-identity; K2 to K5 run their scalar fp32 route and
+their tensor-core bf16 route, and each bf16 K2/K3 bound is held to twice
+the error of ``scaled_dot_product_attention``, each bf16 K4/K5 bound to
+twice that of PyTorch's varlen flash op, against the same plain version,
+printed beside it). Then it drives the port's three main paths, each
+with the launch counts set to 0 just before it and read just after:
 
 - serving: GPT-124M at full width (random weights from a seed) through
-  ``ServingEngine`` with and without speculative decoding, and the fp32
-  engine's greedy tokens against the port's own ``generate`` plus a
-  full-width forward against the dense path;
+  ``ServingEngine`` with and without speculative decoding (TTFT, TPOT and
+  K1's device time per decode step, from one more run under the
+  profiler), and the fp32 engine's greedy tokens against the port's own
+  ``generate`` plus a full-width forward against the dense path;
 - training: GPT-124M pretraining steps as ``bench.py`` runs them (batch
   16 x 1024 tokens, bf16 O2, AdamW at lr 1e-4) through
   ``CompiledTrainStep``, per call and through ``run_steps``; then a
@@ -32,9 +35,9 @@ launch counts set to 0 just before it and read just after:
   per-segment plain versions.
 
 Last, it times each kernel beside its bound, its plain version and,
-where one exists, a PyTorch call that computes the same function (K2 to
-K5 also by their device time alone, which leaves out the host's launch
-gaps). Each
+where one exists, a PyTorch call that computes the same function (also
+by their device time alone, which leaves out the host's launch gaps);
+K1 also at a bytes-heavy shape (64 slots of 1024 tokens). Each
 phase prints one JSON line; any failure raises and the script exits
 non-zero. It needs a CUDA card: without one it exits 2 and prints no
 result.
@@ -125,25 +128,37 @@ def phase_environment(torch, ck):
           "ptxas": ptxas})
     spilled = [f"{name}: {fn}" for name, fns in ptxas.items()
                for fn, info in fns.items()
-               if fn.split("<")[0].endswith("_tc") and info["spill_stores"]]
+               if spill_checked(fn) and info["spill_stores"]]
     if spilled:
-        raise AssertionError(f"tensor-core kernels spill: {spilled}")
+        raise AssertionError(f"kernels spill: {spilled}")
     return smi
 
 
-_KERNEL_NAME = re.compile(r"([a-z_]+kernel(?:_tc)?)I(\w+?)E+v")
+_KERNEL_NAME = re.compile(r"([a-z_]+kernel(?:_tc)?)(?:I(\w+?)E+v|E)")
 _TEMPLATE_ARG = re.compile(r"13__nv_bfloat16|f|Li(\d+)")
 
 
 def kernel_name(mangled):
-    """``flash_bwd_dq_kernel_tc<64>`` from a mangled entry function's name
-    (None for a name that is not one of the port's kernels)."""
+    """``flash_bwd_dq_kernel_tc<64>`` from a mangled entry function's name,
+    the bare name for a kernel that is not a template (None for a name
+    that is not one of the port's kernels)."""
     m = _KERNEL_NAME.search(mangled)
     if not m:
         return None
+    if m[2] is None:
+        return m[1]
     args = [a[1] or {"f": "float"}.get(a[0], "bf16")
             for a in _TEMPLATE_ARG.finditer(m[2])]
     return f"{m[1]}<{', '.join(args)}>"
+
+
+def spill_checked(fn):
+    """Kernels that fail the run when they spill: the tensor-core ones
+    (``*_tc``) and K1's split-context pair (``paged_split_kernel``,
+    ``paged_combine_kernel``)."""
+    base = fn.split("<")[0]
+    return base.endswith("_tc") or base in ("paged_split_kernel",
+                                            "paged_combine_kernel")
 
 
 def ptxas_instantiations(log):
@@ -165,12 +180,17 @@ def ptxas_instantiations(log):
 
 
 # -- phase 2 ------------------------------------------------------------------
-def paged_case(torch, ctxs, kq, dtype, h=12, d=64, page=16, seed=0):
+def paged_case(torch, ctxs, kq, dtype, h=12, d=64, page=16, seed=0,
+               spare=0):
     """Pools with each slot's pages scattered through them, tables padded
-    with the null page. Row j of slot b sees ctxs[b] + j tokens."""
+    with the null page; each active slot's table also holds ``spare``
+    pages of random rows past its context. q is the column slice of a
+    packed [B, KQ, 3*h*d] qkv, as the serving engine hands it to K1. Row
+    j of slot b sees ctxs[b] + j tokens."""
     g = torch.Generator(device="cpu").manual_seed(seed)
     b = len(ctxs)
-    need = [(c + kq - 1 + page - 1) // page if c else 0 for c in ctxs]
+    need = [(c + kq - 1 + page - 1) // page + spare if c else 0
+            for c in ctxs]
     maxp = max(max(need), 1)
     npages = 1 + sum(need)
     perm = (torch.randperm(npages - 1, generator=g) + 1).tolist()
@@ -179,7 +199,8 @@ def paged_case(torch, ctxs, kq, dtype, h=12, d=64, page=16, seed=0):
         tables.append(perm[nxt:nxt + n] + [0] * (maxp - n))
         nxt += n
     dev = "cuda"
-    q = torch.randn(b, kq, h, d, generator=g).to(dev, dtype)
+    qkv = torch.randn(b, kq, 3 * h * d, generator=g).to(dev, dtype)
+    q = qkv[..., :h * d].reshape(b, kq, h, d)
     kp = torch.randn(npages, page, h * d, generator=g).to(dev, dtype)
     vp = torch.randn(npages, page, h * d, generator=g).to(dev, dtype)
     bt = torch.tensor(tables, dtype=torch.int32, device=dev)
@@ -198,6 +219,20 @@ def flash_case(torch, b, sq, sk, h, kh, d, dtype, seed=0):
 # ragged contexts up to 1024 (the model length), one inactive slot
 PAGED_CTXS = {1: [0, 1, 17, 130, 511, 700, 1000, 1024],
               5: [0, 1, 17, 130, 511, 700, 1000, 1020]}
+# K1 at the edges of the bf16 route's 256-token splits: (label, contexts,
+# KQ, spare pages per table): a context one below, at and one above a
+# split's length; KQ = 5 rows whose last visible token crosses a split;
+# tables holding pages past their slots' contexts; all-inactive batches
+PAGED_EDGE_CASES = [
+    ("split_edges", [255, 256, 257, 511, 512, 513], 1, 0),
+    ("verify_crosses_split", [252, 253, 254, 256, 0, 508], 5, 0),
+    ("table_past_context", [100, 300, 0, 17, 256], 1, 20),
+    ("table_past_context_k5", [100, 300, 0, 17, 256], 5, 20),
+    ("all_inactive", [0, 0, 0], 1, 0),
+    ("all_inactive_k5", [0, 0], 5, 0),
+]
+# the bytes-heavy timing shape: every slot at the model length
+PAGED_BYTES_CTXS = [1024] * 64
 TRAIN_BATCH, TRAIN_WARMUP, TRAIN_TIMED, TRAIN_K = 16, 3, 10, 8
 # (label, b, sq, sk, h, kh, d, causal); the last is the training path's
 # attention, GPT-124M at batch 16
@@ -276,26 +311,49 @@ def hold_bf16_to_library(rows):
         r["pass"] = r["max_abs_err"] <= r["tol"] and r["pass"]
 
 
+def paged_kernel_case(torch, ck, label, ctxs, kq, dtype, spare=0):
+    """K1 against its plain version in fp32 on the same (exactly widened)
+    inputs, element by element: |got - ref| <= atol + rtol * |ref|. atol
+    is fp32's error over K terms (K the longest context), times the
+    largest |v| for bf16; rtol is 0 for fp32 and 2^-8 for bf16, the half
+    ulp of rounding the output once. The rows of every inactive slot are
+    exactly +0, and a rerun gives the same bits."""
+    q, kp, vp, bt, cl = paged_case(torch, ctxs, kq, dtype, spare=spare)
+    got = ck.paged_attention_verify_decode(q, kp, vp, bt, cl)
+    again = ck.paged_attention_verify_decode(q, kp, vp, bt, cl)
+    torch.cuda.synchronize()
+    ref = ck.paged_attention_verify_reference(q.float(), kp.float(),
+                                              vp.float(), bt, cl)
+    atol = (max(ctxs) + kq) * F32_EPS
+    rtol = 0.0
+    if dtype != torch.float32:
+        atol *= float(vp.float().abs().max())
+        rtol = 2.0 ** -8
+    diff = (got.float() - ref).abs()
+    over = float((diff / (atol + rtol * ref.abs())).max())
+    inactive = [i for i, c in enumerate(ctxs) if c == 0]
+    zero_rows_exact = all(bool((got[i] == 0).all()) and
+                          not bool(torch.signbit(got[i].float()).any())
+                          for i in inactive)
+    same = torch.equal(got, again)
+    return {"kernel": "paged_attention", "case": label, "kq": kq,
+            "ctxs": ctxs, "spare_pages": spare, "dtype": str(dtype)[6:],
+            "splits": ck.paged_splits(bt.shape[1], kp.shape[1])[1],
+            "max_abs_err": float(diff.max()), "atol": atol, "rtol": rtol,
+            "err_over_limit": over,
+            "inactive_rows_exact_zero": zero_rows_exact,
+            "deterministic": same,
+            "pass": over <= 1.0 and zero_rows_exact and same}
+
+
 def phase_kernels_vs_plain(torch, ck):
     results = []
+    cases = [(f"serving_kq{kq}", ctxs, kq, 0)
+             for kq, ctxs in PAGED_CTXS.items()] + PAGED_EDGE_CASES
     for dtype in (torch.bfloat16, torch.float32):
-        for kq, ctxs in PAGED_CTXS.items():
-            q, kp, vp, bt, cl = paged_case(torch, ctxs, kq, dtype)
-            got = ck.paged_attention_verify_decode(q, kp, vp, bt, cl)
-            torch.cuda.synchronize()
-            ref = ck.paged_attention_verify_reference(q, kp, vp, bt, cl)
-            # fp32: K*eps with K the longest context; bf16: the CPU
-            # tests' bound for bf16 pools
-            tol = (max(ctxs) + kq) * F32_EPS if dtype == torch.float32 \
-                else 48 * 2.0 ** -8
-            err = max_err(got, ref)
-            zero_rows_exact = bool((got[0] == 0).all()) and \
-                not bool(torch.signbit(got[0].float()).any())
-            results.append({"kernel": "paged_attention", "kq": kq,
-                            "dtype": str(dtype)[6:], "max_abs_err": err,
-                            "tol": tol, "inactive_rows_exact_zero":
-                            zero_rows_exact,
-                            "pass": err <= tol and zero_rows_exact})
+        for label, ctxs, kq, spare in cases:
+            results.append(paged_kernel_case(torch, ck, label, ctxs, kq,
+                                             dtype, spare))
     for dtype in (torch.bfloat16, torch.float32):
         rows = [flash_fwd_case(torch, ck, *case, dtype)
                 for case in FLASH_CASES]
@@ -595,6 +653,21 @@ def phase_serving(torch, ck, smi):
                                  "tokens")
         if stats["prefix_hit_requests"] < 1:
             raise AssertionError(f"{label}: no prefix-cache hit")
+    # K1's device time per decode step: one more spec-off run under the
+    # profiler (its TPOT is not reported: the profiler slows the host)
+    reqs = serving_requests(torch, cfg.vocab_size)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        eng, _ = run_engine(torch, model, reqs)
+    dispatches += eng.decode_steps
+    k1_us = {e.key: e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and "paged_" in e.key}
+    out["paged_attention_device_ms_per_decode_step"] = \
+        sum(k1_us.values()) / 1e3 / eng.decode_steps
+    out["paged_attention_device_us_by_kernel"] = k1_us
+    out["profiled_decode_steps"] = eng.decode_steps
     launches = ck.PAGED_ATTENTION.launches - before
     out["paged_attention_launches"] = launches
     out["dispatches"] = dispatches
@@ -924,22 +997,32 @@ def bound_of(nbytes, flops, dtype):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def time_paged(torch, ck, kq, dtype, launches):
-    q, kp, vp, bt, cl = paged_case(torch, PAGED_CTXS[kq], kq, dtype)
-    ms = cuda_time_ms(
-        lambda: ck.paged_attention_verify_decode(q, kp, vp, bt, cl), 200)
+def time_paged(torch, ck, ctxs, kq, dtype, launches, label):
+    """K1 on ``paged_case`` inputs: CUDA events over 200 calls and the
+    profiler's device time (the split and combine launches) beside its
+    bound and its plain version."""
+    q, kp, vp, bt, cl = paged_case(torch, ctxs, kq, dtype)
+
+    def kernel():
+        return ck.paged_attention_verify_decode(q, kp, vp, bt, cl)
+
+    ms = cuda_time_ms(kernel, 200)
+    dev_ms = device_time_ms(kernel)
     plain_ms = cuda_time_ms(
         lambda: ck.paged_attention_verify_reference(q, kp, vp, bt, cl), 20)
     bound_ms, bound_by = paged_bound(torch, q, kp, bt, cl)
-    err = max_err(ck.paged_attention_verify_decode(q, kp, vp, bt, cl),
+    err = max_err(kernel(),
                   ck.paged_attention_verify_reference(q, kp, vp, bt, cl))
+    b, _, h, d = q.shape
+    shown = ctxs if len(set(ctxs)) > 1 else f"{len(ctxs)} x {ctxs[0]}"
     return {"name": "paged_attention", "route": "cuda",
             "source": ck.PAGED_ATTENTION.source,
             "replaces": ck.PAGED_ATTENTION.replaces, "launches": launches,
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
-            "shape": f"B=8 KQ={kq} h=12 d=64 page=16 ctx={PAGED_CTXS[kq]} "
-                     f"{str(dtype)[6:]}"}
+            "device_ms": dev_ms, "case": label,
+            "shape": f"B={b} KQ={kq} h={h} d={d} page={kp.shape[1]} "
+                     f"ctx={shown} {str(dtype)[6:]}"}
 
 
 def time_flash(torch, ck, case, dtype, launches):
@@ -1130,14 +1213,19 @@ def time_packed(torch, ck, launches):
 
 def phase_timing(torch, ck, launches, smi):
     bf16, f32 = torch.bfloat16, torch.float32
-    main = [time_paged(torch, ck, 1, bf16, launches["paged_attention"]),
+    main = [time_paged(torch, ck, PAGED_CTXS[1], 1, bf16,
+                       launches["paged_attention"], "serving"),
             time_flash(torch, ck, FLASH_CASES[0], bf16,
                        launches["flash_fwd"]),
             time_flash_bwd(torch, ck, TRAIN_ATTENTION, bf16,
                            launches["flash_bwd"]),
             *time_packed(torch, ck, launches)]
-    variants = [time_paged(torch, ck, 5, bf16, None),
-                time_paged(torch, ck, 1, f32, None),
+    variants = [time_paged(torch, ck, PAGED_CTXS[5], 5, bf16, None,
+                           "serving_verify"),
+                time_paged(torch, ck, PAGED_BYTES_CTXS, 1, bf16, None,
+                           "bytes_heavy"),
+                time_paged(torch, ck, PAGED_CTXS[1], 1, f32, None,
+                           "serving_fp32"),
                 time_flash(torch, ck, FLASH_CASES[0], f32, None),
                 time_flash(torch, ck, TRAIN_ATTENTION, bf16, None)]
     emit({"phase": "kernel_variants", "nvidia_smi": smi,

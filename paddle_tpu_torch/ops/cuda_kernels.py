@@ -82,9 +82,11 @@ class Kernel:
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
+_L = ctypes.c_longlong
+
 PAGED_ATTENTION = Kernel(
     "paged_attention", "paged_attention_fwd",
-    [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P],
+    [_P] * 7 + [_I] * 6 + [_L, _L, _I, _F, _I, _P],
     "paddle_tpu/ops/pallas_kernels.py:1167")
 FLASH_FWD = Kernel(
     "flash_fwd", "flash_fwd",
@@ -242,13 +244,99 @@ def paged_attention_reference(q, k_pages, v_pages, block_tables,
         sm_scale)[:, 0]
 
 
+_LOG2E = 1.4426950408889634
+_SPLIT_TOKENS = 256   # the bf16 K1's tokens per split (whole pages)
+
+
+def paged_splits(max_pages, page_size):
+    """(pages per split, number of splits) of the bf16 K1 for a table of
+    ``max_pages`` pages: whole pages adding up to about 256 tokens (16
+    pages of 16), and as many splits as cover the table's extent. Shapes
+    alone decide; no context length is read."""
+    split_pages = max(1, _SPLIT_TOKENS // page_size)
+    return split_pages, max(1, -(-max_pages // split_pages))
+
+
+def paged_attention_split_reference(q, k_pages, v_pages, block_tables,
+                                    context_lens, sm_scale=None):
+    """Plain PyTorch version of the bf16 K1's split-and-combine: per split
+    of ``paged_splits`` pages, (m, l, acc) in fp32 from scores in log2
+    units (q scaled by sm_scale * log2(e)), then the splits merged in
+    split order. A row with no visible token (an inactive slot) is +0."""
+    b, kq, h, d = q.shape
+    page_size = k_pages.shape[1]
+    max_pages = block_tables.shape[1]
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(d)
+    split_pages, n_split = paged_splits(max_pages, page_size)
+    extent = max_pages * page_size
+    bt = block_tables.long()
+    k = k_pages[bt].reshape(b, extent, h, d).float()
+    v = v_pages[bt].reshape(b, extent, h, d).float()
+    rows = torch.arange(kq, device=q.device)
+    ctx = context_lens.long()[:, None]
+    n_vis = torch.where(ctx > 0, (ctx + rows).clamp(max=extent), 0)
+    s = torch.einsum("bqhd,bthd->bqht", q.float() * (sm_scale * _LOG2E), k)
+    pos = torch.arange(extent, device=q.device)
+    s = s.masked_fill(pos >= n_vis[:, :, None, None], float("-inf"))
+    parts = []
+    for i in range(n_split):
+        cols = slice(i * split_pages * page_size,
+                     (i + 1) * split_pages * page_size)
+        m = s[..., cols].amax(-1).clamp(min=-1e30)          # [b, kq, h]
+        p = torch.exp2(s[..., cols] - m[..., None])
+        parts.append((m, p.sum(-1),
+                      torch.einsum("bqht,bthd->bqhd", p, v[:, cols])))
+    mx = torch.full_like(parts[0][0], -1e30)
+    for m, l, _ in parts:
+        mx = torch.where(l > 0, torch.maximum(mx, m), mx)
+    total = torch.zeros_like(mx)
+    o = torch.zeros(b, kq, h, d, device=q.device)
+    for m, l, acc in parts:
+        w = torch.where(l > 0, torch.exp2(m - mx), 0.0)
+        total = total + l * w
+        o = o + acc * w[..., None]
+    o = torch.where(total[..., None] > 0,
+                    o / total.clamp(min=1e-30)[..., None], 0.0)
+    return o.to(q.dtype)
+
+
+def _paged_smem(kq, d):
+    """Shared memory of the fp32 K1 block in bytes: q and acc rows, 32-token
+    K and V tiles, probabilities and three per-row statistics, all fp32.
+    (The bf16 route's footprint does not grow with KQ; the source checks it
+    at compile time.)"""
+    return 4 * (2 * kq * d + 2 * 32 * d + kq * 32 + 3 * kq)
+
+
+def _paged_q(q, bf16):
+    """q as K1 reads it, with its slot and row strides in elements (0 where
+    the dimension has one entry). The kernel reads q in place (the serving
+    engine's column slice of the packed qkv) when its head stride is d, its
+    last stride 1 and, for bf16, it starts on a 16-byte boundary with slot
+    and row strides that are multiples of 8; any other q is copied into a
+    fresh contiguous tensor first."""
+    b, kq, h, d = q.shape
+    sb, sj = (q.stride(0) if b > 1 else 0), (q.stride(1) if kq > 1 else 0)
+    fits = q.stride(3) == 1 and (h == 1 or q.stride(2) == d)
+    if bf16:
+        fits = fits and q.data_ptr() % 16 == 0 and sb % 8 == 0 \
+            and sj % 8 == 0
+    if fits:
+        return q, sb, sj
+    q = q.clone(memory_format=torch.contiguous_format)
+    return q, (kq * h * d if b > 1 else 0), (h * d if kq > 1 else 0)
+
+
 def paged_attention_verify_decode(q, k_pages, v_pages, block_tables,
                                   context_lens, sm_scale=None):
     """K1 on [B, KQ, h, d] queries: query row j of slot b attends over
     ``context_lens[b] + j`` tokens. On CUDA tensors this launches
-    ``csrc/paged_attention.cu``; q may be strided (a column slice of the
-    packed qkv) and is made contiguous here, a copy of B*KQ*h*d values.
-    On CPU tensors it runs the plain version."""
+    ``csrc/paged_attention.cu``: bf16 on its split-context route (a split
+    kernel over ``paged_splits`` runs of pages into an fp32 workspace, then
+    a combine kernel), fp32 on its scalar route. q is read in place where
+    its layout allows (``_paged_q``), else copied; bf16 pools must start
+    on a 16-byte boundary. On CPU tensors it runs the plain version."""
     b, kq, h, d = q.shape
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(d)
@@ -266,19 +354,27 @@ def paged_attention_verify_decode(q, k_pages, v_pages, block_tables,
         raise TypeError("block_tables and context_lens must be int32")
     _need_contiguous(k_pages=k_pages, v_pages=v_pages,
                      block_tables=block_tables, context_lens=context_lens)
-    # the kernel's shared memory: q and acc rows, 32-token K and V tiles,
-    # probabilities and three per-row statistics, all fp32
-    smem = 4 * (2 * kq * d + 2 * 32 * d + kq * 32 + 3 * kq)
-    if smem > _MAX_SMEM:
-        raise ValueError(f"KQ={kq} at d={d} needs {smem} bytes of shared "
-                         f"memory, more than a block has")
-    q = q.contiguous()
-    out = torch.empty_like(q)
+    bf16 = dtype == _DTYPE_CODE[torch.bfloat16]
+    q, q_sb, q_sj = _paged_q(q, bf16)
+    page_size, max_pages = k_pages.shape[1], block_tables.shape[1]
+    split_pages, n_split = paged_splits(max_pages, page_size)
+    if bf16:
+        _need_aligned(k_pages=k_pages, v_pages=v_pages)
+        # per split and (slot, row, head): acc [d], then (m, l)
+        workspace = torch.empty(n_split * b * kq * h * (d + 2),
+                                dtype=torch.float32, device=q.device)
+    else:
+        smem = _paged_smem(kq, d)
+        if smem > _MAX_SMEM:
+            raise ValueError(f"KQ={kq} at d={d} needs {smem} bytes of "
+                             f"shared memory, more than a block has")
+        workspace = q.new_empty(0)
+    out = torch.empty((b, kq, h, d), dtype=q.dtype, device=q.device)
     PAGED_ATTENTION.launch(
         q.device, q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         block_tables.data_ptr(), context_lens.data_ptr(), out.data_ptr(),
-        b, kq, h, d, k_pages.shape[1], block_tables.shape[1],
-        float(sm_scale), dtype)
+        workspace.data_ptr(), b, kq, h, d, page_size, max_pages, q_sb, q_sj,
+        split_pages, float(sm_scale), dtype)
     return out
 
 
@@ -547,23 +643,29 @@ def _vl_bwd_block(d, dtype):
     return 32 if d == 256 and dtype == torch.float32 else _VL_BLOCK
 
 
-_CU_EQ_CACHE = []  # [(weakref(cu_q), weakref(cu_k), equal)], by identity
+# [(weakref(cu_q), weakref(cu_k), (cu_q._version, cu_k._version), equal)]
+_CU_EQ_CACHE = []
 
 
 def _cu_seqlens_equal(cu_q, cu_k):
-    """cu_q == cu_k by value. CPU tensors compare directly; a CUDA pair
-    is compared once (one sync) and the verdict cached by identity, with
+    """cu_q == cu_k by value. A pair is compared once (for CUDA tensors,
+    one sync) and the verdict cached by identity and version, with
     weakrefs so the cache pins no tensor (the JAX package's
-    ``_cu_seqlens_equal``)."""
+    ``_cu_seqlens_equal`` keys on identity alone, which holds for its
+    immutable arrays). An in-place write bumps ``_version``, through a
+    view as well, so a cu buffer reused with new values is compared
+    again. Inference tensors keep no version: they are compared every
+    time and never cached."""
     if cu_q.shape != cu_k.shape:
         return False
-    if cu_q.device.type == "cpu" and cu_k.device.type == "cpu":
-        return torch.equal(cu_q.long(), cu_k.long())
-    for ref_q, ref_k, eq in _CU_EQ_CACHE:
-        if ref_q() is cu_q and ref_k() is cu_k:
+    if cu_q.is_inference() or cu_k.is_inference():
+        return torch.equal(cu_q.long(), cu_k.long().to(cu_q.device))
+    versions = (cu_q._version, cu_k._version)
+    for ref_q, ref_k, ver, eq in _CU_EQ_CACHE:
+        if ref_q() is cu_q and ref_k() is cu_k and ver == versions:
             return eq
     eq = torch.equal(cu_q.long(), cu_k.long().to(cu_q.device))
-    _CU_EQ_CACHE.append((weakref.ref(cu_q), weakref.ref(cu_k), eq))
+    _CU_EQ_CACHE.append((weakref.ref(cu_q), weakref.ref(cu_k), versions, eq))
     del _CU_EQ_CACHE[:-16]  # bound the scan; dead refs age out with it
     return eq
 

@@ -24,12 +24,27 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def paged_inputs(ctxs, kq, page=16, h=2, d=64, seed=0):
+def paged_tols(dtype, max_ctx, kq, v_pages):
+    """(atol, rtol) of K1 against its plain version on the same inputs,
+    in fp32 (bf16 inputs widen exactly): fp32 at K*eps, K the longest
+    context plus KQ (fp32 sums over K terms); bf16 element by element at
+    atol K*eps*max|v| and rtol 2**-8, half an ulp of the output, which is
+    rounded once."""
+    k_eps = (max_ctx + kq) * F32_EPS
+    if dtype == torch.float32:
+        return k_eps, k_eps
+    return k_eps * float(v_pages.float().abs().max()), 2 ** -8
+
+
+def paged_inputs(ctxs, kq, page=16, h=2, d=64, seed=0, spare=0):
     """numpy q [B, KQ, h, d], pools, tables and lengths: row j of slot b
-    sees ctxs[b] + j tokens, so a table covers ctx + kq - 1 tokens."""
+    sees ctxs[b] + j tokens, so a table covers ctx + kq - 1 tokens, and
+    an active slot's table holds ``spare`` more pages of random rows past
+    that."""
     rng = np.random.default_rng(seed)
     b = len(ctxs)
-    need = [(c + kq - 1 + page - 1) // page if c else 0 for c in ctxs]
+    need = [(c + kq - 1 + page - 1) // page + spare if c else 0
+            for c in ctxs]
     maxp = max(max(need), 1)
     npages = 1 + sum(need)
     q = rng.standard_normal((b, kq, h, d)).astype(np.float32)

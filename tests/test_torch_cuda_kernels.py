@@ -9,12 +9,14 @@ machine with only PyTorch and the CUDA toolkit:
     python -m pytest --noconftest -p no:cacheprovider -m cuda \
         tests/test_torch_cuda_kernels.py
 
-Tolerances: K1 fp32 at K*eps with K the longest context, bf16 at
-48 * 2**-8; K2 fp32 at atol 2e-5; K3 fp32 at atol 5e-5 (2e-4 where kv
-heads are shared), the JAX package's flash-backward bounds. K2 and K3
-in bf16 run the tensor-core route, which rounds p (and in K3 ds) to
-bf16 before the products that take them, as the JAX kernels do, and
-rounds each output once: each is held at one ulp of its outputs'
+Tolerances: K1 fp32 at K*eps with K the longest context; bf16 against
+its plain version in fp32 on the same widened inputs, element by element
+at atol K*eps*max|v| (fp32 sums) and rtol 2**-8 (half a bf16 ulp: the
+output is rounded once); K2 fp32 at atol 2e-5; K3 fp32 at atol 5e-5
+(2e-4 where kv heads are shared), the JAX package's flash-backward
+bounds. K2 and K3 in bf16 run the tensor-core route, which rounds p (and
+in K3 ds) to bf16 before the products that take them, as the JAX kernels
+do, and rounds each output once: each is held at one ulp of its outputs'
 largest magnitude (``chip_smoke.py`` also holds these bounds to twice
 the error of ``scaled_dot_product_attention`` against the same plain
 version). K4 fp32 at 2e-5 and bf16 at 2**-6 (two ulps of an output below
@@ -22,20 +24,20 @@ version). K4 fp32 at 2e-5 and bf16 at 2**-6 (two ulps of an output below
 P v and o once); K5 as K3 (fp32 at 5e-5: no shared kv heads; bf16 one ulp
 at the outputs' largest magnitude). K3, K4 and K5 runs repeat with the
 same bits, K4 and K5 also at the packed-attention workload's shape.
-Misaligned bf16 operands are refused. TF32 is off for every fp32
-comparison (the ``cuda_device`` fixture sets it).
+Misaligned bf16 operands are refused, except K1's q, which is copied.
+TF32 is off for every fp32 comparison (the ``cuda_device`` fixture sets
+it).
 """
 import numpy as np
 import pytest
 import torch
 
-from _torch_helpers import (F32_EPS, cuda_device, flash_inputs,  # noqa: F401
-                            paged_inputs, varlen_inputs)
+from _torch_helpers import (cuda_device, flash_inputs,  # noqa: F401
+                            paged_inputs, paged_tols, varlen_inputs)
 from paddle_tpu_torch.ops import cuda_kernels as ck
 
 pytestmark = pytest.mark.cuda
 
-BF16_PAGED_TOL = 48 * 2 ** -8
 FLASH_CASES = {   # b, sq, sk, h, kh, d, causal
     "causal": (1, 128, 128, 2, 2, 64, True),
     "noncausal": (2, 128, 256, 2, 2, 64, False),
@@ -59,8 +61,17 @@ def _bf16_ulp(x):
     return 2.0 ** (np.floor(np.log2(x)) - 7)
 
 
-def _paged(ctxs, kq, dtype, device):
-    q, kp, vp, bt, cl = paged_inputs(ctxs, kq)
+def _assert_paged_close(got, q, kp, vp, bt, cl):
+    """K1's output against its plain version in fp32 on the same inputs,
+    at ``paged_tols``."""
+    ref = ck.paged_attention_verify_reference(q.float(), kp.float(),
+                                              vp.float(), bt, cl)
+    atol, rtol = paged_tols(got.dtype, int(cl.max()), q.shape[1], vp)
+    torch.testing.assert_close(got.float(), ref, atol=atol, rtol=rtol)
+
+
+def _paged(ctxs, kq, dtype, device, spare=0):
+    q, kp, vp, bt, cl = paged_inputs(ctxs, kq, spare=spare)
     tdt = getattr(torch, dtype)
     return (torch.from_numpy(q).to(device, tdt),
             torch.from_numpy(kp).to(device, tdt),
@@ -68,22 +79,34 @@ def _paged(ctxs, kq, dtype, device):
             torch.from_numpy(bt).to(device), torch.from_numpy(cl).to(device))
 
 
+# the last six sit at the edges of the bf16 route's 256-token splits and
+# row groups: contexts one below, at and one above a split's length (and
+# two), KQ = 5 rows whose last token crosses a split, tables holding pages
+# past their slots' contexts, eight verify rows (a full row group) and
+# nine (two groups)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("ctxs,kq", [([5, 16, 17, 40, 64], 1),
-                                     ([0, 20, 63, 127], 5),
-                                     ([100], 3), ([0, 0], 1)],
+@pytest.mark.parametrize("ctxs,kq,spare",
+                         [([5, 16, 17, 40, 64], 1, 0),
+                          ([0, 20, 63, 127], 5, 0),
+                          ([100], 3, 0), ([0, 0], 1, 0),
+                          ([255, 256, 257, 511, 512, 513], 1, 0),
+                          ([252, 253, 254, 256, 0], 5, 0),
+                          ([100, 0, 17, 256], 1, 20),
+                          ([100, 0, 17, 256], 5, 20),
+                          ([1, 250, 600], 8, 0), ([40, 300], 9, 0)],
                          ids=["ragged", "verify_k5", "seven_pages",
-                              "inactive_batch"])
-def test_paged_kernel_matches_plain_version(cuda_device, ctxs, kq, dtype):
-    q, kp, vp, bt, cl = _paged(ctxs, kq, dtype, cuda_device)
+                              "inactive_batch", "split_edges",
+                              "verify_crosses_split", "table_past_context",
+                              "table_past_context_k5", "verify_k8",
+                              "verify_k9_two_row_groups"])
+def test_paged_kernel_matches_plain_version(cuda_device, ctxs, kq, spare,
+                                            dtype):
+    q, kp, vp, bt, cl = _paged(ctxs, kq, dtype, cuda_device, spare)
     before = ck.PAGED_ATTENTION.launches
     got = ck.paged_attention_verify_decode(q, kp, vp, bt, cl)
     torch.cuda.synchronize()
     assert ck.PAGED_ATTENTION.launches == before + 1
-    ref = ck.paged_attention_verify_reference(q, kp, vp, bt, cl)
-    tol = (max(ctxs) + kq) * F32_EPS if dtype == "float32" \
-        else BF16_PAGED_TOL
-    torch.testing.assert_close(got.float(), ref.float(), atol=tol, rtol=tol)
+    _assert_paged_close(got, q, kp, vp, bt, cl)
     for i, c in enumerate(ctxs):
         if c == 0:
             assert torch.all(got[i] == 0)
@@ -106,6 +129,62 @@ def test_paged_wrapper_refuses_what_the_kernel_does_not_take(cuda_device):
                                          bt, cl)
     with pytest.raises(ValueError):
         ck.paged_attention_verify_decode(q.cpu(), kp, vp, bt, cl)
+    # the bf16 route loads the pools 16 bytes at a time, in place
+    q, kp, vp, bt, cl = _paged([9, 40], 2, "bfloat16", cuda_device)
+    with pytest.raises(ValueError, match="16-byte"):
+        ck.paged_attention_verify_decode(q, _misaligned(kp), vp, bt, cl)
+    with pytest.raises(ValueError, match="16-byte"):
+        ck.paged_attention_verify_decode(q, kp, _misaligned(vp), bt, cl)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_paged_kernel_reads_q_in_place(cuda_device, dtype):
+    # the serving engine's q: a column slice of the packed qkv [B, KQ, 3hd]
+    q, kp, vp, bt, cl = _paged([9, 300, 0, 700], 3, dtype, cuda_device)
+    b, kq, h, d = q.shape
+    qkv = torch.cat([q.reshape(b, kq, h * d), torch.randn_like(
+        q.reshape(b, kq, h * d)).repeat(1, 1, 2)], -1)
+    strided = qkv[..., :h * d].reshape(b, kq, h, d)
+    assert not strided.is_contiguous()
+    got = ck.paged_attention_verify_decode(strided, kp, vp, bt, cl)
+    assert torch.equal(got, ck.paged_attention_verify_decode(q, kp, vp, bt,
+                                                             cl))
+    decode = ck.paged_attention_decode(strided[:, 0], kp, vp, bt, cl)
+    assert torch.equal(decode, ck.paged_attention_decode(
+        q[:, 0].contiguous(), kp, vp, bt, cl))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_paged_kernel_copies_q_it_cannot_read_in_place(cuda_device, dtype):
+    # a q whose head stride is not d, one that starts off a 16-byte
+    # boundary, and one whose row stride is odd: each is copied, then
+    # gives the contiguous q's bits
+    q, kp, vp, bt, cl = _paged([9, 300, 0, 700], 3, dtype, cuda_device)
+    b, kq, h, d = q.shape
+    want = ck.paged_attention_verify_decode(q, kp, vp, bt, cl)
+    odd = torch.zeros(b, kq, h * d + 1, dtype=q.dtype, device=q.device)
+    odd[..., :h * d] = q.reshape(b, kq, h * d)
+    for other in (q.transpose(2, 3).contiguous().transpose(2, 3),
+                  _misaligned(q), odd[..., :h * d].view(b, kq, h, d)):
+        before = ck.PAGED_ATTENTION.launches
+        assert torch.equal(
+            ck.paged_attention_verify_decode(other, kp, vp, bt, cl), want)
+        assert ck.PAGED_ATTENTION.launches == before + 1
+
+
+def test_paged_kernel_reruns_bit_identical_at_the_serving_shape(
+        cuda_device):
+    # chip_smoke.py's serving contexts: B = 8, h = 12, d = 64, page 16
+    for kq, ctxs in ((1, [0, 1, 17, 130, 511, 700, 1000, 1024]),
+                     (5, [0, 1, 17, 130, 511, 700, 1000, 1020])):
+        q, kp, vp, bt, cl = (torch.from_numpy(x).to(cuda_device)
+                             for x in paged_inputs(ctxs, kq, h=12))
+        q, kp, vp = (t.to(torch.bfloat16) for t in (q, kp, vp))
+        first = ck.paged_attention_verify_decode(q, kp, vp, bt, cl)
+        for _ in range(2):
+            assert torch.equal(
+                first, ck.paged_attention_verify_decode(q, kp, vp, bt, cl))
+        _assert_paged_close(first, q, kp, vp, bt, cl)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -423,3 +502,37 @@ def test_varlen_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
     o, lse = ck.flash_attention_varlen_fwd(q, k, v, cu, cu, True)
     with pytest.raises(ValueError):
         ck.flash_attention_varlen_bwd(q, k, v, o, lse.T, do, cu, cu, True)
+
+
+def _gate_after_in_place_write(device):
+    """The causal varlen gate on cu_q and an equal cu_k, then again after
+    cu_k is changed in place; returns both verdicts and the routed and
+    dense outputs on the new values."""
+    from paddle_tpu_torch.nn.functional import flash_attn_unpadded
+    from paddle_tpu_torch.nn.functional.attention import _unpadded_impl
+    q, k, v, cu_q, _ = varlen_inputs([100, 260, 150], seed=3)
+    q, k, v = (torch.from_numpy(x).to(device) for x in (q, k, v))
+    cu_q = torch.from_numpy(cu_q).to(device)
+    cu_k = cu_q.clone()
+    before = ck.flash_attention_varlen_available(q, k, v, cu_q, cu_k, True)
+    cu_k.copy_(torch.tensor([0, 120, 380, 510], dtype=torch.int32,
+                            device=device))
+    after = ck.flash_attention_varlen_available(q, k, v, cu_q, cu_k, True)
+    got, _ = flash_attn_unpadded(q, k, v, cu_q, cu_k, 260, 260, causal=True)
+    dense = _unpadded_impl(q, k, v, cu_q, cu_k, 0.125, True, 260, 260)
+    return before, after, got, dense
+
+
+def test_varlen_gate_sees_cu_changed_in_place(cuda_device):
+    fwd = ck.FLASH_VARLEN_FWD.launches
+    before, after, got, dense = _gate_after_in_place_write(cuda_device)
+    assert before and not after
+    assert ck.FLASH_VARLEN_FWD.launches == fwd   # the dense route ran
+    torch.testing.assert_close(got, dense, atol=2e-5, rtol=0)
+
+
+def test_varlen_gate_compares_inference_tensors_every_time(cuda_device):
+    with torch.inference_mode():
+        before, after, got, dense = _gate_after_in_place_write(cuda_device)
+    assert before and not after
+    torch.testing.assert_close(got, dense, atol=2e-5, rtol=0)

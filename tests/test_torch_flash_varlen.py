@@ -347,6 +347,52 @@ def test_gate_agrees_with_the_jax_gate(row, interpret):
                                                causal) == want
 
 
+def test_gate_sees_cu_changed_in_place(interpret):
+    # a cu buffer reused with new values: the cached verdict is keyed on
+    # each tensor's version as well as its identity, so the gate compares
+    # again and routes as the JAX package does on the new values
+    from paddle_tpu_torch.nn.functional.attention import _unpadded_impl
+    q, k, v, cu_q, _ = varlen_inputs([100, 260, 150], seed=3)
+    other = np.asarray([0, 120, 380, 510], np.int32)
+    tq, tk, tv, tcu_q = _torch(q, k, v, cu_q)
+    tcu_k = tcu_q.clone()
+    assert ck.flash_attention_varlen_available(tq, tk, tv, tcu_q, tcu_k,
+                                               True)
+    assert any(e[0]() is tcu_q and e[1]() is tcu_k and e[3]
+               for e in ck._CU_EQ_CACHE)
+    tcu_k.copy_(torch.from_numpy(other))
+    want = pk.flash_attention_varlen_available(*_jax(q, k, v, cu_q, other),
+                                               True)
+    assert want is False
+    assert ck.flash_attention_varlen_available(tq, tk, tv, tcu_q, tcu_k,
+                                               True) == want
+    got, _ = F.flash_attn_unpadded(tq, tk, tv, tcu_q, tcu_k, 260, 260,
+                                   causal=True)
+    dense = _unpadded_impl(tq, tk, tv, tcu_q, tcu_k, 0.125, True, 260, 260)
+    torch.testing.assert_close(got, dense, atol=FWD_TOL, rtol=0)
+    jgot, _ = JF.flash_attn_unpadded(
+        *(paddle.to_tensor(x) for x in (q, k, v, cu_q, other)), 260, 260,
+        causal=True)
+    np.testing.assert_allclose(got.numpy(), jgot.numpy(), **JAX_FWD)
+    # a write through a view bumps the shared version: equal again
+    tcu_k[1:3].copy_(tcu_q[1:3])
+    assert ck.flash_attention_varlen_available(tq, tk, tv, tcu_q, tcu_k,
+                                               True)
+
+
+def test_gate_compares_inference_tensors_every_time():
+    with torch.inference_mode():
+        cu_q = torch.tensor([0, 100, 256], dtype=torch.int32)
+        cu_k = cu_q.clone()
+        q = torch.zeros(256, 2, 64)
+        assert ck.flash_attention_varlen_available(q, q, q, cu_q, cu_k,
+                                                   True)
+        cu_k.copy_(torch.tensor([0, 128, 256], dtype=torch.int32))
+        assert not ck.flash_attention_varlen_available(q, q, q, cu_q, cu_k,
+                                                       True)
+    assert not any(e[0]() is cu_q for e in ck._CU_EQ_CACHE)
+
+
 def test_autograd_function_runs_the_plain_backward_on_cpu(monkeypatch):
     q, k, v, cu, _ = varlen_inputs(LENGTHS["pads"])
     tq, tk, tv = (x.requires_grad_(True) for x in _torch(q, k, v))

@@ -8,6 +8,13 @@ page, an append crossing a page, empty tables, KQ in {1, 3, 5}, bf16
 pools. Tolerances: fp32 at K*eps with K the longest context (f32
 accumulation over K terms); bf16 at 48 * 2**-8 (bf16 storage).
 
+The plain split-and-combine version (``paged_attention_split_reference``,
+the arithmetic of the bf16 CUDA route: per-split (m, l, acc) in fp32,
+merged in split order) is held to the same references on the same cases
+and at the edges of a 256-token split: contexts one below, at and one
+above a split's length, KQ = 5 rows whose last token crosses a split,
+tables holding pages past their slots' contexts, all-inactive batches.
+
 ``tests/test_torch_cuda_kernels.py`` holds the CUDA kernel against the
 same plain version on the card.
 """
@@ -16,7 +23,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_helpers import F32_EPS, paged_inputs
+from _torch_helpers import F32_EPS, paged_inputs, paged_tols
 from paddle_tpu.ops import pallas_kernels as pk
 from paddle_tpu_torch.ops import cuda_kernels as ck
 
@@ -154,3 +161,114 @@ def test_gate_matches_the_jax_contract(interpret):
     assert ck.paged_attention_verify_available(tq, tk, tv, tbt, tcl)
     assert not ck.paged_attention_verify_available(tq[:, :0], tk, tv, tbt,
                                                    tcl)
+
+
+# (contexts, KQ, spare pages per table, also against the JAX kernel)
+SPLIT_CASES = {
+    "ragged": ([5, 16, 17, 40, 64], 1, 0, False),
+    "ragged_k5": ([5, 16, 17, 40, 64], 5, 0, False),
+    "rows_cross_pages": ([63, 127], 4, 0, False),
+    "inactive_slot": ([0, 20], 3, 0, False),
+    "split_edges": ([255, 256, 257], 1, 0, True),
+    "split_edges_513": ([511, 512, 513], 1, 0, False),
+    "verify_crosses_split": ([252, 253, 254, 0], 5, 0, True),
+    "table_past_context": ([100, 0, 17], 1, 20, True),
+    "table_past_context_k5": ([100, 256, 0], 5, 20, False),
+    "all_inactive": ([0, 0, 0], 1, 0, False),
+    "all_inactive_k5": ([0, 0], 5, 0, False),
+}
+
+
+@pytest.mark.parametrize("case", list(SPLIT_CASES))
+def test_split_version_matches_jax_kernel_and_reference(case, interpret):
+    ctxs, kq, spare, vs_kernel = SPLIT_CASES[case]
+    (jq, jk, jv, jbt, jcl), (tq, tk, tv, tbt, tcl) = _both(
+        paged_inputs(ctxs, kq, spare=spare))
+    got = ck.paged_attention_split_reference(tq, tk, tv, tbt, tcl)
+    ref = pk.paged_attention_verify_reference(jq, jk, jv, jbt, jcl)
+    tol = (max(ctxs) + kq) * F32_EPS
+    np.testing.assert_allclose(_np(got), _np(ref), rtol=tol, atol=tol)
+    np.testing.assert_allclose(
+        _np(ck.paged_attention_verify_reference(tq, tk, tv, tbt, tcl)),
+        _np(ref), rtol=tol, atol=tol)
+    if vs_kernel:
+        kern = pk.paged_attention_verify_decode(jq, jk, jv, jbt, jcl)
+        np.testing.assert_allclose(_np(got), _np(kern), rtol=tol, atol=tol)
+    for slot, c in enumerate(ctxs):
+        if c == 0:
+            assert torch.all(got[slot] == 0)
+            assert not torch.signbit(got[slot]).any()
+
+
+@pytest.mark.parametrize("case", ["split_edges", "verify_crosses_split"])
+def test_split_version_bf16_matches_jax(case, interpret):
+    ctxs, kq, spare, _ = SPLIT_CASES[case]
+    (jq, jk, jv, jbt, jcl), (tq, tk, tv, tbt, tcl) = _both(
+        paged_inputs(ctxs, kq, spare=spare), "bfloat16")
+    got = ck.paged_attention_split_reference(tq, tk, tv, tbt, tcl)
+    assert got.dtype == torch.bfloat16
+    ref = pk.paged_attention_verify_reference(jq, jk, jv, jbt, jcl)
+    np.testing.assert_allclose(_np(got), _np(ref), rtol=BF16_TOL,
+                               atol=BF16_TOL)
+
+
+def test_splits_follow_the_tables_extent():
+    # serving's table: 1024 tokens in pages of 16 -> 4 splits of 16 pages
+    assert ck.paged_splits(64, 16) == (16, 4)
+    assert ck.paged_splits(65, 16) == (16, 5)
+    assert ck.paged_splits(3, 32) == (8, 1)
+    assert ck.paged_splits(0, 16) == (16, 1)
+    # a split never exceeds the 16 pages the CUDA kernel stages
+    assert all(ck.paged_splits(100, p)[0] <= 16 for p in (16, 32, 64, 512))
+
+
+def test_the_split_version_takes_strided_q():
+    # the serving engine's q: a column slice of the packed qkv
+    _, (tq, tk, tv, tbt, tcl) = _both(paged_inputs([40, 300], 3))
+    qkv = torch.cat([tq, torch.zeros_like(tq), torch.ones_like(tq)], -1)
+    q = qkv[..., :tq.shape[-1]]
+    assert not q.is_contiguous()
+    assert torch.equal(
+        ck.paged_attention_split_reference(q, tk, tv, tbt, tcl),
+        ck.paged_attention_split_reference(tq, tk, tv, tbt, tcl))
+
+
+def test_paged_shared_memory_fits_a_block():
+    # the fp32 route's scalar tiles grow with KQ and are checked before the
+    # launch; the bf16 route's ring does not grow with KQ, and its source
+    # checks it at compile time
+    assert ck._paged_smem(5, 64) == 4 * (2 * 5 * 64 + 2 * 32 * 64
+                                         + 5 * 32 + 3 * 5)
+    assert all(ck._paged_smem(kq, d) <= ck._MAX_SMEM
+               for d in (64, 128, 256) for kq in (1, 5, 9))
+
+
+@pytest.mark.parametrize("case", list(SPLIT_CASES))
+def test_split_version_bf16_within_rounding_of_fp32(case):
+    # the bound the card holds the bf16 kernel to
+    ctxs, kq, spare, _ = SPLIT_CASES[case]
+    _, (tq, tk, tv, tbt, tcl) = _both(paged_inputs(ctxs, kq, spare=spare),
+                                      "bfloat16")
+    got = ck.paged_attention_split_reference(tq, tk, tv, tbt, tcl)
+    ref = ck.paged_attention_verify_reference(tq.float(), tk.float(),
+                                              tv.float(), tbt, tcl)
+    atol, rtol = paged_tols(got.dtype, max(ctxs), kq, tv)
+    torch.testing.assert_close(got.float(), ref, atol=atol, rtol=rtol)
+
+
+def test_paged_q_is_read_in_place_where_its_layout_allows():
+    _, (tq, *_) = _both(paged_inputs([9, 40, 3], 2), "bfloat16")
+    b, kq, h, d = tq.shape
+    qkv = torch.zeros(b, kq, 3 * h * d, dtype=tq.dtype)
+    sliced = qkv[..., :h * d].view(b, kq, h, d)     # the engine's q
+    q, sb, sj = ck._paged_q(sliced, True)
+    assert q is sliced and (sb, sj) == (3 * h * d * kq, 3 * h * d)
+    odd = torch.zeros(b, kq, h * d + 1, dtype=tq.dtype)[..., :h * d] \
+        .view(b, kq, h, d)
+    assert ck._paged_q(odd, False)[0] is odd        # fp32: any row stride
+    for other in (odd, tq.transpose(2, 3).contiguous().transpose(2, 3)):
+        q, sb, sj = ck._paged_q(other, True)
+        assert q.is_contiguous() and torch.equal(q, other)
+        assert (sb, sj) == (kq * h * d, h * d)
+    one = tq[:1, :1]                                 # B = KQ = 1
+    assert ck._paged_q(one, True)[1:] == (0, 0)
