@@ -16,7 +16,7 @@ split, twice for bit-identity; K2 to K5 run their scalar fp32 route and
 their tensor-core bf16 route, and each bf16 K2/K3 bound is held to twice
 the error of ``scaled_dot_product_attention``, each bf16 K4/K5 bound to
 twice that of PyTorch's varlen flash op, against the same plain version,
-printed beside it). Then it drives the port's three main paths, each
+printed beside it). Then it drives the port's five main paths, each
 with the launch counts set to 0 just before it and read just after:
 
 - serving: GPT-124M at full width (random weights from a seed) through
@@ -32,12 +32,22 @@ with the launch counts set to 0 just before it and read just after:
 - packed attention: ``F.flash_attn_unpadded`` forward and backward over
   16,384 packed tokens of ragged documents at GPT-124M's attention width
   (12 heads of 64), causal, bf16; then the same in fp32 against the
-  per-segment plain versions.
+  per-segment plain versions;
+- ERNIE-3.0-base pretraining (``ErnieForPretraining``, batch 16 x 512,
+  bf16 O2, AdamW at lr 1e-4) and BERT-base finetuning
+  (``BertForSequenceClassification``, batch 32 x 128, bf16 O2, AdamW at
+  lr 2e-5), as ``benchmarks/matrix.py`` runs them, through
+  ``CompiledTrainStep`` per call and through ``run_steps`` (K = 8 and
+  16): step ms, tokens/s, sequences/s and MFU, with K2 and K3 non-causal
+  once per layer and step; then each at full width and 2 layers in fp32
+  on the card against the CPU (loss and every gradient; for ERNIE also a
+  padded batch's forward on the dense path).
 
 Last, it times each kernel beside its bound, its plain version and,
 where one exists, a PyTorch call that computes the same function (also
 by their device time alone, which leaves out the host's launch gaps);
-K1 also at a bytes-heavy shape (64 slots of 1024 tokens). Each
+K1 also at a bytes-heavy shape (64 slots of 1024 tokens), K2 and K3
+also at the ERNIE and BERT paths' non-causal shapes. Each
 phase prints one JSON line; any failure raises and the script exits
 non-zero. It needs a CUDA card: without one it exits 2 and prints no
 result.
@@ -238,6 +248,15 @@ TRAIN_BATCH, TRAIN_WARMUP, TRAIN_TIMED, TRAIN_K = 16, 3, 10, 8
 # attention, GPT-124M at batch 16
 TRAIN_ATTENTION = ("gpt124m_train", TRAIN_BATCH, 1024, 1024, 12, 12, 64,
                    True)
+# the encoder paths: ERNIE-3.0-base pretraining at batch 16 x 512 and
+# BERT-base finetuning at batch 32 x 128 (benchmarks/matrix.py:95-166),
+# each with its K for run_steps; their attention, non-causal
+ERNIE_BATCH, ERNIE_SEQ, ERNIE_K = 16, 512, 8
+BERT_BATCH, BERT_SEQ, BERT_K = 32, 128, 16
+ERNIE_ATTENTION = ("ernie_noncausal", ERNIE_BATCH, ERNIE_SEQ, ERNIE_SEQ, 12,
+                   12, 64, False)
+BERT_ATTENTION = ("bert_noncausal", BERT_BATCH, BERT_SEQ, BERT_SEQ, 12, 12,
+                  64, False)
 FLASH_CASES = [
     ("gpt124m_causal", 1, 1024, 1024, 12, 12, 64, True),
     ("gqa_causal", 2, 256, 256, 12, 4, 64, True),
@@ -254,6 +273,8 @@ FLASH_CASES = [
     ("single_tile_causal", 1, 128, 128, 12, 12, 64, True),
     ("offset128_d128_causal", 1, 256, 384, 8, 8, 128, True),
     ("d256_causal", 1, 512, 512, 8, 8, 256, True),
+    ERNIE_ATTENTION,
+    BERT_ATTENTION,
 ]
 # K3: the forward's cases and one with an lse cotangent
 FLASH_BWD_CASES = FLASH_CASES + [
@@ -737,13 +758,29 @@ def phase_exactness_fp32(torch, ck):
 PEAK_BF16_FLOPS = PEAK_OPS_PER_S["bfloat16"]
 
 
+def _token_batches(torch, vocab, shape, label_shape, label_range):
+    """``batch(*lead)`` drawing (ids, labels) of shapes lead + ``shape``
+    and lead + ``label_shape`` on the card from one
+    ``numpy.random.default_rng(0)``: ids in [0, vocab), labels in [0,
+    label_range)."""
+    import numpy as np
+    rng = np.random.default_rng(0)
+
+    def batch(*lead):
+        return tuple(torch.from_numpy(rng.integers(0, hi, lead + shp))
+                     .to("cuda")
+                     for hi, shp in ((vocab, shape),
+                                     (label_range, label_shape)))
+
+    return batch
+
+
 def gpt124m_training(torch):
     """GPT-124M pretraining as ``bench.py`` runs it: fp32 parameters from
     seed 0, AdamW at lr 1e-4, a bf16 O2 ``CompiledTrainStep``. Returns
     (model, step, batch); ``batch(*lead)`` draws (ids, labels) of shape
     lead + (16, 1024) on the card from one ``numpy.random.default_rng(0)``.
     ``scripts/profile_torch_train_step.py`` traces this same workload."""
-    import numpy as np
     from paddle_tpu_torch.jit import CompiledTrainStep
     from paddle_tpu_torch.optimizer import AdamW
     from paddle_tpu_torch.text.gpt import GPTForPretraining, gpt_small
@@ -752,27 +789,110 @@ def gpt124m_training(torch):
     opt = AdamW(learning_rate=1e-4, parameters=model.parameters())
     step = CompiledTrainStep(lambda ids, labels: model(ids, labels=labels)[1],
                              model, opt, amp_level="O2")
-    rng = np.random.default_rng(0)
-
-    def batch(*lead):
-        shape = lead + (TRAIN_BATCH, cfg.max_seq_len)
-        return tuple(torch.from_numpy(rng.integers(0, cfg.vocab_size, shape))
-                     .to("cuda") for _ in range(2))
-
-    return model, step, batch
+    shape = (TRAIN_BATCH, cfg.max_seq_len)
+    return model, step, _token_batches(torch, cfg.vocab_size, shape, shape,
+                                       cfg.vocab_size)
 
 
-def phase_training_bf16(torch, ck, smi):
-    """The ``gpt124m_training`` workload: 3 warm-up steps, 10 timed calls,
-    then one timed ``run_steps`` block of K=8."""
-    model, step, batch = gpt124m_training(torch)
-    cfg = model.config
+def ernie_config(**kw):
+    """ERNIE-3.0-base as ``benchmarks/matrix.py:125-166`` builds it: vocab
+    40000, hidden 768, 12 layers of 12 heads of 64, FFN 3072, 512
+    positions, type vocab 4, task-type vocab 3, LayerNorm eps 1e-12, no
+    dropout."""
+    from paddle_tpu_torch.text.ernie import ErnieConfig
+    return ErnieConfig(hidden_dropout_prob=0.0,
+                       attention_probs_dropout_prob=0.0,
+                       max_position_embeddings=ERNIE_SEQ, **kw)
+
+
+def bert_config(**kw):
+    """BERT-base as ``benchmarks/matrix.py:95-122`` builds it: vocab
+    30522, hidden 768, 12 layers, FFN 3072, 512 positions, type vocab 2,
+    no dropout."""
+    from paddle_tpu_torch.text.bert import BertConfig
+    return BertConfig(hidden_dropout_prob=0.0,
+                      attention_probs_dropout_prob=0.0, **kw)
+
+
+def ernie_pretraining(torch):
+    """ERNIE-3.0-base pretraining as ``benchmarks/matrix.py:125-166`` runs
+    it: ``ErnieForPretraining`` with fp32 parameters from seed 0, AdamW at
+    lr 1e-4, a bf16 O2 ``CompiledTrainStep`` over ``lambda ids, l:
+    net(ids, labels=l)[1]``; ids and labels of shape lead + (16, 512)
+    drawn in [0, 40000). One cut: ``group_sharded_parallel(net, opt,
+    "p_g_os")`` is left out; on one device it is the plain optimizer.
+    Returns (model, step, batch) as ``gpt124m_training`` does."""
+    from paddle_tpu_torch.jit import CompiledTrainStep
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.text.ernie import ErnieForPretraining
+    cfg = ernie_config()
+    model = ErnieForPretraining(cfg, device="cuda", seed=0)
+    opt = AdamW(learning_rate=1e-4, parameters=model.parameters())
+    step = CompiledTrainStep(lambda ids, l: model(ids, labels=l)[1], model,
+                             opt, amp_level="O2")
+    shape = (ERNIE_BATCH, ERNIE_SEQ)
+    return model, step, _token_batches(torch, cfg.vocab_size, shape, shape,
+                                       cfg.vocab_size)
+
+
+def bert_finetune(torch):
+    """BERT-base finetuning as ``benchmarks/matrix.py:95-122`` runs it:
+    ``BertForSequenceClassification`` with 2 classes, fp32 parameters
+    from seed 0, AdamW at lr 2e-5, a bf16 O2 ``CompiledTrainStep``; ids of
+    shape lead + (32, 128) in [0, 30522) and one class in {0, 1} per
+    sequence. Returns (model, step, batch) as ``gpt124m_training`` does."""
+    from paddle_tpu_torch.jit import CompiledTrainStep
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.text.bert import BertForSequenceClassification
+    cfg = bert_config()
+    model = BertForSequenceClassification(cfg, num_classes=2, device="cuda",
+                                          seed=0)
+    opt = AdamW(learning_rate=2e-5, parameters=model.parameters())
+    step = CompiledTrainStep(lambda ids, y: model(ids, labels=y)[1], model,
+                             opt, amp_level="O2")
+    return model, step, _token_batches(torch, cfg.vocab_size,
+                                       (BERT_BATCH, BERT_SEQ),
+                                       (BERT_BATCH,), 2)
+
+
+def flops_per_token(model, layers, hidden, seq):
+    """6N + 12 L H S (N every parameter, the tied one once): the JAX
+    package's count (``text/gpt.py`` ``flops_per_token``,
+    ``benchmarks/matrix.py:159-166``), so MFU means the same in both."""
+    n = sum(p.numel() for p in model.parameters())
+    return 6 * n + 12 * layers * hidden * seq
+
+
+# the training paths: (phase, workload, run_steps K, layers, hidden,
+# description)
+TRAINING_PATHS = {
+    "gpt124m": ("training_bf16", gpt124m_training, TRAIN_K, 12, 768,
+                "gpt_small (GPT-124M), fp32 params, O2 bf16 compute, "
+                "AdamW lr 1e-4, random weights seed 0"),
+    "ernie": ("ernie_pretraining_bf16", ernie_pretraining, ERNIE_K, 12, 768,
+              "ErnieForPretraining, ERNIE-3.0-base (vocab 40000), fp32 "
+              "params, O2 bf16 compute, AdamW lr 1e-4, random weights and "
+              "tokens seed 0, no group_sharded_parallel"),
+    "bert": ("bert_finetune_bf16", bert_finetune, BERT_K, 12, 768,
+             "BertForSequenceClassification, BERT-base (vocab 30522), 2 "
+             "classes, fp32 params, O2 bf16 compute, AdamW lr 2e-5, random "
+             "weights and tokens seed 0"),
+}
+
+
+def phase_training_bf16(torch, ck, smi, path="gpt124m"):
+    """One training path's workload: 3 warm-up steps, 10 timed calls, then
+    one timed ``run_steps`` block of K; each step must launch K2 and K3
+    once per layer."""
+    phase, build, k, layers, hidden, describe = TRAINING_PATHS[path]
+    model, step, batch = build(torch)
     ids, labels = batch()
-    ids_k, labels_k = batch(TRAIN_K)
-    tokens = TRAIN_BATCH * cfg.max_seq_len
-    flops_per_token = model.flops_per_token()
+    ids_k, labels_k = batch(k)
+    b, seq = ids.shape
+    tokens = b * seq
+    per_token = flops_per_token(model, layers, hidden, seq)
     torch.cuda.reset_peak_memory_stats()
-    before = {k.name: k.launches for k in ck.KERNELS}
+    before = {k_.name: k_.launches for k_ in ck.KERNELS}
     losses = [step(ids, labels) for _ in range(TRAIN_WARMUP)]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -782,82 +902,167 @@ def phase_training_bf16(torch, ck, smi):
     t0 = time.perf_counter()
     block = step.run_steps(ids_k, labels_k)
     torch.cuda.synchronize()
-    run_steps_s = (time.perf_counter() - t0) / TRAIN_K
+    run_steps_s = (time.perf_counter() - t0) / k
     losses = [float(x) for x in losses] + block.tolist()
-    launches = {k.name: k.launches - before[k.name] for k in ck.KERNELS}
-    steps = TRAIN_WARMUP + TRAIN_TIMED + TRAIN_K
+    launches = {k_.name: k_.launches - before[k_.name] for k_ in ck.KERNELS}
+    steps = TRAIN_WARMUP + TRAIN_TIMED + k
 
     def rates(step_s):
         tps = tokens / step_s
         return {"step_ms": step_s * 1e3, "tokens_per_s": tps,
-                "mfu": tps * flops_per_token / PEAK_BF16_FLOPS}
+                "sequences_per_s": b / step_s,
+                "mfu": tps * per_token / PEAK_BF16_FLOPS}
 
-    out = {"phase": "training_bf16", "nvidia_smi": smi,
-           "model": "gpt_small (GPT-124M), fp32 params, O2 bf16 compute, "
-                    "AdamW lr 1e-4, random weights seed 0",
-           "batch": TRAIN_BATCH, "seq": cfg.max_seq_len,
-           "num_parameters": model.num_parameters(),
-           "flops_per_token": flops_per_token,
-           "mfu_peak_flops": PEAK_BF16_FLOPS,
+    out = {"phase": phase, "nvidia_smi": smi, "model": describe,
+           "batch": b, "seq": seq,
+           "num_parameters": sum(p.numel() for p in model.parameters()),
+           "flops_per_token": per_token, "mfu_peak_flops": PEAK_BF16_FLOPS,
            "per_call": rates(per_call_s),
-           "run_steps_k8": rates(run_steps_s),
+           f"run_steps_k{k}": rates(run_steps_s),
            "peak_memory_bytes": torch.cuda.max_memory_allocated(),
            "steps": steps, "losses": losses, "launches": launches}
     emit(out)
     if not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"a training loss is not finite: {losses}")
-    want = cfg.num_layers * steps
-    if launches["flash_bwd"] != want or launches["flash_fwd"] < want:
+    want = layers * steps
+    if launches["flash_bwd"] != want or launches["flash_fwd"] != want:
         raise AssertionError(
-            f"{steps} steps of {cfg.num_layers} layers launched flash_bwd "
-            f"{launches['flash_bwd']} and flash_fwd {launches['flash_fwd']} "
-            f"times; want {want} and at least {want}")
+            f"{steps} steps of {layers} layers launched flash_fwd "
+            f"{launches['flash_fwd']} and flash_bwd {launches['flash_bwd']} "
+            f"times; want {want} each")
 
 
-def phase_training_exactness_fp32(torch, ck):
-    """One fp32 step (loss and every gradient) of GPT at full width and 2
-    layers, batch 2 x 1024: on the card through K2/K3, and on the CPU
-    through their plain versions, from the same weights and batch."""
-    import numpy as np
-    from paddle_tpu_torch.text.gpt import GPTConfig, GPTForPretraining
-    cfg = GPTConfig(hidden_size=768, num_layers=2, num_heads=12)
-    rng = np.random.default_rng(1)
-    ids, labels = (torch.from_numpy(rng.integers(0, cfg.vocab_size,
-                                                 (2, cfg.max_seq_len)))
-                   for _ in range(2))
-    results = {}
+def _grads(model):
+    """{name: gradient on the CPU, or None for a parameter the loss never
+    reads}."""
+    return {n: None if p.grad is None else p.grad.cpu()
+            for n, p in model.named_parameters()}
+
+
+def training_exactness_fp32(torch, ck, phase, describe, build, ids, labels,
+                            mask=None):
+    """One fp32 step (loss and every gradient) of a model at full width
+    and 2 layers, built by ``build(device)`` from one seed: on the card
+    through K2/K3 and on the CPU through their plain versions, on the same
+    batch. With ``mask``, also one padded forward (the dense attention
+    path) on each device. The loss within 1e-4, every gradient within 1e-4
+    of its own largest entry (fp32 sums over the batch's tokens taken in
+    different orders on the two devices; a gradient that is zero up to
+    rounding, below 1e-6 of the largest entry, on both devices), the
+    masked logits within 1e-4 of their largest entry."""
+    results, models = {}, {}
     before = {k.name: k.launches for k in ck.KERNELS}
     for dev in ("cuda", "cpu"):
-        model = GPTForPretraining(cfg, device=dev, seed=0)
-        _, loss = model(ids.to(dev), labels=labels.to(dev))
+        models[dev] = model = build(dev)
+        loss = model(ids.to(dev), labels=labels.to(dev))[1]
         loss.backward()
-        results[dev] = (loss.item(), {n: p.grad.cpu() for n, p in
-                                      model.named_parameters()})
+        results[dev] = (loss.item(), _grads(model))
         if dev == "cuda":
             torch.cuda.synchronize()
             launches = {k.name: k.launches - before[k.name]
                         for k in ck.KERNELS}
     loss_err = abs(results["cuda"][0] - results["cpu"][0])
-    # every gradient within 1e-4 of its own largest entry: fp32 sums over
-    # 2048 tokens taken in different orders on the two devices
-    grad_rel = {n: max_err(g, results["cpu"][1][n]) /
-                max(float(results["cpu"][1][n].abs().max()), 1e-30)
-                for n, g in results["cuda"][1].items()}
+    cpu_grads = results["cpu"][1]
+    unread = sorted(n for n, g in cpu_grads.items() if g is None)
+    unread_cuda = sorted(n for n, g in results["cuda"][1].items()
+                         if g is None)
+    # a gradient that is zero in exact arithmetic (k_proj's bias: it
+    # shifts each row of scores by a constant, which softmax removes) is
+    # rounding noise on both devices; it is held below 1e-6 of the
+    # model's largest gradient entry, every other one relative to itself
+    top = max(float(g.abs().max()) for g in cpu_grads.values()
+              if g is not None)
+    zero = sorted(n for n, g in cpu_grads.items()
+                  if g is not None and float(g.abs().max()) <= 1e-6 * top)
+    zero_ok = all(float(results["cuda"][1][n].abs().max()) <= 1e-6 * top
+                  for n in zero)
+    grad_rel = {n: max_err(g, cpu_grads[n]) /
+                float(cpu_grads[n].abs().max())
+                for n, g in results["cuda"][1].items()
+                if g is not None and n not in zero}
     worst = max(grad_rel, key=grad_rel.get)
-    out = {"phase": "training_exactness_fp32", "tf32": False,
-           "model": "GPT-124M widths, 2 layers, fp32, batch 2 x 1024",
+    out = {"phase": phase, "tf32": False, "model": describe,
+           "batch": list(ids.shape),
            "loss_cuda": results["cuda"][0], "loss_cpu": results["cpu"][0],
            "loss_abs_err": loss_err, "loss_tol": 1e-4,
            "grad_max_rel_err": grad_rel[worst], "grad_worst": worst,
-           "grad_rel_tol": 1e-4, "params": len(grad_rel),
-           "launches": launches}
+           "grad_rel_tol": 1e-4, "grads_zero_up_to_rounding": zero,
+           "zero_tol_of_largest_grad": 1e-6, "params": len(cpu_grads),
+           "params_without_gradient": unread, "launches": launches}
+    masked_rel = None
+    if mask is not None:
+        with torch.no_grad():
+            fwd_before = ck.FLASH_FWD.launches
+            logits = {dev: m(ids.to(dev), attention_mask=mask.to(dev))
+                      for dev, m in models.items()}
+            masked_launches = ck.FLASH_FWD.launches - fwd_before
+        masked_rel = max_err(logits["cuda"].cpu(), logits["cpu"]) / \
+            float(logits["cpu"].abs().max())
+        out.update(masked_rel_err=masked_rel, masked_rel_tol=1e-4,
+                   masked_valid_tokens=mask.sum(1).tolist(),
+                   masked_flash_launches=masked_launches)
     emit(out)
-    if launches["flash_fwd"] != cfg.num_layers or \
-            launches["flash_bwd"] != cfg.num_layers:
+    layers = 2
+    if launches["flash_fwd"] != layers or launches["flash_bwd"] != layers:
         raise AssertionError(f"the fp32 step launched {launches}")
-    if loss_err > 1e-4 or grad_rel[worst] > 1e-4:
+    if unread != unread_cuda:
+        raise AssertionError(f"parameters without a gradient differ: card "
+                             f"{unread_cuda}, CPU {unread}")
+    if loss_err > 1e-4 or grad_rel[worst] > 1e-4 or not zero_ok:
         raise AssertionError(f"card step differs from the CPU step: loss "
-                             f"{loss_err}, {worst} {grad_rel[worst]}")
+                             f"{loss_err}, {worst} {grad_rel[worst]}, zero "
+                             f"up to rounding on the CPU {zero}")
+    if mask is not None and (masked_rel > 1e-4
+                             or out["masked_flash_launches"]):
+        raise AssertionError(f"masked forward: {masked_rel} against the CPU, "
+                             f"{out['masked_flash_launches']} flash launches")
+
+
+def _seeded_ids(torch, vocab, shape, seed=1):
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    return (torch.from_numpy(rng.integers(0, vocab, shape))
+            for _ in range(2))
+
+
+def phase_training_exactness_fp32(torch, ck):
+    """GPT at GPT-124M's widths, 2 layers, batch 2 x 1024."""
+    from paddle_tpu_torch.text.gpt import GPTConfig, GPTForPretraining
+    cfg = GPTConfig(hidden_size=768, num_layers=2, num_heads=12)
+    ids, labels = _seeded_ids(torch, cfg.vocab_size, (2, cfg.max_seq_len))
+    training_exactness_fp32(
+        torch, ck, "training_exactness_fp32",
+        "GPT-124M widths, 2 layers, fp32, batch 2 x 1024",
+        lambda dev: GPTForPretraining(cfg, device=dev, seed=0), ids, labels)
+
+
+def phase_ernie_exactness_fp32(torch, ck):
+    """ERNIE-3.0-base's widths, 2 layers, batch 2 x 512; then a padded
+    batch (400 and 512 real tokens) forward on the dense path."""
+    from paddle_tpu_torch.text.ernie import ErnieForPretraining
+    cfg = ernie_config(num_hidden_layers=2)
+    ids, labels = _seeded_ids(torch, cfg.vocab_size, (2, ERNIE_SEQ))
+    mask = (torch.arange(ERNIE_SEQ)[None] <
+            torch.tensor([[400], [ERNIE_SEQ]])).long()
+    training_exactness_fp32(
+        torch, ck, "ernie_exactness_fp32",
+        "ERNIE-3.0-base widths, 2 layers, fp32, batch 2 x 512",
+        lambda dev: ErnieForPretraining(cfg, device=dev, seed=0), ids,
+        labels, mask)
+
+
+def phase_bert_exactness_fp32(torch, ck):
+    """BERT-base's widths, 2 layers, 2 classes, batch 2 x 128."""
+    from paddle_tpu_torch.text.bert import BertForSequenceClassification
+    cfg = bert_config(num_hidden_layers=2)
+    ids, _ = _seeded_ids(torch, cfg.vocab_size, (2, BERT_SEQ))
+    labels = torch.tensor([0, 1])
+    training_exactness_fp32(
+        torch, ck, "bert_exactness_fp32",
+        "BERT-base widths, 2 layers, 2 classes, fp32, batch 2 x 128",
+        lambda dev: BertForSequenceClassification(cfg, num_classes=2,
+                                                  device=dev, seed=0),
+        ids, labels)
 
 
 # -- phase 6 ------------------------------------------------------------------
@@ -1211,7 +1416,10 @@ def time_packed(torch, ck, launches):
     return rows
 
 
-def phase_timing(torch, ck, launches, smi):
+def phase_timing(torch, ck, launches, path_launches, smi):
+    """The kernels line: each kernel at its main path's shape with its
+    launches over every path, then K2 and K3 at the encoder paths'
+    non-causal shapes with those paths' own launches."""
     bf16, f32 = torch.bfloat16, torch.float32
     main = [time_paged(torch, ck, PAGED_CTXS[1], 1, bf16,
                        launches["paged_attention"], "serving"),
@@ -1220,6 +1428,14 @@ def phase_timing(torch, ck, launches, smi):
             time_flash_bwd(torch, ck, TRAIN_ATTENTION, bf16,
                            launches["flash_bwd"]),
             *time_packed(torch, ck, launches)]
+    for case, path in ((ERNIE_ATTENTION, "ernie_pretraining"),
+                       (BERT_ATTENTION, "bert_finetune")):
+        counts = path_launches[path]
+        for row in (time_flash(torch, ck, case, bf16, counts["flash_fwd"]),
+                    time_flash_bwd(torch, ck, case, bf16,
+                                   counts["flash_bwd"])):
+            row.update(case=case[0], launches_path=path)
+            main.append(row)
     variants = [time_paged(torch, ck, PAGED_CTXS[5], 5, bf16, None,
                            "serving_verify"),
                 time_paged(torch, ck, PAGED_BYTES_CTXS, 1, bf16, None,
@@ -1247,7 +1463,8 @@ def main():
     smi = phase_environment(torch, ck)
     phase_kernels_vs_plain(torch, ck)
     # the main paths, each counted from zero: serving (K1) with the fp32
-    # model phase (K2), training (K2, K3), then packed attention (K4, K5)
+    # model phase (K2), training (K2, K3), packed attention (K4, K5), then
+    # ERNIE pretraining and BERT finetuning (K2, K3, non-causal)
     paths = (("serving", ("paged_attention", "flash_fwd"),
               lambda: (phase_serving(torch, ck, smi),
                        phase_exactness_fp32(torch, ck))),
@@ -1256,8 +1473,15 @@ def main():
                        phase_training_exactness_fp32(torch, ck))),
              ("packed_attention", ("flash_varlen_fwd", "flash_varlen_bwd"),
               lambda: (phase_packed_attention_bf16(torch, ck, smi),
-                       phase_packed_attention_exactness_fp32(torch, ck))))
+                       phase_packed_attention_exactness_fp32(torch, ck))),
+             ("ernie_pretraining", ("flash_fwd", "flash_bwd"),
+              lambda: (phase_training_bf16(torch, ck, smi, "ernie"),
+                       phase_ernie_exactness_fp32(torch, ck))),
+             ("bert_finetune", ("flash_fwd", "flash_bwd"),
+              lambda: (phase_training_bf16(torch, ck, smi, "bert"),
+                       phase_bert_exactness_fp32(torch, ck))))
     launches = {k.name: 0 for k in ck.KERNELS}
+    path_launches = {}
     for path, kernels, drive in paths:
         ck.reset_launch_counts()
         drive()
@@ -1266,9 +1490,11 @@ def main():
         if missing:
             raise AssertionError(f"kernels never launched on the {path} "
                                  f"path: {missing}")
+        path_launches[path] = counts
         for name, c in counts.items():
             launches[name] += c
-    kernels = phase_timing(torch, ck, launches, smi)
+    emit({"phase": "path_launches", "launches": path_launches})
+    kernels = phase_timing(torch, ck, launches, path_launches, smi)
     emit({"phase": "done", "seconds": time.perf_counter() - t0})
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

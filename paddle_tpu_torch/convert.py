@@ -1,7 +1,14 @@
-"""Carry a JAX ``GPTForPretraining``'s weights into the port.
+"""Carry a JAX model's weights into the port.
 
-Two input forms, both plain numpy (the port never imports the JAX
-package; the caller converts):
+``load_jax_state`` takes any JAX model's ``state_dict()`` as
+``{name: numpy array}`` (ERNIE, BERT, the encoder layers...): the port's
+parameter names are the reference's, so names carry across as they are
+(``ernie.encoder.layers.0.self_attn.q_proj.weight``, ``cls.decoder_bias``;
+a tied weight appears once, under the layer that holds it).
+
+``load_jax_gpt`` takes a JAX ``GPTForPretraining``'s weights in two
+forms, both plain numpy (the port never imports the JAX package; the
+caller converts):
 
 - the JAX model's ``state_dict()`` as ``{name: np.asarray(p._value)}``,
   whose names (``gpt.wte.weight``, ``gpt.blocks.0.attn.qkv_proj.weight``,
@@ -47,22 +54,28 @@ def gpt_state_from_jax(np_state):
 
 
 @torch.no_grad()
-def load_jax_gpt(port_model, np_state):
-    """Load the JAX weights into the port's ``GPTForPretraining`` in
-    place, on the model's device and in its dtype. The names and shapes
-    must match exactly (a tied model has no ``lm_head.weight``). Returns
-    the model."""
-    state = gpt_state_from_jax(np_state)
+def load_jax_state(port_model, np_state):
+    """Load ``{parameter name: np.ndarray}`` into ``port_model`` in place,
+    on the model's device and in its dtype. The names and shapes must
+    match the model's parameters exactly: a missing or unexpected name
+    raises KeyError, a wrong shape ValueError. Returns the model."""
     params = dict(port_model.named_parameters())
-    missing = sorted(set(params) - set(state))
-    unexpected = sorted(set(state) - set(params))
+    missing = sorted(set(params) - set(np_state))
+    unexpected = sorted(set(np_state) - set(params))
     if missing or unexpected:
         raise KeyError(f"weights do not match the model: missing {missing}, "
                        f"unexpected {unexpected}")
     for name, p in params.items():
-        arr = state[name]
+        arr = np.asarray(np_state[name])
         if tuple(arr.shape) != tuple(p.shape):
             raise ValueError(f"{name}: shape {tuple(arr.shape)} != model "
                              f"{tuple(p.shape)}")
         p.copy_(torch.tensor(arr))
     return port_model
+
+
+def load_jax_gpt(port_model, np_state):
+    """Load the JAX weights, in either form, into the port's
+    ``GPTForPretraining`` through ``load_jax_state`` (a tied model has no
+    ``lm_head.weight``). Returns the model."""
+    return load_jax_state(port_model, gpt_state_from_jax(np_state))

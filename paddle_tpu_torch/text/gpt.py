@@ -2,13 +2,14 @@
 the non-tensor-parallel ``GPTForPretraining`` family; no stacked or
 pipelined variant in this slice).
 
-``Linear`` keeps Paddle's [in, out] weight layout (``y = x @ W + b``), so
-the port's parameters are the JAX model's arrays as they are, and the
-serving engine's ``a @ W + b`` reads the same arrays as the JAX engine's
-(``convert.py`` carries weights across without a transpose). Attention
-runs through ``nn.functional.scaled_dot_product_attention``: the
-flash kernels (forward and backward) where their gate admits the shape,
-the dense path elsewhere. ``jit.CompiledTrainStep`` trains it.
+``Linear`` (``nn/layer/common.py``) keeps Paddle's [in, out] weight
+layout (``y = x @ W + b``), so the port's parameters are the JAX model's
+arrays as they are, and the serving engine's ``a @ W + b`` reads the
+same arrays as the JAX engine's (``convert.py`` carries weights across
+without a transpose). Attention runs through
+``nn.functional.scaled_dot_product_attention``: the flash kernels
+(forward and backward) where their gate admits the shape, the dense path
+elsewhere. ``jit.CompiledTrainStep`` trains it.
 
 Weights are random, drawn from ``seed`` with a ``torch.Generator`` on the
 CPU: embeddings and every projection at normal(0, 0.02)
@@ -22,6 +23,7 @@ from torch import nn
 
 from .. import resolve_device
 from ..nn import functional as F
+from ..nn.layer.common import Linear
 
 
 class GPTConfig:
@@ -43,22 +45,6 @@ class GPTConfig:
         self.use_rmsnorm = use_rmsnorm
         self.tie_word_embeddings = tie_word_embeddings
         self.initializer_range = initializer_range
-
-
-class Linear(nn.Module):
-    """``y = x @ weight + bias`` with weight [in, out] (Paddle's layout)."""
-
-    def __init__(self, in_features, out_features, bias=True, device=None,
-                 dtype=None):
-        super().__init__()
-        self.weight = nn.Parameter(torch.empty(in_features, out_features,
-                                               device=device, dtype=dtype))
-        self.bias = nn.Parameter(torch.zeros(out_features, device=device,
-                                             dtype=dtype)) if bias else None
-
-    def forward(self, x):
-        y = x @ self.weight
-        return y if self.bias is None else y + self.bias
 
 
 class GPTAttention(nn.Module):

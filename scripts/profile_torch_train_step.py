@@ -3,15 +3,20 @@
 
 Run from the root of a checkout, on a machine with one NVIDIA card:
 
-    python3 scripts/profile_torch_train_step.py [--workload packed_attention]
+    python3 scripts/profile_torch_train_step.py [--workload WORKLOAD]
 
 By default it takes the training workload from
 ``chip_smoke.gpt124m_training`` (the one ``chip_smoke.py``'s
 ``training_bf16`` phase times: GPT-124M, batch 16 x 1024 tokens, bf16 O2,
 AdamW at lr 1e-4, random weights from seed 0); ``--workload
-packed_attention`` takes ``chip_smoke.packed_attention`` instead (one
-``flash_attn_unpadded`` forward and backward over 16,384 packed tokens,
-12 heads of 64, causal, bf16, as ``packed_attention_bf16`` times it). It
+ernie_pretraining`` and ``--workload bert_finetune`` take
+``chip_smoke.ernie_pretraining`` (ERNIE-3.0-base, 16 x 512) and
+``chip_smoke.bert_finetune`` (BERT-base, 32 x 128) instead, as
+``ernie_pretraining_bf16`` and ``bert_finetune_bf16`` time them;
+``--workload packed_attention`` takes ``chip_smoke.packed_attention``
+instead (one ``flash_attn_unpadded`` forward and backward over 16,384
+packed tokens, 12 heads of 64, causal, bf16, as ``packed_attention_bf16``
+times it). It
 warms up as that phase does, then traces three steps with
 ``torch.profiler`` (CPU and CUDA activities). It prints one JSON line:
 the traced window's wall time, the device time summed over every kernel
@@ -35,7 +40,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
 from chip_smoke import (PACKED_WARMUP, TRAIN_WARMUP,  # noqa: E402
-                        gpt124m_training, packed_attention)
+                        bert_finetune, ernie_pretraining, gpt124m_training,
+                        packed_attention)
 
 STEPS = 3
 
@@ -58,11 +64,15 @@ def group_of(name):
             "varlen plan)")
 
 
-def training_step(torch):
-    """(step, warm-up count) of ``chip_smoke``'s training workload."""
-    _, step, batch = gpt124m_training(torch)
-    ids, labels = batch()
-    return (lambda: step(ids, labels)), TRAIN_WARMUP
+def training_step(build):
+    """A workload maker for one of ``chip_smoke``'s training workloads:
+    ``build(torch)`` gives (model, step, batch); the maker returns (step,
+    warm-up count)."""
+    def make(torch):
+        _, step, batch = build(torch)
+        ids, labels = batch()
+        return (lambda: step(ids, labels)), TRAIN_WARMUP
+    return make
 
 
 def packed_attention_step(torch):
@@ -79,7 +89,9 @@ def packed_attention_step(torch):
     return step, PACKED_WARMUP
 
 
-WORKLOADS = {"training": training_step,
+WORKLOADS = {"training": training_step(gpt124m_training),
+             "ernie_pretraining": training_step(ernie_pretraining),
+             "bert_finetune": training_step(bert_finetune),
              "packed_attention": packed_attention_step}
 
 

@@ -103,3 +103,48 @@ def tiny_models(tied=True, seed=0, max_seq_len=256):
     pm = GPTForPretraining(GPTConfig(**kw), device="cpu").eval()
     load_jax_gpt(pm, jax_state(jm))
     return jm, pm
+
+
+# the tiny encoder both packages build for the ERNIE and BERT tests:
+# hidden 128, 2 heads of 64, 2 layers; batches of 2 x 128 tokens, so the
+# port's unmasked attention takes the kernel route (the plain K2/K3 on
+# the CPU)
+TINY_ENCODER = dict(vocab_size=256, hidden_size=128, num_hidden_layers=2,
+                    num_attention_heads=2, intermediate_size=256,
+                    max_position_embeddings=128, hidden_dropout_prob=0.0,
+                    attention_probs_dropout_prob=0.0)
+
+
+def tiny_text_models(family, head, seed=0, **head_kw):
+    """The same tiny ``family`` ("ernie" or "bert") model with the head
+    class ``head`` in both packages, in eval mode, the port loaded with
+    the JAX model's weights."""
+    import importlib
+
+    import paddle_tpu as paddle
+
+    from paddle_tpu_torch.convert import load_jax_state
+    jmod = importlib.import_module(f"paddle_tpu.text.{family}")
+    pmod = importlib.import_module(f"paddle_tpu_torch.text.{family}")
+    config = f"{family.capitalize()}Config"
+    paddle.seed(seed)
+    jm = getattr(jmod, head)(getattr(jmod, config)(**TINY_ENCODER),
+                             **head_kw)
+    jm.eval()
+    pm = getattr(pmod, head)(getattr(pmod, config)(**TINY_ENCODER),
+                             device="cpu", **head_kw).eval()
+    load_jax_state(pm, jax_state(jm))
+    return jm, pm
+
+
+def token_batch(seed, k=None, vocab=TINY_ENCODER["vocab_size"],
+                ignored=0.5):
+    """(ids, labels) of shape [2, 128] (or [k, 2, 128]) from
+    ``numpy.random.default_rng(seed)``; about ``ignored`` of the labels
+    are -100."""
+    rng = np.random.default_rng(seed)
+    shape = (2, 128) if k is None else (k, 2, 128)
+    ids = rng.integers(0, vocab, shape)
+    labels = rng.integers(0, vocab, shape)
+    labels[rng.random(shape) < ignored] = -100
+    return ids, labels

@@ -51,6 +51,10 @@ FLASH_CASES = {   # b, sq, sk, h, kh, d, causal
     # where the dq pass steps 32-row kv tiles (d = 256)
     "nonsquare_d128": (1, 256, 384, 2, 2, 128, True),
     "nonsquare_d256": (1, 128, 256, 2, 2, 256, True),
+    # the encoder paths' attention, non-causal: ERNIE-3.0-base
+    # pretraining at 16 x 512, BERT-base finetuning at 32 x 128
+    "ernie_noncausal": (16, 512, 512, 12, 12, 64, False),
+    "bert_noncausal": (32, 128, 128, 12, 12, 64, False),
 }
 # the training path's attention, GPT-124M at batch 16
 TRAIN_CASE = (16, 1024, 1024, 12, 12, 64, True)
@@ -249,7 +253,9 @@ def test_flash_bwd_kernel_matches_plain_version(cuda_device, case, dtype,
 
 
 @pytest.mark.parametrize("case,dtype", [("gqa", "float32"),
-                                        ("gpt124m_train", "bfloat16")])
+                                        ("gpt124m_train", "bfloat16"),
+                                        ("ernie_noncausal", "bfloat16"),
+                                        ("bert_noncausal", "bfloat16")])
 def test_flash_bwd_kernel_is_deterministic(cuda_device, case, dtype):
     args, causal = _flash_bwd_args(case, dtype, cuda_device, True)
     first = ck.flash_attention_bwd(*args, causal=causal)
@@ -308,6 +314,42 @@ def test_train_step_runs_every_layer_through_both_kernels(cuda_device):
     assert ck.FLASH_FWD.launches - fwd == 3 * cfg.num_layers
     assert ck.FLASH_BWD.launches - bwd == 3 * cfg.num_layers
     assert all(np.isfinite(losses)) and losses[-1] < losses[0]
+    assert all(p.dtype == torch.float32 for p in model.parameters())
+
+
+@pytest.mark.parametrize("family", ["ernie", "bert"])
+def test_encoder_o2_step_runs_every_layer_through_both_kernels(cuda_device,
+                                                               family):
+    """One O2 step of ERNIE-3.0-base pretraining or BERT-base finetuning
+    (12 layers at full width, batch 2 x 512 and 2 x 128): K2 and K3,
+    non-causal, once per layer."""
+    from paddle_tpu_torch.jit import CompiledTrainStep
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.text import bert, ernie
+    rng = np.random.default_rng(0)
+    if family == "ernie":
+        cfg = ernie.ernie_3_0_base(hidden_dropout_prob=0.0,
+                                   attention_probs_dropout_prob=0.0,
+                                   max_position_embeddings=512)
+        model = ernie.ErnieForPretraining(cfg, device=cuda_device, seed=0)
+        ids = rng.integers(0, cfg.vocab_size, (2, 512))
+        labels = rng.integers(0, cfg.vocab_size, (2, 512))
+    else:
+        cfg = bert.bert_base(hidden_dropout_prob=0.0,
+                             attention_probs_dropout_prob=0.0)
+        model = bert.BertForSequenceClassification(cfg, device=cuda_device,
+                                                   seed=0)
+        ids = rng.integers(0, cfg.vocab_size, (2, 128))
+        labels = rng.integers(0, 2, (2,))
+    opt = AdamW(learning_rate=1e-4, parameters=model.parameters())
+    step = CompiledTrainStep(lambda i, lb: model(i, labels=lb)[1], model,
+                             opt, amp_level="O2")
+    fwd, bwd = ck.FLASH_FWD.launches, ck.FLASH_BWD.launches
+    loss = float(step(torch.from_numpy(ids).to(cuda_device),
+                      torch.from_numpy(labels).to(cuda_device)))
+    assert ck.FLASH_FWD.launches - fwd == 12
+    assert ck.FLASH_BWD.launches - bwd == 12
+    assert np.isfinite(loss)
     assert all(p.dtype == torch.float32 for p in model.parameters())
 
 

@@ -49,6 +49,8 @@ def test_importing_the_port_loads_neither_package():
         "import paddle_tpu_torch.text.gpt, paddle_tpu_torch.ops\n"
         "import paddle_tpu_torch.optimizer, paddle_tpu_torch.jit\n"
         "import paddle_tpu_torch.nn.clip, paddle_tpu_torch.nn.functional\n"
+        "import paddle_tpu_torch.nn.layer\n"
+        "import paddle_tpu_torch.text.ernie, paddle_tpu_torch.text.bert\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in %r)\n"
