@@ -1168,6 +1168,385 @@ def phase_packed_attention_exactness_fp32(torch, ck):
 
 
 # -- phase 7 ------------------------------------------------------------------
+# the vision path: ResNet-50 ImageNet training at batch 256 of 224 x 224
+# (benchmarks/matrix.py:71-92) and LeNet at batch 256 of 28 x 28
+# (matrix.py:49-68), each with its run_steps K; no hand-written kernel is
+# on it (cuDNN convolutions and batch norms, ATen pools)
+RESNET_BATCH, RESNET_SIZE, RESNET_CLASSES, RESNET_K = 256, 224, 1000, 8
+RESNET_EXACT_BATCH = 2
+LENET_BATCH, LENET_K = 256, 32
+
+
+def _image_batches(torch, shape, classes, device="cuda"):
+    """``batch(*lead)`` drawing fp32 images uniform in [0, 1) of shape
+    lead + ``shape`` and int64 labels in [0, ``classes``) of shape lead +
+    shape[:1], from one ``numpy.random.default_rng(0)``, as
+    ``benchmarks/matrix.py`` draws them; on ``device``, or as numpy arrays
+    with ``device=None``."""
+    import numpy as np
+    rng = np.random.default_rng(0)
+
+    def batch(*lead):
+        x = rng.uniform(0, 1, lead + shape).astype(np.float32)
+        y = rng.integers(0, classes, lead + shape[:1]).astype(np.int64)
+        if device is None:
+            return x, y
+        return torch.from_numpy(x).to(device), torch.from_numpy(y).to(device)
+
+    return batch
+
+
+def resnet50_training(torch, data_format="NCHW"):
+    """ResNet-50 ImageNet training as ``benchmarks/matrix.py:71-92`` runs
+    it: ``resnet50(num_classes=1000)`` with fp32 parameters from seed 0,
+    ``Momentum(learning_rate=0.1, momentum=0.9)``, ``nn.CrossEntropyLoss``,
+    a bf16 O2 ``CompiledTrainStep`` over ``lambda x, y: loss_fn(net(x),
+    y)``. Returns (model, step, batch); ``batch(*lead)`` draws images of
+    shape lead + (256, 3, 224, 224) and labels on the card.
+    ``scripts/profile_torch_train_step.py --workload resnet50`` traces
+    this same workload."""
+    from paddle_tpu_torch.jit import CompiledTrainStep
+    from paddle_tpu_torch.nn import CrossEntropyLoss
+    from paddle_tpu_torch.optimizer import Momentum
+    from paddle_tpu_torch.vision.models import resnet50
+    model = resnet50(num_classes=RESNET_CLASSES, data_format=data_format,
+                     device="cuda", seed=0)
+    opt = Momentum(learning_rate=0.1, momentum=0.9,
+                   parameters=model.parameters())
+    loss_fn = CrossEntropyLoss()
+    step = CompiledTrainStep(lambda x, y: loss_fn(model(x), y), model, opt,
+                             amp_level="O2")
+    return model, step, _image_batches(
+        torch, (RESNET_BATCH, 3, RESNET_SIZE, RESNET_SIZE), RESNET_CLASSES)
+
+
+def flops_per_image(torch, model, shape):
+    """Training FLOPs of one image: 3 x the forward's multiply-adds x 2,
+    counted from every convolution's and linear layer's shapes on one
+    ``shape`` image (the batch norms, pools and adds, under 1%, are left
+    out, as MFU counts are)."""
+    from paddle_tpu_torch.nn import Conv2D, Linear
+    counted = []
+
+    def conv(m, inp, out):
+        counted.append(2 * out.numel() * m.weight[0].numel())
+
+    def linear(m, inp, out):
+        counted.append(2 * out.numel() * m.weight.shape[0])
+
+    hooks = [m.register_forward_hook(conv if isinstance(m, Conv2D)
+                                     else linear)
+             for m in model.modules() if isinstance(m, (Conv2D, Linear))]
+    was = model.training
+    model.eval()
+    with torch.no_grad():
+        model(torch.zeros((1,) + shape, device="cuda"))
+    model.train(was)
+    for h in hooks:
+        h.remove()
+    return 3 * sum(counted)
+
+
+def _rates(images, step_s, per_image):
+    ips = images / step_s
+    return {"step_ms": step_s * 1e3, "images_per_s": ips,
+            "mfu": ips * per_image / PEAK_BF16_FLOPS}
+
+
+def _timed_steps(torch, step, x, y, warmup, timed):
+    """Losses of ``warmup`` then ``timed`` calls, and the mean seconds of
+    the timed ones (host clock, synchronized at both ends)."""
+    losses = [step(x, y) for _ in range(warmup)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses += [step(x, y) for _ in range(timed)]
+    torch.cuda.synchronize()
+    return [float(v) for v in losses], (time.perf_counter() - t0) / timed
+
+
+def phase_resnet50_training_bf16(torch, smi):
+    """ResNet-50 at batch 256 x 3 x 224 x 224, O2: 3 warm-up and 10 timed
+    calls, then one timed ``run_steps`` block of K = 8 (the number
+    ``matrix.py`` reports); the same per call channels-last (NHWC), as
+    information. Returns the K block (images, labels) on the card and its
+    numpy copy for the ``Model.fit`` phase."""
+    model, step, _ = resnet50_training(torch)
+    shape = (3, RESNET_SIZE, RESNET_SIZE)
+    per_image = flops_per_image(torch, model, shape)
+    # matrix.py's draw: the K block first; the per-call batch is its first
+    block_np = _image_batches(torch, (RESNET_BATCH,) + shape, RESNET_CLASSES,
+                              device=None)(RESNET_K)
+    xk, yk = (torch.from_numpy(a).cuda() for a in block_np)
+    x, y = xk[0], yk[0]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, per_call_s = _timed_steps(torch, step, x, y, TRAIN_WARMUP,
+                                      TRAIN_TIMED)
+    t0 = time.perf_counter()
+    block = step.run_steps(xk, yk)
+    torch.cuda.synchronize()
+    run_steps_s = (time.perf_counter() - t0) / RESNET_K
+    peak = torch.cuda.max_memory_allocated()
+    losses += block.tolist()
+    del model, step
+    torch.cuda.empty_cache()
+    _, nhwc_step, _ = resnet50_training(torch, "NHWC")
+    _, nhwc_s = _timed_steps(torch, nhwc_step, x, y, TRAIN_WARMUP,
+                             TRAIN_TIMED)
+    del nhwc_step
+    torch.cuda.empty_cache()
+    emit({"phase": "resnet50_training_bf16", "nvidia_smi": smi,
+          "model": "resnet50(num_classes=1000), fp32 params, O2 bf16 "
+                   "compute, Momentum lr 0.1 momentum 0.9, random weights "
+                   "seed 0, uniform images and labels seed 0, NCHW",
+          "batch": RESNET_BATCH, "image": list(shape),
+          "flops_per_image": per_image, "mfu_peak_flops": PEAK_BF16_FLOPS,
+          "per_call": _rates(RESNET_BATCH, per_call_s, per_image),
+          f"run_steps_k{RESNET_K}": _rates(RESNET_BATCH, run_steps_s,
+                                           per_image),
+          "nhwc_per_call": _rates(RESNET_BATCH, nhwc_s, per_image),
+          "peak_memory_bytes": peak, "losses": losses})
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"a ResNet-50 loss is not finite: {losses}")
+    return xk, yk, block_np
+
+
+def fit_recorder(torch):
+    """A ``Model.fit`` callback keeping every step's loss and each epoch's
+    seconds (host clock, synchronized at both ends)."""
+    from paddle_tpu_torch.hapi.callbacks import Callback
+
+    class Recorder(Callback):
+        def __init__(self):
+            super().__init__()
+            self.losses, self.epoch_s = [], []
+
+        def on_epoch_begin(self, epoch, logs=None):
+            torch.cuda.synchronize()
+            self._t0 = time.perf_counter()
+
+        def on_train_batch_end(self, step, logs=None):
+            self.losses.append(float(logs["loss"]))
+
+        def on_epoch_end(self, epoch, logs=None):
+            torch.cuda.synchronize()
+            self.epoch_s.append(time.perf_counter() - self._t0)
+
+    return Recorder()
+
+
+def phase_resnet50_fit_bf16(torch, smi, xk, yk, block_np):
+    """ResNet-50 through ``paddle.Model``, the entry point
+    ``BASELINE.json`` names: ``prepare(Momentum, CrossEntropyLoss,
+    amp_configs="O2")``, then ``fit`` over the K block's 8 x 256 images
+    (numpy, on the host: the loader's batches are copied to the card, a
+    block of 8 at a time), 2 epochs, ``steps_per_execution=8``; then
+    ``evaluate`` with ``Accuracy`` on the first two batches. cuDNN is
+    deterministic in this phase, and fit's 16 losses are held to the same
+    steps through ``run_steps`` on the card-resident block from the same
+    weights within rtol 2e-2 (bf16 losses: a few ulps)."""
+    from paddle_tpu_torch.hapi import Model
+    from paddle_tpu_torch.io import TensorDataset
+    from paddle_tpu_torch.metric import Accuracy
+    from paddle_tpu_torch.nn import CrossEntropyLoss
+    from paddle_tpu_torch.optimizer import Momentum
+    from paddle_tpu_torch.vision.models import resnet50
+    torch.backends.cudnn.deterministic = True
+    try:
+        images = block_np[0].reshape((-1,) + block_np[0].shape[2:])
+        labels = block_np[1].reshape(-1)
+        net = resnet50(num_classes=RESNET_CLASSES, device="cuda", seed=0)
+        opt = Momentum(learning_rate=0.1, momentum=0.9,
+                       parameters=net.parameters())
+        model = Model(net).prepare(opt, CrossEntropyLoss(),
+                                   amp_configs="O2")
+        rec = fit_recorder(torch)
+        torch.cuda.reset_peak_memory_stats()
+        model.fit(TensorDataset([images, labels]), batch_size=RESNET_BATCH,
+                  epochs=2, shuffle=False, steps_per_execution=RESNET_K,
+                  verbose=0, callbacks=[rec])
+        peak = torch.cuda.max_memory_allocated()
+        model.prepare(opt, CrossEntropyLoss(), metrics=Accuracy(),
+                      amp_configs="O2")
+        two = 2 * RESNET_BATCH
+        evaluated = model.evaluate(
+            TensorDataset([images[:two], labels[:two]]),
+            batch_size=RESNET_BATCH, verbose=0)
+        del net, opt, model
+        torch.cuda.empty_cache()
+        _, step, _ = resnet50_training(torch)
+        direct = step.run_steps(xk, yk).tolist() + \
+            step.run_steps(xk, yk).tolist()
+        del step
+        torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.deterministic = False
+    rel = [abs(a - b) / abs(b) for a, b in zip(rec.losses, direct)]
+    epoch_s = rec.epoch_s[1]
+    images_per_s = RESNET_K * RESNET_BATCH / epoch_s
+    emit({"phase": "resnet50_fit_bf16", "nvidia_smi": smi,
+          "entry": "Model(resnet50).prepare(Momentum(0.1, 0.9), "
+                   "CrossEntropyLoss(), amp_configs='O2').fit("
+                   "TensorDataset([8 x 256 images, labels]), batch_size=256, "
+                   "epochs=2, shuffle=False, steps_per_execution=8)",
+          "cudnn_deterministic": True,
+          "epoch_s": rec.epoch_s,
+          "images_per_s_epoch2": images_per_s,
+          "step_ms_epoch2": epoch_s / RESNET_K * 1e3,
+          "peak_memory_bytes": peak, "fit_losses": rec.losses,
+          "run_steps_losses": direct, "max_rel_diff": max(rel),
+          "bit_equal_steps": sum(a == b for a, b in zip(rec.losses, direct)),
+          "rel_tol": 2e-2, "evaluate": evaluated})
+    if len(rec.losses) != 2 * RESNET_K or max(rel) > 2e-2:
+        raise AssertionError(f"fit's losses {rec.losses} differ from "
+                             f"run_steps' {direct}")
+    if not (math.isfinite(evaluated["loss"]) and
+            0.0 <= evaluated["acc"] <= 1.0):
+        raise AssertionError(f"evaluate gave {evaluated}")
+
+
+def phase_resnet50_exactness_fp32(torch, ck):
+    """Full-depth ResNet-50 (1000 classes) at 2 x 3 x 224 x 224, built
+    from seed 0 on the card and on the CPU in fp32 (TF32 off), and on the
+    CPU in fp64 as the arbiter: one training forward and backward, then,
+    every model given the fp64 model's running statistics, an eval
+    forward and backward. Held, card against CPU: the loss within 1e-4,
+    both running statistics after the step within 1e-4 of each one's
+    largest entry, the eval logits within 1e-4 of their largest entry.
+    The gradients are held to fp64: fp32 does not determine them to 1e-4
+    of the largest entry here (at random initialization the backward
+    through the batch norms' statistics, and in eval mode through
+    statistics that one step has barely moved, amplifies each rounding;
+    on the CPU, fp32 against fp64: 1.3e-2 of the largest training-mode
+    gradient, 8.7e-4 of the largest eval-mode one). So the card's worst
+    gradient error against fp64, as a share of the largest fp64 entry,
+    must stay within twice the CPU's fp32 error in eval mode and within
+    four times in training mode, where the card's cuDNN and ATen kernels
+    sum in other orders and the batch statistics amplify each
+    difference."""
+    from paddle_tpu_torch.convert import load_jax_state
+    from paddle_tpu_torch.nn import CrossEntropyLoss
+    from paddle_tpu_torch.vision.models import resnet50
+    x, y = _image_batches(torch, (RESNET_EXACT_BATCH, 3, RESNET_SIZE,
+                                  RESNET_SIZE), RESNET_CLASSES,
+                          device=None)()
+    loss_fn = CrossEntropyLoss()
+    before = {k.name: k.launches for k in ck.KERNELS}
+    runs = (("cuda", "cuda", torch.float32), ("cpu", "cpu", torch.float32),
+            ("fp64", "cpu", torch.float64))
+    models, out = {}, {}
+    for name, dev, dt in runs:
+        m = models[name] = resnet50(num_classes=RESNET_CLASSES, device=dev,
+                                    seed=0).to(dt)
+        xd, yd = torch.from_numpy(x).to(dev, dt), torch.from_numpy(y).to(dev)
+        loss = loss_fn(m(xd), yd)
+        loss.backward()
+        out[name] = {"loss": loss.item(), "train_grads": _grads(m),
+                     "stats": {n: b.cpu() for n, b in m.named_buffers()}}
+    # eval mode, every model on the fp64 model's statistics: one function
+    stats = {n: b.numpy() for n, b in out["fp64"]["stats"].items()}
+    for name, dev, dt in runs:
+        m = models[name]
+        load_jax_state(m, stats | {n: p.detach().cpu().numpy()
+                                   for n, p in m.named_parameters()})
+        m.eval()
+        m.zero_grad(set_to_none=True)
+        xd, yd = torch.from_numpy(x).to(dev, dt), torch.from_numpy(y).to(dev)
+        logits = m(xd)
+        loss_fn(logits, yd).backward()
+        out[name].update(logits=logits.detach().cpu(), grads=_grads(m))
+    torch.cuda.synchronize()
+    launches = {k.name: k.launches - before[k.name] for k in ck.KERNELS}
+    card, cpu, ref = out["cuda"], out["cpu"], out["fp64"]
+    loss_err = abs(card["loss"] - cpu["loss"])
+    stats_rel = max(max_err(card["stats"][n], s) / float(s.abs().max())
+                    for n, s in cpu["stats"].items())
+    logits_rel = max_err(card["logits"], cpu["logits"]) / \
+        float(cpu["logits"].abs().max())
+
+    def against_fp64(key):
+        """(worst error of the card's, of the CPU's fp32 gradients
+        against fp64, each as a share of the largest fp64 entry; the
+        card's worst tensor)."""
+        top = max(float(g.abs().max()) for g in ref[key].values())
+        errs = {dev: {n: float((g.double() - ref[key][n]).abs().max())
+                      for n, g in out[dev][key].items()}
+                for dev in ("cuda", "cpu")}
+        worst = max(errs["cuda"], key=errs["cuda"].get)
+        return (errs["cuda"][worst] / top,
+                max(errs["cpu"].values()) / top, worst)
+
+    held = {"eval_grads": (against_fp64("grads"), 2.0),
+            "train_grads": (against_fp64("train_grads"), 4.0)}
+    emit({"phase": "resnet50_exactness_fp32", "tf32": False,
+          "model": "resnet50(num_classes=1000), seed 0, batch 2 x 3 x 224 x "
+                   "224; fp32 on the card and the CPU, fp64 on the CPU",
+          "loss_cuda": card["loss"], "loss_cpu": cpu["loss"],
+          "loss_fp64": ref["loss"], "loss_abs_err": loss_err,
+          "loss_tol": 1e-4, "running_stats_max_rel_err": stats_rel,
+          "eval_logits_max_rel_err": logits_rel, "rel_tol": 1e-4,
+          **{f"{key}_vs_fp64_of_largest": {
+              "cuda": c, "cpu_fp32": p, "cuda_worst": w,
+              "tol_times_cpu": k}
+             for key, ((c, p, w), k) in held.items()},
+          "params": len(card["grads"]), "launches": launches})
+    if any(launches.values()):
+        raise AssertionError(f"the ResNet-50 step launched {launches}")
+    if loss_err > 1e-4 or stats_rel > 1e-4 or logits_rel > 1e-4:
+        raise AssertionError(
+            f"the card's ResNet-50 differs from the CPU's: loss {loss_err}, "
+            f"running statistics {stats_rel}, eval logits {logits_rel}")
+    for key, ((c, p, w), k) in held.items():
+        if c > k * p:
+            raise AssertionError(
+                f"{key}: the card's {w} is {c} of the largest fp64 entry "
+                f"away, more than {k} x the CPU's fp32 {p}")
+
+
+def phase_lenet_fit(torch, smi):
+    """LeNet through ``Model.fit`` as ``matrix.py:49-68`` sizes it: Adam at
+    lr 1e-3, batch 256 x 1 x 28 x 28, K = 32 batches a block
+    (``steps_per_execution``), O0; 2 epochs over 32 batches, the second
+    timed."""
+    from paddle_tpu_torch.hapi import Model
+    from paddle_tpu_torch.io import TensorDataset
+    from paddle_tpu_torch.nn import CrossEntropyLoss
+    from paddle_tpu_torch.optimizer import Adam
+    from paddle_tpu_torch.vision.models import LeNet
+    images, labels = _image_batches(torch, (LENET_BATCH * LENET_K, 1, 28, 28),
+                                    10, device=None)()
+    net = LeNet(num_classes=10, device="cuda", seed=0)
+    model = Model(net).prepare(Adam(learning_rate=1e-3,
+                                    parameters=net.parameters()),
+                               CrossEntropyLoss())
+    rec = fit_recorder(torch)
+    model.fit(TensorDataset([images, labels]), batch_size=LENET_BATCH,
+              epochs=2, shuffle=False, steps_per_execution=LENET_K,
+              verbose=0, callbacks=[rec])
+    epoch_s = rec.epoch_s[1]
+    emit({"phase": "lenet_fit", "nvidia_smi": smi,
+          "entry": "Model(LeNet()).prepare(Adam(1e-3), CrossEntropyLoss())"
+                   ".fit(batch_size=256, epochs=2, steps_per_execution=32)",
+          "epoch_s": rec.epoch_s,
+          "images_per_s_epoch2": LENET_K * LENET_BATCH / epoch_s,
+          "step_ms_epoch2": epoch_s / LENET_K * 1e3,
+          "first_and_last_loss": [rec.losses[0], rec.losses[-1]]})
+    if len(rec.losses) != 2 * LENET_K or \
+            not all(math.isfinite(v) for v in rec.losses):
+        raise AssertionError(f"LeNet's fit gave {rec.losses}")
+
+
+def phase_vision(torch, ck, smi):
+    """The vision path's phases, in order."""
+    xk, yk, block_np = phase_resnet50_training_bf16(torch, smi)
+    phase_resnet50_fit_bf16(torch, smi, xk, yk, block_np)
+    del xk, yk, block_np
+    torch.cuda.empty_cache()
+    phase_resnet50_exactness_fp32(torch, ck)
+    phase_lenet_fit(torch, smi)
+
+
+# -- phase 8 ------------------------------------------------------------------
 def paged_bound(torch, q, kp, bt, cl):
     """Least time for K1 on these inputs: bytes each slot's visible rows
     need (K and V once, the table entries it reads, q, lens, out) versus
@@ -1463,8 +1842,9 @@ def main():
     smi = phase_environment(torch, ck)
     phase_kernels_vs_plain(torch, ck)
     # the main paths, each counted from zero: serving (K1) with the fp32
-    # model phase (K2), training (K2, K3), packed attention (K4, K5), then
-    # ERNIE pretraining and BERT finetuning (K2, K3, non-causal)
+    # model phase (K2), training (K2, K3), packed attention (K4, K5),
+    # ERNIE pretraining and BERT finetuning (K2, K3, non-causal), then
+    # ResNet-50 and LeNet training (none)
     paths = (("serving", ("paged_attention", "flash_fwd"),
               lambda: (phase_serving(torch, ck, smi),
                        phase_exactness_fp32(torch, ck))),
@@ -1479,7 +1859,9 @@ def main():
                        phase_ernie_exactness_fp32(torch, ck))),
              ("bert_finetune", ("flash_fwd", "flash_bwd"),
               lambda: (phase_training_bf16(torch, ck, smi, "bert"),
-                       phase_bert_exactness_fp32(torch, ck))))
+                       phase_bert_exactness_fp32(torch, ck))),
+             # no hand-written kernel on this path, as in the reference
+             ("resnet50_training", (), lambda: phase_vision(torch, ck, smi)))
     launches = {k.name: 0 for k in ck.KERNELS}
     path_launches = {}
     for path, kernels, drive in paths:
@@ -1490,6 +1872,8 @@ def main():
         if missing:
             raise AssertionError(f"kernels never launched on the {path} "
                                  f"path: {missing}")
+        if not kernels and any(counts.values()):
+            raise AssertionError(f"the {path} path launched {counts}")
         path_launches[path] = counts
         for name, c in counts.items():
             launches[name] += c

@@ -1,10 +1,11 @@
 """Carry a JAX model's weights into the port.
 
 ``load_jax_state`` takes any JAX model's ``state_dict()`` as
-``{name: numpy array}`` (ERNIE, BERT, the encoder layers...): the port's
-parameter names are the reference's, so names carry across as they are
-(``ernie.encoder.layers.0.self_attn.q_proj.weight``, ``cls.decoder_bias``;
-a tied weight appears once, under the layer that holds it).
+``{name: numpy array}`` (ERNIE, BERT, ResNet, the encoder layers...): the
+port's parameter and buffer names are the reference's, so names carry
+across as they are (``ernie.encoder.layers.0.self_attn.q_proj.weight``,
+``cls.decoder_bias``, ``layer1.0.downsample.1._mean``; a tied weight
+appears once, under the layer that holds it).
 
 ``load_jax_gpt`` takes a JAX ``GPTForPretraining``'s weights in two
 forms, both plain numpy (the port never imports the JAX package; the
@@ -55,11 +56,13 @@ def gpt_state_from_jax(np_state):
 
 @torch.no_grad()
 def load_jax_state(port_model, np_state):
-    """Load ``{parameter name: np.ndarray}`` into ``port_model`` in place,
-    on the model's device and in its dtype. The names and shapes must
-    match the model's parameters exactly: a missing or unexpected name
-    raises KeyError, a wrong shape ValueError. Returns the model."""
-    params = dict(port_model.named_parameters())
+    """Load ``{name: np.ndarray}`` into ``port_model``'s parameters and
+    buffers (a batch norm's running statistics) in place, on the model's
+    device and in each tensor's dtype. The names and shapes must match
+    the model's exactly: a missing or unexpected name raises KeyError, a
+    wrong shape ValueError. Returns the model."""
+    params = {**dict(port_model.named_parameters()),
+              **dict(port_model.named_buffers())}
     missing = sorted(set(params) - set(np_state))
     unexpected = sorted(set(np_state) - set(params))
     if missing or unexpected:

@@ -1,0 +1,355 @@
+"""``Model``: the high-level training API (counterpart: ``paddle_tpu/hapi/
+model.py``).
+
+``fit`` trains through the port's ``jit.CompiledTrainStep`` (forward,
+loss, backward and update as one step, AMP O2 when ``prepare`` asks for
+it), built once per ``prepare``; ``steps_per_execution=K`` runs K
+batches of one shape as one ``run_steps`` block, a ragged tail batch by
+batch. Without a loss, or with ``update=False``, ``train_batch`` runs the
+eager ``backward`` (and ``step``) instead. Batches come from the port's
+``io.DataLoader`` as CPU tensors and are moved to the network's device
+here, one copy a batch (one a block under ``steps_per_execution``).
+
+Single process only: the reference's multi-process branches wait for the
+distributed data plane (ROADMAP A7); ``save`` and ``load`` for
+``framework/io.py`` (ROADMAP A6). The learning rate is a float (the
+schedulers are ROADMAP A3), so ``fit`` steps no scheduler.
+"""
+from __future__ import annotations
+
+import warnings
+
+import numpy as np
+import torch
+
+from ..io import DataLoader
+from .callbacks import CallbackList
+
+
+def _to_list(x):
+    if x is None:
+        return []
+    return list(x) if isinstance(x, (list, tuple)) else [x]
+
+
+def _single_process():
+    if torch.distributed.is_available() and \
+            torch.distributed.is_initialized() and \
+            torch.distributed.get_world_size() > 1:
+        raise NotImplementedError(
+            "multi-process Model.fit waits for the distributed data plane "
+            "(ROADMAP A7)")
+
+
+class Model:
+    def __init__(self, network, inputs=None, labels=None):
+        self.network = network
+        self._inputs = inputs
+        self._labels = labels
+        self._optimizer = None
+        self._loss = None
+        self._metrics = []
+        self._amp_configs = None
+        self._compiled_step = None
+        self.stop_training = False
+
+    # -- setup ---------------------------------------------------------------
+    def prepare(self, optimizer=None, loss=None, metrics=None,
+                amp_configs=None):
+        self._optimizer = optimizer
+        self._loss = loss
+        self._metrics = _to_list(metrics)
+        self._amp_configs = amp_configs
+        self._compiled_step = None
+        return self
+
+    def parameters(self, *args, **kwargs):
+        return self.network.parameters()
+
+    def _amp_level(self):
+        if isinstance(self._amp_configs, dict):
+            return self._amp_configs.get("level", "O0")
+        return self._amp_configs or "O0"
+
+    def _ensure_compiled_step(self, n_inputs):
+        """The ``CompiledTrainStep`` behind ``fit``, built on first use:
+        its function returns (loss, *network outputs) so the metrics can
+        read the outputs."""
+        if self._compiled_step is not None:
+            return self._compiled_step
+        from ..jit.train_step import CompiledTrainStep
+        net, loss_fn = self.network, self._loss
+
+        def fn(*tensors):
+            ins, labs = tensors[:n_inputs], tensors[n_inputs:]
+            outs = _to_list(net(*ins))
+            loss = loss_fn(*outs, *labs)
+            if isinstance(loss, (list, tuple)):
+                loss = loss[0]
+            return (loss, *outs)
+
+        self._compiled_step = CompiledTrainStep(fn, net, self._optimizer,
+                                                amp_level=self._amp_level())
+        return self._compiled_step
+
+    # -- batch-level API -----------------------------------------------------
+    def _device(self):
+        for t in self.network.parameters():
+            return t.device
+        for t in self.network.buffers():
+            return t.device
+        return torch.device("cpu")
+
+    def _lift(self, t):
+        """A batch field on the network's device."""
+        if not torch.is_tensor(t):
+            t = torch.from_numpy(np.asarray(t))
+        return t.to(self._device())
+
+    def train_batch(self, inputs, labels=None, update=True):
+        inputs = [self._lift(t) for t in _to_list(inputs)]
+        labels = [self._lift(t) for t in _to_list(labels)]
+        self.network.train()
+        if update and self._loss is not None:
+            out = self._ensure_compiled_step(len(inputs))(*inputs, *labels)
+            loss, outs = out[0], list(out[1:])
+        else:
+            outs = _to_list(self.network(*inputs))
+            loss = self._loss(*outs, *labels)
+            if isinstance(loss, (list, tuple)):
+                loss = loss[0]
+            loss.backward()
+            if update:
+                self._optimizer.step()
+                self._optimizer.clear_grad()
+        metrics = self._update_metrics(outs, labels)
+        res = [float(loss)]
+        return res + metrics if metrics else res
+
+    def _update_metrics(self, outs, labels):
+        res = []
+        for m in self._metrics:
+            computed = m.compute(*outs, *labels)
+            res.append(m.update(computed[0] if isinstance(
+                computed, (list, tuple)) else computed))
+        return res
+
+    @torch.no_grad()
+    def eval_batch(self, inputs, labels=None):
+        inputs = [self._lift(t) for t in _to_list(inputs)]
+        labels = [self._lift(t) for t in _to_list(labels)]
+        self.network.eval()
+        outs = _to_list(self.network(*inputs))
+        result = []
+        if self._loss is not None and labels:
+            loss = self._loss(*outs, *labels)
+            if isinstance(loss, (list, tuple)):
+                loss = loss[0]
+            result.append(float(loss))
+        metrics = self._update_metrics(outs, labels)
+        return result + metrics if metrics else result
+
+    @torch.no_grad()
+    def predict_batch(self, inputs):
+        inputs = [self._lift(t) for t in _to_list(inputs)]
+        self.network.eval()
+        return [o.float().cpu().numpy() if o.is_floating_point()
+                else o.cpu().numpy() for o in _to_list(self.network(*inputs))]
+
+    # -- loops ---------------------------------------------------------------
+    def _make_loader(self, data, batch_size, shuffle, drop_last,
+                     num_workers=0):
+        _single_process()
+        if data is None or isinstance(data, DataLoader):
+            return data
+        return DataLoader(data, batch_size=batch_size, shuffle=shuffle,
+                          num_workers=num_workers, drop_last=drop_last)
+
+    def _split_batch(self, batch):
+        if isinstance(batch, (list, tuple)) and len(batch) == 2:
+            return _to_list(batch[0]), _to_list(batch[1])
+        data = _to_list(batch)
+        n_in = len(self._inputs) if self._inputs else 1
+        return data[:n_in], data[n_in:]
+
+    def fit(self, train_data=None, eval_data=None, batch_size=1, epochs=1,
+            eval_freq=1, log_freq=10, save_dir=None, save_freq=1, verbose=2,
+            drop_last=False, shuffle=True, num_workers=0, callbacks=None,
+            accumulate_grad_batches=1, num_iters=None,
+            steps_per_execution=1):
+        """Train for ``epochs`` over ``train_data`` (a dataset or a
+        ``DataLoader``), evaluating ``eval_data`` every ``eval_freq``
+        epochs. ``steps_per_execution=K`` runs K batches a block: every
+        batch still gets its ``on_train_batch_begin``/``end`` with its own
+        loss, but after its whole block has run. It needs the compiled
+        loss path, so with metrics, without a loss or with gradient
+        accumulation it warns and runs one step a block."""
+        spe = int(steps_per_execution or 1)
+        if spe > 1 and (self._metrics or self._loss is None
+                        or accumulate_grad_batches != 1):
+            warnings.warn(
+                "steps_per_execution > 1 needs the compiled loss path with "
+                "no train metrics and no gradient accumulation; running "
+                "one step per execution", UserWarning)
+            spe = 1
+        loader = self._make_loader(train_data, batch_size, shuffle,
+                                   drop_last, num_workers)
+        eval_loader = self._make_loader(eval_data, batch_size, False, False,
+                                        num_workers)
+        cbks = CallbackList(callbacks, self, verbose=verbose, epochs=epochs,
+                            log_freq=log_freq, save_dir=save_dir,
+                            save_freq=save_freq,
+                            metrics=["loss"] + self._metrics_names())
+        cbks.on_begin("train")
+        self.stop_training = False
+        logs = {}
+        for epoch in range(epochs):
+            if self.stop_training:
+                break
+            cbks.on_epoch_begin(epoch)
+            for m in self._metrics:
+                m.reset()
+            if spe > 1:
+                logs = self._fit_blocks(loader, cbks, spe, num_iters)
+            else:
+                logs = {}
+                for step, batch in enumerate(loader):
+                    cbks.on_batch_begin("train", step, logs)
+                    ins, labs = self._split_batch(batch)
+                    logs = self._named_logs(self.train_batch(ins, labs))
+                    logs["step"] = step
+                    logs["batch_size"] = ins[0].shape[0] if ins \
+                        else batch_size
+                    cbks.on_batch_end("train", step, logs)
+                    if num_iters is not None and step + 1 >= num_iters:
+                        break
+            if eval_loader is not None and (epoch + 1) % eval_freq == 0:
+                eval_logs = self.evaluate(eval_loader, verbose=0)
+                logs.update({f"eval_{k}": v for k, v in eval_logs.items()})
+            cbks.on_epoch_end(epoch, logs)
+        cbks.on_end("train", logs)
+        return self
+
+    def _fit_blocks(self, loader, cbks, spe, num_iters):
+        """One epoch of ``steps_per_execution`` blocks; the last step's
+        logs."""
+        logs, step, buf = {}, -1, []
+        it = iter(loader)
+        stop = False
+        while not stop:
+            batch = next(it, None)
+            if batch is not None:
+                buf.append(self._split_batch(batch))
+            if not (batch is None or len(buf) == spe or (
+                    num_iters is not None
+                    and step + 1 + len(buf) >= num_iters)):
+                continue
+            stop = batch is None
+            for res, bsz in self._run_block(buf):
+                step += 1
+                cbks.on_batch_begin("train", step, logs)
+                logs = self._named_logs(res)
+                logs["step"] = step
+                logs["batch_size"] = bsz
+                cbks.on_batch_end("train", step, logs)
+                if num_iters is not None and step + 1 >= num_iters:
+                    stop = True
+            buf = []
+        return logs
+
+    def _run_block(self, buf):
+        """The buffered (inputs, labels) batches as one ``run_steps``
+        block when their shapes agree (stacked on the host, one copy to
+        the card), else batch by batch. Yields ([loss], batch size) per
+        step, in order."""
+        if not buf:
+            return
+        self.network.train()
+        rows = [[_as_cpu_tensor(t) for t in ins + labs] for ins, labs in buf]
+
+        def shapes(row):
+            return [tuple(t.shape) for t in row]
+
+        if len(rows) > 1 and all(shapes(r) == shapes(rows[0])
+                                 for r in rows[1:]):
+            step = self._ensure_compiled_step(len(buf[0][0]))
+            cols = [self._lift(torch.stack(col)) for col in zip(*rows)]
+            losses = step.run_steps(*cols).tolist()
+            for (ins, _), loss in zip(buf, losses):
+                yield [float(loss)], int(ins[0].shape[0]) if ins else 0
+            return
+        for ins, labs in buf:
+            yield self.train_batch(ins, labs), \
+                int(ins[0].shape[0]) if ins else 0
+
+    def _metrics_names(self):
+        names = []
+        for m in self._metrics:
+            n = m.name()
+            names.extend(n if isinstance(n, list) else [n])
+        return names
+
+    def _named_logs(self, res):
+        logs = {"loss": res[0]}
+        for i, m in enumerate(self._metrics, start=1):
+            n = m.name()
+            names = n if isinstance(n, list) else [n]
+            vals = res[i] if i < len(res) else None
+            if vals is not None:
+                for nm, v in zip(names, vals if isinstance(vals, list)
+                                 else [vals]):
+                    logs[nm] = v
+        return logs
+
+    def evaluate(self, eval_data, batch_size=1, log_freq=10, verbose=2,
+                 num_workers=0, callbacks=None, num_iters=None):
+        """Mean loss over the batches and each metric's accumulated value,
+        in eval mode (batch norms on their running statistics)."""
+        loader = self._make_loader(eval_data, batch_size, False, False,
+                                   num_workers)
+        for m in self._metrics:
+            m.reset()
+        losses = []
+        for step, batch in enumerate(loader):
+            ins, labs = self._split_batch(batch)
+            res = self.eval_batch(ins, labs)
+            if res and self._loss is not None:
+                losses.append(res[0])
+            if num_iters is not None and step + 1 >= num_iters:
+                break
+        logs = {}
+        if losses:
+            logs["loss"] = float(np.mean(losses))
+        for m in self._metrics:
+            acc = m.accumulate()
+            n = m.name()
+            names = n if isinstance(n, list) else [n]
+            for nm, v in zip(names, acc if isinstance(acc, list) else [acc]):
+                logs[nm] = v
+        return logs
+
+    def predict(self, test_data, batch_size=1, num_workers=0,
+                stack_outputs=False, callbacks=None, verbose=1):
+        """The network's outputs per batch as numpy arrays ([batch][output]),
+        or with ``stack_outputs`` one array per output."""
+        loader = self._make_loader(test_data, batch_size, False, False,
+                                   num_workers)
+        outputs = [self.predict_batch(self._split_batch(batch)[0])
+                   for batch in loader]
+        if stack_outputs:
+            return [np.concatenate([o[i] for o in outputs])
+                    for i in range(len(outputs[0]))]
+        return outputs
+
+    # -- io ------------------------------------------------------------------
+    def save(self, path, training=True):
+        raise NotImplementedError(
+            "Model.save waits for framework/io.py (ROADMAP A6)")
+
+    def load(self, path, skip_mismatch=False, reset_optimizer=False):
+        raise NotImplementedError(
+            "Model.load waits for framework/io.py (ROADMAP A6)")
+
+
+def _as_cpu_tensor(t):
+    return t if torch.is_tensor(t) else torch.from_numpy(np.asarray(t))

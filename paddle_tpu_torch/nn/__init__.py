@@ -1,7 +1,5 @@
 from . import functional
-from .layer import (GELU, Dropout, Embedding, Linear, MultiHeadAttention,
-                    Tanh, TransformerEncoder, TransformerEncoderLayer)
+from .layer import *  # noqa: F401,F403
+from .layer import __all__ as _layers
 
-__all__ = ["functional", "Linear", "Embedding", "Dropout", "GELU", "Tanh",
-           "MultiHeadAttention", "TransformerEncoderLayer",
-           "TransformerEncoder"]
+__all__ = ["functional", *_layers]

@@ -21,3 +21,11 @@ class GELU(nn.Module):
 class Tanh(nn.Module):
     def forward(self, x):
         return F.tanh(x)
+
+
+class ReLU(nn.Module):
+    def __init__(self, name=None):
+        super().__init__()
+
+    def forward(self, x):
+        return F.relu(x)

@@ -1,5 +1,5 @@
-"""Common layers: ``Linear``, ``Embedding`` and ``Dropout`` (counterpart:
-``paddle_tpu/nn/layer/common.py``).
+"""Common layers: ``Linear``, ``Embedding``, ``Dropout``, ``Flatten`` and
+``Sequential`` (counterpart: ``paddle_tpu/nn/layer/common.py``).
 
 ``Linear`` keeps Paddle's [in, out] weight layout (``y = x @ W + b``), so
 the port's parameters are the JAX package's arrays as they are and
@@ -17,6 +17,7 @@ Xavier-uniform weights, zero biases; an embedding built with
 from __future__ import annotations
 
 import math
+from collections import OrderedDict
 
 import torch
 from torch import nn
@@ -121,3 +122,29 @@ class Dropout(nn.Module):
         if self.mode == "upscale_in_train":
             return x * keep / (1.0 - self.p)
         return x * keep
+
+
+class Flatten(nn.Module):
+    """Axes ``start_axis`` to ``stop_axis`` merged into one."""
+
+    def __init__(self, start_axis=1, stop_axis=-1):
+        super().__init__()
+        self.start_axis = start_axis
+        self.stop_axis = stop_axis
+
+    def forward(self, x):
+        return torch.flatten(x, self.start_axis, self.stop_axis)
+
+
+class Sequential(nn.Sequential):
+    """Layers applied in order. Given as layers, a child is named by its
+    position ("0", "1", ...); given as (name, layer) pairs, or as one list
+    of them, by its name: the reference's state names either way."""
+
+    def __init__(self, *layers):
+        if len(layers) == 1 and isinstance(layers[0], (list, tuple)) and \
+                layers[0] and isinstance(layers[0][0], tuple):
+            layers = layers[0]
+        super().__init__(OrderedDict(
+            layer if isinstance(layer, tuple) else (str(i), layer)
+            for i, layer in enumerate(layers)))

@@ -1,6 +1,6 @@
 """Optimizer base and the concrete optimizers of the training slice
 (counterpart: ``paddle_tpu/optimizer/optimizer.py``: ``Optimizer``,
-``SGD``, ``Adam``, ``AdamW``).
+``SGD``, ``Momentum``, ``Adam``, ``AdamW``).
 
 Each optimizer defines one per-parameter update, ``_update(p, g, accs,
 lr)``, used both by the eager ``step()`` and by ``CompiledTrainStep``.
@@ -15,6 +15,8 @@ pair, else ``getattr(param, "name", None)``; AdamW's
 ``apply_decay_param_fun`` receives that name or ``""``, and
 ``state_dict`` keys use it or ``param_<i>``. Learning-rate schedulers are
 not ported yet (``optimizer/lr.py``): the learning rate is a float.
+``weight_decay`` is a float or a regularizer (``regularizer.L2Decay``),
+whose coefficient is taken, as in the reference.
 """
 from __future__ import annotations
 
@@ -41,7 +43,11 @@ class Optimizer:
         self._learning_rate = learning_rate
         self._grad_clip = grad_clip
         self._multi_precision = multi_precision
-        self._weight_decay = weight_decay
+        if isinstance(weight_decay, (int, float)) or weight_decay is None:
+            self._weight_decay = weight_decay
+        else:   # an L2Decay-like object
+            self._weight_decay = float(getattr(
+                weight_decay, "_coeff", getattr(weight_decay, "coeff", 0.0)))
         self._accumulators: dict = {}
         self._step_count = 0
 
@@ -152,6 +158,31 @@ class SGD(Optimizer):
     def _update(self, p, g, accs, lr):
         g = self._apply_decay(p, g)
         p.sub_(lr * g)
+
+
+class Momentum(Optimizer):
+    """Heavy-ball momentum: ``v = momentum * v + g``, then ``p -= lr * v``
+    (``use_nesterov``: ``p -= lr * (g + momentum * v)``), ``g`` with its
+    weight decay; the velocity in fp32 under ``multi_precision``."""
+
+    def __init__(self, learning_rate=0.001, momentum=0.9, parameters=None,
+                 use_nesterov=False, weight_decay=None, grad_clip=None,
+                 multi_precision=False, name=None):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
+                         name, multi_precision)
+        self._momentum = momentum
+        self._nesterov = use_nesterov
+
+    def _create_accumulators(self, p):
+        return {"velocity": torch.zeros_like(p, dtype=self._acc_dtype(p))}
+
+    def _update(self, p, g, accs, lr):
+        g = self._apply_decay(p, g)
+        v = accs["velocity"].mul_(self._momentum).add_(g)
+        if self._nesterov:
+            p.sub_(lr * (g + self._momentum * v))
+        else:
+            p.sub_(lr * v)
 
 
 class Adam(Optimizer):

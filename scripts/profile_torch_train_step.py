@@ -16,7 +16,13 @@ ernie_pretraining`` and ``--workload bert_finetune`` take
 ``--workload packed_attention`` takes ``chip_smoke.packed_attention``
 instead (one ``flash_attn_unpadded`` forward and backward over 16,384
 packed tokens, 12 heads of 64, causal, bf16, as ``packed_attention_bf16``
-times it). It
+times it); ``--workload resnet50`` takes ``chip_smoke.resnet50_training``
+(ResNet-50, batch 256 x 3 x 224 x 224, O2, Momentum at lr 0.1, as
+``resnet50_training_bf16`` times it), whose kernels it groups as cuDNN's
+convolution forward, data-gradient and weight-gradient passes, layout
+transforms, batch norm, pools, other GEMMs and the rest, and whose
+Momentum update and loss it also reads by the kernels launched under a
+named range. It
 warms up as that phase does, then traces three steps with
 ``torch.profiler`` (CPU and CUDA activities). It prints one JSON line:
 the traced window's wall time, the device time summed over every kernel
@@ -41,7 +47,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
 
 from chip_smoke import (PACKED_WARMUP, TRAIN_WARMUP,  # noqa: E402
                         bert_finetune, ernie_pretraining, gpt124m_training,
-                        packed_attention)
+                        packed_attention, resnet50_training)
 
 STEPS = 3
 
@@ -55,11 +61,28 @@ GROUPS = (("flash_fwd (K2)", ("flash_fwd_kernel",)),
           ("cuBLAS GEMM", ("gemm", "nvjet", "xmma", "cutlass", "sm90_")))
 
 
-def group_of(name):
+# the vision workload's groups, tried in order: cuDNN names its
+# convolution kernels by pass (fprop, dgrad, wgrad)
+VISION_GROUPS = (("conv dgrad (cuDNN)", ("dgrad",)),
+                 ("conv wgrad (cuDNN)", ("wgrad",)),
+                 ("conv forward (cuDNN)", ("fprop", "convolve")),
+                 ("layout transforms", ("nchwtonhwc", "nhwctonchw",
+                                        "transpose")),
+                 ("batch norm", ("bn_", "batch_norm", "batchnorm",
+                                 "welford")),
+                 ("pools", ("pool",)),
+                 ("other GEMMs (1x1 convolutions, fc)",
+                  ("gemm", "nvjet", "xmma", "cutlass", "sm90_")))
+RANGES = ("optimizer update (Momentum)", "loss forward")
+
+
+def group_of(name, groups=GROUPS):
     low = name.lower()
-    for group, keys in GROUPS:
+    for group, keys in groups:
         if any(k in low for k in keys):
             return group
+    if groups is VISION_GROUPS:
+        return "other (elementwise: ReLU, adds, casts, Momentum, loss)"
     return ("other (elementwise, norms, softmax/loss, optimizer, the "
             "varlen plan)")
 
@@ -89,10 +112,46 @@ def packed_attention_step(torch):
     return step, PACKED_WARMUP
 
 
+def resnet50_step(torch):
+    """(step, warm-up count) of ``chip_smoke``'s ResNet-50 workload, its
+    Momentum update and loss forward each under a named range."""
+    from paddle_tpu_torch.nn import CrossEntropyLoss
+    _, step, batch = resnet50_training(torch)
+    x, y = (t[0] for t in batch(1))
+    apply, forward = step.optimizer._apply, CrossEntropyLoss.forward
+
+    def ranged(name, fn):
+        def run(*args, **kwargs):
+            with torch.profiler.record_function(name):
+                return fn(*args, **kwargs)
+        return run
+
+    step.optimizer._apply = ranged(RANGES[0], apply)
+    CrossEntropyLoss.forward = ranged(RANGES[1], forward)
+    return (lambda: step(x, y)), TRAIN_WARMUP
+
+
+def range_device_us(torch, prof):
+    """Device us of the kernels launched under each of ``RANGES`` (by the
+    launching operator's enclosing range)."""
+    out = {name: 0.0 for name in RANGES}
+    for evt in prof.events():
+        if evt.device_type != torch.autograd.DeviceType.CPU or \
+                not evt.kernels:
+            continue
+        up = evt
+        while up is not None and up.name not in out:
+            up = up.cpu_parent
+        if up is not None:
+            out[up.name] += sum(k.duration for k in evt.kernels)
+    return out
+
+
 WORKLOADS = {"training": training_step(gpt124m_training),
              "ernie_pretraining": training_step(ernie_pretraining),
              "bert_finetune": training_step(bert_finetune),
-             "packed_attention": packed_attention_step}
+             "packed_attention": packed_attention_step,
+             "resnet50": resnet50_step}
 
 
 def main():
@@ -136,11 +195,18 @@ def main():
         print("profile_torch_train_step: the trace holds no device time",
               file=sys.stderr)
         return 1
+    vision = args.workload == "resnet50"
     groups = {}
     for name, us in by_name.items():
-        g = group_of(name)
+        g = group_of(name, VISION_GROUPS if vision else GROUPS)
         groups[g] = groups.get(g, 0.0) + us
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:15]
+    extra = {}
+    if vision:
+        ranges = range_device_us(torch, prof)
+        extra["per_step_device_ms_by_range"] = {
+            n: us / 1e3 / STEPS if us else "not measured"
+            for n, us in ranges.items()}
     print(json.dumps({
         "nvidia_smi": smi, "device": torch.cuda.get_device_name(0),
         "workload": args.workload, "steps": STEPS,
@@ -150,6 +216,7 @@ def main():
         "per_step_device_ms": {g: us / 1e3 / STEPS
                                for g, us in sorted(groups.items(),
                                                    key=lambda kv: -kv[1])},
+        **extra,
         "top_kernels_ms_per_step": [[n[:120], us / 1e3 / STEPS]
                                     for n, us in top]}), flush=True)
     return 0

@@ -51,6 +51,9 @@ def test_importing_the_port_loads_neither_package():
         "import paddle_tpu_torch.nn.clip, paddle_tpu_torch.nn.functional\n"
         "import paddle_tpu_torch.nn.layer\n"
         "import paddle_tpu_torch.text.ernie, paddle_tpu_torch.text.bert\n"
+        "import paddle_tpu_torch.vision.models, paddle_tpu_torch.hapi\n"
+        "import paddle_tpu_torch.io, paddle_tpu_torch.metric\n"
+        "import paddle_tpu_torch.regularizer\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in %r)\n"

@@ -2,7 +2,8 @@
 (``paddle_tpu_torch/optimizer``, ``paddle_tpu_torch/nn/clip.py``) against
 the JAX package's on the same seeded numpy parameters and gradients.
 
-SGD, Adam and AdamW (with and without weight decay) after one step and
+SGD, Momentum (heavy ball and Nesterov), Adam and AdamW (with and
+without weight decay, as a float or an ``L2Decay``) after one step and
 after five: parameters agree at rtol 1e-6 in fp32 (atol 1e-9 for
 entries that pass through zero), since the port keeps the reference's
 arithmetic and order of operations and only the last bit of a rounding
@@ -60,6 +61,10 @@ def _port_run(cls, kw, params, grads, names=None, dtype=torch.float32):
 OPTIMIZERS = {
     "sgd": ("SGD", {"learning_rate": 0.1}),
     "sgd_l2": ("SGD", {"learning_rate": 0.1, "weight_decay": 0.01}),
+    "momentum": ("Momentum", {"learning_rate": 0.1, "momentum": 0.9}),
+    "momentum_nesterov": ("Momentum", {"learning_rate": 0.1, "momentum": 0.8,
+                                       "use_nesterov": True}),
+    "momentum_l2": ("Momentum", {"learning_rate": 0.1, "weight_decay": 0.01}),
     "adam": ("Adam", {"learning_rate": 1e-2}),
     "adam_l2": ("Adam", {"learning_rate": 1e-2, "weight_decay": 0.01}),
     "adamw": ("AdamW", {"learning_rate": 1e-2}),
@@ -103,6 +108,55 @@ def test_adamw_decay_exclusion_by_name():
     _port_run("AdamW", {"apply_decay_param_fun": seen.append}, params,
               grads[:1])
     assert seen == ["", "", ""]
+
+
+@pytest.mark.parametrize("cls", ["Momentum", "SGD", "Adam"])
+def test_l2decay_weight_decay_matches_jax(cls):
+    # a regularizer object as weight_decay: its coefficient is applied as
+    # the float would be, in both packages
+    from paddle_tpu.regularizer import L2Decay as JaxL2Decay
+    from paddle_tpu_torch.regularizer import L1Decay, L2Decay
+    params, grads = _arrays(seed=6, steps=3)
+    kw = {"learning_rate": 0.1}
+    want, _ = _jax_run(cls, dict(kw, weight_decay=JaxL2Decay(0.05)), params,
+                       grads)
+    # each run on its own copy: the port's parameters share the arrays'
+    # memory and are updated in place
+    got, opt = _port_run(cls, dict(kw, weight_decay=L2Decay(0.05)),
+                         [p.copy() for p in params], grads)
+    assert opt._weight_decay == 0.05
+    as_float, _ = _port_run(cls, dict(kw, weight_decay=0.05),
+                            [p.copy() for p in params], grads)
+    as_l1, _ = _port_run(cls, dict(kw, weight_decay=L1Decay(0.05)),
+                         [p.copy() for p in params], grads)
+    for g, w, f, l1 in zip(got, want, as_float, as_l1):
+        np.testing.assert_allclose(g.detach().numpy(), w, rtol=RTOL,
+                                   atol=ATOL)
+        assert torch.equal(g, f) and torch.equal(g, l1)
+
+
+def test_momentum_multi_precision_keeps_fp32_velocity():
+    params, grads = _arrays(seed=8, steps=3)
+    kw = {"learning_rate": 0.1, "momentum": 0.9, "multi_precision": True}
+    jps = [Parameter(jnp.asarray(p).astype(jnp.bfloat16)) for p in params]
+    jopt = paddle.optimizer.Momentum(parameters=jps, **kw)
+    for gs in grads:
+        for p, g in zip(jps, gs):
+            p.grad = Tensor(jnp.asarray(g).astype(jnp.bfloat16))
+        jopt.step()
+    got, opt = _port_run("Momentum", kw, params, grads,
+                         dtype=torch.bfloat16)
+    for p, jp in zip(got, jps):
+        accs, jaccs = opt._get_accumulators(p), jopt._get_accumulators(jp)
+        assert p.dtype == torch.bfloat16
+        assert accs["velocity"].dtype == accs["master_weight"].dtype == \
+            torch.float32
+        for name in ("velocity", "master_weight"):
+            np.testing.assert_allclose(accs[name].numpy(),
+                                       np.asarray(jaccs[name]), rtol=RTOL,
+                                       atol=ATOL)
+        assert torch.equal(p.detach(),
+                           accs["master_weight"].to(torch.bfloat16))
 
 
 def test_multi_precision_keeps_fp32_masters():
