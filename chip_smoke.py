@@ -10,14 +10,15 @@ with ``nvcc`` (one process per source, all at once; it fails if a
 tensor-core kernel or K1's split-context pair spills registers) and holds
 each kernel against its plain PyTorch version (K1 paged attention, K2
 flash forward, K3 flash backward, K4 and K5 packed varlen forward and
-backward, each in fp32 and bf16; K1 runs its scalar fp32 route and its
-split-context bf16 route, at serving's contexts and at the edges of a
-split, twice for bit-identity; K2 to K5 run their scalar fp32 route and
-their tensor-core bf16 route, and each bf16 K2/K3 bound is held to twice
-the error of ``scaled_dot_product_attention``, each bf16 K4/K5 bound to
-twice that of PyTorch's varlen flash op, against the same plain version,
-printed beside it). Then it drives the port's five main paths, each
-with the launch counts set to 0 just before it and read just after:
+backward, each in fp32, bf16 and fp16; K1 runs its scalar fp32 route and
+its split-context bf16 and fp16 route, at serving's contexts and at the
+edges of a split, twice for bit-identity; K2 to K5 run their scalar fp32
+route and their tensor-core bf16 and fp16 route, and each 16-bit K2/K3
+bound is held to twice the error of ``scaled_dot_product_attention``,
+each 16-bit K4/K5 bound to twice that of PyTorch's varlen flash op, in
+the same dtype against the same plain version, printed beside it). Then
+it drives the port's main paths, each with the launch counts (in all and
+by route) set to 0 just before it and read just after:
 
 - serving: GPT-124M at full width (random weights from a seed) through
   ``ServingEngine`` with and without speculative decoding (TTFT, TPOT and
@@ -29,6 +30,22 @@ with the launch counts set to 0 just before it and read just after:
   ``CompiledTrainStep``, per call and through ``run_steps``; then a
   full-width, 2-layer fp32 step on the card against the same step on the
   CPU (loss and every gradient);
+- eager fp16 AMP training: GPT-124M at the same widths through the
+  upstream recipe (``amp.decorate`` O2 fp16, ``auto_cast``,
+  ``GradScaler(2**15)``, AdamW under a warm-up/cosine schedule with a
+  global-norm clip), 3 warm-up and 10 timed steps: tokens/s, the scale
+  trajectory, skipped steps, the rate per step and peak memory, with K2
+  and K3 launched once per layer and step on their fp16 route; then one
+  2-layer fp16 O2 step against the same step in fp32 O0 on the card;
+- scheduled training: GPT-124M through ``CompiledTrainStep`` at O2 bf16
+  with ``examples/train_gpt.py``'s surface (cosine schedule, global-norm
+  clip, ``FLAGS_check_nan_inf``, the StepMeter), per call and through
+  ``run_steps`` (with the flag clear: ``run_steps`` refuses it), the
+  rate each step read against the scheduler's sequence, the meter's
+  tokens/s beside the host clock's, one
+  ``use_rmsnorm=True`` step; then two eager fp32 steps of the recipe at
+  O0 (the scaler enabled) on the card against the CPU, with LayerNorm and
+  with RMSNorm;
 - packed attention: ``F.flash_attn_unpadded`` forward and backward over
   16,384 packed tokens of ragged documents at GPT-124M's attention width
   (12 heads of 64), causal, bf16; then the same in fp32 against the
@@ -47,7 +64,8 @@ Last, it times each kernel beside its bound, its plain version and,
 where one exists, a PyTorch call that computes the same function (also
 by their device time alone, which leaves out the host's launch gaps);
 K1 also at a bytes-heavy shape (64 slots of 1024 tokens), K2 and K3
-also at the ERNIE and BERT paths' non-causal shapes. Each
+also at the ERNIE and BERT paths' non-causal shapes, and each kernel's
+fp16 route (K2 and K3 at the fp16 AMP path's shape). Each
 phase prints one JSON line; any failure raises and the script exits
 non-zero. It needs a CUDA card: without one it exits 2 and prints no
 result.
@@ -72,7 +90,8 @@ import sys
 import time
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
-PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}   # dense, per type
+PEAK_OPS_PER_S = {"bfloat16": 989e12, "float16": 989e12,
+                  "float32": 67e12}   # dense, per type
 F32_EPS = 2.0 ** -23
 
 
@@ -145,7 +164,7 @@ def phase_environment(torch, ck):
 
 
 _KERNEL_NAME = re.compile(r"([a-z_]+kernel(?:_tc)?)(?:I(\w+?)E+v|E)")
-_TEMPLATE_ARG = re.compile(r"13__nv_bfloat16|f|Li(\d+)")
+_TEMPLATE_ARG = re.compile(r"13__nv_bfloat16|6__half|f|Li(\d+)")
 
 
 def kernel_name(mangled):
@@ -157,7 +176,7 @@ def kernel_name(mangled):
         return None
     if m[2] is None:
         return m[1]
-    args = [a[1] or {"f": "float"}.get(a[0], "bf16")
+    args = [a[1] or {"f": "float", "6__half": "fp16"}.get(a[0], "bf16")
             for a in _TEMPLATE_ARG.finditer(m[2])]
     return f"{m[1]}<{', '.join(args)}>"
 
@@ -281,9 +300,11 @@ FLASH_BWD_CASES = FLASH_CASES + [
     ("dlse_causal", 1, 256, 256, 12, 12, 64, True)]
 
 
-def bf16_ulp(x):
-    """The spacing of bf16 values at magnitude x (8 significant bits)."""
-    return 2.0 ** (math.floor(math.log2(x)) - 7)
+def ulp16(torch, x, dtype):
+    """The spacing of ``dtype`` values at magnitude x: 8 significant bits
+    for bf16, 11 for fp16."""
+    return 2.0 ** (math.floor(math.log2(x)) -
+                   (10 if dtype == torch.float16 else 7))
 
 
 def sdpa_same_function(q, k, dlse=None):
@@ -313,17 +334,17 @@ def sdpa_backward(torch, q, k, v, do, causal):
 
 
 def hold_bf16_to_library(rows):
-    """Each bf16 K2/K3 (or K4/K5) row's bound is its rounding bound, and
-    no looser than twice the largest error of the library call against
-    the same plain version at that kernel and d; then each row passes or
-    fails."""
+    """Each 16-bit (bf16 or fp16) K2/K3 (or K4/K5) row's bound is its
+    rounding bound, and no looser than twice the largest error of the
+    library call against the same plain version at that kernel, d and
+    dtype; then each row passes or fails."""
     lib = {}
     for r in rows:
         if r.get("library_max_abs_err") is not None:
-            key = (r["kernel"], r["d"])
+            key = (r["kernel"], r["d"], r["dtype"])
             lib[key] = max(lib.get(key, 0.0), r["library_max_abs_err"])
     for r in rows:
-        key = (r["kernel"], r["d"])
+        key = (r["kernel"], r["d"], r["dtype"])
         if key not in lib:
             raise AssertionError(f"no library error at {key} to hold the "
                                  "bf16 bound to")
@@ -336,8 +357,9 @@ def paged_kernel_case(torch, ck, label, ctxs, kq, dtype, spare=0):
     """K1 against its plain version in fp32 on the same (exactly widened)
     inputs, element by element: |got - ref| <= atol + rtol * |ref|. atol
     is fp32's error over K terms (K the longest context), times the
-    largest |v| for bf16; rtol is 0 for fp32 and 2^-8 for bf16, the half
-    ulp of rounding the output once. The rows of every inactive slot are
+    largest |v| for bf16 and fp16; rtol is 0 for fp32, 2^-8 for bf16 and
+    2^-11 (fp16's eps) for fp16, the half ulp of rounding the output
+    once. The rows of every inactive slot are
     exactly +0, and a rerun gives the same bits."""
     q, kp, vp, bt, cl = paged_case(torch, ctxs, kq, dtype, spare=spare)
     got = ck.paged_attention_verify_decode(q, kp, vp, bt, cl)
@@ -349,7 +371,7 @@ def paged_kernel_case(torch, ck, label, ctxs, kq, dtype, spare=0):
     rtol = 0.0
     if dtype != torch.float32:
         atol *= float(vp.float().abs().max())
-        rtol = 2.0 ** -8
+        rtol = 2.0 ** -11 if dtype == torch.float16 else 2.0 ** -8
     diff = (got.float() - ref).abs()
     over = float((diff / (atol + rtol * ref.abs())).max())
     inactive = [i for i, c in enumerate(ctxs) if c == 0]
@@ -371,22 +393,23 @@ def phase_kernels_vs_plain(torch, ck):
     results = []
     cases = [(f"serving_kq{kq}", ctxs, kq, 0)
              for kq, ctxs in PAGED_CTXS.items()] + PAGED_EDGE_CASES
-    for dtype in (torch.bfloat16, torch.float32):
+    dtypes = (torch.bfloat16, torch.float16, torch.float32)
+    for dtype in dtypes:
         for label, ctxs, kq, spare in cases:
             results.append(paged_kernel_case(torch, ck, label, ctxs, kq,
                                              dtype, spare))
-    for dtype in (torch.bfloat16, torch.float32):
+    for dtype in dtypes:
         rows = [flash_fwd_case(torch, ck, *case, dtype)
                 for case in FLASH_CASES]
         rows += [flash_bwd_case(torch, ck, *case, dtype)
                  for case in FLASH_BWD_CASES]
-        if dtype == torch.bfloat16:
+        if dtype != torch.float32:
             hold_bf16_to_library(rows)
         results.extend(rows)
-    for dtype in (torch.bfloat16, torch.float32):
+    for dtype in dtypes:
         rows = [row for case in VARLEN_CASES
                 for row in varlen_kernel_cases(torch, ck, case, dtype)]
-        if dtype == torch.bfloat16:
+        if dtype != torch.float32:
             hold_bf16_to_library(rows)
         results.extend(rows)
     emit({"phase": "kernels_vs_plain", "cases": results})
@@ -409,42 +432,46 @@ def flash_bwd_inputs(torch, ck, b, sq, sk, h, kh, d, causal, dtype, dlse,
 
 
 def flash_fwd_case(torch, ck, label, b, sq, sk, h, kh, d, causal, dtype):
-    """K2 against its plain version. fp32: the JAX package's
-    flash-forward tolerance, 2e-5. bf16: one ulp at the largest |o|: the
-    kernel rounds p to bf16 before P V (each weight off by at most 2^-9
-    of itself, errors that average out along the row) and rounds o once
-    (half an ulp), where the library rounds too; ``hold_bf16_to_library``
-    then holds it to twice the library's error. lse (fp32 from exact
-    bf16 products and the fp32 p) at 1e-4."""
+    """K2 against its plain version, twice for bit-identity. fp32: the
+    JAX package's flash-forward tolerance, 2e-5. bf16 and fp16: one ulp
+    at the largest |o|: the kernel rounds p to the 16-bit type before P V
+    (each weight off by at most half an ulp of itself, errors that average
+    out along the row) and rounds o once (half an ulp), where the library
+    rounds too; ``hold_bf16_to_library`` then holds it to twice the
+    library's error.
+    lse (fp32 from exact 16-bit products and the fp32 p) at 1e-4."""
     q, k, v = flash_case(torch, b, sq, sk, h, kh, d, dtype)
     o, lse = ck.flash_attention_with_lse(q, k, v, causal=causal)
+    o2, lse2 = ck.flash_attention_with_lse(q, k, v, causal=causal)
     torch.cuda.synchronize()
     ro, rlse = ck.flash_attention_reference(q, k, v, causal=causal)
     err_o, err_lse = max_err(o, ro), max_err(lse, rlse)
+    same = torch.equal(o, o2) and torch.equal(lse, lse2)
     row = {"kernel": "flash_fwd", "case": label, "d": d,
            "dtype": str(dtype)[6:], "max_abs_err": err_o,
-           "lse_max_abs_err": err_lse, "lse_tol": 1e-4}
+           "lse_max_abs_err": err_lse, "lse_tol": 1e-4,
+           "deterministic": same}
     if dtype == torch.float32:
         row["tol"] = 2e-5
-        row["pass"] = err_o <= 2e-5 and err_lse <= 1e-4
+        row["pass"] = err_o <= 2e-5 and err_lse <= 1e-4 and same
         return row
-    row["rounding_tol"] = bf16_ulp(float(ro.float().abs().max()))
+    row["rounding_tol"] = ulp16(torch, float(ro.float().abs().max()), dtype)
     row["library_max_abs_err"] = max_err(
         sdpa_forward(torch, q, k, v, causal), ro) \
         if sdpa_same_function(q, k) else None
-    row["pass"] = err_lse <= 1e-4
+    row["pass"] = err_lse <= 1e-4 and same
     return row
 
 
 def flash_bwd_case(torch, ck, label, b, sq, sk, h, kh, d, causal, dtype):
     """K3 against its plain version, twice for bit-identity. fp32: the
     JAX package's flash-backward bounds (atol 5e-5, 2e-4 where kv heads
-    are shared). bf16: one ulp at the outputs' largest magnitude: the
-    kernel rounds p before P^T do and ds before dS^T q and dS K (each off
-    by at most 2^-9 of itself, errors that average out over the summed
-    rows) and rounds dq, dk, dv once (half an ulp), where the library
-    rounds too; ``hold_bf16_to_library`` then holds it to twice the
-    library's error."""
+    are shared). bf16 and fp16: one ulp at the outputs' largest magnitude:
+    the kernel rounds p before P^T do and ds before dS^T q and dS K (each
+    off by at most half an ulp of itself, errors that average out over
+    the summed rows) and rounds dq, dk, dv once (half an ulp), where the
+    library rounds too; ``hold_bf16_to_library`` then holds it to twice
+    the library's error."""
     args = flash_bwd_inputs(torch, ck, b, sq, sk, h, kh, d, causal, dtype,
                             dlse=label.startswith("dlse"))
     got = ck.flash_attention_bwd(*args, causal=causal)
@@ -461,8 +488,8 @@ def flash_bwd_case(torch, ck, label, b, sq, sk, h, kh, d, causal, dtype):
         row["pass"] = max(errs) <= row["tol"] and same
         return row
     q, k, v, _, _, do, dl = args
-    row["rounding_tol"] = bf16_ulp(max(float(r.float().abs().max())
-                                       for r in ref))
+    row["rounding_tol"] = ulp16(torch, max(float(r.float().abs().max())
+                                           for r in ref), dtype)
     row["library_max_abs_err"] = max(
         max_err(a, r) for a, r in
         zip(sdpa_backward(torch, q, k, v, do, causal), ref)) \
@@ -576,15 +603,16 @@ def varlen_kernel_cases(torch, ck, case, dtype):
     ro, rlse = ck.flash_attention_varlen_reference(q, k, v, cu_q, cu_k,
                                                    causal)
     ref = ck.flash_attention_varlen_bwd_reference(*args)
-    # K4 as K2: fp32 2e-5, bf16 two ulps of an output below 2, lse 1e-4;
-    # K5 as K3: fp32 5e-5, bf16 one ulp at the outputs' largest magnitude
-    tol = 2e-5 if dtype == torch.float32 else 2.0 ** -6
+    # K4 as K2: fp32 2e-5, bf16 and fp16 two ulps of an output below 2,
+    # lse 1e-4; K5 as K3: fp32 5e-5, 16-bit one ulp at the outputs'
+    # largest magnitude
+    tol = {torch.float32: 2e-5, torch.bfloat16: 2.0 ** -6,
+           torch.float16: 2.0 ** -9}[dtype]
     err_o, err_lse = max_err(o, ro), max_err(lse, rlse)
     same = torch.equal(o, o2) and torch.equal(lse, lse2)
     errs = [max_err(a, r) for a, r in zip(got, ref)]
     top = max(float(r.float().abs().max()) for r in ref)
-    btol = 5e-5 if dtype == torch.float32 else \
-        2.0 ** (math.floor(math.log2(top)) - 7)
+    btol = 5e-5 if dtype == torch.float32 else ulp16(torch, top, dtype)
     bsame = all(torch.equal(a, b) for a, b in zip(got, again))
     finite = all(bool(torch.isfinite(a).all()) for a in (o, *got))
     dt = str(dtype)[6:]
@@ -596,7 +624,7 @@ def varlen_kernel_cases(torch, ck, case, dtype):
            "max_abs_err": max(errs), "dq_dk_dv_err": errs, "tol": btol,
            "deterministic": bsame,
            "pass": max(errs) <= btol and bsame and finite}
-    if dtype == torch.bfloat16:
+    if dtype != torch.float32:
         lib = varlen_library(torch, q, k, v, do, cu_q, cu_k, lq, lk, causal)
         fwd["rounding_tol"], bwd["rounding_tol"] = tol, btol
         fwd["library_max_abs_err"] = max_err(lib[0], ro) if lib else None
@@ -1063,6 +1091,382 @@ def phase_bert_exactness_fp32(torch, ck):
         lambda dev: BertForSequenceClassification(cfg, num_classes=2,
                                                   device=dev, seed=0),
         ids, labels)
+
+
+# -- phase 5b: the training surface -------------------------------------------
+AMP_WARMUP, AMP_TIMED = 3, 10
+
+
+def amp_schedule(lr):
+    """The upstream eager AMP recipe's schedule at bench.py's learning
+    rate: a 100-step linear warm-up into a cosine decay over 1000 steps."""
+    return lr.LinearWarmup(lr.CosineAnnealingDecay(1e-4, 1000), 100, 0.0,
+                           1e-4)
+
+
+def eager_amp_steps(torch, model, ids, labels, steps, level, dtype,
+                    sched, scaler, opt, sync=True):
+    """``steps`` eager steps of the upstream recipe: under ``auto_cast``,
+    ``scaler.scale(loss).backward()``, ``scaler.step(opt)``,
+    ``opt.clear_grad()``, ``sched.step()``. Returns per step (loss, scale
+    before the step, skipped, lr used, host seconds); a step is skipped
+    when its gradients were not finite, which halves the scale."""
+    from paddle_tpu_torch import amp
+    out = []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        lr = opt.get_lr()
+        scale = scaler._scale
+        with amp.auto_cast(enable=level != "O0", level=level, dtype=dtype):
+            _, loss = model(ids, labels=labels)
+        scaler.scale(loss).backward()
+        scaler.step(opt)
+        skipped = scaler._scale < scale
+        opt.clear_grad()
+        sched.step()
+        if sync:
+            torch.cuda.synchronize()
+        out.append((loss.item(), scale, skipped, lr,
+                    time.perf_counter() - t0))
+    return out
+
+
+def gpt124m_fp16_amp(torch):
+    """GPT-124M at bench.py's widths (vocab 50304, 12 layers of 12 x 64,
+    batch 16 x 1024 drawn as ``gpt124m_training`` draws it) set up for the
+    eager upstream AMP recipe: ``decorate(model, opt, level="O2",
+    dtype="float16")``, AdamW under the warm-up/cosine schedule with
+    ``ClipGradByGlobalNorm(1.0)``, ``GradScaler(init_loss_scaling=2**15)``.
+    Returns (model, opt, sched, scaler, ids, labels);
+    ``scripts/profile_torch_train_step.py`` traces this same workload."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch import optimizer as popt
+    from paddle_tpu_torch.nn.clip import ClipGradByGlobalNorm
+    from paddle_tpu_torch.text.gpt import GPTForPretraining, gpt_small
+    cfg = gpt_small()
+    model = GPTForPretraining(cfg, device="cuda", seed=0)
+    sched = amp_schedule(popt.lr)
+    opt = popt.AdamW(learning_rate=sched, parameters=model.parameters(),
+                     grad_clip=ClipGradByGlobalNorm(1.0))
+    model, opt = amp.decorate(model, opt, level="O2", dtype="float16")
+    scaler = amp.GradScaler(init_loss_scaling=2.0 ** 15)
+    ids, labels = _token_batches(torch, cfg.vocab_size,
+                                 (TRAIN_BATCH, cfg.max_seq_len),
+                                 (TRAIN_BATCH, cfg.max_seq_len),
+                                 cfg.vocab_size)()
+    return model, opt, sched, scaler, ids, labels
+
+
+def phase_gpt124m_fp16_amp(torch, ck, smi):
+    """``gpt124m_fp16_amp``'s recipe: 3 warm-up and 10 timed steps. Every
+    step must launch K2 and K3 once per layer on their fp16 route, and
+    every loss of a step the scaler did not skip must be finite."""
+    model, opt, sched, scaler, ids, labels = gpt124m_fp16_amp(torch)
+    layers = model.config.num_layers
+    tokens = ids.numel()
+    torch.cuda.reset_peak_memory_stats()
+    before = {k.name: dict(k.route_launches) for k in ck.KERNELS}
+    steps = eager_amp_steps(torch, model, ids, labels,
+                            AMP_WARMUP + AMP_TIMED, "O2", "float16", sched,
+                            scaler, opt)
+    routes = {k.name: {r: n - before[k.name][r]
+                       for r, n in k.route_launches.items()}
+              for k in ck.KERNELS}
+    timed = [s for *_, s in steps[AMP_WARMUP:]]
+    step_s = sum(timed) / len(timed)
+    n = len(steps)
+    out = {"phase": "gpt124m_fp16_amp", "nvidia_smi": smi,
+           "model": "gpt_small (GPT-124M), eager, decorate O2 float16, "
+                    "auto_cast O2 float16, AdamW under LinearWarmup(Cosine"
+                    "AnnealingDecay(1e-4, 1000), 100, 0, 1e-4), "
+                    "ClipGradByGlobalNorm(1.0), GradScaler(2**15), random "
+                    "weights seed 0",
+           "batch": list(ids.shape), "steps": n,
+           "step_ms": step_s * 1e3, "tokens_per_s": tokens / step_s,
+           "tokens_per_s_each_step": [tokens / s for *_, s in steps],
+           "losses": [l for l, *_ in steps],
+           "scale": [sc for _, sc, *_ in steps] + [scaler._scale],
+           "skipped_steps": [i for i, (_, _, sk, *_) in enumerate(steps)
+                             if sk],
+           "lr": [lr for *_, lr, _ in steps],
+           "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+           "launches_by_route": routes}
+    emit(out)
+    bad = [i for i, (l, _, sk, *_) in enumerate(steps)
+           if not sk and not math.isfinite(l)]
+    if bad:
+        raise AssertionError(f"non-finite loss on steps the scaler kept: "
+                             f"{bad}")
+    want = layers * n
+    for name in ("flash_fwd", "flash_bwd"):
+        if routes[name] != {"fp32": 0, "bf16": 0, "fp16": want}:
+            raise AssertionError(f"{n} steps of {layers} layers "
+                                 f"launched {name} {routes[name]}; want "
+                                 f"{want} on the fp16 route")
+    if not all(p.dtype == torch.float16 for p in model.parameters()):
+        raise AssertionError("decorate left a parameter that is not fp16")
+
+
+def gpt124m_scheduled(torch):
+    """GPT-124M through ``CompiledTrainStep`` at O2 bf16 with
+    ``examples/train_gpt.py``'s surface at bench.py's widths: AdamW under
+    ``CosineAnnealingDecay(3e-4, 14)`` with ``ClipGradByGlobalNorm(1.0)``,
+    ``FLAGS_check_nan_inf`` set before the step is built (it is read
+    then) and ``set_meter_info(tokens_per_step=16384)``. Returns (model,
+    opt, sched, step, batch) with ``batch`` as ``gpt124m_training``'s;
+    ``scripts/profile_torch_train_step.py`` traces this same workload."""
+    from paddle_tpu_torch import optimizer as popt
+    from paddle_tpu_torch import set_flags
+    from paddle_tpu_torch.jit import CompiledTrainStep
+    from paddle_tpu_torch.nn.clip import ClipGradByGlobalNorm
+    from paddle_tpu_torch.text.gpt import GPTForPretraining, gpt_small
+    set_flags({"FLAGS_check_nan_inf": True})
+    cfg = gpt_small()
+    model = GPTForPretraining(cfg, device="cuda", seed=0)
+    sched = popt.lr.CosineAnnealingDecay(3e-4, TRAIN_WARMUP + TRAIN_TIMED + 1)
+    opt = popt.AdamW(learning_rate=sched, parameters=model.parameters(),
+                     grad_clip=ClipGradByGlobalNorm(1.0))
+    step = CompiledTrainStep(
+        lambda i, lb: model(i, labels=lb)[1], model, opt,
+        amp_level="O2").set_meter_info(
+            tokens_per_step=TRAIN_BATCH * cfg.max_seq_len)
+    shape = (TRAIN_BATCH, cfg.max_seq_len)
+    return model, opt, sched, step, _token_batches(
+        torch, cfg.vocab_size, shape, shape, cfg.vocab_size)
+
+
+def phase_gpt124m_scheduled(torch, ck, smi):
+    """``gpt124m_scheduled``'s workload with the StepMeter on: 3 warm-up
+    and 10 timed calls with the nan check on, the scheduler stepped after
+    each, then a ``run_steps`` block of 8 at the rate of the block's
+    start, through a step built with the flag clear (``run_steps``
+    refuses the flag, as the reference does, and the flagged step must
+    raise so). The rate each step read must be the scheduler's sequence,
+    and the meter must count each call and the block. Then one
+    ``use_rmsnorm=True`` step at full width."""
+    from paddle_tpu_torch import optimizer as popt
+    from paddle_tpu_torch import set_flags
+    from paddle_tpu_torch.jit import CompiledTrainStep
+    from paddle_tpu_torch.observability import metrics, perf
+    from paddle_tpu_torch.text.gpt import GPTForPretraining, gpt_small
+    n_calls = TRAIN_WARMUP + TRAIN_TIMED
+    try:
+        model, opt, sched, step, batch = gpt124m_scheduled(torch)
+        read = []
+        get_lr = opt.get_lr
+        opt.get_lr = lambda: read.append(get_lr()) or read[-1]
+        ids, labels = batch()
+        ids_k, labels_k = batch(TRAIN_K)
+        try:
+            step.run_steps(ids_k, labels_k)
+        except RuntimeError as e:
+            if "FLAGS_check_nan_inf" not in str(e):
+                raise
+        else:
+            raise AssertionError("run_steps took FLAGS_check_nan_inf")
+        set_flags({"FLAGS_check_nan_inf": False})
+        block_step = CompiledTrainStep(
+            step.fn, model, opt, amp_level="O2").set_meter_info(
+                tokens_per_step=step.meter_tokens)
+        steps_total = metrics.counter("perf_steps_total")
+        gauge = metrics.gauge("perf_tokens_per_sec")
+        n0 = steps_total.total()
+        perf.enable()
+        losses, host_s, meter_tps = [], [], []
+        for i in range(n_calls):
+            t0 = time.perf_counter()
+            losses.append(step(ids, labels).item())
+            host_s.append(time.perf_counter() - t0)
+            meter_tps.append(gauge.series()[()])
+            sched.step()
+        t0 = time.perf_counter()
+        block = block_step.run_steps(ids_k, labels_k)
+        block_host_s = time.perf_counter() - t0
+        block_meter_tps = gauge.series()[()]
+        perf.disable()
+        metered = steps_total.total() - n0
+        losses += block.tolist()
+        fresh = popt.lr.CosineAnnealingDecay(3e-4, n_calls + 1)
+        want = []
+        for _ in range(n_calls + 1):
+            want.append(fresh())
+            fresh.step()
+        timed = slice(TRAIN_WARMUP, None)
+        tokens = ids.numel()
+        out = {"phase": "gpt124m_scheduled", "nvidia_smi": smi,
+               "model": "gpt_small (GPT-124M), CompiledTrainStep O2 bf16, "
+                        "AdamW under CosineAnnealingDecay(3e-4, 14), "
+                        "ClipGradByGlobalNorm(1.0), FLAGS_check_nan_inf per "
+                        "call (run_steps refuses it), "
+                        "StepMeter on, random weights seed 0",
+               "lr_read": read, "lr_scheduler": want,
+               "losses": losses,
+               "metered_steps": metered,
+               "per_call_tokens_per_s_host":
+                   tokens * TRAIN_TIMED / sum(host_s[timed]),
+               "per_call_tokens_per_s_meter":
+                   sum(meter_tps[timed]) / TRAIN_TIMED,
+               "per_call_tokens_per_s_meter_each": meter_tps,
+               "run_steps_tokens_per_s_host":
+                   tokens * TRAIN_K / block_host_s,
+               "run_steps_tokens_per_s_meter": block_meter_tps}
+        # one RMSNorm step at full width
+        rms = GPTForPretraining(gpt_small(use_rmsnorm=True), device="cuda",
+                                seed=0)
+        ropt = popt.AdamW(learning_rate=1e-4, parameters=rms.parameters())
+        rstep = CompiledTrainStep(lambda i, lb: rms(i, labels=lb)[1], rms,
+                                  ropt, amp_level="O2")
+        out["rmsnorm_loss"] = rstep(ids, labels).item()
+        emit(out)
+    finally:
+        perf.disable()
+        set_flags({"FLAGS_check_nan_inf": False})
+    if read != want:
+        raise AssertionError(f"the steps read {read}; the scheduler's "
+                             f"sequence is {want}")
+    if metered != n_calls + 1:
+        raise AssertionError(f"the StepMeter counted {metered} steps of "
+                             f"{n_calls} calls and one block")
+    if not all(math.isfinite(x) for x in losses + [out["rmsnorm_loss"]]):
+        raise AssertionError(f"a loss is not finite: {losses}, "
+                             f"{out['rmsnorm_loss']}")
+
+
+def eager_exactness_fp32(torch, ck, phase, describe, cfg, ids, labels):
+    """Two eager O0 steps of the upstream recipe (warm-up/cosine schedule,
+    global-norm clip, an enabled ``GradScaler``: outside an fp16
+    ``auto_cast`` block the ambient dtype is float32, so it scales) of a
+    full-width, 2-layer fp32 GPT from one seed, on the card and on the
+    CPU: both losses within 1e-4, the first step's unscaled gradients
+    within 1e-4 of their largest entry (one that is zero up to rounding
+    below 1e-6 of the largest gradient on both), and the scales, skips and
+    rates equal."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch import optimizer as popt
+    from paddle_tpu_torch.nn.clip import ClipGradByGlobalNorm
+    from paddle_tpu_torch.text.gpt import GPTForPretraining
+    res = {}
+    for dev in ("cuda", "cpu"):
+        model = GPTForPretraining(cfg, device=dev, seed=0)
+        sched = popt.lr.LinearWarmup(popt.lr.CosineAnnealingDecay(1e-4, 1000),
+                                     2, 1e-5, 1e-4)
+        opt = popt.AdamW(learning_rate=sched, parameters=model.parameters(),
+                         grad_clip=ClipGradByGlobalNorm(1.0))
+        scaler = amp.GradScaler(init_loss_scaling=2.0 ** 15)
+        grads = {}
+        clear = opt.clear_grad
+
+        def keep_then_clear():
+            if not grads:
+                grads.update({n: p.grad.detach().cpu()
+                              for n, p in model.named_parameters()})
+            clear()
+        opt.clear_grad = keep_then_clear
+        steps = eager_amp_steps(torch, model, ids.to(dev), labels.to(dev), 2,
+                                "O0", "float32", sched, scaler, opt,
+                                sync=dev == "cuda")
+        res[dev] = ([s[:4] for s in steps], grads)
+    (card, cg), (cpu, pg) = res["cuda"], res["cpu"]
+    top = max(float(g.abs().max()) for g in pg.values())
+    zero = sorted(n for n, g in pg.items()
+                  if float(g.abs().max()) <= 1e-6 * top)
+    rel = {n: max_err(g, pg[n]) / float(pg[n].abs().max())
+           for n, g in cg.items() if n not in zero}
+    worst = max(rel, key=rel.get)
+    loss_err = max(abs(a[0] - b[0]) for a, b in zip(card, cpu))
+    out = {"phase": phase, "tf32": False, "model": describe,
+           "batch": list(ids.shape), "losses_cuda": [s[0] for s in card],
+           "losses_cpu": [s[0] for s in cpu], "loss_abs_err": loss_err,
+           "loss_tol": 1e-4, "grad_max_rel_err": rel[worst],
+           "grad_worst": worst, "grad_rel_tol": 1e-4,
+           "grads_zero_up_to_rounding": zero,
+           "scale_skip_lr_cuda": [s[1:] for s in card],
+           "scale_skip_lr_cpu": [s[1:] for s in cpu]}
+    emit(out)
+    zero_ok = all(float(cg[n].abs().max()) <= 1e-6 * top for n in zero)
+    if loss_err > 1e-4 or rel[worst] > 1e-4 or not zero_ok or \
+            [s[1:] for s in card] != [s[1:] for s in cpu]:
+        raise AssertionError(f"{phase}: card differs from the CPU: loss "
+                             f"{loss_err}, {worst} {rel[worst]}")
+
+
+def phase_eager_exactness_fp32(torch, ck):
+    """The eager recipe at O0 in fp32, GPT-124M's widths, 2 layers, batch
+    2 x 1024, with LayerNorm and with RMSNorm."""
+    from paddle_tpu_torch.text.gpt import GPTConfig
+    for rms in (False, True):
+        cfg = GPTConfig(hidden_size=768, num_layers=2, num_heads=12,
+                        use_rmsnorm=rms)
+        ids, labels = _seeded_ids(torch, cfg.vocab_size,
+                                  (2, cfg.max_seq_len))
+        eager_exactness_fp32(
+            torch, ck, "eager_rmsnorm_exactness_fp32" if rms
+            else "eager_exactness_fp32",
+            f"GPT-124M widths, 2 layers, {'RMSNorm' if rms else 'LayerNorm'}"
+            ", fp32, eager O0, warm-up/cosine, clip, GradScaler(2**15), "
+            "batch 2 x 1024", cfg, ids, labels)
+
+
+def _one_eager_step(torch, cfg, ids, labels, level, dtype, scale=2.0 ** 15):
+    """Loss and gradients (fp32, on the CPU) of one eager step of a
+    2-layer GPT from seed 0 on the card: fp32 parameters at O0, or
+    ``decorate``d to ``dtype`` at O2. The loss is scaled by ``scale``
+    (a power of two) before the backward and the gradients unscaled in
+    fp32 after, as ``GradScaler`` does: unscaled, fp16 gradients of the
+    logits (about 1/(vocab x tokens)) fall below fp16's range."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.text.gpt import GPTForPretraining
+    model = GPTForPretraining(cfg, device="cuda", seed=0)
+    if level == "O2":
+        model = amp.decorate(model, level="O2", dtype=dtype)
+    with amp.auto_cast(enable=level == "O2", level=level, dtype=dtype):
+        _, loss = model(ids, labels=labels)
+    (loss * scale).backward()
+    return loss.item(), {n: p.grad.float().cpu() / scale
+                         for n, p in model.named_parameters()}
+
+
+def phase_fp16_against_fp32(torch, ck):
+    """One eager O2 fp16 step of GPT-124M's widths at 2 layers (batch 2 x
+    1024), its loss scaled by 2^15 as the recipe's scaler does, against
+    the same step in fp32 O0 on the card. The bound, from
+    fp16's unit roundoff u = 2^-11: the loss within 8u of its value (a
+    handful of roundings a layer of activations whose error the layer
+    norms do not grow; the loss is 1-Lipschitz in the logits' max-norm),
+    and every gradient's error against fp32, relative to its largest
+    entry, at most half the worst one the same step shows in bf16 O2
+    (fp16 keeps 3 more significant bits, so about an eighth is expected;
+    gradients zero up to rounding in fp32, below 1e-6 of the largest, are
+    left out)."""
+    from paddle_tpu_torch.text.gpt import GPTConfig
+    cfg = GPTConfig(hidden_size=768, num_layers=2, num_heads=12)
+    ids, labels = (t.to("cuda") for t in _seeded_ids(
+        torch, cfg.vocab_size, (2, cfg.max_seq_len)))
+    ref_loss, ref = _one_eager_step(torch, cfg, ids, labels, "O0",
+                                    "float32")
+    top = max(float(g.abs().max()) for g in ref.values())
+    keep = [n for n, g in ref.items() if float(g.abs().max()) > 1e-6 * top]
+    errs = {}
+    for dtype in ("float16", "bfloat16"):
+        loss, grads = _one_eager_step(torch, cfg, ids, labels, "O2", dtype)
+        rel = {n: max_err(grads[n], ref[n]) / float(ref[n].abs().max())
+               for n in keep}
+        worst = max(rel, key=rel.get)
+        errs[dtype] = (abs(loss - ref_loss), rel[worst], worst)
+    loss_tol = 8 * 2.0 ** -11 * abs(ref_loss)
+    grad_tol = 0.5 * errs["bfloat16"][1]
+    out = {"phase": "fp16_against_fp32", "model": "GPT-124M widths, 2 "
+           "layers, batch 2 x 1024, one eager step: decorate + auto_cast O2 "
+           "against fp32 O0 on the card", "loss_fp32": ref_loss,
+           "fp16_loss_abs_err": errs["float16"][0], "loss_tol": loss_tol,
+           "fp16_grad_max_rel_err": errs["float16"][1],
+           "fp16_grad_worst": errs["float16"][2],
+           "bf16_loss_abs_err": errs["bfloat16"][0],
+           "bf16_grad_max_rel_err": errs["bfloat16"][1],
+           "grad_rel_tol": grad_tol}
+    emit(out)
+    if errs["float16"][0] > loss_tol or errs["float16"][1] > grad_tol:
+        raise AssertionError(f"fp16 O2 step off fp32: {out}")
 
 
 # -- phase 6 ------------------------------------------------------------------
@@ -1714,14 +2118,15 @@ def packed_bound(q, k, cu, pairs, backward):
     return bound_of(nbytes + 4 * cu.numel(), flops, q.dtype)
 
 
-def time_packed(torch, ck, launches):
+def time_packed(torch, ck, launches, dtype=None):
     """K4 and K5 at the packed-attention shape, each beside its plain
     version and the varlen flash op PyTorch ships
     (``torch.ops.aten._flash_attention_forward`` / ``_backward`` with
     cum_seq_q / cum_seq_k), which the port never calls; by CUDA events and
     by profiler device time (the library's backward reads host-bound on
     the events)."""
-    lens, q, k, v, do, cu = packed_attention(torch, torch.bfloat16)
+    dtype = dtype or torch.bfloat16
+    lens, q, k, v, do, cu = packed_attention(torch, dtype)
     q, k, v = q.detach(), k.detach(), v.detach()
     tq, h, d = q.shape
     longest = max(lens)
@@ -1751,7 +2156,7 @@ def time_packed(torch, ck, launches):
                                   longest, True)
 
     shape = (f"T={tq} ({len(lens)} causal segments of {min(lens)} to "
-             f"{longest}) h={h} d={d} bf16")
+             f"{longest}) h={h} d={d} {str(dtype)[6:]}")
     fwd_bound, fwd_by = packed_bound(q, k, cu, pairs, backward=False)
     bwd_bound, bwd_by = packed_bound(q, k, cu, pairs, backward=True)
     rows = [
@@ -1795,11 +2200,13 @@ def time_packed(torch, ck, launches):
     return rows
 
 
-def phase_timing(torch, ck, launches, path_launches, smi):
+def phase_timing(torch, ck, launches, path_launches, routes, smi):
     """The kernels line: each kernel at its main path's shape with its
     launches over every path, then K2 and K3 at the encoder paths'
-    non-causal shapes with those paths' own launches."""
-    bf16, f32 = torch.bfloat16, torch.float32
+    non-causal shapes with those paths' own launches, then each kernel's
+    fp16 route (K2 and K3 at the fp16 AMP path's shape) with its fp16
+    launches over every path (``routes``)."""
+    bf16, f16, f32 = torch.bfloat16, torch.float16, torch.float32
     main = [time_paged(torch, ck, PAGED_CTXS[1], 1, bf16,
                        launches["paged_attention"], "serving"),
             time_flash(torch, ck, FLASH_CASES[0], bf16,
@@ -1815,6 +2222,20 @@ def phase_timing(torch, ck, launches, path_launches, smi):
                                    counts["flash_bwd"])):
             row.update(case=case[0], launches_path=path)
             main.append(row)
+    fp16 = {name: sum(r[name]["fp16"] for r in routes.values())
+            for name in launches}
+    for row in (time_paged(torch, ck, PAGED_CTXS[1], 1, f16,
+                           fp16["paged_attention"], "serving_fp16"),
+                time_flash(torch, ck, TRAIN_ATTENTION, f16,
+                           fp16["flash_fwd"]),
+                time_flash_bwd(torch, ck, TRAIN_ATTENTION, f16,
+                               fp16["flash_bwd"]),
+                *time_packed(torch, ck, fp16, f16)):
+        row.update(route_dtype="fp16", launches_route="fp16")
+        row.setdefault("case", "gpt124m_fp16_amp"
+                       if row["name"] in ("flash_fwd", "flash_bwd")
+                       else "packed_fp16")
+        main.append(row)
     variants = [time_paged(torch, ck, PAGED_CTXS[5], 5, bf16, None,
                            "serving_verify"),
                 time_paged(torch, ck, PAGED_BYTES_CTXS, 1, bf16, None,
@@ -1842,15 +2263,23 @@ def main():
     smi = phase_environment(torch, ck)
     phase_kernels_vs_plain(torch, ck)
     # the main paths, each counted from zero: serving (K1) with the fp32
-    # model phase (K2), training (K2, K3), packed attention (K4, K5),
-    # ERNIE pretraining and BERT finetuning (K2, K3, non-causal), then
-    # ResNet-50 and LeNet training (none)
+    # model phase (K2), training (K2, K3), eager fp16 AMP training (K2, K3
+    # on their fp16 route), training with the schedule, nan check and
+    # StepMeter (K2, K3), packed attention (K4, K5), ERNIE pretraining and
+    # BERT finetuning (K2, K3, non-causal), then ResNet-50 and LeNet
+    # training (none)
     paths = (("serving", ("paged_attention", "flash_fwd"),
               lambda: (phase_serving(torch, ck, smi),
                        phase_exactness_fp32(torch, ck))),
              ("training", ("flash_fwd", "flash_bwd"),
               lambda: (phase_training_bf16(torch, ck, smi),
                        phase_training_exactness_fp32(torch, ck))),
+             ("gpt124m_fp16_amp", ("flash_fwd", "flash_bwd"),
+              lambda: (phase_gpt124m_fp16_amp(torch, ck, smi),
+                       phase_fp16_against_fp32(torch, ck))),
+             ("gpt124m_scheduled", ("flash_fwd", "flash_bwd"),
+              lambda: (phase_gpt124m_scheduled(torch, ck, smi),
+                       phase_eager_exactness_fp32(torch, ck))),
              ("packed_attention", ("flash_varlen_fwd", "flash_varlen_bwd"),
               lambda: (phase_packed_attention_bf16(torch, ck, smi),
                        phase_packed_attention_exactness_fp32(torch, ck))),
@@ -1863,7 +2292,7 @@ def main():
              # no hand-written kernel on this path, as in the reference
              ("resnet50_training", (), lambda: phase_vision(torch, ck, smi)))
     launches = {k.name: 0 for k in ck.KERNELS}
-    path_launches = {}
+    path_launches, path_routes = {}, {}
     for path, kernels, drive in paths:
         ck.reset_launch_counts()
         drive()
@@ -1875,10 +2304,14 @@ def main():
         if not kernels and any(counts.values()):
             raise AssertionError(f"the {path} path launched {counts}")
         path_launches[path] = counts
+        path_routes[path] = {k.name: dict(k.route_launches)
+                             for k in ck.KERNELS}
         for name, c in counts.items():
             launches[name] += c
-    emit({"phase": "path_launches", "launches": path_launches})
-    kernels = phase_timing(torch, ck, launches, path_launches, smi)
+    emit({"phase": "path_launches", "launches": path_launches,
+          "by_route": path_routes})
+    kernels = phase_timing(torch, ck, launches, path_launches, path_routes,
+                           smi)
     emit({"phase": "done", "seconds": time.perf_counter() - t0})
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -17,6 +17,8 @@ from __future__ import annotations
 
 import torch
 
+from .utils.flags import get_flags, set_flags
+
 __version__ = "0.1.0"
 
 
@@ -41,4 +43,5 @@ def resolve_device(device=None):
     return device
 
 
-__all__ = ["__version__", "default_device", "resolve_device"]
+__all__ = ["__version__", "default_device", "resolve_device", "get_flags",
+           "set_flags"]

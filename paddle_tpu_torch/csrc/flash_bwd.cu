@@ -35,8 +35,8 @@
 // flops, against ~2e8 bytes of inputs and outputs, ~320 flops per byte:
 // operations bound it, 0.0652 ms at 989 TFLOP/s.
 //
-// Two routes behind the one C entry, chosen by dtype (nothing is caught,
-// and neither is a fallback for the other):
+// Three routes behind the one C entry, chosen by dtype (nothing is caught,
+// and none is a fallback for another):
 //
 // bf16: flash_bwd_dkdv_kernel_tc and flash_bwd_dq_kernel_tc, tensor cores;
 // the training path (O2) runs them. Every product (S, dP and the three
@@ -83,6 +83,16 @@
 // before its elementwise work: TMA, a producer warp and overlapping the
 // next tile's products with this tile's elementwise work are still open.
 //
+// fp16 (dtype 2): flash_bwd_dkdv_kernel_tc<fp16> and
+// flash_bwd_dq_kernel_tc<fp16>, the same kernels instantiated for __half
+// (flash_tc.cuh picks the .f16 wgmma from the operands' type). Eager AMP O2
+// in float16 with a loss scaler runs this route. The only differences from
+// bf16 are the instruction and the rounding of p, dS, dq, dk and dv to fp16,
+// to nearest even and never clamped: a value past 65504 becomes inf, as the
+// JAX kernel's .astype(float16) makes it, so the loss scaler sees the
+// overflow. fp16 keeps 3 more mantissa bits than bf16 and 3 fewer exponent
+// bits.
+//
 // fp32: flash_bwd_dkdv_kernel and flash_bwd_dq_kernel, the scalar kernels
 // of the first port, unchanged. fp32 is not the dtype of any main path;
 // it carries the exactness checks (5e-5 against the fp32 plain version),
@@ -104,6 +114,7 @@
 // reads (one shared load per FMA).
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -385,9 +396,10 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
     dqrow[TPR * cc] = from_float<T>(acc[cc] * sm_scale);
 }
 
-// -- bf16 route: tensor cores -------------------------------------------------
+// -- bf16 and fp16 routes: tensor cores -------------------------------------
 
 using bf16 = __nv_bfloat16;
+using fp16 = __half;
 constexpr int kTcThreads = 128;  // one warpgroup
 constexpr int kTcRows = 64;      // rows of a CTA's own tile, 16 per warp
 
@@ -414,22 +426,22 @@ constexpr size_t dq_tc_smem_bytes() {
   return sizeof(bf16) * (2 * (size_t)kTcRows * D + 4 * N * D);
 }
 
-template <int D>
+template <typename T, int D>
 __global__ void __launch_bounds__(kTcThreads) flash_bwd_dkdv_kernel_tc(
-    const bf16* __restrict__ q, const bf16* __restrict__ k,
-    const bf16* __restrict__ v, const bf16* __restrict__ dout,
+    const T* __restrict__ q, const T* __restrict__ k,
+    const T* __restrict__ v, const T* __restrict__ dout,
     const float* __restrict__ lse, const float* __restrict__ delta,
-    bf16* __restrict__ dk, bf16* __restrict__ dv, int sq, int sk,
+    T* __restrict__ dk, T* __restrict__ dv, int sq, int sk,
     int num_heads, int num_kv_heads, float sm_scale, int causal) {
   using namespace flash_tc;
   constexpr int BN = kTcRows;                  // kv rows owned
   constexpr int BM = BwdTile<D>::kDkdvStep;    // q rows per step
   constexpr int DO = D / BwdTile<D>::kSplit;   // output columns per CTA
   extern __shared__ __align__(1024) unsigned char smem_raw[];
-  bf16* k_s = reinterpret_cast<bf16*>(smem_raw);  // [BN][D], later dk
-  bf16* v_s = k_s + BN * D;                       // [BN][D], later dv
-  bf16* q_s = v_s + BN * D;                       // [2][BM][D]
-  bf16* do_s = q_s + 2 * BM * D;                  // [2][BM][D]
+  T* k_s = reinterpret_cast<T*>(smem_raw);  // [BN][D], later dk
+  T* v_s = k_s + BN * D;                    // [BN][D], later dv
+  T* q_s = v_s + BN * D;                    // [2][BM][D]
+  T* do_s = q_s + 2 * BM * D;               // [2][BM][D]
   float* lse_s = reinterpret_cast<float*>(do_s + 2 * BM * D);  // [2][BM]
   float* dl_s = lse_s + 2 * BM;                                // [2][BM]
 
@@ -445,8 +457,8 @@ __global__ void __launch_bounds__(kTcThreads) flash_bwd_dkdv_kernel_tc(
 
   const size_t q_stride = (size_t)num_heads * D;
   const size_t kv_stride = (size_t)num_kv_heads * D;
-  const bf16* qb = q + (size_t)b * sq * q_stride + (size_t)h * D;
-  const bf16* dob = dout + (size_t)b * sq * q_stride + (size_t)h * D;
+  const T* qb = q + (size_t)b * sq * q_stride + (size_t)h * D;
+  const T* dob = dout + (size_t)b * sq * q_stride + (size_t)h * D;
   const size_t kv0 = ((size_t)b * sk + k0) * kv_stride + (size_t)kvh * D;
   const float* lse_b = lse + (size_t)bh * sq;
   const float* delta_b = delta + (size_t)bh * sq;
@@ -485,8 +497,8 @@ __global__ void __launch_bounds__(kTcThreads) flash_bwd_dkdv_kernel_tc(
     }
     fence_view_async_shared();  // this thread's copies, then everyone's
     __syncthreads();
-    const bf16* qs = q_s + st * BM * D;
-    const bf16* dos = do_s + st * BM * D;
+    const T* qs = q_s + st * BM * D;
+    const T* dos = do_s + st * BM * D;
     const float* ls = lse_s + st * BM;
     const float* dls = dl_s + st * BM;
 
@@ -526,8 +538,8 @@ __global__ void __launch_bounds__(kTcThreads) flash_bwd_dkdv_kernel_tc(
     // dV += P^T do and dK += dS^T q over this CTA's output columns, the
     // A operands from registers, do and q MN-major
     uint32_t pa[BM / 16][4], sa[BM / 16][4];
-    acc_to_a(pa, s);
-    acc_to_a(sa, dp);
+    acc_to_a<T>(pa, s);
+    acc_to_a<T>(sa, dp);
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < BM / 16; ++kk) {
@@ -549,21 +561,21 @@ __global__ void __launch_bounds__(kTcThreads) flash_bwd_dkdv_kernel_tc(
   store_rows<D, DO>(v_s, acc_v, 1.0f, 1.0f, dv + out0, q_stride, c0);
 }
 
-template <int D>
+template <typename T, int D>
 __global__ void __launch_bounds__(kTcThreads) flash_bwd_dq_kernel_tc(
-    const bf16* __restrict__ q, const bf16* __restrict__ k,
-    const bf16* __restrict__ v, const bf16* __restrict__ dout,
+    const T* __restrict__ q, const T* __restrict__ k,
+    const T* __restrict__ v, const T* __restrict__ dout,
     const float* __restrict__ lse, const float* __restrict__ delta,
-    bf16* __restrict__ dq, int sq, int sk, int num_heads, int num_kv_heads,
+    T* __restrict__ dq, int sq, int sk, int num_heads, int num_kv_heads,
     float sm_scale, int causal) {
   using namespace flash_tc;
   constexpr int BM = kTcRows;               // q rows owned
   constexpr int BN = BwdTile<D>::kDqStep;   // kv rows per step
   extern __shared__ __align__(1024) unsigned char smem_raw[];
-  bf16* q_s = reinterpret_cast<bf16*>(smem_raw);  // [BM][D], later dq
-  bf16* do_s = q_s + BM * D;                      // [BM][D]
-  bf16* k_s = do_s + BM * D;                      // [2][BN][D]
-  bf16* v_s = k_s + 2 * BN * D;                   // [2][BN][D]
+  T* q_s = reinterpret_cast<T*>(smem_raw);  // [BM][D], later dq
+  T* do_s = q_s + BM * D;                   // [BM][D]
+  T* k_s = do_s + BM * D;                   // [2][BN][D]
+  T* v_s = k_s + 2 * BN * D;                // [2][BN][D]
 
   const int q0 = (gridDim.x - 1 - blockIdx.x) * BM;  // heavy tiles first
   const int bh = blockIdx.y;
@@ -577,8 +589,8 @@ __global__ void __launch_bounds__(kTcThreads) flash_bwd_dq_kernel_tc(
   const size_t q_stride = (size_t)num_heads * D;
   const size_t kv_stride = (size_t)num_kv_heads * D;
   const size_t qrow0 = ((size_t)b * sq + q0) * q_stride + (size_t)h * D;
-  const bf16* kb = k + (size_t)b * sk * kv_stride + (size_t)kvh * D;
-  const bf16* vb = v + (size_t)b * sk * kv_stride + (size_t)kvh * D;
+  const T* kb = k + (size_t)b * sk * kv_stride + (size_t)kvh * D;
+  const T* vb = v + (size_t)b * sk * kv_stride + (size_t)kvh * D;
   float lse2[2], dlt[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
@@ -621,8 +633,8 @@ __global__ void __launch_bounds__(kTcThreads) flash_bwd_dq_kernel_tc(
     }
     fence_view_async_shared();  // this thread's copies, then everyone's
     __syncthreads();
-    const bf16* ks = k_s + st * BN * D;
-    const bf16* vs = v_s + st * BN * D;
+    const T* ks = k_s + st * BN * D;
+    const T* vs = v_s + st * BN * D;
 
     // S = q K^T and dP = do V^T
     float s[BN / 2], dp[BN / 2];
@@ -656,7 +668,7 @@ __global__ void __launch_bounds__(kTcThreads) flash_bwd_dq_kernel_tc(
 
     // dQ += dS K, dS as bf16 A operands from registers, K MN-major
     uint32_t sa[BN / 16][4];
-    acc_to_a(sa, dp);
+    acc_to_a<T>(sa, dp);
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < BN / 16; ++kk)
@@ -710,7 +722,7 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
   return (int)cudaGetLastError();
 }
 
-template <int D>
+template <typename T, int D>
 int launch_tc(const void* q, const void* k, const void* v, const void* dout,
               const void* lse, const void* delta, void* dq, void* dk,
               void* dv, int batch, int sq, int sk, int num_heads,
@@ -722,35 +734,35 @@ int launch_tc(const void* q, const void* k, const void* v, const void* dout,
                     smem_dq <= flash_tc::kMaxSmem,
                 "a pass's tiles exceed a block's shared memory");
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkdv_kernel_tc<D>,
+      flash_bwd_dkdv_kernel_tc<T, D>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_dkdv);
   if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(flash_bwd_dq_kernel_tc<D>,
+  err = cudaFuncSetAttribute(flash_bwd_dq_kernel_tc<T, D>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem_dq);
   if (err != cudaSuccess) return (int)err;
-  const bf16* qt = static_cast<const bf16*>(q);
-  const bf16* kt = static_cast<const bf16*>(k);
-  const bf16* vt = static_cast<const bf16*>(v);
-  const bf16* dot = static_cast<const bf16*>(dout);
+  const T* qt = static_cast<const T*>(q);
+  const T* kt = static_cast<const T*>(k);
+  const T* vt = static_cast<const T*>(v);
+  const T* dot = static_cast<const T*>(dout);
   const float* lt = static_cast<const float*>(lse);
   const float* dt = static_cast<const float*>(delta);
-  flash_bwd_dkdv_kernel_tc<D><<<dim3(sk / kTcRows, batch * num_heads,
+  flash_bwd_dkdv_kernel_tc<T, D><<<dim3(sk / kTcRows, batch * num_heads,
                                      BwdTile<D>::kSplit),
                                 kTcThreads, smem_dkdv, stream>>>(
-      qt, kt, vt, dot, lt, dt, static_cast<bf16*>(dk), static_cast<bf16*>(dv),
+      qt, kt, vt, dot, lt, dt, static_cast<T*>(dk), static_cast<T*>(dv),
       sq, sk, num_heads, num_kv_heads, sm_scale, causal);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  flash_bwd_dq_kernel_tc<D><<<dim3(sq / kTcRows, batch * num_heads),
+  flash_bwd_dq_kernel_tc<T, D><<<dim3(sq / kTcRows, batch * num_heads),
                               kTcThreads, smem_dq, stream>>>(
-      qt, kt, vt, dot, lt, dt, static_cast<bf16*>(dq), sq, sk, num_heads,
+      qt, kt, vt, dot, lt, dt, static_cast<T*>(dq), sq, sk, num_heads,
       num_kv_heads, sm_scale, causal);
   return (int)cudaGetLastError();
 }
 
 // the route of `dtype` at head dim D: 0 = float32, the scalar kernels;
-// 1 = bfloat16, the tensor-core kernels
+// 1 = bfloat16 and 2 = float16, the tensor-core kernels
 template <int D>
 int dispatch_dtype(const void* q, const void* k, const void* v,
                    const void* dout, const void* lse, const void* delta,
@@ -762,8 +774,13 @@ int dispatch_dtype(const void* q, const void* k, const void* v,
                             sk, num_heads, num_kv_heads, sm_scale, causal,
                             stream);
   if (dtype == 1)
-    return launch_tc<D>(q, k, v, dout, lse, delta, dq, dk, dv, batch, sq, sk,
-                        num_heads, num_kv_heads, sm_scale, causal, stream);
+    return launch_tc<bf16, D>(q, k, v, dout, lse, delta, dq, dk, dv, batch,
+                              sq, sk, num_heads, num_kv_heads, sm_scale,
+                              causal, stream);
+  if (dtype == 2)
+    return launch_tc<fp16, D>(q, k, v, dout, lse, delta, dq, dk, dv, batch,
+                              sq, sk, num_heads, num_kv_heads, sm_scale,
+                              causal, stream);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -771,7 +788,7 @@ int dispatch_dtype(const void* q, const void* k, const void* v,
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16 (q, k, v, do, dq, dk, dv alike; lse and
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16 (q, k, v, do, dq, dk, dv alike; lse and
 // delta fp32). dk/dv are per q head: [b, sk, num_heads, head_dim]. sq and
 // sk must be multiples of 64. Returns cudaGetLastError() after the two
 // launches (0 on success).

@@ -11,8 +11,8 @@
 //     c <= r + (sk - sq);
 //   - o in the input dtype, lse = m + ln(l) as fp32 [b, h, sq].
 //
-// Two routes behind the one C entry, chosen by dtype (nothing is caught,
-// and neither is a fallback for the other):
+// Three routes behind the one C entry, chosen by dtype (nothing is caught,
+// and none is a fallback for another):
 //
 // bf16: flash_fwd_kernel_tc, tensor cores. The training path (O2) and
 // serving run it. What bounds it on the H100: at the training shape
@@ -61,6 +61,15 @@
 // TMA, and one warpgroup both loads and computes: TMA with a producer
 // warp and ping-pong consumer warpgroups is still open.
 //
+// fp16 (dtype 2): flash_fwd_kernel_tc<fp16>, the same kernels instantiated
+// for __half (flash_tc.cuh picks the .f16 wgmma from the operands' type).
+// Eager AMP O2 in float16 with a loss scaler runs this route. The only
+// differences from bf16 are the instruction and the rounding of p and o to
+// fp16, to nearest even and never clamped: a value past 65504 becomes inf,
+// as the JAX kernel's .astype(float16) makes it, so the loss scaler sees the
+// overflow. fp16 keeps 3 more mantissa bits than bf16 and 3 fewer exponent
+// bits.
+//
 // fp32: flash_fwd_kernel, the first port's scalar kernel, unchanged. fp32
 // is not the dtype of any main path; it carries the exactness checks
 // (2e-5 against the fp32 plain version), which TF32 tensor cores, at
@@ -79,6 +88,7 @@
 // and the 512/256 tile choices.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -224,9 +234,10 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
     lse[((size_t)b * num_heads + h) * sq + q0 + r] = m + logf(lc);
 }
 
-// -- bf16 route: tensor cores -------------------------------------------------
+// -- bf16 and fp16 routes: tensor cores -------------------------------------
 
 using bf16 = __nv_bfloat16;
+using fp16 = __half;
 constexpr int kTcThreads = 128;  // one warpgroup
 constexpr int kTcBlockM = 64;    // q rows per CTA, 16 per warp
 
@@ -244,10 +255,10 @@ constexpr size_t fwd_tc_smem_bytes() {
          ((size_t)kTcBlockM * D + 4 * (size_t)FwdTile<D>::kBlockN * D);
 }
 
-template <int D>
+template <typename T, int D>
 __global__ void __launch_bounds__(kTcThreads) flash_fwd_kernel_tc(
-    const bf16* __restrict__ q, const bf16* __restrict__ k,
-    const bf16* __restrict__ v, bf16* __restrict__ o,
+    const T* __restrict__ q, const T* __restrict__ k,
+    const T* __restrict__ v, T* __restrict__ o,
     float* __restrict__ lse, int sq, int sk, int num_heads, int num_kv_heads,
     float sm_scale, int causal) {
   using namespace flash_tc;
@@ -256,9 +267,9 @@ __global__ void __launch_bounds__(kTcThreads) flash_fwd_kernel_tc(
   constexpr int NS = BN / 2;  // score accumulators a thread holds
   constexpr int NO = D / 2;   // output accumulators a thread holds
   extern __shared__ __align__(1024) unsigned char smem_raw[];
-  bf16* q_s = reinterpret_cast<bf16*>(smem_raw);  // [BM][D], later o
-  bf16* k_s = q_s + BM * D;                       // [2][BN][D]
-  bf16* v_s = k_s + 2 * BN * D;                   // [2][BN][D]
+  T* q_s = reinterpret_cast<T*>(smem_raw);  // [BM][D], later o
+  T* k_s = q_s + BM * D;                    // [2][BN][D]
+  T* v_s = k_s + 2 * BN * D;                // [2][BN][D]
 
   const int q0 = (gridDim.x - 1 - blockIdx.x) * BM;  // heavy tiles first
   const int bh = blockIdx.y;
@@ -272,8 +283,8 @@ __global__ void __launch_bounds__(kTcThreads) flash_fwd_kernel_tc(
   const size_t q_stride = (size_t)num_heads * D;
   const size_t kv_stride = (size_t)num_kv_heads * D;
   const size_t qrow0 = ((size_t)b * sq + q0) * q_stride + (size_t)h * D;
-  const bf16* kb = k + (size_t)b * sk * kv_stride + (size_t)kvh * D;
-  const bf16* vb = v + (size_t)b * sk * kv_stride + (size_t)kvh * D;
+  const T* kb = k + (size_t)b * sk * kv_stride + (size_t)kvh * D;
+  const T* vb = v + (size_t)b * sk * kv_stride + (size_t)kvh * D;
 
   const int offset = sk - sq;  // bottom-right causal alignment
   int n_kv = sk / BN;
@@ -309,8 +320,8 @@ __global__ void __launch_bounds__(kTcThreads) flash_fwd_kernel_tc(
     }
     fence_view_async_shared();  // this thread's copies, then everyone's
     __syncthreads();
-    const bf16* ks = k_s + st * BN * D;
-    const bf16* vs = v_s + st * BN * D;
+    const T* ks = k_s + st * BN * D;
+    const T* vs = v_s + st * BN * D;
 
     // S = q k^T
     float s[NS];
@@ -364,7 +375,7 @@ __global__ void __launch_bounds__(kTcThreads) flash_fwd_kernel_tc(
 
     // O += P v: p as bf16 A operands from registers, v MN-major
     uint32_t pa[BN / 16][4];
-    acc_to_a(pa, s);
+    acc_to_a<T>(pa, s);
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < BN / 16; ++kk)
@@ -407,7 +418,7 @@ int launch(const void* q, const void* k, const void* v, void* o, void* lse,
   return (int)cudaGetLastError();
 }
 
-template <int D>
+template <typename T, int D>
 int launch_tc(const void* q, const void* k, const void* v, void* o, void* lse,
               int batch, int sq, int sk, int num_heads, int num_kv_heads,
               float sm_scale, int causal, cudaStream_t stream) {
@@ -415,20 +426,20 @@ int launch_tc(const void* q, const void* k, const void* v, void* o, void* lse,
   static_assert(smem <= flash_tc::kMaxSmem,
                 "the tiles exceed a block's shared memory");
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel_tc<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_fwd_kernel_tc<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid(sq / kTcBlockM, batch * num_heads);
-  flash_fwd_kernel_tc<D><<<grid, kTcThreads, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(o),
+  flash_fwd_kernel_tc<T, D><<<grid, kTcThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<T*>(o),
       static_cast<float*>(lse), sq, sk, num_heads, num_kv_heads, sm_scale,
       causal);
   return (int)cudaGetLastError();
 }
 
 // the route of `dtype` at head dim D: 0 = float32, the scalar kernel;
-// 1 = bfloat16, the tensor-core kernel
+// 1 = bfloat16 and 2 = float16, the tensor-core kernel
 template <int D>
 int dispatch_dtype(const void* q, const void* k, const void* v, void* o,
                    void* lse, int batch, int sq, int sk, int num_heads,
@@ -438,8 +449,11 @@ int dispatch_dtype(const void* q, const void* k, const void* v, void* o,
     return launch<float, D>(q, k, v, o, lse, batch, sq, sk, num_heads,
                             num_kv_heads, sm_scale, causal, stream);
   if (dtype == 1)
-    return launch_tc<D>(q, k, v, o, lse, batch, sq, sk, num_heads,
-                        num_kv_heads, sm_scale, causal, stream);
+    return launch_tc<bf16, D>(q, k, v, o, lse, batch, sq, sk, num_heads,
+                              num_kv_heads, sm_scale, causal, stream);
+  if (dtype == 2)
+    return launch_tc<fp16, D>(q, k, v, o, lse, batch, sq, sk, num_heads,
+                              num_kv_heads, sm_scale, causal, stream);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -447,7 +461,7 @@ int dispatch_dtype(const void* q, const void* k, const void* v, void* o,
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16. Returns cudaGetLastError() after the
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16. Returns cudaGetLastError() after the
 // launch (0 on success).
 int flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
               int batch, int sq, int sk, int num_heads, int num_kv_heads,

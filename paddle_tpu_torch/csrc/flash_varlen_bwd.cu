@@ -42,8 +42,8 @@
 // pairs per head) that is ~8.8e10 flops against ~50 MB: operations bound
 // it (~89 us at 989 TFLOP/s).
 //
-// Two routes behind the one C entry, chosen by dtype (nothing is caught,
-// and neither is a fallback for the other):
+// Three routes behind the one C entry, chosen by dtype (nothing is caught,
+// and none is a fallback for another):
 //
 // bf16: flash_varlen_bwd_dkdv_kernel_tc and flash_varlen_bwd_dq_kernel_tc,
 // tensor cores; the packed-attention path runs them. K3's design
@@ -96,6 +96,16 @@
 // fit a SM (K3's holds 168, three); capping it at 170 spilled 54 bytes,
 // and 32-row steps at d = 64 measured no faster on the H100.
 //
+// fp16 (dtype 2): flash_varlen_bwd_dkdv_kernel_tc<fp16> and
+// flash_varlen_bwd_dq_kernel_tc<fp16>, the same kernels instantiated for
+// __half (flash_tc.cuh picks the .f16 wgmma from the operands' type). Eager
+// AMP O2 in float16 with a loss scaler runs this route. The only differences
+// from bf16 are the instruction and the rounding of p, dS, dq, dk and dv to
+// fp16, to nearest even and never clamped: a value past 65504 becomes inf,
+// as the JAX kernel's .astype(float16) makes it, so the loss scaler sees the
+// overflow. fp16 keeps 3 more mantissa bits than bf16 and 3 fewer exponent
+// bits.
+//
 // fp32: flash_varlen_bwd_dkdv_kernel and flash_varlen_bwd_dq_kernel, the
 // scalar kernels of the first port, unchanged; they carry the exactness
 // checks (5e-5 against the fp32 plain version). Tiles are 64 x 64 for
@@ -113,6 +123,7 @@
 // own scalar FMAs and shared-memory reads.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -405,9 +416,10 @@ __global__ void __launch_bounds__(kThreads) flash_varlen_bwd_dq_kernel(
     dqrow[TPR * cc] = from_float<T>(acc[cc] * sm_scale);
 }
 
-// -- bf16 route: tensor cores -------------------------------------------------
+// -- bf16 and fp16 routes: tensor cores -------------------------------------
 
 using bf16 = __nv_bfloat16;
+using fp16 = __half;
 constexpr int kTcThreads = 128;  // one warpgroup
 constexpr int kTcRows = 64;      // rows of a CTA's own tile: one plan tile
 
@@ -435,25 +447,25 @@ constexpr size_t varlen_dq_tc_smem_bytes() {
          sizeof(int) * 2 * N;
 }
 
-template <int D>
+template <typename T, int D>
 __global__ void __launch_bounds__(kTcThreads) flash_varlen_bwd_dkdv_kernel_tc(
-    const bf16* __restrict__ q, const bf16* __restrict__ k,
-    const bf16* __restrict__ v, const bf16* __restrict__ dout,
+    const T* __restrict__ q, const T* __restrict__ k,
+    const T* __restrict__ v, const T* __restrict__ dout,
     const float* __restrict__ lse, const float* __restrict__ delta,
     const int* __restrict__ seg_q, const int* __restrict__ seg_k,
     const int* __restrict__ q_lo, const int* __restrict__ q_hi,
-    const int* __restrict__ kv_order, bf16* __restrict__ dk,
-    bf16* __restrict__ dv, int tq, int tk, int num_heads, float sm_scale,
+    const int* __restrict__ kv_order, T* __restrict__ dk,
+    T* __restrict__ dv, int tq, int tk, int num_heads, float sm_scale,
     int causal) {
   using namespace flash_tc;
   constexpr int BN = kTcRows;                  // kv rows owned
   constexpr int BM = BwdTile<D>::kDkdvStep;    // q rows per step
   constexpr int DO = D / BwdTile<D>::kSplit;   // output columns per CTA
   extern __shared__ __align__(1024) unsigned char smem_raw[];
-  bf16* k_s = reinterpret_cast<bf16*>(smem_raw);  // [BN][D], later dk
-  bf16* v_s = k_s + BN * D;                       // [BN][D], later dv
-  bf16* q_s = v_s + BN * D;                       // [2][BM][D]
-  bf16* do_s = q_s + 2 * BM * D;                  // [2][BM][D]
+  T* k_s = reinterpret_cast<T*>(smem_raw);  // [BN][D], later dk
+  T* v_s = k_s + BN * D;                    // [BN][D], later dv
+  T* q_s = v_s + BN * D;                    // [2][BM][D]
+  T* do_s = q_s + 2 * BM * D;               // [2][BM][D]
   float* lse_s = reinterpret_cast<float*>(do_s + 2 * BM * D);  // [2][BM]
   float* dl_s = lse_s + 2 * BM;                                // [2][BM]
   int* segq_s = reinterpret_cast<int*>(dl_s + 2 * BM);         // [2][BM]
@@ -468,8 +480,8 @@ __global__ void __launch_bounds__(kTcThreads) flash_varlen_bwd_dkdv_kernel_tc(
   const int kvr = k0 + (threadIdx.x >> 5) * 16 + g;  // and kvr + 8
 
   const size_t stride = (size_t)num_heads * D;
-  const bf16* qb = q + (size_t)h * D;
-  const bf16* dob = dout + (size_t)h * D;
+  const T* qb = q + (size_t)h * D;
+  const T* dob = dout + (size_t)h * D;
   const size_t kv0 = (size_t)k0 * stride + (size_t)h * D;
   const float* lse_h = lse + (size_t)h * tq;
   const float* delta_h = delta + (size_t)h * tq;
@@ -520,8 +532,8 @@ __global__ void __launch_bounds__(kTcThreads) flash_varlen_bwd_dkdv_kernel_tc(
     }
     fence_view_async_shared();  // this thread's copies, then everyone's
     __syncthreads();
-    const bf16* qs = q_s + st * BM * D;
-    const bf16* dos = do_s + st * BM * D;
+    const T* qs = q_s + st * BM * D;
+    const T* dos = do_s + st * BM * D;
     const float* ls = lse_s + st * BM;
     const float* dls = dl_s + st * BM;
     const int* segc = segq_s + st * BM;
@@ -567,8 +579,8 @@ __global__ void __launch_bounds__(kTcThreads) flash_varlen_bwd_dkdv_kernel_tc(
     // dV += P^T do and dK += dS^T q over this CTA's output columns, the
     // A operands from registers, do and q MN-major
     uint32_t pa[BM / 16][4], sa[BM / 16][4];
-    acc_to_a(pa, s);
-    acc_to_a(sa, dp);
+    acc_to_a<T>(pa, s);
+    acc_to_a<T>(sa, dp);
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < BM / 16; ++kk) {
@@ -597,9 +609,10 @@ __global__ void __launch_bounds__(kTcThreads) flash_varlen_bwd_dkdv_kernel_tc(
 // past tq give 0): into delta[r] and, for this lane's rows g and g + 8,
 // into dlt. A row's D bf16 are D / 8 chunks of 16 bytes, one a lane, so
 // one load instruction covers 256 / D rows and all of the warp's loads
-// are in flight at once; bf16 products are exact in fp32, the sum is fp32.
-template <int D>
-__device__ __forceinline__ void row_delta(const bf16* dout, const bf16* o,
+// are in flight at once; bf16 and fp16 products are exact in fp32, the sum
+// is fp32.
+template <typename T, int D>
+__device__ __forceinline__ void row_delta(const T* dout, const T* o,
                                           size_t stride, int r0, int tq,
                                           float* delta, float (&dlt)[2]) {
   constexpr int kLanesPerRow = D / 8;
@@ -619,12 +632,12 @@ __device__ __forceinline__ void row_delta(const bf16* dout, const bf16* o,
           dout + (size_t)r * stride + c);
       const uint4 y = *reinterpret_cast<const uint4*>(
           o + (size_t)r * stride + c);
-      const __nv_bfloat162* xs = reinterpret_cast<const __nv_bfloat162*>(&x);
-      const __nv_bfloat162* ys = reinterpret_cast<const __nv_bfloat162*>(&y);
+      const uint32_t* xs = reinterpret_cast<const uint32_t*>(&x);
+      const uint32_t* ys = reinterpret_cast<const uint32_t*>(&y);
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const float2 a = __bfloat1622float2(xs[e]);
-        const float2 b = __bfloat1622float2(ys[e]);
+        const float2 a = flash_tc::unpack2<T>(xs[e]);
+        const float2 b = flash_tc::unpack2<T>(ys[e]);
         part += a.x * b.x + a.y * b.y;
       }
     }
@@ -646,24 +659,24 @@ __device__ __forceinline__ void row_delta(const bf16* dout, const bf16* o,
   }
 }
 
-template <int D>
+template <typename T, int D>
 __global__ void __launch_bounds__(kTcThreads) flash_varlen_bwd_dq_kernel_tc(
-    const bf16* __restrict__ q, const bf16* __restrict__ k,
-    const bf16* __restrict__ v, const bf16* __restrict__ dout,
-    const bf16* __restrict__ o, const float* __restrict__ lse,
+    const T* __restrict__ q, const T* __restrict__ k,
+    const T* __restrict__ v, const T* __restrict__ dout,
+    const T* __restrict__ o, const float* __restrict__ lse,
     float* __restrict__ delta, const int* __restrict__ seg_q,
     const int* __restrict__ seg_k,
     const int* __restrict__ kv_lo, const int* __restrict__ kv_hi,
-    const int* __restrict__ q_order, bf16* __restrict__ dq, int tq, int tk,
+    const int* __restrict__ q_order, T* __restrict__ dq, int tq, int tk,
     int num_heads, float sm_scale, int causal) {
   using namespace flash_tc;
   constexpr int BM = kTcRows;               // q rows owned
   constexpr int BN = BwdTile<D>::kDqStep;   // kv rows per step
   extern __shared__ __align__(1024) unsigned char smem_raw[];
-  bf16* q_s = reinterpret_cast<bf16*>(smem_raw);  // [BM][D], later dq
-  bf16* do_s = q_s + BM * D;                      // [BM][D]
-  bf16* k_s = do_s + BM * D;                      // [2][BN][D]
-  bf16* v_s = k_s + 2 * BN * D;                   // [2][BN][D]
+  T* q_s = reinterpret_cast<T*>(smem_raw);  // [BM][D], later dq
+  T* do_s = q_s + BM * D;                   // [BM][D]
+  T* k_s = do_s + BM * D;                   // [2][BN][D]
+  T* v_s = k_s + 2 * BN * D;                // [2][BN][D]
   int* segk_s = reinterpret_cast<int*>(v_s + 2 * BN * D);  // [2][BN]
 
   const int qt = q_order[blockIdx.y];  // longest kv range first
@@ -675,8 +688,8 @@ __global__ void __launch_bounds__(kTcThreads) flash_varlen_bwd_dq_kernel_tc(
 
   const size_t stride = (size_t)num_heads * D;
   const size_t qrow0 = (size_t)q0 * stride + (size_t)h * D;
-  const bf16* kb = k + (size_t)h * D;
-  const bf16* vb = v + (size_t)h * D;
+  const T* kb = k + (size_t)h * D;
+  const T* vb = v + (size_t)h * D;
   // each thread's two rows: lse (log2 units) and segment; rows past tq
   // take segment -1, which no column's segment equals
   float lse2[2];
@@ -713,7 +726,7 @@ __global__ void __launch_bounds__(kTcThreads) flash_varlen_bwd_dq_kernel_tc(
   // this CTA's rows of delta, while the copies fly; the dk/dv pass reads
   // them after this kernel
   float dlt[2];
-  row_delta<D>(dout + (size_t)h * D, o + (size_t)h * D, stride, row - g, tq,
+  row_delta<T, D>(dout + (size_t)h * D, o + (size_t)h * D, stride, row - g, tq,
                delta + (size_t)h * tq, dlt);
 
   const float scale_log2 = sm_scale * kLog2e;
@@ -731,8 +744,8 @@ __global__ void __launch_bounds__(kTcThreads) flash_varlen_bwd_dq_kernel_tc(
     }
     fence_view_async_shared();  // this thread's copies, then everyone's
     __syncthreads();
-    const bf16* ks = k_s + st * BN * D;
-    const bf16* vs = v_s + st * BN * D;
+    const T* ks = k_s + st * BN * D;
+    const T* vs = v_s + st * BN * D;
     const int* segc = segk_s + st * BN;
 
     // S = q K^T and dP = do V^T
@@ -773,7 +786,7 @@ __global__ void __launch_bounds__(kTcThreads) flash_varlen_bwd_dq_kernel_tc(
 
     // dQ += dS K, dS as bf16 A operands from registers, K MN-major
     uint32_t sa[BN / 16][4];
-    acc_to_a(sa, dp);
+    acc_to_a<T>(sa, dp);
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < BN / 16; ++kk)
@@ -849,7 +862,7 @@ int launch(const Args& a, int block, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-template <int D>
+template <typename T, int D>
 int launch_tc(const Args& a, int block, cudaStream_t stream) {
   constexpr size_t smem_dkdv = varlen_dkdv_tc_smem_bytes<D>();
   constexpr size_t smem_dq = varlen_dq_tc_smem_bytes<D>();
@@ -861,17 +874,17 @@ int launch_tc(const Args& a, int block, cudaStream_t stream) {
       (a.tk + kTcRows - 1) / kTcRows > 65535)
     return (int)cudaErrorInvalidValue;  // tiles walk gridDim.y
   cudaError_t err = cudaFuncSetAttribute(
-      flash_varlen_bwd_dkdv_kernel_tc<D>,
+      flash_varlen_bwd_dkdv_kernel_tc<T, D>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_dkdv);
   if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(flash_varlen_bwd_dq_kernel_tc<D>,
+  err = cudaFuncSetAttribute(flash_varlen_bwd_dq_kernel_tc<T, D>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem_dq);
   if (err != cudaSuccess) return (int)err;
-  const bf16* q = static_cast<const bf16*>(a.q);
-  const bf16* k = static_cast<const bf16*>(a.k);
-  const bf16* v = static_cast<const bf16*>(a.v);
-  const bf16* dout = static_cast<const bf16*>(a.dout);
+  const T* q = static_cast<const T*>(a.q);
+  const T* k = static_cast<const T*>(a.k);
+  const T* v = static_cast<const T*>(a.v);
+  const T* dout = static_cast<const T*>(a.dout);
   const float* lse = static_cast<const float*>(a.lse);
   float* delta = static_cast<float*>(a.delta);
   const int* seg_q = static_cast<const int*>(a.seg_q);
@@ -886,12 +899,12 @@ int launch_tc(const Args& a, int block, cudaStream_t stream) {
                                       static_cast<const int*>(a.kv_hi), n_q,
                                       q_order, stream);
     if (err != cudaSuccess) return (int)err;
-    flash_varlen_bwd_dq_kernel_tc<D>
+    flash_varlen_bwd_dq_kernel_tc<T, D>
         <<<dim3(a.num_heads, n_q), kTcThreads, smem_dq, stream>>>(
-            q, k, v, dout, static_cast<const bf16*>(a.o), lse, delta, seg_q,
+            q, k, v, dout, static_cast<const T*>(a.o), lse, delta, seg_q,
             seg_k, static_cast<const int*>(a.kv_lo),
             static_cast<const int*>(a.kv_hi), q_order,
-            static_cast<bf16*>(a.dq), a.tq, a.tk, a.num_heads, a.sm_scale,
+            static_cast<T*>(a.dq), a.tq, a.tk, a.num_heads, a.sm_scale,
             a.causal);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
@@ -901,24 +914,25 @@ int launch_tc(const Args& a, int block, cudaStream_t stream) {
                                       static_cast<const int*>(a.q_hi), n_k,
                                       kv_order, stream);
     if (err != cudaSuccess) return (int)err;
-    flash_varlen_bwd_dkdv_kernel_tc<D>
+    flash_varlen_bwd_dkdv_kernel_tc<T, D>
         <<<dim3(a.num_heads * BwdTile<D>::kSplit, n_k),
            kTcThreads, smem_dkdv, stream>>>(
             q, k, v, dout, lse, delta, seg_q, seg_k,
             static_cast<const int*>(a.q_lo), static_cast<const int*>(a.q_hi),
-            kv_order, static_cast<bf16*>(a.dk),
-            static_cast<bf16*>(a.dv), a.tq, a.tk, a.num_heads, a.sm_scale,
+            kv_order, static_cast<T*>(a.dk),
+            static_cast<T*>(a.dv), a.tq, a.tk, a.num_heads, a.sm_scale,
             a.causal);
   }
   return (int)cudaGetLastError();
 }
 
 // the route of `dtype` at head dim D: 0 = float32, the scalar kernels;
-// 1 = bfloat16, the tensor-core kernels
+// 1 = bfloat16 and 2 = float16, the tensor-core kernels
 template <int D>
 int dispatch_dtype(const Args& a, int block, int dtype, cudaStream_t stream) {
   if (dtype == 0) return launch<D>(a, block, stream);
-  if (dtype == 1) return launch_tc<D>(a, block, stream);
+  if (dtype == 1) return launch_tc<bf16, D>(a, block, stream);
+  if (dtype == 2) return launch_tc<fp16, D>(a, block, stream);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -926,7 +940,7 @@ int dispatch_dtype(const Args& a, int block, int dtype, cudaStream_t stream) {
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16 (q, k, v, do, o, dq, dk, dv alike; lse
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16 (q, k, v, do, o, dq, dk, dv alike; lse
 // and delta fp32 [h, tq]). delta = rowsum(do * o): the float32 route reads
 // it (the caller computes it); the bfloat16 route's dq pass writes it from
 // do and o and its dk/dv pass reads it, so there the caller only

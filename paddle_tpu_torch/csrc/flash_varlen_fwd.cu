@@ -34,8 +34,8 @@
 // work is 4 * d flops per visible pair, ~3.5e10 flops, against ~25 MB of
 // operands: operations bound it (~35 us at 989 TFLOP/s).
 //
-// Two routes behind the one C entry, chosen by dtype (nothing is caught,
-// and neither is a fallback for the other):
+// Three routes behind the one C entry, chosen by dtype (nothing is caught,
+// and none is a fallback for another):
 //
 // bf16: flash_varlen_fwd_kernel_tc, tensor cores; the packed-attention
 // path runs it. K2's design (flash_fwd.cu, flash_fwd_kernel_tc) over the
@@ -82,6 +82,15 @@
 // and 98,560 at d = 256. chip_smoke.py's environment phase prints each
 // instantiation's registers and spills.
 //
+// fp16 (dtype 2): flash_varlen_fwd_kernel_tc<fp16>, the same kernels
+// instantiated for __half (flash_tc.cuh picks the .f16 wgmma from the
+// operands' type). Eager AMP O2 in float16 with a loss scaler runs this
+// route. The only differences from bf16 are the instruction and the rounding
+// of p and o to fp16, to nearest even and never clamped: a value past 65504
+// becomes inf, as the JAX kernel's .astype(float16) makes it, so the loss
+// scaler sees the overflow. fp16 keeps 3 more mantissa bits than bf16 and 3
+// fewer exponent bits.
+//
 // fp32: flash_varlen_fwd_kernel, the first port's scalar kernel,
 // unchanged; it carries the exactness checks (2e-5 against the fp32 plain
 // version), which TF32 tensor cores, at about three decimal digits, would
@@ -97,6 +106,7 @@
 // reads.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -254,9 +264,10 @@ __global__ void __launch_bounds__(kThreads) flash_varlen_fwd_kernel(
   if (quarter == 0) lse[(size_t)h * tq + row] = m + logf(lc);
 }
 
-// -- bf16 route: tensor cores -------------------------------------------------
+// -- bf16 and fp16 routes: tensor cores -------------------------------------
 
 using bf16 = __nv_bfloat16;
+using fp16 = __half;
 constexpr int kTcThreads = 128;  // one warpgroup
 constexpr int kTcBlockM = 64;    // q rows per CTA: one plan tile, 16 a warp
 constexpr int kPlanBlock = 64;   // tokens per tile of the plan's ranges
@@ -276,13 +287,13 @@ constexpr size_t varlen_fwd_tc_smem_bytes() {
          sizeof(int) * 2 * N;
 }
 
-template <int D>
+template <typename T, int D>
 __global__ void __launch_bounds__(kTcThreads) flash_varlen_fwd_kernel_tc(
-    const bf16* __restrict__ q, const bf16* __restrict__ k,
-    const bf16* __restrict__ v, const int* __restrict__ seg_q,
+    const T* __restrict__ q, const T* __restrict__ k,
+    const T* __restrict__ v, const int* __restrict__ seg_q,
     const int* __restrict__ seg_k, const int* __restrict__ kv_lo,
     const int* __restrict__ kv_hi, const int* __restrict__ q_order,
-    bf16* __restrict__ o, float* __restrict__ lse, int tq, int tk,
+    T* __restrict__ o, float* __restrict__ lse, int tq, int tk,
     int num_heads, float sm_scale, int causal) {
   using namespace flash_tc;
   constexpr int BM = kTcBlockM;
@@ -290,9 +301,9 @@ __global__ void __launch_bounds__(kTcThreads) flash_varlen_fwd_kernel_tc(
   constexpr int NS = BN / 2;  // score accumulators a thread holds
   constexpr int NO = D / 2;   // output accumulators a thread holds
   extern __shared__ __align__(1024) unsigned char smem_raw[];
-  bf16* q_s = reinterpret_cast<bf16*>(smem_raw);  // [BM][D], later o
-  bf16* k_s = q_s + BM * D;                       // [2][BN][D]
-  bf16* v_s = k_s + 2 * BN * D;                   // [2][BN][D]
+  T* q_s = reinterpret_cast<T*>(smem_raw);  // [BM][D], later o
+  T* k_s = q_s + BM * D;                    // [2][BN][D]
+  T* v_s = k_s + 2 * BN * D;                // [2][BN][D]
   int* segk_s = reinterpret_cast<int*>(v_s + 2 * BN * D);  // [2][BN]
 
   const int qt = q_order[blockIdx.y];  // longest kv range first
@@ -304,8 +315,8 @@ __global__ void __launch_bounds__(kTcThreads) flash_varlen_fwd_kernel_tc(
 
   const size_t stride = (size_t)num_heads * D;
   const size_t qrow0 = (size_t)q0 * stride + (size_t)h * D;
-  const bf16* kb = k + (size_t)h * D;
-  const bf16* vb = v + (size_t)h * D;
+  const T* kb = k + (size_t)h * D;
+  const T* vb = v + (size_t)h * D;
 
   // each thread's two rows' segments; rows past tq take -1, which no
   // column's segment equals
@@ -352,8 +363,8 @@ __global__ void __launch_bounds__(kTcThreads) flash_varlen_fwd_kernel_tc(
     }
     fence_view_async_shared();  // this thread's copies, then everyone's
     __syncthreads();
-    const bf16* ks = k_s + st * BN * D;
-    const bf16* vs = v_s + st * BN * D;
+    const T* ks = k_s + st * BN * D;
+    const T* vs = v_s + st * BN * D;
     const int* segc = segk_s + st * BN;
 
     // S = q k^T
@@ -418,7 +429,7 @@ __global__ void __launch_bounds__(kTcThreads) flash_varlen_fwd_kernel_tc(
 
     // O += P v: p as bf16 A operands from registers, v MN-major
     uint32_t pa[BN / 16][4];
-    acc_to_a(pa, s);
+    acc_to_a<T>(pa, s);
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < BN / 16; ++kk)
@@ -478,13 +489,13 @@ int launch(const Args& a, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-template <int D>
+template <typename T, int D>
 int launch_tc(const Args& a, cudaStream_t stream) {
   constexpr size_t smem = varlen_fwd_tc_smem_bytes<D>();
   static_assert(smem <= flash_tc::kMaxSmem,
                 "the tiles exceed a block's shared memory");
   cudaError_t err = cudaFuncSetAttribute(
-      flash_varlen_fwd_kernel_tc<D>,
+      flash_varlen_fwd_kernel_tc<T, D>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const int n_tiles = (a.tq + kTcBlockM - 1) / kTcBlockM;
@@ -495,22 +506,23 @@ int launch_tc(const Args& a, cudaStream_t stream) {
                                     stream);
   if (err != cudaSuccess) return (int)err;
   dim3 grid(a.num_heads, n_tiles);
-  flash_varlen_fwd_kernel_tc<D><<<grid, kTcThreads, smem, stream>>>(
-      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
-      static_cast<const bf16*>(a.v), static_cast<const int*>(a.seg_q),
+  flash_varlen_fwd_kernel_tc<T, D><<<grid, kTcThreads, smem, stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), static_cast<const int*>(a.seg_q),
       static_cast<const int*>(a.seg_k), static_cast<const int*>(a.kv_lo),
       static_cast<const int*>(a.kv_hi), static_cast<const int*>(a.order),
-      static_cast<bf16*>(a.o), static_cast<float*>(a.lse), a.tq, a.tk,
+      static_cast<T*>(a.o), static_cast<float*>(a.lse), a.tq, a.tk,
       a.num_heads, a.sm_scale, a.causal);
   return (int)cudaGetLastError();
 }
 
 // the route of `dtype` at head dim D: 0 = float32, the scalar kernel;
-// 1 = bfloat16, the tensor-core kernel
+// 1 = bfloat16 and 2 = float16, the tensor-core kernel
 template <int D>
 int dispatch_dtype(const Args& a, int dtype, cudaStream_t stream) {
   if (dtype == 0) return launch<D>(a, stream);
-  if (dtype == 1) return launch_tc<D>(a, stream);
+  if (dtype == 1) return launch_tc<bf16, D>(a, stream);
+  if (dtype == 2) return launch_tc<fp16, D>(a, stream);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -518,7 +530,7 @@ int dispatch_dtype(const Args& a, int dtype, cudaStream_t stream) {
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16 (q, k, v, o alike; lse fp32 [h, tq]).
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16 (q, k, v, o alike; lse fp32 [h, tq]).
 // seg_q [tq], seg_k [tk], kv_lo / kv_hi [ceil(tq / 64)] int32, in 64-token
 // tiles; order [ceil(tq / 64)] int32 is scratch, where the bf16 route
 // writes the order in which it starts the q tiles (at most 65,535; the

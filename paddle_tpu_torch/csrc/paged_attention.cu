@@ -52,6 +52,10 @@
 //   (slot, row, head) in split order and writes the output in bf16. Fixed
 //   orders everywhere: reruns are bit-identical.
 //
+// The fp16 route is the same two kernels instantiated for __half: only the
+// conversion of the 16-byte loads and of the output differs. The output is
+// rounded to nearest even and never clamped.
+//
 // The fp32 route keeps the first port's scalar kernel (one 128-thread block
 // per (slot, head), 32-token tiles staged in shared memory as fp32): the
 // fp32 exactness checks run on it.
@@ -62,6 +66,7 @@
 // take fp32 q and p).
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -69,6 +74,7 @@
 namespace {
 
 typedef __nv_bfloat16 bf16;
+typedef __half fp16;
 
 constexpr int kThreads = 128;  // four warps, both routes
 constexpr int kWarps = kThreads / 32;
@@ -210,7 +216,7 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
   }
 }
 
-// -- bf16 route: split context, then combine ----------------------------------
+// -- bf16 and fp16 routes: split context, then combine -------------------------
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -236,8 +242,11 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// 8 bf16 values (16 bytes) as floats
-__device__ __forceinline__ void bf16x8_to_float(const uint4& u, float* f) {
+// 8 16-bit values (16 bytes) of type T as floats
+template <typename T>
+__device__ __forceinline__ void x8_to_float(const uint4& u, float* f);
+template <>
+__device__ __forceinline__ void x8_to_float<bf16>(const uint4& u, float* f) {
   const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&u);
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -245,6 +254,31 @@ __device__ __forceinline__ void bf16x8_to_float(const uint4& u, float* f) {
     f[2 * i] = x.x;
     f[2 * i + 1] = x.y;
   }
+}
+template <>
+__device__ __forceinline__ void x8_to_float<fp16>(const uint4& u, float* f) {
+  const __half2* p = reinterpret_cast<const __half2*>(&u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 x = __half22float2(p[i]);
+    f[2 * i] = x.x;
+    f[2 * i + 1] = x.y;
+  }
+}
+
+// two floats as two T in one register, `lo` in the low half (round to
+// nearest even, never clamped: an fp16 value past 65504 becomes inf)
+template <typename T>
+__device__ __forceinline__ uint32_t pack2(float lo, float hi);
+template <>
+__device__ __forceinline__ uint32_t pack2<bf16>(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+template <>
+__device__ __forceinline__ uint32_t pack2<fp16>(float lo, float hi) {
+  __half2 v = __floats2half2_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
 }
 
 // Shapes of the split kernel at head dim D and KQB query rows per CTA.
@@ -269,10 +303,10 @@ struct Split {
                 "split kernel's shared memory exceeds 48 KB");
 };
 
-template <int D, int KQB>
+template <typename T, int D, int KQB>
 __global__ void __launch_bounds__(kThreads) paged_split_kernel(
-    const bf16* __restrict__ q, const bf16* __restrict__ k_pages,
-    const bf16* __restrict__ v_pages, const int* __restrict__ block_tables,
+    const T* __restrict__ q, const T* __restrict__ k_pages,
+    const T* __restrict__ v_pages, const int* __restrict__ block_tables,
     const int* __restrict__ context_lens, float* __restrict__ part_acc,
     float2* __restrict__ part_ml, int kq, int num_heads, int page_size,
     int max_pages, long long q_sb, long long q_sj, int split_pages,
@@ -329,7 +363,7 @@ __global__ void __launch_bounds__(kThreads) paged_split_kernel(
     if (jj < nrows) {
       const uint4 u = *reinterpret_cast<const uint4*>(
           q + b * q_sb + (j0 + jj) * q_sj + (long long)h * D + c8 * 8);
-      bf16x8_to_float(u, qr[jj]);
+      x8_to_float<T>(u, qr[jj]);
 #pragma unroll
       for (int e = 0; e < 8; ++e) qr[jj][e] *= scale_log2;
       n_vis[jj] = min(ctx + j0 + jj, extent);
@@ -345,7 +379,7 @@ __global__ void __launch_bounds__(kThreads) paged_split_kernel(
   }
   __syncthreads();  // pages_s
 
-  bf16* ring = reinterpret_cast<bf16*>(smem_raw) +
+  T* ring = reinterpret_cast<T*>(smem_raw) +
                (size_t)warp * 2 * 2 * S::kChunkElems;
   const size_t hd = (size_t)num_heads * D;
   const int n_chunks = (t_hi - t_lo + C - 1) / C;
@@ -356,8 +390,8 @@ __global__ void __launch_bounds__(kThreads) paged_split_kernel(
     const int first = c * C;  // token offset in the split
     const int page = pages_s[first / page_size];
     const int off0 = first % page_size;
-    bf16* kd = ring + st * 2 * S::kChunkElems;
-    bf16* vd = kd + S::kChunkElems;
+    T* kd = ring + st * 2 * S::kChunkElems;
+    T* vd = kd + S::kChunkElems;
 #pragma unroll
     for (int i = 0; i < NL; ++i) {
       const int tl = i * RPW + grp;
@@ -378,8 +412,8 @@ __global__ void __launch_bounds__(kThreads) paged_split_kernel(
     if (c + kWarps < n_chunks) load_chunk(c + kWarps, (it + 1) & 1);
     cp_async_commit();
     cp_async_wait<1>();
-    const bf16* kd = ring + (it & 1) * 2 * S::kChunkElems;
-    const bf16* vd = kd + S::kChunkElems;
+    const T* kd = ring + (it & 1) * 2 * S::kChunkElems;
+    const T* vd = kd + S::kChunkElems;
     const int tok0 = t_lo + c * C;
 
     // scores: 8 columns here, summed over the row's LPR lanes
@@ -387,7 +421,7 @@ __global__ void __launch_bounds__(kThreads) paged_split_kernel(
 #pragma unroll
     for (int i = 0; i < NL; ++i) {
       float kf[8];
-      bf16x8_to_float(
+      x8_to_float<T>(
           *reinterpret_cast<const uint4*>(kd + (i * RPW + grp) * D + c8 * 8),
           kf);
 #pragma unroll
@@ -430,7 +464,7 @@ __global__ void __launch_bounds__(kThreads) paged_split_kernel(
 #pragma unroll
     for (int i = 0; i < NL; ++i) {
       float vf[8];
-      bf16x8_to_float(
+      x8_to_float<T>(
           *reinterpret_cast<const uint4*>(vd + (i * RPW + grp) * D + c8 * 8),
           vf);
 #pragma unroll
@@ -505,12 +539,12 @@ __global__ void __launch_bounds__(kThreads) paged_split_kernel(
 }
 
 // One warp per (slot, row, head): merge the splits' partials in split
-// order, skipping empty ones (l = 0), and write acc / l in bf16; a row with
+// order, skipping empty ones (l = 0), and write acc / l in T; a row with
 // no visible token (an inactive slot) gets +0.
-template <int D>
+template <typename T, int D>
 __global__ void __launch_bounds__(kThreads) paged_combine_kernel(
     const float* __restrict__ part_acc, const float2* __restrict__ part_ml,
-    bf16* __restrict__ out, int rows_total, int n_split) {
+    T* __restrict__ out, int rows_total, int n_split) {
   constexpr int DPL = D / 32;  // columns per lane: 2, 4 or 8
   const int lane = threadIdx.x & 31;
   const int r = blockIdx.x * kWarps + (threadIdx.x >> 5);
@@ -539,12 +573,12 @@ __global__ void __launch_bounds__(kThreads) paged_combine_kernel(
       }
     }
   }
-  __nv_bfloat162* dst =
-      reinterpret_cast<__nv_bfloat162*>(out + (size_t)r * D + lane * DPL);
+  uint32_t* dst =
+      reinterpret_cast<uint32_t*>(out + (size_t)r * D + lane * DPL);
 #pragma unroll
   for (int e = 0; e < DPL; e += 2)
-    dst[e / 2] = sum > 0.0f ? __floats2bfloat162_rn(o[e] / sum, o[e + 1] / sum)
-                            : __floats2bfloat162_rn(0.0f, 0.0f);
+    dst[e / 2] = sum > 0.0f ? pack2<T>(o[e] / sum, o[e + 1] / sum)
+                            : pack2<T>(0.0f, 0.0f);
 }
 
 struct Args {
@@ -560,7 +594,7 @@ struct Args {
   float sm_scale;
 };
 
-template <int D, int KQB>
+template <typename T, int D, int KQB>
 int launch_split(const Args& a, cudaStream_t stream) {
   const int n_split =
       a.max_pages > 0 ? (a.max_pages + a.split_pages - 1) / a.split_pages : 1;
@@ -569,26 +603,34 @@ int launch_split(const Args& a, cudaStream_t stream) {
   float2* part_ml = reinterpret_cast<float2*>(
       a.workspace + (size_t)n_split * rows_total * D);  // [n_split][rows]
   const dim3 grid(n_split, a.batch * a.num_heads, (a.kq + KQB - 1) / KQB);
-  paged_split_kernel<D, KQB><<<grid, kThreads, Split<D, KQB>::kSmem,
-                               stream>>>(
-      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k_pages),
-      static_cast<const bf16*>(a.v_pages), a.block_tables, a.context_lens,
+  paged_split_kernel<T, D, KQB><<<grid, kThreads, Split<D, KQB>::kSmem,
+                                  stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k_pages),
+      static_cast<const T*>(a.v_pages), a.block_tables, a.context_lens,
       part_acc, part_ml, a.kq, a.num_heads, a.page_size, a.max_pages, a.q_sb,
       a.q_sj, a.split_pages, rows_total, a.sm_scale * kLog2e);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  paged_combine_kernel<D><<<(rows_total + kWarps - 1) / kWarps, kThreads, 0,
-                            stream>>>(part_acc, part_ml,
-                                      static_cast<bf16*>(a.out), rows_total,
-                                      n_split);
+  paged_combine_kernel<T, D><<<(rows_total + kWarps - 1) / kWarps, kThreads,
+                               0, stream>>>(part_acc, part_ml,
+                                            static_cast<T*>(a.out),
+                                            rows_total, n_split);
   return (int)cudaGetLastError();
 }
 
-template <int D>
-int launch_bf16(const Args& a, cudaStream_t stream) {
-  if (a.kq == 1) return launch_split<D, 1>(a, stream);
-  if (a.kq <= 4) return launch_split<D, 4>(a, stream);
-  return launch_split<D, 8>(a, stream);  // row groups of 8 past KQ = 8
+template <typename T, int D>
+int launch_16bit(const Args& a, cudaStream_t stream) {
+  if (a.kq == 1) return launch_split<T, D, 1>(a, stream);
+  if (a.kq <= 4) return launch_split<T, D, 4>(a, stream);
+  return launch_split<T, D, 8>(a, stream);  // row groups of 8 past KQ = 8
+}
+
+template <typename T>
+int launch_split_route(const Args& a, cudaStream_t stream) {
+  if (a.head_dim == 64) return launch_16bit<T, 64>(a, stream);
+  if (a.head_dim == 128) return launch_16bit<T, 128>(a, stream);
+  if (a.head_dim == 256) return launch_16bit<T, 256>(a, stream);
+  return (int)cudaErrorInvalidValue;
 }
 
 int launch_f32(const Args& a, cudaStream_t stream) {
@@ -616,7 +658,7 @@ int launch_f32(const Args& a, cudaStream_t stream) {
 extern "C" {
 
 // dtype: 0 = float32 (scalar kernel; workspace and split_pages unused),
-// 1 = bfloat16 (split kernel, then combine; workspace holds
+// 1 = bfloat16 or 2 = float16 (split kernel, then combine; workspace holds
 // n_split * B * KQ * H * (D + 2) floats, n_split = ceil(max_pages /
 // split_pages), split_pages <= 16). q_sb and q_sj are q's slot and row
 // strides in elements. Returns cudaGetLastError() after the launches (0 on
@@ -637,11 +679,10 @@ int paged_attention_fwd(const void* q, const void* k_pages,
                sm_scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return launch_f32(a, s);
-  if (dtype != 1 || split_pages < 1 || split_pages > kMaxSplitPages)
+  if (split_pages < 1 || split_pages > kMaxSplitPages)
     return (int)cudaErrorInvalidValue;
-  if (head_dim == 64) return launch_bf16<64>(a, s);
-  if (head_dim == 128) return launch_bf16<128>(a, s);
-  if (head_dim == 256) return launch_bf16<256>(a, s);
+  if (dtype == 1) return launch_split_route<bf16>(a, s);
+  if (dtype == 2) return launch_split_route<fp16>(a, s);
   return (int)cudaErrorInvalidValue;
 }
 

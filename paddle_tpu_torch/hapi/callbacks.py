@@ -1,9 +1,12 @@
 """Callbacks of ``Model.fit`` (counterpart: ``paddle_tpu/hapi/
-callbacks.py``): ``Callback``, ``CallbackList``, ``ProgBarLogger`` and
-``EarlyStopping``. ``ModelCheckpoint`` waits for ``Model.save`` (ROADMAP
-A6), ``LRScheduler`` and ``ReduceLROnPlateau`` for the schedulers
-(ROADMAP A3) and ``VisualDL`` for the observability plane (ROADMAP A9);
-each raises when built."""
+callbacks.py``): ``Callback``, ``CallbackList``, ``ProgBarLogger``,
+``EarlyStopping``, ``LRScheduler`` (steps the optimizer's scheduler per
+batch, ``by_step``, or per epoch, ``by_epoch``) and ``ReduceLROnPlateau``
+(the reference's: it scales a float learning rate by ``factor`` after
+``patience`` epochs without a better monitored value, and leaves a
+scheduler alone). ``ModelCheckpoint`` waits for ``Model.save`` (ROADMAP
+A6) and ``VisualDL`` for the observability plane (ROADMAP A9); each
+raises when built."""
 from __future__ import annotations
 
 import numbers
@@ -160,7 +163,61 @@ def _not_ported(what, item):
     return NotPorted
 
 
+class LRScheduler(Callback):
+    def __init__(self, by_step=True, by_epoch=False):
+        super().__init__()
+        self.by_step = by_step
+        self.by_epoch = by_epoch
+
+    def _sched(self):
+        from ..optimizer.lr import LRScheduler as Sched
+        opt = getattr(self.model, "_optimizer", None)
+        lr = getattr(opt, "_learning_rate", None)
+        return lr if isinstance(lr, Sched) else None
+
+    def on_train_batch_end(self, step, logs=None):
+        s = self._sched()
+        if s and self.by_step:
+            s.step()
+
+    def on_epoch_end(self, epoch, logs=None):
+        s = self._sched()
+        if s and self.by_epoch:
+            s.step()
+
+
+class ReduceLROnPlateau(Callback):
+    def __init__(self, monitor="loss", factor=0.1, patience=10, verbose=1,
+                 mode="auto", min_delta=1e-4, cooldown=0, min_lr=0):
+        super().__init__()
+        self.monitor = monitor
+        self.factor = factor
+        self.patience = patience
+        self.best = None
+        self.wait = 0
+        self.min_lr = min_lr
+
+    def on_epoch_end(self, epoch, logs=None):
+        logs = logs or {}
+        current = logs.get(self.monitor) or logs.get(f"eval_{self.monitor}")
+        if current is None:
+            return
+        if isinstance(current, list):
+            current = current[0]
+        if self.best is None or current < self.best:
+            self.best = current
+            self.wait = 0
+        else:
+            self.wait += 1
+            if self.wait >= self.patience:
+                opt = self.model._optimizer
+                try:
+                    new_lr = max(opt.get_lr() * self.factor, self.min_lr)
+                    opt.set_lr(new_lr)
+                except RuntimeError:
+                    pass   # a scheduler drives the rate: left alone
+                self.wait = 0
+
+
 ModelCheckpoint = _not_ported("ModelCheckpoint", "A6, framework/io.py")
-LRScheduler = _not_ported("LRScheduler", "A3, optimizer/lr.py")
-ReduceLROnPlateau = _not_ported("ReduceLROnPlateau", "A3, optimizer/lr.py")
 VisualDL = _not_ported("VisualDL", "A9")

@@ -12,8 +12,10 @@ here, one copy a batch (one a block under ``steps_per_execution``).
 
 Single process only: the reference's multi-process branches wait for the
 distributed data plane (ROADMAP A7); ``save`` and ``load`` for
-``framework/io.py`` (ROADMAP A6). The learning rate is a float (the
-schedulers are ROADMAP A3), so ``fit`` steps no scheduler.
+``framework/io.py`` (ROADMAP A6). When the optimizer's learning rate is
+an ``LRScheduler``, ``fit`` steps it once per epoch, after the epoch's
+batches and before the evaluation, as the reference does (the
+``LRScheduler`` callback can step it per batch as well).
 """
 from __future__ import annotations
 
@@ -23,6 +25,7 @@ import numpy as np
 import torch
 
 from ..io import DataLoader
+from ..optimizer.lr import LRScheduler as LRSchedulerBase
 from .callbacks import CallbackList
 
 
@@ -223,6 +226,8 @@ class Model:
                     cbks.on_batch_end("train", step, logs)
                     if num_iters is not None and step + 1 >= num_iters:
                         break
+            if isinstance(self._optimizer._learning_rate, LRSchedulerBase):
+                self._optimizer._learning_rate.step()
             if eval_loader is not None and (epoch + 1) % eval_freq == 0:
                 eval_logs = self.evaluate(eval_loader, verbose=0)
                 logs.update({f"eval_{k}": v for k, v in eval_logs.items()})

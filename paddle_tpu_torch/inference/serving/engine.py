@@ -131,8 +131,11 @@ def _gelu(x):
 
 def extract_gpt_params(model):
     """The model's weights as a dict of tensors (no copies): what the
-    step functions read. Supports ``GPTForPretraining`` with tied or
-    untied heads."""
+    step functions read. Supports ``GPTForPretraining`` with LayerNorm
+    blocks and tied or untied heads."""
+    if model.config.use_rmsnorm:
+        raise NotImplementedError("serving engine v1 supports LayerNorm "
+                                  "GPT configs")
     g = model.gpt
     params = {
         "wte": g.wte.weight, "wpe": g.wpe.weight,

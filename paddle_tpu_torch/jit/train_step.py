@@ -13,21 +13,42 @@ is later work.
 parameter is cast to bf16 (or fp16) for the forward, through
 ``torch.func.functional_call`` over the casts, and the gradients land on
 the fp32 parameters through the casts. Buffers and inputs keep their
-dtypes. This is not ``torch.autocast`` (O1's per-op cast list), which
+dtypes. Any other level ("O0", "O1") casts nothing, as in the reference,
+whose step applies no cast of its own below O2: ops then follow the
+ambient ``amp.auto_cast`` state. This is not ``torch.autocast``, which
 computes a different result.
 
-Not in this slice: ``FLAGS_check_nan_inf``, the DGC/LocalSGD
-meta-optimizers and the StepMeter hook (``set_meter_info``), each refused
-with an error; mesh and ZeRO placements (the port has no mesh yet).
+The learning rate is the optimizer's ``get_lr()``, read per call (an
+``LRScheduler`` is stepped by the caller between calls) and once per
+``run_steps`` block, as in the reference.
+
+``FLAGS_check_nan_inf`` (``utils/flags.py``), read when the step is
+built: the per-op scan of ``ops/dispatch.py`` is off inside the step
+(the reference traces its step, so no op is scanned there), and each
+call folds one isfinite flag per (loss, gradient) before the clip and
+reads them back once; when one is set it raises, naming the culprits in
+the reference's words, before the update, so the parameters keep their
+values (the reference discards the step's outputs). ``run_steps``
+refuses the flag, as the reference does: a check after the block would
+come after the block's updates.
+
+``set_meter_info(tokens_per_step, flops_per_step)`` feeds the StepMeter
+(``observability/perf.py``): with the meter on, each call and each
+``run_steps`` block runs inside ``METER.step`` (one attribute check when
+it is off).
+
+Not in this slice: the DGC/LocalSGD meta-optimizers, refused with an
+error; mesh and ZeRO placements (the port has no mesh yet).
 """
 from __future__ import annotations
-
-import os
 
 import torch
 from torch import nn
 
 from ..nn.clip import ClipGradByGlobalNorm, ClipGradByNorm, ClipGradByValue
+from ..observability import perf as _perf
+from ..ops.dispatch import op_scan_off
+from ..utils.flags import get_flag
 
 
 def _functional_clip(clip, grads):
@@ -80,13 +101,6 @@ class CompiledTrainStep:
             raise NotImplementedError(
                 f"{type(optimizer).__name__} is not ported; the port's "
                 "train step runs the plain optimizers")
-        if os.environ.get("FLAGS_check_nan_inf", "").lower() in (
-                "1", "true", "yes", "on"):
-            raise NotImplementedError(
-                "FLAGS_check_nan_inf is not ported to the port's train step")
-        if amp_level not in ("O0", "O2"):
-            raise ValueError(f"amp_level {amp_level!r}: the train step "
-                             "takes 'O0' or 'O2'")
         self.fn = fn
         self.optimizer = optimizer
         self.amp_level = amp_level
@@ -97,10 +111,23 @@ class CompiledTrainStep:
         self._clip = getattr(optimizer, "_grad_clip", None)
         for p in self.trainable:
             optimizer._get_accumulators(p)
+        self._n_calls = 0
+        self._check_nan = bool(get_flag("FLAGS_check_nan_inf"))
+
+    meter_tokens = None
+    meter_flops = None
 
     def set_meter_info(self, tokens_per_step=None, flops_per_step=None):
-        raise NotImplementedError(
-            "the StepMeter (observability/perf.py) is not ported yet")
+        """Tokens and FLOPs one step processes, for the StepMeter's
+        tokens/s and TF/s (``run_steps`` scales both by K)."""
+        self.meter_tokens = tokens_per_step
+        self.meter_flops = flops_per_step
+        return self
+
+    def _culprits(self, bad):
+        names = ["loss"] + [getattr(p, "name", None) or f"param_{i}"
+                            for i, p in enumerate(self.trainable)]
+        return ", ".join(n for n, b in zip(names, bad) if b)
 
     def _loss(self, args, kwargs):
         if self.amp_level == "O2":
@@ -114,12 +141,26 @@ class CompiledTrainStep:
             return out[0].float(), tuple(out[1:])
         return out.float(), ()
 
-    def _step(self, args, kwargs, lr):
-        loss, aux = self._loss(args, kwargs)
-        grads = torch.autograd.grad(loss, self.trainable, allow_unused=True)
+    def _step(self, args, kwargs, lr, check=False):
+        """One step; with ``check``, the nan check raises before the
+        update."""
+        with op_scan_off():
+            loss, aux = self._loss(args, kwargs)
+            grads = torch.autograd.grad(loss, self.trainable,
+                                        allow_unused=True)
         with torch.no_grad():
             grads = [torch.zeros_like(p) if g is None else g.to(p.dtype)
                      for g, p in zip(grads, self.trainable)]
+            if check:
+                # one fused flag per (loss, grad_i), before the clip, and
+                # one host read
+                bad = torch.stack([~torch.isfinite(loss).all()] + [
+                    ~torch.isfinite(g).all() for g in grads]).tolist()
+                if any(bad):
+                    raise RuntimeError(
+                        "FLAGS_check_nan_inf: non-finite values in "
+                        f"compiled train step (step {self._n_calls}): "
+                        + self._culprits(bad))
             grads = _functional_clip(self._clip, grads)
             for p, g in zip(self.trainable, grads):
                 self.optimizer._apply(p, g, lr)
@@ -127,7 +168,16 @@ class CompiledTrainStep:
                                     for a in aux)
 
     def __call__(self, *args, **kwargs):
-        loss, aux = self._step(args, kwargs, self.optimizer.get_lr())
+        if not _perf.METER.enabled:
+            return self._call_impl(args, kwargs)
+        with _perf.METER.step(tokens=self.meter_tokens,
+                              flops=self.meter_flops, kind="compiled"):
+            return self._call_impl(args, kwargs)
+
+    def _call_impl(self, args, kwargs):
+        self._n_calls += 1
+        loss, aux = self._step(args, kwargs, self.optimizer.get_lr(),
+                               self._check_nan)
         self.optimizer._step_count += 1
         return (loss,) + aux if aux else loss
 
@@ -137,11 +187,27 @@ class CompiledTrainStep:
         [K, b, s]), in a Python loop. Returns the [K] fp32 losses. As in
         the reference: the learning rate is read once for the block,
         auxiliary outputs are dropped, and fp32 master weights exist
-        before the first step."""
+        before the first step. ``FLAGS_check_nan_inf`` is refused: it needs
+        a host check before each step's update."""
+        if not _perf.METER.enabled:
+            return self._run_steps_impl(args, kwargs, None)
+        with _perf.METER.step(kind="compiled_block") as mstep:
+            return self._run_steps_impl(args, kwargs, mstep)
+
+    def _run_steps_impl(self, args, kwargs, mstep):
+        if self._check_nan:
+            raise RuntimeError(
+                "run_steps: FLAGS_check_nan_inf needs per-step host "
+                "checks; call the step per batch instead")
         leaves = [a for a in (*args, *kwargs.values()) if torch.is_tensor(a)]
         if not leaves:
             raise ValueError("run_steps needs at least one tensor input")
         k = int(leaves[0].shape[0])
+        if mstep is not None:
+            mstep.set_info(
+                k=k,
+                tokens=self.meter_tokens * k if self.meter_tokens else None,
+                flops=self.meter_flops * k if self.meter_flops else None)
         lr = self.optimizer.get_lr()
         if self.optimizer._multi_precision:
             for p in self.trainable:
@@ -152,6 +218,7 @@ class CompiledTrainStep:
         pick = lambda a, i: a[i] if torch.is_tensor(a) else a  # noqa: E731
         losses = []
         for i in range(k):
+            self._n_calls += 1
             loss, _ = self._step(tuple(pick(a, i) for a in args),
                                  {n: pick(a, i) for n, a in kwargs.items()},
                                  lr)

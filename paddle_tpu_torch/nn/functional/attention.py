@@ -21,6 +21,7 @@ import math
 import torch
 
 from ...ops import cuda_kernels as ck
+from ...ops.dispatch import dispatch
 
 
 def _sdpa_impl(q, k, v, mask, scale, is_causal):
@@ -53,7 +54,18 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
                                  dropout_p=0.0, is_causal=False,
                                  training=True):
     """[b, s, h, d] attention; the flash kernels (forward and backward)
-    when no mask or dropout is asked for and the gate admits the shapes."""
+    when no mask or dropout is asked for and the gate admits the shapes.
+    It goes through the per-op seam (``ops/dispatch.py``) as op
+    "scaled_dot_product_attention", so under an O2 ``auto_cast`` block in
+    fp16 q, k and v arrive in fp16 and the kernels take their fp16
+    route."""
+    return dispatch("scaled_dot_product_attention", _sdpa_route, query, key,
+                    value, attn_mask, dropout_p=dropout_p,
+                    is_causal=is_causal, training=training)
+
+
+def _sdpa_route(query, key, value, attn_mask, dropout_p, is_causal,
+                training):
     scale = 1.0 / math.sqrt(query.shape[-1])
     if attn_mask is None and dropout_p == 0.0 and \
             ck.flash_attention_available(query, key, value,

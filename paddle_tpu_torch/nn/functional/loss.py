@@ -8,11 +8,15 @@ the mean divides by ``max(valid count, 1)``, so a batch whose labels are
 all ignored gives 0 where ``torch.nn.functional.cross_entropy`` gives
 NaN. With ``weight`` the mean divides by the picked weights' sum
 instead. It computes in the logits' dtype; the port's models upcast
-their logits to fp32 before calling it (``text/gpt.py``).
+their logits to fp32 before calling it (``text/gpt.py``). It goes through
+the per-op seam (``ops/dispatch.py``) as op "cross_entropy", which an
+``auto_cast`` block runs in fp32 (the black list).
 """
 from __future__ import annotations
 
 import torch
+
+from ...ops.dispatch import dispatch
 
 
 def _ce_hard(logits, label, weight, axis, ignore_index, reduction,
@@ -63,5 +67,8 @@ def cross_entropy(input, label, weight=None, ignore_index=-100,
             "slice of the port")
     if label.ndim == input.ndim and label.shape[axis] == 1:
         label = label.squeeze(axis)
-    return _ce_hard(input, label, weight, axis, int(ignore_index),
-                    reduction, float(label_smoothing), bool(use_softmax))
+    return dispatch("cross_entropy", _ce_hard, input, label, weight,
+                    axis=axis, ignore_index=int(ignore_index),
+                    reduction=reduction,
+                    label_smoothing=float(label_smoothing),
+                    use_softmax=bool(use_softmax))

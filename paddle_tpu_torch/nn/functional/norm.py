@@ -1,5 +1,15 @@
 """Normalization functionals (counterpart: ``paddle_tpu/nn/functional/
-norm.py``): ``batch_norm``.
+norm.py``): ``batch_norm``, ``layer_norm`` and ``rms_norm``.
+
+``layer_norm`` and ``rms_norm`` go through the per-op seam
+(``ops/dispatch.py``) under the reference's op names: an ``auto_cast``
+block runs ``layer_norm`` in fp32 (the black list), and ``rms_norm``,
+on neither list, follows its inputs under O1 and takes the low dtype
+under O2. ``rms_norm`` computes in its input's dtype with the reference's
+epsilon (1e-6): x * rsqrt(mean(x²) + eps), times the weight; no kernel is
+written for it (the reference has no ``pallas_call`` for it either).
+
+``batch_norm``:
 
 On the card this is cuDNN's batch norm (``torch.nn.functional.
 batch_norm``), the work the JAX package leaves to XLA; no kernel is
@@ -26,7 +36,32 @@ from __future__ import annotations
 
 import torch
 
+from ...ops.dispatch import dispatch
 from .conv import channels_first, restore_layout
+
+
+def _layer_norm_impl(x, weight, bias, normalized_shape, epsilon):
+    return torch.nn.functional.layer_norm(x, normalized_shape, weight, bias,
+                                          epsilon)
+
+
+def layer_norm(x, normalized_shape, weight=None, bias=None, epsilon=1e-5,
+               name=None):
+    if isinstance(normalized_shape, int):
+        normalized_shape = (normalized_shape,)
+    return dispatch("layer_norm", _layer_norm_impl, x, weight, bias,
+                    normalized_shape=tuple(normalized_shape),
+                    epsilon=float(epsilon))
+
+
+def _rms_impl(x, weight, eps):
+    var = torch.mean(torch.square(x), dim=-1, keepdim=True)
+    out = x * torch.rsqrt(var + eps)
+    return out if weight is None else out * weight
+
+
+def rms_norm(x, weight=None, epsilon=1e-6, name=None):
+    return dispatch("rms_norm", _rms_impl, x, weight, eps=float(epsilon))
 
 
 def batch_norm(x, running_mean, running_var, weight=None, bias=None,

@@ -3,7 +3,7 @@ from .common import Dropout, Embedding, Flatten, Linear, Sequential
 from .conv import Conv1D, Conv2D, Conv3D
 from .loss import CrossEntropyLoss
 from .norm import (BatchNorm, BatchNorm1D, BatchNorm2D, BatchNorm3D,
-                   SyncBatchNorm)
+                   LayerNorm, RMSNorm, SyncBatchNorm)
 from .pooling import (AdaptiveAvgPool1D, AdaptiveAvgPool2D,
                       AdaptiveAvgPool3D, AdaptiveMaxPool1D,
                       AdaptiveMaxPool2D, AdaptiveMaxPool3D, AvgPool1D,
@@ -14,7 +14,8 @@ from .transformer import (MultiHeadAttention, TransformerEncoder,
 __all__ = ["Linear", "Embedding", "Dropout", "Flatten", "Sequential",
            "GELU", "ReLU", "Tanh", "Conv1D", "Conv2D", "Conv3D",
            "CrossEntropyLoss", "BatchNorm", "BatchNorm1D", "BatchNorm2D",
-           "BatchNorm3D", "SyncBatchNorm", "MaxPool1D", "MaxPool2D",
+           "BatchNorm3D", "SyncBatchNorm", "LayerNorm", "RMSNorm",
+           "MaxPool1D", "MaxPool2D",
            "MaxPool3D", "AvgPool1D", "AvgPool2D", "AvgPool3D",
            "AdaptiveAvgPool1D", "AdaptiveAvgPool2D", "AdaptiveAvgPool3D",
            "AdaptiveMaxPool1D", "AdaptiveMaxPool2D", "AdaptiveMaxPool3D",

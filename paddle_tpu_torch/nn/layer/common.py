@@ -23,6 +23,7 @@ import torch
 from torch import nn
 
 from ... import resolve_device
+from .. import functional as F
 
 
 def generator_from(seed):
@@ -58,8 +59,7 @@ class Linear(nn.Module):
             if bias else None
 
     def forward(self, x):
-        y = x @ self.weight
-        return y if self.bias is None else y + self.bias
+        return F.linear(x, self.weight, self.bias)
 
 
 class Embedding(nn.Module):
@@ -84,10 +84,7 @@ class Embedding(nn.Module):
         self.weight = _param(values, device, dtype)
 
     def forward(self, x):
-        out = torch.nn.functional.embedding(x, self.weight)
-        if self._padding_idx is not None:
-            out = out.masked_fill((x == self._padding_idx)[..., None], 0.0)
-        return out
+        return F.embedding(x, self.weight, self._padding_idx)
 
 
 class Dropout(nn.Module):

@@ -1,6 +1,12 @@
-"""Batch-norm layers (counterpart: ``paddle_tpu/nn/layer/norm.py``):
-``BatchNorm``, ``BatchNorm1D``, ``BatchNorm2D`` and ``BatchNorm3D``.
+"""Normalization layers (counterpart: ``paddle_tpu/nn/layer/norm.py``):
+``LayerNorm``, ``RMSNorm``, ``BatchNorm``, ``BatchNorm1D``,
+``BatchNorm2D`` and ``BatchNorm3D``.
 
+``LayerNorm`` (weight one, bias zero, epsilon 1e-5) and ``RMSNorm``
+(weight one, no bias, epsilon 1e-6) are the reference's, through
+``F.layer_norm`` and ``F.rms_norm``.
+
+Batch norm:
 Scale one and shift zero, as in the reference; the running statistics
 are fp32 buffers named ``_mean`` (zeros) and ``_variance`` (ones), the
 reference's state names, so ``convert.load_jax_state`` carries them
@@ -18,6 +24,35 @@ from torch import nn
 from ... import resolve_device
 from .. import functional as F
 from .common import _param
+
+
+class LayerNorm(nn.Module):
+    def __init__(self, normalized_shape, epsilon=1e-5, weight_attr=None,
+                 bias_attr=None, name=None, device=None, dtype=None):
+        super().__init__()
+        if isinstance(normalized_shape, int):
+            normalized_shape = (normalized_shape,)
+        self._normalized_shape = tuple(normalized_shape)
+        self._epsilon = epsilon
+        self.weight = None if weight_attr is False else \
+            _param(torch.ones(self._normalized_shape), device, dtype)
+        self.bias = None if bias_attr is False else \
+            _param(torch.zeros(self._normalized_shape), device, dtype)
+
+    def forward(self, x):
+        return F.layer_norm(x, self._normalized_shape, self.weight,
+                            self.bias, self._epsilon)
+
+
+class RMSNorm(nn.Module):
+    def __init__(self, hidden_size, epsilon=1e-6, weight_attr=None,
+                 name=None, device=None, dtype=None):
+        super().__init__()
+        self._epsilon = epsilon
+        self.weight = _param(torch.ones(hidden_size), device, dtype)
+
+    def forward(self, x):
+        return F.rms_norm(x, self.weight, self._epsilon)
 
 
 class _BatchNormBase(nn.Module):

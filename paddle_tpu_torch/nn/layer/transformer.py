@@ -24,8 +24,10 @@ import copy
 from torch import nn
 
 from ... import resolve_device
+from ...ops.math import add
 from .. import functional as F
 from .common import Dropout, Linear
+from .norm import LayerNorm
 
 
 def _no_cache(cache):
@@ -112,10 +114,10 @@ class TransformerEncoderLayer(nn.Module):
         self.linear1 = Linear(d_model, dim_feedforward, **kw)
         self.dropout = Dropout(act_dropout)
         self.linear2 = Linear(dim_feedforward, d_model, **kw)
-        self.norm1 = nn.LayerNorm(d_model, layer_norm_eps, device=device,
-                                  dtype=dtype)
-        self.norm2 = nn.LayerNorm(d_model, layer_norm_eps, device=device,
-                                  dtype=dtype)
+        self.norm1 = LayerNorm(d_model, layer_norm_eps, device=device,
+                               dtype=dtype)
+        self.norm2 = LayerNorm(d_model, layer_norm_eps, device=device,
+                               dtype=dtype)
         self.dropout1 = Dropout(dropout)
         self.dropout2 = Dropout(dropout)
         self.activation = getattr(F, activation)
@@ -125,15 +127,15 @@ class TransformerEncoderLayer(nn.Module):
         residual = src
         if self.normalize_before:
             src = self.norm1(src)
-        src = residual + self.dropout1(self.self_attn(src, src, src,
-                                                      src_mask))
+        src = add(residual, self.dropout1(self.self_attn(src, src, src,
+                                                         src_mask)))
         if not self.normalize_before:
             src = self.norm1(src)
         residual = src
         if self.normalize_before:
             src = self.norm2(src)
         src = self.linear2(self.dropout(self.activation(self.linear1(src))))
-        src = residual + self.dropout2(src)
+        src = add(residual, self.dropout2(src))
         if not self.normalize_before:
             src = self.norm2(src)
         return src

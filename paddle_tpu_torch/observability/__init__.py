@@ -1,6 +1,6 @@
-"""Host-side telemetry for the port: the span tracer and the metrics
-registry, each a trimmed stdlib copy of its ``paddle_tpu.observability``
-counterpart."""
-from . import metrics, trace
+"""Host-side telemetry for the port: the span tracer, the metrics
+registry and the StepMeter, each a trimmed stdlib copy of its
+``paddle_tpu.observability`` counterpart."""
+from . import metrics, perf, trace
 
-__all__ = ["metrics", "trace"]
+__all__ = ["metrics", "perf", "trace"]

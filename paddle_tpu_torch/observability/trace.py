@@ -113,6 +113,20 @@ class Tracer:
             return NULL_SPAN
         return Span(self, name, attrs)
 
+    def complete_span(self, name, t0_ns, t1_ns, **attrs):
+        """Record a region the caller already timed (both endpoints are
+        its own perf_counter_ns stamps) as a span, atomically at
+        completion (the StepMeter's step). Disabled: one attribute
+        check."""
+        if not self.enabled:
+            return
+        stack = self._stack()
+        self._push({"kind": "span", "name": name, "t0": int(t0_ns),
+                    "t1": int(t1_ns), "tid": threading.get_ident(),
+                    "span_id": next(self._ids),
+                    "parent_id": stack[-1].span_id if stack else None,
+                    "attrs": attrs})
+
     def event(self, name, **attrs):
         """Record an instant event. Disabled: one attribute check."""
         if not self.enabled:
@@ -191,6 +205,7 @@ class Tracer:
 TRACER = Tracer()
 
 span = TRACER.span
+complete_span = TRACER.complete_span
 event = TRACER.event
 clear = TRACER.clear
 export = TRACER.export

@@ -41,13 +41,16 @@ import torch
 
 from . import _build
 
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+ROUTES = ("fp32", "bf16", "fp16")   # the route of each dtype code
 _MAX_SMEM = 232448   # bytes of shared memory one H100 block can use
 
 
 class Kernel:
     """One hand-written kernel: where it lives, what it replaces, and how
-    many times a wrapper launched it."""
+    many times a wrapper launched it, in all (``launches``) and by route
+    (``route_launches``: the fp32 scalar route, the bf16 and the fp16
+    16-bit routes; every C entry takes its dtype code last)."""
 
     def __init__(self, name, entry, argtypes, replaces):
         self.name = name
@@ -56,7 +59,11 @@ class Kernel:
         self._entry = entry
         self._argtypes = argtypes
         self._fn = None
-        self.launches = 0
+        self.route_launches = dict.fromkeys(ROUTES, 0)
+
+    @property
+    def launches(self):
+        return sum(self.route_launches.values())
 
     def entry(self):
         """The C entry point, built and loaded on first use."""
@@ -77,7 +84,7 @@ class Kernel:
         if rc != 0:
             raise RuntimeError(f"{self.name} kernel launch failed with CUDA "
                                f"error {rc}")
-        self.launches += 1
+        self.route_launches[ROUTES[args[-1]]] += 1
 
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -117,7 +124,7 @@ def build_kernels():
 
 def reset_launch_counts():
     for k in KERNELS:
-        k.launches = 0
+        k.route_launches = dict.fromkeys(ROUTES, 0)
 
 
 def _on_cpu(*tensors):
@@ -138,8 +145,8 @@ def _on_cpu(*tensors):
 def _kernel_dtype(*tensors):
     dtypes = {t.dtype for t in tensors}
     if len(dtypes) != 1 or next(iter(dtypes)) not in _DTYPE_CODE:
-        raise TypeError(f"kernel takes float32 or bfloat16, all alike; got "
-                        f"{sorted(map(str, dtypes))}")
+        raise TypeError(f"kernel takes float32, bfloat16 or float16, all "
+                        f"alike; got {sorted(map(str, dtypes))}")
     return _DTYPE_CODE[dtypes.pop()]
 
 
@@ -150,11 +157,11 @@ def _need_contiguous(**tensors):
 
 
 def _need_aligned(**tensors):
-    """The tensor-core routes load and store 16 bytes at a time."""
+    """The 16-bit routes load and store 16 bytes at a time."""
     for name, t in tensors.items():
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must start on a 16-byte boundary for "
-                             f"the bf16 kernel")
+                             f"the 16-bit kernel")
 
 
 # -- K1: ragged paged attention ----------------------------------------------
@@ -245,11 +252,11 @@ def paged_attention_reference(q, k_pages, v_pages, block_tables,
 
 
 _LOG2E = 1.4426950408889634
-_SPLIT_TOKENS = 256   # the bf16 K1's tokens per split (whole pages)
+_SPLIT_TOKENS = 256   # the 16-bit K1's tokens per split (whole pages)
 
 
 def paged_splits(max_pages, page_size):
-    """(pages per split, number of splits) of the bf16 K1 for a table of
+    """(pages per split, number of splits) of the 16-bit K1 for a table of
     ``max_pages`` pages: whole pages adding up to about 256 tokens (16
     pages of 16), and as many splits as cover the table's extent. Shapes
     alone decide; no context length is read."""
@@ -259,7 +266,7 @@ def paged_splits(max_pages, page_size):
 
 def paged_attention_split_reference(q, k_pages, v_pages, block_tables,
                                     context_lens, sm_scale=None):
-    """Plain PyTorch version of the bf16 K1's split-and-combine: per split
+    """Plain PyTorch version of the 16-bit K1's split-and-combine: per split
     of ``paged_splits`` pages, (m, l, acc) in fp32 from scores in log2
     units (q scaled by sm_scale * log2(e)), then the splits merged in
     split order. A row with no visible token (an inactive slot) is +0."""
@@ -304,22 +311,22 @@ def paged_attention_split_reference(q, k_pages, v_pages, block_tables,
 def _paged_smem(kq, d):
     """Shared memory of the fp32 K1 block in bytes: q and acc rows, 32-token
     K and V tiles, probabilities and three per-row statistics, all fp32.
-    (The bf16 route's footprint does not grow with KQ; the source checks it
+    (The 16-bit route's footprint does not grow with KQ; the source checks it
     at compile time.)"""
     return 4 * (2 * kq * d + 2 * 32 * d + kq * 32 + 3 * kq)
 
 
-def _paged_q(q, bf16):
+def _paged_q(q, wide_loads):
     """q as K1 reads it, with its slot and row strides in elements (0 where
     the dimension has one entry). The kernel reads q in place (the serving
     engine's column slice of the packed qkv) when its head stride is d, its
-    last stride 1 and, for bf16, it starts on a 16-byte boundary with slot
-    and row strides that are multiples of 8; any other q is copied into a
-    fresh contiguous tensor first."""
+    last stride 1 and, for the 16-bit routes (``wide_loads``), it starts on
+    a 16-byte boundary with slot and row strides that are multiples of 8;
+    any other q is copied into a fresh contiguous tensor first."""
     b, kq, h, d = q.shape
     sb, sj = (q.stride(0) if b > 1 else 0), (q.stride(1) if kq > 1 else 0)
     fits = q.stride(3) == 1 and (h == 1 or q.stride(2) == d)
-    if bf16:
+    if wide_loads:
         fits = fits and q.data_ptr() % 16 == 0 and sb % 8 == 0 \
             and sj % 8 == 0
     if fits:
@@ -332,11 +339,12 @@ def paged_attention_verify_decode(q, k_pages, v_pages, block_tables,
                                   context_lens, sm_scale=None):
     """K1 on [B, KQ, h, d] queries: query row j of slot b attends over
     ``context_lens[b] + j`` tokens. On CUDA tensors this launches
-    ``csrc/paged_attention.cu``: bf16 on its split-context route (a split
-    kernel over ``paged_splits`` runs of pages into an fp32 workspace, then
-    a combine kernel), fp32 on its scalar route. q is read in place where
-    its layout allows (``_paged_q``), else copied; bf16 pools must start
-    on a 16-byte boundary. On CPU tensors it runs the plain version."""
+    ``csrc/paged_attention.cu``: bf16 and fp16 on its split-context route
+    (a split kernel over ``paged_splits`` runs of pages into an fp32
+    workspace, then a combine kernel), fp32 on its scalar route. q is read
+    in place where its layout allows (``_paged_q``), else copied; 16-bit
+    pools must start on a 16-byte boundary. On CPU tensors it runs the
+    plain version."""
     b, kq, h, d = q.shape
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(d)
@@ -354,11 +362,11 @@ def paged_attention_verify_decode(q, k_pages, v_pages, block_tables,
         raise TypeError("block_tables and context_lens must be int32")
     _need_contiguous(k_pages=k_pages, v_pages=v_pages,
                      block_tables=block_tables, context_lens=context_lens)
-    bf16 = dtype == _DTYPE_CODE[torch.bfloat16]
-    q, q_sb, q_sj = _paged_q(q, bf16)
+    split_route = dtype != _DTYPE_CODE[torch.float32]
+    q, q_sb, q_sj = _paged_q(q, split_route)
     page_size, max_pages = k_pages.shape[1], block_tables.shape[1]
     split_pages, n_split = paged_splits(max_pages, page_size)
-    if bf16:
+    if split_route:
         _need_aligned(k_pages=k_pages, v_pages=v_pages)
         # per split and (slot, row, head): acc [d], then (m, l)
         workspace = torch.empty(n_split * b * kq * h * (d + 2),
@@ -465,7 +473,7 @@ def _flash_fwd(q, k, v, causal, sm_scale):
                          f"(q {tuple(q.shape)}, k {tuple(k.shape)}, "
                          f"causal={causal})")
     dtype = _kernel_dtype(q, k, v)
-    if dtype == _DTYPE_CODE[torch.bfloat16]:
+    if dtype != _DTYPE_CODE[torch.float32]:
         _need_aligned(q=q, k=k, v=v)
     b, sq, h, d = q.shape
     sk, kh = k.shape[1], k.shape[2]
@@ -562,7 +570,7 @@ def flash_attention_bwd(q, k, v, o, lse, do, dlse=None, causal=False,
     q, k, v, do = q.contiguous(), k.contiguous(), v.contiguous(), \
         do.contiguous()
     lse = lse.contiguous()
-    if dtype == _DTYPE_CODE[torch.bfloat16]:
+    if dtype != _DTYPE_CODE[torch.float32]:
         _need_aligned(q=q, k=k, v=v, do=do)
     delta = _flash_delta(o, do, dlse)
     dq = torch.empty_like(q)
@@ -638,7 +646,7 @@ _VL_BLOCK = 64     # K4's q and kv tile; K5's but for fp32 at d = 256
 
 def _vl_bwd_block(d, dtype):
     """K5's tile rows: 64, or 32 for the fp32 route at d = 256 so each
-    pass's fp32 tiles fit a block's shared memory (the bf16 route's tiles
+    pass's fp32 tiles fit a block's shared memory (the 16-bit routes' tiles
     fit 64 rows at every d)."""
     return 32 if d == 256 and dtype == torch.float32 else _VL_BLOCK
 
@@ -861,10 +869,10 @@ def flash_attention_varlen_fwd(q, k, v, cu_q, cu_k, causal=False,
                                sm_scale=None, plan=None):
     """K4: (o [Tq, h, d], lse [h, Tq] fp32). On CUDA tensors this
     launches ``csrc/flash_varlen_fwd.cu`` over ``plan`` (made here at 64
-    tokens per tile when not given): bf16 on its tensor-core route, fp32
-    on its scalar route; q, k and v are made contiguous, and bf16 ones
-    must start on a 16-byte boundary. On CPU tensors it runs the plain
-    version."""
+    tokens per tile when not given): bf16 and fp16 on its tensor-core
+    route, fp32 on its scalar route; q, k and v are made contiguous, and
+    16-bit ones must start on a 16-byte boundary. On CPU tensors it runs
+    the plain version."""
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
     if _on_cpu(q, k, v, cu_q, cu_k):
@@ -879,11 +887,11 @@ def flash_attention_varlen_fwd(q, k, v, cu_q, cu_k, causal=False,
         raise ValueError(f"K4 takes {_VL_BLOCK}-token tiles, the plan has "
                          f"{plan.block}")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    if dtype == _DTYPE_CODE[torch.bfloat16]:
+    if dtype != _DTYPE_CODE[torch.float32]:
         _need_aligned(q=q, k=k, v=v)
     o = torch.empty_like(q)
     lse = torch.empty((h, tq), dtype=torch.float32, device=q.device)
-    # scratch: the order in which the bf16 route starts the q tiles
+    # scratch: the order in which the 16-bit route starts the q tiles
     order = torch.empty(plan.kv_lo.numel(), dtype=torch.int32,
                         device=q.device)
     FLASH_VARLEN_FWD.launch(
@@ -898,13 +906,13 @@ def flash_attention_varlen_fwd(q, k, v, cu_q, cu_k, causal=False,
 def flash_attention_varlen_bwd(q, k, v, o, lse, do, cu_q, cu_k,
                                causal=False, sm_scale=None, plan=None):
     """K5: (dq, dk, dv) of K4's o given its cotangent do. On CUDA tensors
-    this launches ``csrc/flash_varlen_bwd.cu``: bf16 on its tensor-core
-    route (a dq pass over the plan's per-q-tile kv ranges, which also
-    computes delta = rowsum(do * o), then a dk/dv pass over its
+    this launches ``csrc/flash_varlen_bwd.cu``: bf16 and fp16 on its
+    tensor-core route (a dq pass over the plan's per-q-tile kv ranges,
+    which also computes delta = rowsum(do * o), then a dk/dv pass over its
     per-kv-tile q ranges), fp32 on its scalar route (delta computed here,
     then the dk/dv and the dq pass); a plan at another tile size than the
-    route's (``_vl_bwd_block``) is made anew, and bf16 operands must start
-    on a 16-byte boundary. On CPU tensors it runs the plain version."""
+    route's (``_vl_bwd_block``) is made anew, and 16-bit operands must
+    start on a 16-byte boundary. On CPU tensors it runs the plain version."""
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
     if _on_cpu(q, k, v, o, lse, do, cu_q, cu_k):
@@ -925,15 +933,15 @@ def flash_attention_varlen_bwd(q, k, v, o, lse, do, cu_q, cu_k,
         plan = varlen_plan(cu_q, cu_k, tq, tk, causal, block)
     q, k, v, o, do = (t.contiguous() for t in (q, k, v, o, do))
     lse = lse.contiguous()
-    if dtype == _DTYPE_CODE[torch.bfloat16]:
+    if dtype != _DTYPE_CODE[torch.float32]:
         _need_aligned(q=q, k=k, v=v, o=o, do=do)
-        # the bf16 route's dq pass computes delta from do and o
+        # the 16-bit routes' dq pass computes delta from do and o
         delta = torch.empty((h, tq), dtype=torch.float32, device=q.device)
     else:
         delta = _varlen_delta(o, do)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), \
         torch.empty_like(v)
-    # scratch: the orders in which the bf16 route starts the kv tiles of
+    # scratch: the orders in which the 16-bit route starts the kv tiles of
     # the dk/dv pass and the q tiles of the dq pass
     order = torch.empty(plan.q_lo.numel() + plan.kv_lo.numel(),
                         dtype=torch.int32, device=q.device)

@@ -13,14 +13,49 @@ Parameters may be given as tensors or as (name, tensor) pairs
 (``model.named_parameters()``). A parameter's name is the one from its
 pair, else ``getattr(param, "name", None)``; AdamW's
 ``apply_decay_param_fun`` receives that name or ``""``, and
-``state_dict`` keys use it or ``param_<i>``. Learning-rate schedulers are
-not ported yet (``optimizer/lr.py``): the learning rate is a float.
-``weight_decay`` is a float or a regularizer (``regularizer.L2Decay``),
-whose coefficient is taken, as in the reference.
+``state_dict`` keys use it or ``param_<i>``. The learning rate is a
+float or an ``LRScheduler`` (``optimizer/lr.py``): ``get_lr`` calls the
+scheduler, ``set_lr`` raises under one, and ``state_dict`` carries its
+state under ``"LR_Scheduler"``, as in the reference. ``weight_decay`` is a
+float or a regularizer (``regularizer.L2Decay``), whose coefficient is
+taken, as in the reference.
+
+The optimizer boundary: ``step``, ``clear_grad`` and
+``amp.GradScaler.unscale_`` run the pre-step hooks first
+(``register_pre_step_hook``), the seam where a gradient-sync plane drains
+its in-flight collectives. Nothing registers one yet; with none the cost
+is one empty-dict check.
 """
 from __future__ import annotations
 
 import torch
+
+from .lr import LRScheduler
+
+_pre_step_hooks: dict = {}
+_next_pre_step_id = 0
+
+
+def register_pre_step_hook(fn):
+    """Register ``fn()`` to run before every ``Optimizer.step`` and
+    ``clear_grad`` (and ``GradScaler.unscale_``). Returns a handle with
+    ``.remove()``."""
+    global _next_pre_step_id
+    hid = _next_pre_step_id
+    _next_pre_step_id += 1
+    _pre_step_hooks[hid] = fn
+
+    class _Handle:
+        def remove(self, _hid=hid):
+            _pre_step_hooks.pop(_hid, None)
+
+    return _Handle()
+
+
+def run_pre_step_hooks():
+    if _pre_step_hooks:
+        for fn in list(_pre_step_hooks.values()):
+            fn()
 
 
 class Optimizer:
@@ -53,18 +88,21 @@ class Optimizer:
 
     # -- lr ------------------------------------------------------------------
     def get_lr(self):
-        if isinstance(self._learning_rate, (int, float)):
-            return float(self._learning_rate)
-        raise TypeError(
-            f"learning_rate {self._learning_rate!r}: the port takes a float "
-            "learning rate; schedulers come with the port of optimizer/lr.py")
+        if isinstance(self._learning_rate, LRScheduler):
+            return float(self._learning_rate())
+        return float(self._learning_rate)
 
     def set_lr(self, value):
+        if isinstance(self._learning_rate, LRScheduler):
+            raise RuntimeError(
+                "cannot set_lr when an LRScheduler drives the optimizer")
         self._learning_rate = float(value)
 
     def set_lr_scheduler(self, scheduler):
-        raise NotImplementedError(
-            "learning-rate schedulers come with the port of optimizer/lr.py")
+        self._learning_rate = scheduler
+
+    def _parameter_list(self):
+        return self._parameters
 
     # -- accumulators --------------------------------------------------------
     def _get_accumulators(self, p):
@@ -82,6 +120,7 @@ class Optimizer:
     # -- core step -----------------------------------------------------------
     @torch.no_grad()
     def step(self):
+        run_pre_step_hooks()
         lr = self.get_lr()
         params_grads = [(p, p.grad) for p in self._parameters
                         if p.requires_grad and p.grad is not None]
@@ -120,8 +159,11 @@ class Optimizer:
         self._update(p, g, accs, lr)
 
     def clear_grad(self, set_to_zero=True):
+        run_pre_step_hooks()
         for p in self._parameters:
             p.grad = None
+
+    clear_gradients = clear_grad
 
     # -- state ---------------------------------------------------------------
     def _state_names(self):
@@ -133,11 +175,16 @@ class Optimizer:
         for pname, p in zip(self._state_names(), self._parameters):
             for aname, aval in self._accumulators.get(id(p), {}).items():
                 state[f"{pname}.{aname}"] = aval
+        if isinstance(self._learning_rate, LRScheduler):
+            state["LR_Scheduler"] = self._learning_rate.state_dict()
         state["@step"] = self._step_count
         return state
 
     def set_state_dict(self, state):
         self._step_count = int(state.get("@step", 0))
+        if "LR_Scheduler" in state and isinstance(self._learning_rate,
+                                                  LRScheduler):
+            self._learning_rate.set_state_dict(state["LR_Scheduler"])
         for pname, p in zip(self._state_names(), self._parameters):
             accs = {}
             for key, value in state.items():

@@ -16,7 +16,9 @@ from torch import nn
 from .. import resolve_device
 from ..nn import functional as F
 from ..nn.layer.common import Dropout, Embedding, Linear, generator_from
+from ..nn.layer.norm import LayerNorm
 from ..nn.layer.transformer import TransformerEncoder
+from ..ops.math import add
 from .ernie import (ErnieLMHead, ErniePooler, encoder_layer, mlm_loss,
                     padding_mask)
 
@@ -62,8 +64,8 @@ class BertEmbeddings(nn.Module):
                                              cfg.hidden_size, **kw)
         self.token_type_embeddings = Embedding(cfg.type_vocab_size,
                                                cfg.hidden_size, **kw)
-        self.layer_norm = nn.LayerNorm(cfg.hidden_size, cfg.layer_norm_eps,
-                                       device=device, dtype=dtype)
+        self.layer_norm = LayerNorm(cfg.hidden_size, cfg.layer_norm_eps,
+                                    device=device, dtype=dtype)
         self.dropout = Dropout(cfg.hidden_dropout_prob)
 
     def forward(self, input_ids, token_type_ids=None, position_ids=None):
@@ -72,9 +74,9 @@ class BertEmbeddings(nn.Module):
             position_ids = torch.arange(s, device=input_ids.device)[None]
         if token_type_ids is None:
             token_type_ids = torch.zeros_like(input_ids)
-        x = (self.word_embeddings(input_ids)
-             + self.position_embeddings(position_ids)
-             + self.token_type_embeddings(token_type_ids))
+        x = add(add(self.word_embeddings(input_ids),
+                    self.position_embeddings(position_ids)),
+                self.token_type_embeddings(token_type_ids))
         return self.dropout(self.layer_norm(x))
 
 

@@ -39,7 +39,9 @@ from .. import resolve_device
 from ..nn import functional as F
 from ..nn.layer.activation import GELU, Tanh
 from ..nn.layer.common import Dropout, Embedding, Linear, generator_from
+from ..nn.layer.norm import LayerNorm
 from ..nn.layer.transformer import TransformerEncoder, TransformerEncoderLayer
+from ..ops.math import add, matmul
 
 
 class ErnieConfig:
@@ -119,8 +121,8 @@ class ErnieEmbeddings(nn.Module):
         if cfg.use_task_id:
             self.task_type_embeddings = Embedding(
                 cfg.task_type_vocab_size, cfg.hidden_size, **kw)
-        self.layer_norm = nn.LayerNorm(cfg.hidden_size, cfg.layer_norm_eps,
-                                       device=device, dtype=dtype)
+        self.layer_norm = LayerNorm(cfg.hidden_size, cfg.layer_norm_eps,
+                                    device=device, dtype=dtype)
         self.dropout = Dropout(cfg.hidden_dropout_prob)
 
     def forward(self, input_ids, token_type_ids=None, position_ids=None,
@@ -130,13 +132,13 @@ class ErnieEmbeddings(nn.Module):
             position_ids = torch.arange(s, device=input_ids.device)[None]
         if token_type_ids is None:
             token_type_ids = torch.zeros_like(input_ids)
-        x = (self.word_embeddings(input_ids)
-             + self.position_embeddings(position_ids)
-             + self.token_type_embeddings(token_type_ids))
+        x = add(add(self.word_embeddings(input_ids),
+                    self.position_embeddings(position_ids)),
+                self.token_type_embeddings(token_type_ids))
         if self.use_task_id:
             if task_type_ids is None:
                 task_type_ids = torch.zeros_like(input_ids)
-            x = x + self.task_type_embeddings(task_type_ids)
+            x = add(x, self.task_type_embeddings(task_type_ids))
         return self.dropout(self.layer_norm(x))
 
 
@@ -252,8 +254,8 @@ class ErnieLMHead(nn.Module):
                                 device=device, dtype=dtype,
                                 generator=generator)
         self.activation = GELU()
-        self.layer_norm = nn.LayerNorm(cfg.hidden_size, cfg.layer_norm_eps,
-                                       device=device, dtype=dtype)
+        self.layer_norm = LayerNorm(cfg.hidden_size, cfg.layer_norm_eps,
+                                    device=device, dtype=dtype)
         # in __dict__, not registered: the weight stays one parameter,
         # named where the embedding layer holds it
         self.__dict__["_embedding"] = embedding
@@ -262,7 +264,8 @@ class ErnieLMHead(nn.Module):
 
     def forward(self, sequence_output):
         x = self.layer_norm(self.activation(self.transform(sequence_output)))
-        return x @ self._embedding.weight.t() + self.decoder_bias
+        return add(matmul(x, self._embedding.weight, transpose_y=True),
+                   self.decoder_bias)
 
 
 class ErnieForMaskedLM(nn.Module):

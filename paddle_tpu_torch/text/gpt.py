@@ -9,7 +9,17 @@ same arrays as the JAX engine's (``convert.py`` carries weights across
 without a transpose). Attention runs through
 ``nn.functional.scaled_dot_product_attention``: the flash kernels
 (forward and backward) where their gate admits the shape, the dense path
-elsewhere. ``jit.CompiledTrainStep`` trains it.
+elsewhere. ``jit.CompiledTrainStep`` trains it, and so does an eager loop
+under ``amp.decorate``/``amp.auto_cast``/``amp.GradScaler``.
+
+The ops the JAX model dispatches (``embedding``, ``add``, ``layer_norm``
+or ``rms_norm``, ``linear``, ``scaled_dot_product_attention``, ``gelu``,
+the tied head's ``matmul`` and ``cross_entropy``) go through the per-op
+seam (``ops/dispatch.py``) under the same names, so an ``auto_cast``
+block casts each as the reference does (its O1 casts only the head's
+``matmul``; its O2 everything but the norms and the loss).
+``use_rmsnorm`` picks ``RMSNorm`` (epsilon 1e-6, weight only) for every
+norm, as the reference does.
 
 Weights are random, drawn from ``seed`` with a ``torch.Generator`` on the
 CPU: embeddings and every projection at normal(0, 0.02)
@@ -24,6 +34,8 @@ from torch import nn
 from .. import resolve_device
 from ..nn import functional as F
 from ..nn.layer.common import Linear
+from ..nn.layer.norm import LayerNorm, RMSNorm
+from ..ops.math import add, matmul
 
 
 class GPTConfig:
@@ -31,10 +43,6 @@ class GPTConfig:
                  num_heads=12, intermediate_size=None, max_seq_len=1024,
                  dropout=0.0, use_rmsnorm=False, tie_word_embeddings=True,
                  initializer_range=0.02):
-        if use_rmsnorm:
-            raise NotImplementedError(
-                "the port's GPT has LayerNorm blocks; RMSNorm comes with a "
-                "later slice")
         self.vocab_size = vocab_size
         self.hidden_size = hidden_size
         self.num_layers = num_layers
@@ -91,18 +99,24 @@ class GPTMLP(nn.Module):
         self.drop = nn.Dropout(cfg.dropout)
 
     def forward(self, x):
-        return self.drop(self.fc_out(torch.nn.functional.gelu(
-            self.fc_in(x), approximate="tanh")))
+        return self.drop(self.fc_out(F.gelu(self.fc_in(x),
+                                            approximate=True)))
+
+
+def _norm(cfg, device, dtype):
+    """The block's norm: RMSNorm (epsilon 1e-6) under ``use_rmsnorm``,
+    else LayerNorm (epsilon 1e-5), as in the reference."""
+    if cfg.use_rmsnorm:
+        return RMSNorm(cfg.hidden_size, device=device, dtype=dtype)
+    return LayerNorm(cfg.hidden_size, device=device, dtype=dtype)
 
 
 class GPTBlock(nn.Module):
     def __init__(self, cfg, device=None, dtype=None):
         super().__init__()
-        self.ln1 = nn.LayerNorm(cfg.hidden_size, eps=1e-5, device=device,
-                                dtype=dtype)
+        self.ln1 = _norm(cfg, device, dtype)
         self.attn = GPTAttention(cfg, device=device, dtype=dtype)
-        self.ln2 = nn.LayerNorm(cfg.hidden_size, eps=1e-5, device=device,
-                                dtype=dtype)
+        self.ln2 = _norm(cfg, device, dtype)
         self.mlp = GPTMLP(cfg, device=device, dtype=dtype)
         self.drop = nn.Dropout(cfg.dropout)
 
@@ -111,8 +125,8 @@ class GPTBlock(nn.Module):
             a, cache = self.attn(self.ln1(x), cache)
         else:
             a = self.attn(self.ln1(x))
-        x = x + self.drop(a)
-        x = x + self.mlp(self.ln2(x))
+        x = add(x, self.drop(a))
+        x = add(x, self.mlp(self.ln2(x)))
         if cache is not None:
             return x, cache
         return x
@@ -129,14 +143,14 @@ class GPTModel(nn.Module):
         self.drop = nn.Dropout(config.dropout)
         self.blocks = nn.ModuleList([GPTBlock(config, device, dtype)
                                      for _ in range(config.num_layers)])
-        self.ln_f = nn.LayerNorm(config.hidden_size, eps=1e-5,
-                                 device=device, dtype=dtype)
+        self.ln_f = _norm(config, device, dtype)
 
     def forward(self, input_ids, position_ids=None, caches=None):
         b, s = input_ids.shape
         if position_ids is None:
             position_ids = torch.arange(s, device=input_ids.device)[None]
-        x = self.drop(self.wte(input_ids) + self.wpe(position_ids))
+        x = self.drop(add(F.embedding(input_ids, self.wte.weight),
+                          F.embedding(position_ids, self.wpe.weight)))
         new_caches = [] if caches is not None else None
         for i, block in enumerate(self.blocks):
             if caches is not None:
@@ -185,13 +199,15 @@ class GPTForPretraining(nn.Module):
 
     def _logits(self, hidden):
         if self.config.tie_word_embeddings:
-            return hidden @ self.gpt.wte.weight.t()
+            return matmul(hidden, self.gpt.wte.weight, transpose_y=True)
         return self.lm_head(hidden)
 
     def forward(self, input_ids, labels=None, position_ids=None):
         logits = self._logits(self.gpt(input_ids, position_ids))
         if labels is not None:
-            loss = torch.nn.functional.cross_entropy(
+            # in fp32: under O2 the JAX loss works in the low dtype
+            # (ROADMAP C)
+            loss = F.cross_entropy(
                 logits.reshape(-1, logits.shape[-1]).float(),
                 labels.reshape(-1))
             return logits, loss

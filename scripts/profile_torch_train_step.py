@@ -16,7 +16,13 @@ ernie_pretraining`` and ``--workload bert_finetune`` take
 ``--workload packed_attention`` takes ``chip_smoke.packed_attention``
 instead (one ``flash_attn_unpadded`` forward and backward over 16,384
 packed tokens, 12 heads of 64, causal, bf16, as ``packed_attention_bf16``
-times it); ``--workload resnet50`` takes ``chip_smoke.resnet50_training``
+times it); ``--workload gpt124m_fp16_amp`` takes
+``chip_smoke.gpt124m_fp16_amp`` (the eager fp16 AMP recipe at GPT-124M's
+widths, as the ``gpt124m_fp16_amp`` phase runs it) and ``--workload
+gpt124m_scheduled`` ``chip_smoke.gpt124m_scheduled`` (``CompiledTrainStep``
+at O2 bf16 under a cosine schedule with the clip, ``FLAGS_check_nan_inf``
+and the StepMeter on); ``--workload resnet50`` takes
+``chip_smoke.resnet50_training``
 (ResNet-50, batch 256 x 3 x 224 x 224, O2, Momentum at lr 0.1, as
 ``resnet50_training_bf16`` times it), whose kernels it groups as cuDNN's
 convolution forward, data-gradient and weight-gradient passes, layout
@@ -45,8 +51,10 @@ import time
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
-from chip_smoke import (PACKED_WARMUP, TRAIN_WARMUP,  # noqa: E402
-                        bert_finetune, ernie_pretraining, gpt124m_training,
+from chip_smoke import (AMP_WARMUP, PACKED_WARMUP,  # noqa: E402
+                        TRAIN_WARMUP, bert_finetune, eager_amp_steps,
+                        ernie_pretraining, gpt124m_fp16_amp,
+                        gpt124m_scheduled, gpt124m_training,
                         packed_attention, resnet50_training)
 
 STEPS = 3
@@ -147,7 +155,30 @@ def range_device_us(torch, prof):
     return out
 
 
+def fp16_amp_step(torch):
+    """(step, warm-up count) of ``chip_smoke``'s eager fp16 AMP workload:
+    one step of the upstream recipe (scale, backward, the scaler's step,
+    clear, the scheduler's step) with no synchronize of its own."""
+    model, opt, sched, scaler, ids, labels = gpt124m_fp16_amp(torch)
+    return (lambda: eager_amp_steps(torch, model, ids, labels, 1, "O2",
+                                    "float16", sched, scaler, opt,
+                                    sync=False)), AMP_WARMUP
+
+
+def scheduled_step(torch):
+    """(step, warm-up count) of ``chip_smoke``'s scheduled workload with
+    the StepMeter on: one call (the nan check's host read, the meter's
+    synchronize), then the scheduler's step."""
+    from paddle_tpu_torch.observability import perf
+    _, _, sched, step, batch = gpt124m_scheduled(torch)
+    ids, labels = batch()
+    perf.enable()
+    return (lambda: (step(ids, labels), sched.step())), TRAIN_WARMUP
+
+
 WORKLOADS = {"training": training_step(gpt124m_training),
+             "gpt124m_fp16_amp": fp16_amp_step,
+             "gpt124m_scheduled": scheduled_step,
              "ernie_pretraining": training_step(ernie_pretraining),
              "bert_finetune": training_step(bert_finetune),
              "packed_attention": packed_attention_step,

@@ -26,14 +26,15 @@ def cuda_device():
 
 def paged_tols(dtype, max_ctx, kq, v_pages):
     """(atol, rtol) of K1 against its plain version on the same inputs,
-    in fp32 (bf16 inputs widen exactly): fp32 at K*eps, K the longest
-    context plus KQ (fp32 sums over K terms); bf16 element by element at
-    atol K*eps*max|v| and rtol 2**-8, half an ulp of the output, which is
-    rounded once."""
+    in fp32 (16-bit inputs widen exactly): fp32 at K*eps, K the longest
+    context plus KQ (fp32 sums over K terms); bf16 and fp16 element by
+    element at atol K*eps*max|v| and rtol of half an ulp of the output,
+    which is rounded once: 2**-8 for bf16, 2**-11 (fp16's eps) for fp16."""
     k_eps = (max_ctx + kq) * F32_EPS
     if dtype == torch.float32:
         return k_eps, k_eps
-    return k_eps * float(v_pages.float().abs().max()), 2 ** -8
+    half_ulp = 2 ** -11 if dtype == torch.float16 else 2 ** -8
+    return k_eps * float(v_pages.float().abs().max()), half_ulp
 
 
 def paged_inputs(ctxs, kq, page=16, h=2, d=64, seed=0, spare=0):
@@ -85,7 +86,7 @@ def jax_state(model):
     return {k: np.asarray(v._value) for k, v in model.state_dict().items()}
 
 
-def tiny_models(tied=True, seed=0, max_seq_len=256):
+def tiny_models(tied=True, seed=0, max_seq_len=256, use_rmsnorm=False):
     """The same tiny GPT (hidden 128, 2 heads of 64, 2 layers, vocab 128)
     in both packages, the port loaded with the JAX model's weights."""
     import paddle_tpu as paddle
@@ -96,7 +97,7 @@ def tiny_models(tied=True, seed=0, max_seq_len=256):
     from paddle_tpu_torch.text.gpt import GPTConfig, GPTForPretraining
     kw = dict(vocab_size=128, hidden_size=128, num_layers=2, num_heads=2,
               max_seq_len=max_seq_len, dropout=0.0,
-              tie_word_embeddings=tied)
+              tie_word_embeddings=tied, use_rmsnorm=use_rmsnorm)
     paddle.seed(seed)
     jm = JGPT(JConfig(**kw))
     jm.eval()

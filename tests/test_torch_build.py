@@ -80,3 +80,16 @@ def test_chip_smoke_reads_registers_and_spills_per_instantiation():
                                                 "registers": 127},
         "paged_attention_kernel<bf16>": {"spill_stores": 0,
                                          "registers": 40}}
+
+
+def test_chip_smoke_names_fp16_instantiations():
+    # the 16-bit kernels are templates over their element type: a __half
+    # instantiation is fp16 (its mangled "6__half" holds an "f" that must
+    # not read as float)
+    import chip_smoke
+    assert chip_smoke.kernel_name(
+        "_ZN12_GLOBAL__N_119flash_fwd_kernel_tcI6__halfLi64EEEvPKT_S4_"
+    ) == "flash_fwd_kernel_tc<fp16, 64>"
+    assert chip_smoke.kernel_name(
+        "_ZN12_GLOBAL__N_118paged_split_kernelI13__nv_bfloat16Li128ELi4EEEv"
+    ) == "paged_split_kernel<bf16, 128, 4>"

@@ -22,7 +22,9 @@ the error of ``scaled_dot_product_attention`` against the same plain
 version). K4 fp32 at 2e-5 and bf16 at 2**-6 (two ulps of an output below
 2: the bf16 route, on tensor cores like K2's, rounds p to bf16 before
 P v and o once); K5 as K3 (fp32 at 5e-5: no shared kv heads; bf16 one ulp
-at the outputs' largest magnitude). K3, K4 and K5 runs repeat with the
+at the outputs' largest magnitude). fp16 runs the same 16-bit routes and
+is held to the same bounds in fp16's ulps (11 significant bits: K1 at
+rtol 2**-11, K4 at 2**-9). K3, K4 and K5 runs repeat with the
 same bits, K4 and K5 also at the packed-attention workload's shape.
 Misaligned bf16 operands are refused, except K1's q, which is copied.
 TF32 is off for every fp32 comparison (the ``cuda_device`` fixture sets
@@ -60,9 +62,10 @@ FLASH_CASES = {   # b, sq, sk, h, kh, d, causal
 TRAIN_CASE = (16, 1024, 1024, 12, 12, 64, True)
 
 
-def _bf16_ulp(x):
-    """The spacing of bf16 values at magnitude x (8 significant bits)."""
-    return 2.0 ** (np.floor(np.log2(x)) - 7)
+def _ulp(x, dtype):
+    """The spacing of ``dtype`` values at magnitude x: 8 significant bits
+    for bf16, 11 for fp16."""
+    return 2.0 ** (np.floor(np.log2(x)) - (10 if dtype == "float16" else 7))
 
 
 def _assert_paged_close(got, q, kp, vp, bt, cl):
@@ -88,7 +91,7 @@ def _paged(ctxs, kq, dtype, device, spare=0):
 # two), KQ = 5 rows whose last token crosses a split, tables holding pages
 # past their slots' contexts, eight verify rows (a full row group) and
 # nine (two groups)
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 @pytest.mark.parametrize("ctxs,kq,spare",
                          [([5, 16, 17, 40, 64], 1, 0),
                           ([0, 20, 63, 127], 5, 0),
@@ -128,9 +131,10 @@ def test_paged_wrapper_refuses_what_the_kernel_does_not_take(cuda_device):
     q, kp, vp, bt, cl = _paged([9], 1, "float32", cuda_device)
     with pytest.raises(TypeError):
         ck.paged_attention_verify_decode(q, kp, vp, bt.long(), cl)
+    # float16 has a route since the fp16 repair; float64 has none
     with pytest.raises(TypeError):
-        ck.paged_attention_verify_decode(q.half(), kp.half(), vp.half(),
-                                         bt, cl)
+        ck.paged_attention_verify_decode(q.double(), kp.double(),
+                                         vp.double(), bt, cl)
     with pytest.raises(ValueError):
         ck.paged_attention_verify_decode(q.cpu(), kp, vp, bt, cl)
     # the bf16 route loads the pools 16 bytes at a time, in place
@@ -141,7 +145,7 @@ def test_paged_wrapper_refuses_what_the_kernel_does_not_take(cuda_device):
         ck.paged_attention_verify_decode(q, kp, _misaligned(vp), bt, cl)
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 def test_paged_kernel_reads_q_in_place(cuda_device, dtype):
     # the serving engine's q: a column slice of the packed qkv [B, KQ, 3hd]
     q, kp, vp, bt, cl = _paged([9, 300, 0, 700], 3, dtype, cuda_device)
@@ -158,7 +162,7 @@ def test_paged_kernel_reads_q_in_place(cuda_device, dtype):
         q[:, 0].contiguous(), kp, vp, bt, cl))
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 def test_paged_kernel_copies_q_it_cannot_read_in_place(cuda_device, dtype):
     # a q whose head stride is not d, one that starts off a 16-byte
     # boundary, and one whose row stride is odd: each is copied, then
@@ -191,7 +195,7 @@ def test_paged_kernel_reruns_bit_identical_at_the_serving_shape(
         _assert_paged_close(first, q, kp, vp, bt, cl)
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 @pytest.mark.parametrize("case", list(FLASH_CASES))
 def test_flash_kernel_matches_plain_version(cuda_device, case, dtype):
     b, sq, sk, h, kh, d, causal = FLASH_CASES[case]
@@ -203,13 +207,16 @@ def test_flash_kernel_matches_plain_version(cuda_device, case, dtype):
     torch.cuda.synchronize()
     assert ck.FLASH_FWD.launches == before + 1
     ro, rlse = ck.flash_attention_reference(q, k, v, causal=causal)
-    # bf16: one ulp at the largest |o|, half from rounding o and the rest
-    # for the bf16 p the kernel feeds to P V (each weight off by at most
-    # 2**-9 of itself; the errors average out along the row)
+    # bf16 and fp16: one ulp at the largest |o|, half from rounding o and
+    # the rest for the 16-bit p the kernel feeds to P V (each weight off by
+    # at most half an ulp of itself; the errors average out along the row)
     tol = 2e-5 if dtype == "float32" else \
-        _bf16_ulp(float(ro.float().abs().max()))
+        _ulp(float(ro.float().abs().max()), dtype)
     torch.testing.assert_close(o.float(), ro.float(), atol=tol, rtol=0)
     torch.testing.assert_close(lse, rlse, atol=1e-4, rtol=0)
+    # a rerun gives the same bits
+    o2, lse2 = ck.flash_attention_with_lse(q, k, v, causal=causal)
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
 
 
 def _flash_bwd_args(case, dtype, device, dlse):
@@ -228,7 +235,7 @@ def _flash_bwd_args(case, dtype, device, dlse):
 
 
 @pytest.mark.parametrize("dlse", [False, True], ids=["no_dlse", "dlse"])
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 @pytest.mark.parametrize("case", list(FLASH_CASES))
 def test_flash_bwd_kernel_matches_plain_version(cuda_device, case, dtype,
                                                 dlse):
@@ -243,10 +250,10 @@ def test_flash_bwd_kernel_matches_plain_version(cuda_device, case, dtype,
         tol = 2e-4 if kh != h else 5e-5
     else:
         # one ulp at the outputs' largest magnitude, half from rounding
-        # dq, dk, dv and the rest for the bf16 p and ds the kernel feeds to
-        # its products (each off by at most 2**-9 of itself; the errors
-        # average out over the summed rows)
-        tol = _bf16_ulp(max(float(r.float().abs().max()) for r in ref))
+        # dq, dk, dv and the rest for the 16-bit p and ds the kernel feeds
+        # to its products (each off by at most half an ulp of itself; the
+        # errors average out over the summed rows)
+        tol = _ulp(max(float(r.float().abs().max()) for r in ref), dtype)
     for g, r, x in zip(got, ref, args[:3]):
         assert g.shape == x.shape and g.dtype == x.dtype
         torch.testing.assert_close(g.float(), r.float(), atol=tol, rtol=0)
@@ -254,6 +261,7 @@ def test_flash_bwd_kernel_matches_plain_version(cuda_device, case, dtype,
 
 @pytest.mark.parametrize("case,dtype", [("gqa", "float32"),
                                         ("gpt124m_train", "bfloat16"),
+                                        ("gpt124m_train", "float16"),
                                         ("ernie_noncausal", "bfloat16"),
                                         ("bert_noncausal", "bfloat16")])
 def test_flash_bwd_kernel_is_deterministic(cuda_device, case, dtype):
@@ -262,6 +270,28 @@ def test_flash_bwd_kernel_is_deterministic(cuda_device, case, dtype):
     for _ in range(2):
         again = ck.flash_attention_bwd(*args, causal=causal)
         assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+def test_fp16_overflow_becomes_inf_as_in_the_plain_version(cuda_device):
+    # q = k = 0 makes row i's weights exactly 1 / (i + 1) over its causal
+    # columns, so with do = 30000 column j of dv is 30000 (H(128) - H(j)):
+    # past fp16's range for j <= 13 (67,590 at j = 13), inside it from
+    # j = 14 (65,445). The kernel rounds dv to fp16 without a clamp, so
+    # those entries are inf, as the plain version's cast makes them: a
+    # loss scaler has to see the overflow
+    b, s_, h, d = 1, 128, 2, 64
+    q = torch.zeros(b, s_, h, d, device=cuda_device, dtype=torch.float16)
+    k = torch.zeros_like(q)
+    v = torch.randn(b, s_, h, d, device=cuda_device).to(torch.float16)
+    do = torch.full_like(q, 30000.0)
+    o, lse = ck.flash_attention_with_lse(q, k, v, causal=True)
+    got = ck.flash_attention_bwd(q, k, v, o, lse, do, causal=True)
+    torch.cuda.synchronize()
+    ref = ck.flash_attention_bwd_reference(q, k, v, o, lse, do, causal=True)
+    dv, ref_dv = got[2], ref[2]
+    assert torch.equal(torch.isinf(dv), torch.isinf(ref_dv))
+    assert torch.isinf(dv[0, :14]).all() and torch.isfinite(dv[0, 14:]).all()
+    assert (dv[0, :14] > 0).all()
 
 
 def test_gradient_flows_through_both_kernels(cuda_device):
@@ -415,7 +445,7 @@ def _varlen_args(case, dtype, device):
     return q, k, v, cu_q, cu_k, do, causal
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 @pytest.mark.parametrize("case", list(VARLEN_CASES))
 def test_varlen_fwd_kernel_matches_plain_version(cuda_device, case, dtype):
     q, k, v, cu_q, cu_k, _, causal = _varlen_args(case, dtype, cuda_device)
@@ -427,14 +457,14 @@ def test_varlen_fwd_kernel_matches_plain_version(cuda_device, case, dtype):
     assert torch.equal(o, again[0]) and torch.equal(lse, again[1])
     ro, rlse = ck.flash_attention_varlen_reference(q, k, v, cu_q, cu_k,
                                                    causal)
-    tol = 2e-5 if dtype == "float32" else 2 ** -6
+    tol = {"float32": 2e-5, "bfloat16": 2 ** -6, "float16": 2 ** -9}[dtype]
     torch.testing.assert_close(o.float(), ro.float(), atol=tol, rtol=0)
     torch.testing.assert_close(lse, rlse, atol=1e-4, rtol=0)
     # a row that sees no key writes +0
     assert not torch.signbit(o[(rlse == -1e30).T].float()).any()
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 @pytest.mark.parametrize("case", list(VARLEN_CASES))
 def test_varlen_bwd_kernel_matches_plain_version(cuda_device, case, dtype):
     q, k, v, cu_q, cu_k, do, causal = _varlen_args(case, dtype, cuda_device)
@@ -452,8 +482,7 @@ def test_varlen_bwd_kernel_matches_plain_version(cuda_device, case, dtype):
     if dtype == "float32":
         tol = 5e-5
     else:
-        top = max(float(r.float().abs().max()) for r in ref)
-        tol = 2.0 ** (np.floor(np.log2(top)) - 7)
+        tol = _ulp(max(float(r.float().abs().max()) for r in ref), dtype)
     for g, r, x in zip(got, ref, (q, k, v)):
         assert g.shape == x.shape and g.dtype == x.dtype
         assert torch.isfinite(g).all()
@@ -538,7 +567,8 @@ def test_varlen_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
     with pytest.raises(TypeError):
         ck.flash_attention_varlen_fwd(q, k, v, cu.long(), cu.long(), True)
     with pytest.raises(TypeError):
-        ck.flash_attention_varlen_fwd(q.half(), k.half(), v.half(), cu, cu)
+        ck.flash_attention_varlen_fwd(q.double(), k.double(), v.double(),
+                                      cu, cu)
     with pytest.raises(ValueError):
         ck.flash_attention_varlen_fwd(q, k, v, cu.cpu(), cu.cpu())
     o, lse = ck.flash_attention_varlen_fwd(q, k, v, cu, cu, True)

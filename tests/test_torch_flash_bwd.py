@@ -12,7 +12,8 @@ MQA): the JAX package's own bounds for its flash backward
 more terms. The plain K3 is also held against torch autograd of the
 dense fp32 path, and the autograd function against the plain K3. In
 bf16, the training path's dtype, the plain K3 is held against the JAX
-kernel in bf16, with the bound stated at that test.
+kernel in bf16, and in fp16, eager AMP O2's dtype, against the JAX kernel
+in fp16, with the bounds stated at those tests.
 
 ``tests/test_torch_cuda_kernels.py`` holds the CUDA kernel against the
 same plain version on the card.
@@ -119,6 +120,39 @@ def test_plain_backward_matches_jax_kernel_in_bf16(case, interpret):
     tol = 2 * _bf16_ulp(max(np.abs(w).max() for w in want))
     for name, g, w in zip("qkv", got, want):
         assert g.dtype == torch.bfloat16 and g.shape == w.shape
+        np.testing.assert_allclose(g.float().numpy(), w, atol=tol, rtol=0,
+                                   err_msg=f"d{name}")
+
+
+@pytest.mark.parametrize("case", ["causal", "gqa", "nonsquare_causal",
+                                  "dlse"])
+def test_plain_backward_matches_jax_kernel_in_fp16(case, interpret):
+    """The plain K3 in fp16 (what the card's fp16 kernel is held against)
+    against ``jax.vjp`` of the JAX kernels in fp16: the bf16 test's bound
+    in fp16's units, two ulps (11 significant bits) at the outputs'
+    largest magnitude."""
+    b, sq, sk, h, kh, d, causal, _ = CASES[case]
+    q, k, v = (x.astype(np.float16).astype(np.float32)
+               for x in flash_inputs(b, sq, sk, h, kh, d))
+    do, dlse = _cotangents(case)
+    do = do.astype(np.float16).astype(np.float32)
+    (jo, jlse), vjp = jax.vjp(
+        lambda q_, k_, v_: pk.flash_attention_with_lse(q_, k_, v_,
+                                                       causal=causal),
+        *(jnp.asarray(x, jnp.float16) for x in (q, k, v)))
+    want = [np.asarray(w.astype(jnp.float32)) for w in
+            vjp((jnp.asarray(do, jnp.float16), jnp.asarray(dlse)))]
+    to = torch.from_numpy(np.array(jo.astype(jnp.float32))).to(
+        torch.float16)
+    got = ck.flash_attention_bwd_reference(
+        *(torch.from_numpy(x).to(torch.float16) for x in (q, k, v)), to,
+        torch.from_numpy(np.array(jlse)),
+        torch.from_numpy(do).to(torch.float16), torch.from_numpy(dlse),
+        causal=causal)
+    top = max(np.abs(w).max() for w in want)
+    tol = 2 * 2.0 ** (np.floor(np.log2(top)) - 10)
+    for name, g, w in zip("qkv", got, want):
+        assert g.dtype == torch.float16 and g.shape == w.shape
         np.testing.assert_allclose(g.float().numpy(), w, atol=tol, rtol=0,
                                    err_msg=f"d{name}")
 

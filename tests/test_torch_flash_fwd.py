@@ -7,8 +7,9 @@ Cases: causal and non-causal, GQA and MQA, non-square causal (sq=128,
 sk=384, bottom-right aligned), d in {64, 128}. Tolerance: atol 2e-5 in
 fp32, the JAX package's own flash-forward bound
 (``tests/test_train_step_and_flash.py``). The plain version is also held
-in bf16, the training path's dtype, against the JAX kernel in bf16, with
-the bounds stated at that test.
+in bf16, the training path's dtype, against the JAX kernel in bf16, and
+in fp16, eager AMP O2's dtype, against the JAX kernel in fp16, with the
+bounds stated at those tests.
 
 ``tests/test_torch_cuda_kernels.py`` holds the CUDA kernel against the
 same plain version on the card.
@@ -99,6 +100,38 @@ def test_plain_matches_jax_kernel_in_bf16(case, interpret):
     qk = np.einsum("bqhd,bkhd->bhqk", np.abs(q),
                    np.abs(np.repeat(k, h // kh, axis=2)))
     lse_tol = 2.0 ** -9 * (qk.max() / math.sqrt(d) + 1)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(jlse), rtol=0,
+                               atol=lse_tol)
+
+
+def _fp16_ulp(x):
+    """The spacing of fp16 values at magnitude x (11 significant bits)."""
+    return 2.0 ** (np.floor(np.log2(x)) - 10)
+
+
+@pytest.mark.parametrize("case", ["causal", "noncausal", "gqa",
+                                  "nonsquare_causal"])
+def test_plain_matches_jax_kernel_in_fp16(case, interpret):
+    """The plain K2 in fp16 (what the card's fp16 kernel is held against)
+    against the JAX kernel in fp16, on the seeded inputs rounded to fp16
+    alike: the bf16 test's bounds in fp16's units (o within two ulps at its
+    largest magnitude; the JAX kernel's fp16 scaled q and p are each off
+    by at most 2**-11 of themselves, which bounds lse)."""
+    b, sq, sk, h, kh, d, causal, _ = CASES[case]
+    q, k, v = (x.astype(np.float16).astype(np.float32)
+               for x in flash_inputs(b, sq, sk, h, kh, d))
+    tq, tk, tv = (torch.from_numpy(x).to(torch.float16) for x in (q, k, v))
+    o, lse = ck.flash_attention_with_lse(tq, tk, tv, causal=causal)
+    assert o.dtype == torch.float16 and lse.dtype == torch.float32
+    jo, jlse = pk.flash_attention_with_lse(
+        *(jnp.asarray(x, jnp.float16) for x in (q, k, v)), causal=causal)
+    assert jo.dtype == jnp.float16
+    jo = np.asarray(jo.astype(jnp.float32))
+    np.testing.assert_allclose(o.float().numpy(), jo, rtol=0,
+                               atol=2 * _fp16_ulp(np.abs(jo).max()))
+    qk = np.einsum("bqhd,bkhd->bhqk", np.abs(q),
+                   np.abs(np.repeat(k, h // kh, axis=2)))
+    lse_tol = 2.0 ** -11 * (qk.max() / math.sqrt(d) + 1)
     np.testing.assert_allclose(lse.numpy(), np.asarray(jlse), rtol=0,
                                atol=lse_tol)
 

@@ -8,7 +8,8 @@ custom vjp) and the JAX ``_unpadded_impl``.
 
 Tolerances against the JAX package are its own bounds for its varlen
 kernels (``tests/test_varlen_flash.py``): rtol and atol 2e-5 on outputs
-in fp32, rtol and atol 2e-4 on gradients; the bf16 case at one bf16 ulp
+in fp32, rtol and atol 2e-4 on gradients; the fp16 cases at the bf16
+cases' bounds in fp16's ulps; the bf16 case at one bf16 ulp
 of the largest output. Port against port (plain versions, dense path)
 is held to the absolute bounds alone. The tile ranges the CUDA kernels walk are checked here
 too: every visible (q, kv) pair lies inside them.
@@ -127,6 +128,22 @@ def test_plain_forward_bf16_matches_jax_kernel(interpret):
     np.testing.assert_allclose(o.float().numpy(), want, atol=ulp, rtol=0)
 
 
+def test_plain_forward_fp16_matches_jax_kernel(interpret):
+    # the bf16 case's bound in fp16's units: one ulp at the largest |o|
+    q, k, v, cu, _ = varlen_inputs(LENGTHS["pads"])
+    qh, kh, vh = (jnp.asarray(x, jnp.float16) for x in (q, k, v))
+    want = np.asarray(pk.flash_attention_varlen_values(
+        qh, kh, vh, jnp.asarray(cu), jnp.asarray(cu), 0.125, causal=True),
+        np.float32)
+    tq, tk, tv = (torch.from_numpy(np.asarray(x, np.float32))
+                  .to(torch.float16) for x in (qh, kh, vh))
+    tcu = torch.from_numpy(cu)
+    o, _ = ck.flash_attention_varlen_reference(tq, tk, tv, tcu, tcu, True)
+    assert o.dtype == torch.float16
+    ulp = 2.0 ** (math.floor(math.log2(np.abs(want).max())) - 10)
+    np.testing.assert_allclose(o.float().numpy(), want, atol=ulp, rtol=0)
+
+
 @pytest.mark.parametrize("name,causal,d", CASES)
 def test_plain_backward_matches_jax_kernel_grad(name, causal, d, interpret):
     q, k, v, cu, _ = varlen_inputs(LENGTHS[name], d=d)
@@ -182,6 +199,40 @@ def test_plain_backward_bf16_matches_jax_kernel_grad(name, causal,
     tol = 2 * _bf16_ulp(max(np.abs(w).max() for w in want))
     for nm, g, w in zip("qkv", got, want):
         assert g.dtype == torch.bfloat16 and g.shape == w.shape
+        np.testing.assert_allclose(g.float().numpy(), w, atol=tol, rtol=0,
+                                   err_msg=f"d{nm}")
+
+
+@pytest.mark.parametrize("name,causal", [("pads", True), ("pads", False),
+                                         ("one_token", True)])
+def test_plain_backward_fp16_matches_jax_kernel_grad(name, causal,
+                                                     interpret):
+    """The plain K5 in fp16 against ``jax.vjp`` of the JAX varlen kernels
+    in fp16: the bf16 test's bound in fp16's units, two ulps (11
+    significant bits) at the outputs' largest magnitude."""
+    q, k, v, cu, _ = varlen_inputs(LENGTHS[name])
+    q, k, v = (x.astype(np.float16).astype(np.float32) for x in (q, k, v))
+    do = _do(q.shape).astype(np.float16).astype(np.float32)
+    jcu = jnp.asarray(cu)
+    jo, vjp = jax.vjp(
+        lambda q_, k_, v_: pk.flash_attention_varlen_values(
+            q_, k_, v_, jcu, jcu, 0.125, causal=causal),
+        *(jnp.asarray(x, jnp.float16) for x in (q, k, v)))
+    want = [np.asarray(w.astype(jnp.float32))
+            for w in vjp(jnp.asarray(do, jnp.float16))]
+    tq, tk, tv, tdo = (torch.from_numpy(x).to(torch.float16)
+                       for x in (q, k, v, do))
+    tcu = torch.from_numpy(cu)
+    _, lse = ck.flash_attention_varlen_reference(tq, tk, tv, tcu, tcu,
+                                                 causal, 0.125)
+    to = torch.from_numpy(np.array(jo.astype(jnp.float32))).to(
+        torch.float16)
+    got = ck.flash_attention_varlen_bwd_reference(tq, tk, tv, to, lse, tdo,
+                                                  tcu, tcu, causal, 0.125)
+    top = max(np.abs(w).max() for w in want)
+    tol = 2 * 2.0 ** (np.floor(np.log2(top)) - 10)
+    for nm, g, w in zip("qkv", got, want):
+        assert g.dtype == torch.float16 and g.shape == w.shape
         np.testing.assert_allclose(g.float().numpy(), w, atol=tol, rtol=0,
                                    err_msg=f"d{nm}")
 

@@ -54,6 +54,11 @@ def test_importing_the_port_loads_neither_package():
         "import paddle_tpu_torch.vision.models, paddle_tpu_torch.hapi\n"
         "import paddle_tpu_torch.io, paddle_tpu_torch.metric\n"
         "import paddle_tpu_torch.regularizer\n"
+        "import paddle_tpu_torch.amp, paddle_tpu_torch.utils.flags\n"
+        "import paddle_tpu_torch.ops.dispatch, paddle_tpu_torch.ops.math\n"
+        "import paddle_tpu_torch.optimizer.lr\n"
+        "import paddle_tpu_torch.optimizer.lbfgs\n"
+        "import paddle_tpu_torch.observability.perf\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in %r)\n"

@@ -213,10 +213,14 @@ def test_learning_rate_rules():
     assert opt.get_lr() == 0.5
     opt.set_lr(0.25)
     assert opt.get_lr() == 0.25
-    with pytest.raises(TypeError, match="lr.py"):
-        port_opt.SGD(learning_rate=object(), parameters=[p]).get_lr()
-    with pytest.raises(NotImplementedError, match="lr.py"):
-        opt.set_lr_scheduler(object())
+    # a scheduler drives get_lr, and set_lr raises under it
+    sched = port_opt.lr.StepDecay(0.5, step_size=1, gamma=0.5)
+    opt.set_lr_scheduler(sched)
+    assert opt.get_lr() == 0.5
+    sched.step()
+    assert opt.get_lr() == 0.25
+    with pytest.raises(RuntimeError, match="LRScheduler"):
+        opt.set_lr(0.1)
     with pytest.raises(ValueError):
         port_opt.SGD(learning_rate=0.1)
     p.grad = torch.ones(3)

@@ -6,7 +6,8 @@ Cases follow ``tests/test_serving.py`` TestPagedKernel and
 TestPagedVerifyKernel: ragged contexts, a sequence exactly filling a
 page, an append crossing a page, empty tables, KQ in {1, 3, 5}, bf16
 pools. Tolerances: fp32 at K*eps with K the longest context (f32
-accumulation over K terms); bf16 at 48 * 2**-8 (bf16 storage).
+accumulation over K terms); bf16 at 48 * 2**-8 (bf16 storage), fp16 at
+48 * 2**-11 (the same bound in fp16's units).
 
 The plain split-and-combine version (``paged_attention_split_reference``,
 the arithmetic of the bf16 CUDA route: per-split (m, l, acc) in fp32,
@@ -28,6 +29,7 @@ from paddle_tpu.ops import pallas_kernels as pk
 from paddle_tpu_torch.ops import cuda_kernels as ck
 
 BF16_TOL = 48 * 2 ** -8
+FP16_TOL = 48 * 2 ** -11   # the bf16 bound in fp16's units
 
 
 @pytest.fixture
@@ -122,6 +124,21 @@ def test_bf16_pools_match_jax(kq, vs_kernel, interpret):
                                    atol=BF16_TOL)
 
 
+@pytest.mark.parametrize("kq,vs_kernel", [(1, False), (3, True)])
+def test_fp16_pools_match_jax(kq, vs_kernel, interpret):
+    (jq, jk, jv, jbt, jcl), (tq, tk, tv, tbt, tcl) = _both(
+        paged_inputs([23, 48], kq), "float16")
+    got = ck.paged_attention_verify_decode(tq, tk, tv, tbt, tcl)
+    assert got.dtype == torch.float16
+    ref = pk.paged_attention_verify_reference(jq, jk, jv, jbt, jcl)
+    np.testing.assert_allclose(_np(got), _np(ref), rtol=FP16_TOL,
+                               atol=FP16_TOL)
+    if vs_kernel:
+        kern = pk.paged_attention_verify_decode(jq, jk, jv, jbt, jcl)
+        np.testing.assert_allclose(_np(got), _np(kern), rtol=FP16_TOL,
+                                   atol=FP16_TOL)
+
+
 def test_routes_take_the_wrapper_when_the_gate_admits():
     _, (tq, tk, tv, tbt, tcl) = _both(paged_inputs([9, 33], 2))
     assert torch.equal(ck.paged_attention_verify(tq, tk, tv, tbt, tcl),
@@ -212,6 +229,18 @@ def test_split_version_bf16_matches_jax(case, interpret):
                                atol=BF16_TOL)
 
 
+@pytest.mark.parametrize("case", ["split_edges", "verify_crosses_split"])
+def test_split_version_fp16_matches_jax(case, interpret):
+    ctxs, kq, spare, _ = SPLIT_CASES[case]
+    (jq, jk, jv, jbt, jcl), (tq, tk, tv, tbt, tcl) = _both(
+        paged_inputs(ctxs, kq, spare=spare), "float16")
+    got = ck.paged_attention_split_reference(tq, tk, tv, tbt, tcl)
+    assert got.dtype == torch.float16
+    ref = pk.paged_attention_verify_reference(jq, jk, jv, jbt, jcl)
+    np.testing.assert_allclose(_np(got), _np(ref), rtol=FP16_TOL,
+                               atol=FP16_TOL)
+
+
 def test_splits_follow_the_tables_extent():
     # serving's table: 1024 tokens in pages of 16 -> 4 splits of 16 pages
     assert ck.paged_splits(64, 16) == (16, 4)
@@ -253,6 +282,20 @@ def test_split_version_bf16_within_rounding_of_fp32(case):
     ref = ck.paged_attention_verify_reference(tq.float(), tk.float(),
                                               tv.float(), tbt, tcl)
     atol, rtol = paged_tols(got.dtype, max(ctxs), kq, tv)
+    torch.testing.assert_close(got.float(), ref, atol=atol, rtol=rtol)
+
+
+@pytest.mark.parametrize("case", list(SPLIT_CASES))
+def test_split_version_fp16_within_rounding_of_fp32(case):
+    # the bound the card holds the fp16 kernel to (rtol 2**-11)
+    ctxs, kq, spare, _ = SPLIT_CASES[case]
+    _, (tq, tk, tv, tbt, tcl) = _both(paged_inputs(ctxs, kq, spare=spare),
+                                      "float16")
+    got = ck.paged_attention_split_reference(tq, tk, tv, tbt, tcl)
+    ref = ck.paged_attention_verify_reference(tq.float(), tk.float(),
+                                              tv.float(), tbt, tcl)
+    atol, rtol = paged_tols(got.dtype, max(ctxs), kq, tv)
+    assert rtol == 2 ** -11
     torch.testing.assert_close(got.float(), ref, atol=atol, rtol=rtol)
 
 

@@ -314,6 +314,14 @@ class TestEngineParity:
         with pytest.raises(RuntimeError, match='device="cpu"'):
             serve(pm, [([1, 2, 3], 2)])
 
+    def test_engine_refuses_rmsnorm_models_as_jax_does(self):
+        jm, pm = tiny_models(seed=0, max_seq_len=96, use_rmsnorm=True)
+        with pytest.raises(NotImplementedError) as jerr:
+            JEngine(jm, JConfig(page_size=16))
+        with pytest.raises(NotImplementedError) as perr:
+            ServingEngine(pm, ServingConfig(page_size=16), device=CPU)
+        assert str(perr.value) == str(jerr.value)
+
     def test_compile_cache_is_not_ported_yet(self):
         with pytest.raises(NotImplementedError):
             ServingConfig(compile_cache_dir="somewhere")
