@@ -21,10 +21,21 @@ it drives the port's main paths, each with the launch counts (in all and
 by route) set to 0 just before it and read just after:
 
 - serving: GPT-124M at full width (random weights from a seed) through
-  ``ServingEngine`` with and without speculative decoding (TTFT, TPOT and
-  K1's device time per decode step, from one more run under the
-  profiler), and the fp32 engine's greedy tokens against the port's own
-  ``generate`` plus a full-width forward against the dense path;
+  ``ServingEngine`` with and without speculative decoding, each with the
+  compile cache off (eager steps) and on (decode and verify replayed from
+  CUDA graphs; the same tokens required, TPOT and tokens/s side by side),
+  K1's device time per decode step from one more run under the profiler,
+  and the fp32 engine's greedy tokens against the port's own ``generate``
+  plus a full-width forward against the dense path;
+- the serving fleet: GPT-124M in fp32 from a bundle, the port's
+  ``TCPStore``, a ``ServingRouter``, replica A in this process with the
+  compile cache on, and replica B spawned by ``Autoscaler.scale_out`` as
+  a process through the replica CLI, finding A's cache entries; 16
+  requests arrive every 50 ms, ``Autoscaler.scale_in`` drains a replica
+  halfway, every request must come back ok with the tokens of one engine
+  with the cache off, and K1 must launch once per layer and dispatch of
+  A, graph replays counted (wall time, tokens/s, TTFT and TPOT p50,
+  re-routed requests, cache hits, misses and graphs per replica);
 - training: GPT-124M pretraining steps as ``bench.py`` runs them (batch
   16 x 1024 tokens, bf16 O2, AdamW at lr 1e-4) through
   ``CompiledTrainStep``, per call and through ``run_steps``; then a
@@ -646,21 +657,28 @@ def serving_requests(torch, vocab, seed=0):
     return [Request(p, max_new_tokens=32) for p in prompts]
 
 
-def run_engine(torch, model, requests, **cfg):
+def run_engine(torch, model, requests, ck=None, **cfg):
+    """Serve ``requests`` through one engine; the stats count from after
+    the engine's construction (with the compile cache on, its capture),
+    K1's launches in that span among them when ``ck`` is given."""
     from paddle_tpu_torch.inference.serving import (ServingConfig,
                                                     ServingEngine)
     from paddle_tpu_torch.observability.metrics import percentile
     eng = ServingEngine(model, ServingConfig(page_size=16, max_batch=8,
                                              **cfg), device="cuda")
     torch.cuda.synchronize()
+    before = ck.PAGED_ATTENTION.launches if ck is not None else 0
     t0 = time.perf_counter()
     for r in requests:
+        # TTFT counts from the run's start, not from when the request
+        # was built (before the engine and, cache on, its capture)
+        r.arrival_t = t0
         eng.submit(r)
     eng.run_until_done()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     new_tokens = sum(len(r.output_tokens) for r in requests)
-    return eng, {
+    stats = {
         "requests": len(requests), "new_tokens": new_tokens,
         "wall_s": wall, "tokens_per_s": new_tokens / wall,
         "ttft_p50_ms": percentile([r.ttft_s * 1e3 for r in requests], 0.5),
@@ -670,9 +688,23 @@ def run_engine(torch, model, requests, **cfg):
         "prefix_hit_requests": sum(r.prefix_hit_tokens > 0
                                    for r in requests),
     }
+    if ck is not None:
+        stats["paged_attention_launches"] = \
+            ck.PAGED_ATTENTION.launches - before
+    if eng.compile_cache is not None:
+        c = eng.compile_cache
+        stats["compile_cache"] = {"hits": c.hits, "misses": c.misses,
+                                  "refusals": c.refusals,
+                                  "graphs": c.graphs}
+    return eng, stats
 
 
 def phase_serving(torch, ck, smi):
+    """GPT-124M bf16 serving, spec off and spec k = 4, each with the
+    compile cache off (eager steps) and on (decode and verify replayed
+    from CUDA graphs): the same tokens both ways, TPOT and tokens/s side
+    by side, and K1 once per layer and dispatch, replays counted."""
+    import tempfile
     from paddle_tpu_torch.inference.serving import Request
     from paddle_tpu_torch.text.gpt import GPTForPretraining, gpt_small
     cfg = gpt_small()
@@ -683,33 +715,45 @@ def phase_serving(torch, ck, smi):
                                       max_new_tokens=4)])
     out = {"phase": "serving_bf16", "nvidia_smi": smi,
            "model": "gpt_small (GPT-124M), bf16, random weights seed 0"}
-    before = ck.PAGED_ATTENTION.launches
-    dispatches = 0
+    launches = dispatches = 0
     tokens = {}
-    for label, spec_k in (("spec_off", 0), ("spec_k4", 4)):
-        reqs = serving_requests(torch, cfg.vocab_size)
-        torch.cuda.reset_peak_memory_stats()
-        eng, stats = run_engine(torch, model, reqs, spec_k=spec_k)
-        stats["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
-        if spec_k:
-            stats["verify_steps"] = eng.spec_verify_steps
-            stats["accepted_drafts"] = eng.spec_accepted_total
-        out[label] = stats
-        dispatches += eng.decode_steps
-        tokens[label] = [r.output_tokens for r in reqs]
-        if any(len(r.output_tokens) != 32 for r in reqs):
-            raise AssertionError(f"{label}: a request did not get its 32 "
-                                 "tokens")
-        if stats["prefix_hit_requests"] < 1:
-            raise AssertionError(f"{label}: no prefix-cache hit")
+    with tempfile.TemporaryDirectory(prefix="compile_cache.") as cache_dir:
+        for label, spec_k, cache in (("spec_off", 0, None),
+                                     ("spec_k4", 4, None),
+                                     ("spec_off_graphs", 0, cache_dir),
+                                     ("spec_k4_graphs", 4, cache_dir)):
+            reqs = serving_requests(torch, cfg.vocab_size)
+            torch.cuda.reset_peak_memory_stats()
+            eng, stats = run_engine(torch, model, reqs, ck=ck, spec_k=spec_k,
+                                    compile_cache_dir=cache)
+            stats["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+            if spec_k:
+                stats["verify_steps"] = eng.spec_verify_steps
+                stats["accepted_drafts"] = eng.spec_accepted_total
+            out[label] = stats
+            dispatches += eng.decode_steps
+            launches += stats["paged_attention_launches"]
+            tokens[label] = [r.output_tokens for r in reqs]
+            if any(len(r.output_tokens) != 32 for r in reqs):
+                raise AssertionError(f"{label}: a request did not get its "
+                                     "32 tokens")
+            if stats["prefix_hit_requests"] < 1:
+                raise AssertionError(f"{label}: no prefix-cache hit")
+    out["tpot_p50_ms_cache_off_on"] = {
+        k: [out[k]["tpot_p50_ms"], out[k + "_graphs"]["tpot_p50_ms"]]
+        for k in ("spec_off", "spec_k4")}
+    out["tokens_per_s_cache_off_on"] = {
+        k: [out[k]["tokens_per_s"], out[k + "_graphs"]["tokens_per_s"]]
+        for k in ("spec_off", "spec_k4")}
     # K1's device time per decode step: one more spec-off run under the
     # profiler (its TPOT is not reported: the profiler slows the host)
     reqs = serving_requests(torch, cfg.vocab_size)
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
-        eng, _ = run_engine(torch, model, reqs)
+        eng, stats = run_engine(torch, model, reqs, ck=ck)
     dispatches += eng.decode_steps
+    launches += stats["paged_attention_launches"]
     k1_us = {e.key: e.self_device_time_total for e in prof.key_averages()
              if e.device_type == torch.autograd.DeviceType.CUDA
              and "paged_" in e.key}
@@ -717,15 +761,20 @@ def phase_serving(torch, ck, smi):
         sum(k1_us.values()) / 1e3 / eng.decode_steps
     out["paged_attention_device_us_by_kernel"] = k1_us
     out["profiled_decode_steps"] = eng.decode_steps
-    launches = ck.PAGED_ATTENTION.launches - before
     out["paged_attention_launches"] = launches
     out["dispatches"] = dispatches
     out["spec_on_off_same_tokens"] = tokens["spec_off"] == tokens["spec_k4"]
+    graphs_same = {k: tokens[k] == tokens[k + "_graphs"]
+                   for k in ("spec_off", "spec_k4")}
+    out["graphs_same_tokens"] = graphs_same
     emit(out)
     if launches != cfg.num_layers * dispatches:
         raise AssertionError(
             f"paged attention launched {launches} times for {dispatches} "
             f"dispatches of {cfg.num_layers} layers")
+    if not all(graphs_same.values()):
+        raise AssertionError(f"the compile cache changed tokens: "
+                             f"{graphs_same}")
 
 
 # -- phase 4 ------------------------------------------------------------------
@@ -780,6 +829,281 @@ def phase_exactness_fp32(torch, ck):
     if err > 1e-3:
         raise AssertionError(f"forward disagrees with the dense path by "
                              f"{err}")
+
+
+# -- phase 4b: the serving fleet ---------------------------------------------
+def _first_line(proc, timeout):
+    """The next stdout line of ``proc`` within ``timeout`` seconds, or
+    None (the read runs on a daemon thread; a hung child cannot hang the
+    caller)."""
+    import queue
+    import threading
+    q = queue.Queue()
+    threading.Thread(target=lambda: q.put(proc.stdout.readline()),
+                     daemon=True).start()
+    try:
+        return q.get(timeout=timeout)
+    except queue.Empty:
+        return None
+
+
+def _published_counters(client, rank, names):
+    """{counter: value} from the registry snapshot ``rank`` last published
+    through the membership store (``observability.metrics.publish``)."""
+    from paddle_tpu_torch.observability import metrics
+    try:
+        raw = client.get(f"{metrics._PUBLISH_PREFIX}/r{rank}").decode()
+        snap = json.loads(raw)["metrics"]
+    except (KeyError, ValueError):
+        return {n: None for n in names}
+    return {n: sum(s["value"] for s in snap.get(n, {}).get("series", []))
+            for n in names}
+
+
+def _token_gap(torch, model, prompt, got, want):
+    """Where two greedy continuations of ``prompt`` part: the first
+    differing position and the reference model's top-2 logit gap there."""
+    pos = next(i for i, (a, b) in enumerate(zip(got + [None], want + [None]))
+               if a != b)
+    ids = torch.tensor([prompt + want[:pos]], device="cuda")
+    with torch.no_grad():
+        top = model(ids)[0, -1].float().topk(2).values
+    return {"position": pos, "got": got[pos:pos + 4],
+            "want": want[pos:pos + 4],
+            "top2_logit_gap": float(top[0] - top[1])}
+
+
+def phase_serving_fleet(torch, ck, smi):
+    """GPT-124M fp32 served by a fleet on the one card: the port's
+    ``TCPStore`` server in this process, a ``ServingRouter``, replica A on
+    a thread here with the compile cache on, and replica B, which
+    ``Autoscaler.scale_out`` spawns as a real process through the replica
+    CLI (``--device cuda``, the same cache through
+    ``PADDLE_SERVE_COMPILE_CACHE``). 16 requests go through the router;
+    after half of them complete, ``Autoscaler.scale_in`` drains the least
+    loaded replica (A when the loads allow it). Every request must come
+    back ok with the tokens of one in-process engine on the same weights
+    with the cache off, and K1 must have launched once per layer and
+    dispatch of A, its graph replays counted."""
+    import os
+    import shutil
+    import signal
+    import tempfile
+    import threading
+    from paddle_tpu_torch.distributed.store import TCPStore
+    from paddle_tpu_torch.inference.serving import (
+        Autoscaler, AutoscalerConfig, EngineHarness, ServingConfig,
+        ServingEngine, ServingReplica, ServingRouter, fleet, save_bundle)
+    from paddle_tpu_torch.observability.metrics import percentile
+    from paddle_tpu_torch.text.gpt import GPTForPretraining, gpt_small
+    root = os.path.dirname(os.path.abspath(__file__))
+    cfg = gpt_small()
+    model = GPTForPretraining(cfg, device="cuda", dtype=torch.float32,
+                              seed=0).eval()
+    reqs = serving_requests(torch, cfg.vocab_size, seed=0) \
+        + serving_requests(torch, cfg.vocab_size, seed=1)
+    prompts = [r.prompt_tokens for r in reqs]
+    out = {"phase": "serving_fleet", "nvidia_smi": smi,
+           "model": "gpt_small (GPT-124M), fp32, random weights seed 0",
+           "tf32": False}
+    # the reference: one in-process engine on the same weights, cache off,
+    # at the replicas' configuration (ServingConfig's defaults)
+    ref = ServingEngine(model, ServingConfig(), device="cuda")
+    for r in reqs:
+        ref.submit(r)
+    ref.run_until_done()
+    want = [r.output_tokens for r in reqs]
+    del ref
+    tmp = tempfile.mkdtemp(prefix="serving_fleet.")
+    procs, stop_a = [], threading.Event()
+    server = client = conn_a = thread_a = None
+    try:
+        t0 = time.perf_counter()
+        bundle = os.path.join(tmp, "bundle")
+        digest = save_bundle(model, bundle)
+        out["bundle_save_s"] = time.perf_counter() - t0
+        cache_dir = os.path.join(tmp, "compile_cache")
+        server = TCPStore(port=0, is_master=True)
+        client = TCPStore(port=server.port)
+        fleet.publish_bundle(client, fleet.current_generation(client),
+                             bundle, digest)
+        router = ServingRouter(client, hb_timeout=2.0, poll=0.01)
+        # replica A: in this process, its graphs captured before it
+        # attaches (the capture checks each against the eager step)
+        t0 = time.perf_counter()
+        eng_a = ServingEngine(model, ServingConfig(
+            compile_cache_dir=cache_dir), device="cuda")
+        out["replica_a_engine_init_s"] = time.perf_counter() - t0
+        conn_a = TCPStore(port=server.port)
+        rep_a = ServingReplica(conn_a, EngineHarness(eng_a), poll=0.002,
+                               hb_interval=0.2, stop=stop_a)
+        rep_a.attach(bundle_sha=digest)
+        rc = {}
+        thread_a = threading.Thread(
+            target=lambda: rc.__setitem__("a", rep_a.run()), daemon=True)
+        thread_a.start()
+        b_log = os.path.join(tmp, "replica_b.log")
+        spawned = {}
+
+        def spawn():
+            env = dict(os.environ, PYTHONPATH=root,
+                       PADDLE_SERVE_COMPILE_CACHE=cache_dir)
+            t_spawn = time.perf_counter()
+            proc = subprocess.Popen(
+                [sys.executable, "-m",
+                 "paddle_tpu_torch.inference.serving.replica",
+                 "--store", f"127.0.0.1:{server.port}", "--device", "cuda",
+                 "--poll", "0.002", "--hb-interval", "0.2",
+                 "--name", "replica_b"],
+                cwd=root, env=env, stdout=subprocess.PIPE,
+                stderr=open(b_log, "w"), text=True)
+            procs.append(proc)
+            line = _first_line(proc, 300)
+            if not line or not line.startswith("REPLICA_ID="):
+                raise AssertionError(
+                    f"replica B did not attach ({line!r}): "
+                    f"{open(b_log).read()[-3000:]}")
+            spawned["id"] = int(line.strip().split("=", 1)[1])
+            spawned["attach_s"] = time.perf_counter() - t_spawn
+
+        scaler = Autoscaler(router, spawn=spawn, config=AutoscalerConfig(
+            min_replicas=1, max_replicas=2, cooldown_s=0.0))
+        if not scaler.scale_out("forced"):
+            raise AssertionError("the autoscaler did not spawn replica B")
+        b_id = spawned["id"]
+        out["replica_b_spawn_to_attach_s"] = spawned["attach_s"]
+        # B publishes its registry on its first serve-loop beat and then
+        # on the heartbeat cadence (and retires it if it drains): read its
+        # cache counters once it has published
+        names = ("serving_compile_cache_hits",
+                 "serving_compile_cache_misses",
+                 "serving_compile_cache_refusals",
+                 "serving_compile_cache_graphs")
+        deadline = time.perf_counter() + 30.0
+        b_cache = _published_counters(
+            client, fleet.REPLICA_RANK_BASE + b_id, names)
+        while b_cache[names[0]] is None and time.perf_counter() < deadline:
+            time.sleep(0.05)
+            b_cache = _published_counters(
+                client, fleet.REPLICA_RANK_BASE + b_id, names)
+        # from here on, the launches in this process are replica A's
+        k1_before = ck.PAGED_ATTENTION.launches
+        steps_before = eng_a.decode_steps
+        t0 = time.perf_counter()
+        rids = []
+        for p in prompts:
+            # open loop, one arrival every 50 ms: the replicas publish
+            # their occupancy between arrivals, which the router balances
+            rids.append(router.submit(p, max_new_tokens=32))
+            t_next = time.perf_counter() + 0.05
+            while time.perf_counter() < t_next:
+                router.poll()
+                time.sleep(router.poll_interval)
+        while sum(rid in router.results for rid in rids) < len(rids) // 2:
+            router.poll()
+            time.sleep(router.poll_interval)
+        # halfway: wait (5 s at most) for A to rank least loaded, as the
+        # autoscaler ranks replicas, then scale in
+        rank = lambda v: (int(v.occ.get("running", 0))      # noqa: E731
+                          + int(v.occ.get("waiting", 0)),
+                          -v.free_pages, v.i)
+        deadline = time.perf_counter() + 5.0
+        while time.perf_counter() < deadline:
+            views = {v.i: v for v in router._targets(router.discover())}
+            if len(views) == 2 and rank(views[rep_a.replica_id]) \
+                    < rank(views[b_id]):
+                break
+            router.poll()
+            time.sleep(0.005)
+        out["scaled_in_at_completed"] = sum(rid in router.results
+                                            for rid in rids)
+        victim = scaler.scale_in("forced")
+        out["drained_replica"] = "A" if victim == rep_a.replica_id \
+            else "B" if victim == b_id else victim
+        res = router.await_results(rids, timeout=600)
+        wall = time.perf_counter() - t0
+        if victim == rep_a.replica_id:
+            thread_a.join(timeout=60)
+        k1 = ck.PAGED_ATTENTION.launches - k1_before
+        a_steps = eng_a.decode_steps - steps_before
+        statuses = {rid: r["status"] for rid, r in res.items()}
+        got = [res[rid].get("tokens") for rid in rids]
+        mismatched = [{"request": i, "prompt_len": len(prompts[i]),
+                       "replica": res[rid].get("replica"),
+                       **_token_gap(torch, model, prompts[i], got[i],
+                                    want[i])}
+                      for i, rid in enumerate(rids) if got[i] != want[i]]
+        ttft = [res[rid]["ttft_ms"] for rid in rids
+                if "ttft_ms" in res[rid]]
+        tpot = []
+        for rid in rids:
+            r = res[rid]
+            sub = json.loads(client.get(fleet.k_req(rid)).decode())
+            n = len(r.get("tokens") or [])
+            if n > 1 and "ttft_ms" in r:
+                e2e_ms = (r["t_done_unix"] - sub["t_submit_unix"]) * 1e3
+                tpot.append((e2e_ms - r["ttft_ms"]) / (n - 1))
+        c = eng_a.compile_cache
+        out.update({
+            "requests": len(rids),
+            "ok": sum(s == "ok" for s in statuses.values()),
+            "statuses": sorted(set(statuses.values())),
+            "tokens_equal_single_engine": not mismatched,
+            "mismatched": mismatched,
+            "wall_s": wall,
+            "output_tokens": sum(len(g or []) for g in got),
+            "tokens_per_s": sum(len(g or []) for g in got) / wall,
+            "ttft_p50_ms": percentile(ttft, 0.5),
+            "tpot_p50_ms": percentile(tpot, 0.5),
+            "rerouted": sum(bool(router.requeues.get(rid)) for rid in rids),
+            "served_by": {str(k): sum(res[rid].get("replica") == k
+                                      for rid in rids)
+                          for k in (rep_a.replica_id, b_id)},
+            "replica_a_cache": {"hits": c.hits, "misses": c.misses,
+                                "refusals": c.refusals,
+                                "graphs": c.graphs},
+            "replica_b_cache": {
+                "hits": b_cache["serving_compile_cache_hits"],
+                "misses": b_cache["serving_compile_cache_misses"],
+                "refusals": b_cache["serving_compile_cache_refusals"],
+                "graphs": b_cache["serving_compile_cache_graphs"]},
+            "replica_a_dispatches": a_steps,
+            "replica_a_graph_replays": getattr(eng_a._decode, "replays",
+                                              None),
+            "paged_attention_launches_replica_a": k1,
+            "autoscaler": {"scale_outs": scaler.scale_outs,
+                           "scale_ins": scaler.scale_ins}})
+        emit(out)
+        if out["ok"] != len(rids):
+            raise AssertionError(f"fleet requests not all ok: {statuses}")
+        if mismatched:
+            raise AssertionError(f"fleet tokens differ from the single "
+                                 f"engine's: {mismatched}")
+        if not b_cache["serving_compile_cache_hits"]:
+            raise AssertionError(f"replica B recorded no cache hit: "
+                                 f"{b_cache}")
+        if k1 != cfg.num_layers * a_steps or not a_steps:
+            raise AssertionError(
+                f"paged attention launched {k1} times for {a_steps} "
+                f"dispatches of replica A ({cfg.num_layers} layers)")
+        if victim not in (rep_a.replica_id, b_id):
+            raise AssertionError(f"scale-in drained nothing ({victim})")
+    finally:
+        stop_a.set()
+        if thread_a is not None:
+            thread_a.join(timeout=60)   # A drains before its store closes
+        for proc in procs:
+            if proc.poll() is None:
+                proc.send_signal(signal.SIGTERM)
+                try:
+                    proc.wait(timeout=60)
+                except subprocess.TimeoutExpired:
+                    proc.kill()
+                    proc.wait()
+        for c in (conn_a, client, server):
+            if c is not None:
+                c.close()
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 # -- phase 5 ------------------------------------------------------------------
@@ -2271,6 +2595,10 @@ def main():
     paths = (("serving", ("paged_attention", "flash_fwd"),
               lambda: (phase_serving(torch, ck, smi),
                        phase_exactness_fp32(torch, ck))),
+             # the engine's prefill is dense in both packages: K1 is the
+             # one hand-written kernel on the fleet's path
+             ("serving_fleet", ("paged_attention",),
+              lambda: phase_serving_fleet(torch, ck, smi)),
              ("training", ("flash_fwd", "flash_bwd"),
               lambda: (phase_training_bf16(torch, ck, smi),
                        phase_training_exactness_fp32(torch, ck))),

@@ -25,6 +25,15 @@ page 0 is only ever read under a mask. The block tables, context
 lengths, slot pages and offsets reach the kernel as contiguous int32 on
 the device. Each step reads its tokens back with one host transfer.
 
+Decode and verify read their per-step inputs from one int32 and one fp32
+device buffer per program, filled from a (pinned, on the card) host
+staging buffer with one copy each. With the compile cache on
+(``compile_cache_dir`` or ``PADDLE_SERVE_COMPILE_CACHE``), those buffers
+are the static inputs of the CUDA graphs ``compile_cache.py`` captures at
+init: decode at (max_batch, KQ = 1), verify at (max_batch, KQ = spec_k +
+1); each step then copies its inputs in and replays. Prefill stays eager
+(it runs at the tail's exact length, so it has no shape to capture).
+
 Instrumentation: ``serve.step`` / ``serve.admit`` / ``serve.prefill`` /
 ``serve.decode_step`` / ``serve.verify_step`` spans; TTFT/TPOT
 histograms, occupancy and free-page gauges, prefix and token counters.
@@ -33,7 +42,8 @@ Env knobs (docs/SERVING.md): ``PADDLE_SERVE_PAGE_SIZE`` (default 16),
 ``PADDLE_SERVE_NUM_PAGES``, ``PADDLE_SERVE_MAX_BATCH`` (default 8),
 ``PADDLE_SERVE_PREFILL_BUDGET`` (tokens/step, default 512),
 ``PADDLE_SERVE_PREFIX_CACHE`` (default on), ``PADDLE_SERVE_SPEC_K``,
-``PADDLE_SERVE_SPEC_NGRAM``, ``PADDLE_SERVE_QUEUE_LIMIT``.
+``PADDLE_SERVE_SPEC_NGRAM``, ``PADDLE_SERVE_QUEUE_LIMIT``,
+``PADDLE_SERVE_COMPILE_CACHE``.
 """
 from __future__ import annotations
 
@@ -87,11 +97,11 @@ class ServingConfig:
                  spec_ngram=None, compile_cache_dir=None, queue_limit=None):
         env = os.environ.get
         self.page_size = int(page_size or env("PADDLE_SERVE_PAGE_SIZE", 16))
-        if compile_cache_dir or env("PADDLE_SERVE_COMPILE_CACHE"):
-            raise NotImplementedError(
-                "the port has no executable cache yet (compile_cache.py is "
-                "still to port)")
-        self.compile_cache_dir = None
+        # compile cache: a directory turns on CUDA-graph capture of decode
+        # and verify, with manifests shared by every replica reading it
+        self.compile_cache_dir = compile_cache_dir \
+            if compile_cache_dir is not None \
+            else (env("PADDLE_SERVE_COMPILE_CACHE", "") or None)
         self.max_batch = int(max_batch or env("PADDLE_SERVE_MAX_BATCH", 8))
         self.prefill_token_budget = int(
             prefill_token_budget or env("PADDLE_SERVE_PREFILL_BUDGET", 512))
@@ -354,12 +364,109 @@ class ServingEngine:
         self.spec_verify_steps = 0     # per-sequence verify dispatches
         self.spec_accepted_total = 0   # accepted draft tokens
         self.spec_committed_total = 0  # accepted + bonus tokens
+        # the step programs: the eager step functions, or (compile cache
+        # on) their CUDA graphs, captured here at init so the first
+        # request never pays a capture
+        self._staged = {}              # program -> staging buffers
+        self._decode = decode_step
+        self._verify = verify_step
+        self.compile_cache = None
+        if c.compile_cache_dir:
+            from .compile_cache import CompileCache
+            self.compile_cache = CompileCache(c.compile_cache_dir)
+            fn, args = self.decode_capture_args()
+            self._decode = self.compile_cache.adopt(
+                fn, args, "serving/decode_step", meta=self.cache_meta())
+            if self.speculator is not None:
+                fn, args = self.verify_capture_args()
+                self._verify = self.compile_cache.adopt(
+                    fn, args, "serving/verify_step", meta=self.cache_meta())
 
     def _to_device(self, dtype, *rows):
         """Flat number lists -> 1-D device tensors of ``dtype``, in one
         host-to-device copy."""
         flat = torch.tensor([v for r in rows for v in r], dtype=dtype)
         return list(flat.to(self.device).split([len(r) for r in rows]))
+
+    # -- the step programs' inputs -------------------------------------------
+    def _staging(self, program, int_shapes, float_rows):
+        """``program``'s input buffers, made on first use: one int32 and
+        one fp32 device buffer split into views of ``int_shapes`` and of
+        ``float_rows``' (shape, initial value) pairs, each filled from a
+        host buffer (pinned on the card). The views are the program's
+        inputs, and with the compile cache on its graph's static inputs."""
+        st = self._staged.get(program)
+        if st is not None:
+            return st
+        pin = self.device.type == "cuda"
+        bufs, views = [], []
+        for dtype, shapes in ((torch.int32, int_shapes),
+                              (torch.float32, [sh for sh, _ in float_rows])):
+            sizes = [math.prod(sh) for sh in shapes]
+            host = torch.zeros(sum(sizes), dtype=dtype, pin_memory=pin)
+            dev = torch.zeros_like(host, device=self.device) if pin else host
+            bufs.append((host, dev))
+            views.append([v.view(sh) for v, sh in
+                          zip(dev.split(sizes), shapes)])
+        for v, (_, init) in zip(views[1], float_rows):
+            v.fill_(init)
+        bufs[1][0].copy_(bufs[1][1])
+        st = self._staged[program] = (bufs, views)
+        return st
+
+    def _stage(self, program, int_rows, float_rows):
+        """Write the step's flat host rows into ``program``'s staging
+        buffers: one host write and one copy to the device per dtype."""
+        bufs, _ = self._staged[program]
+        for (host, dev), rows in zip(bufs, (int_rows, float_rows)):
+            host.numpy()[:] = [v for r in rows for v in r]
+            if dev is not host:
+                dev.copy_(host, non_blocking=True)
+
+    def cache_meta(self):
+        """The model config the compile cache's manifests record."""
+        cfg = self.model_config
+        return {"model": {k: getattr(cfg, k) for k in (
+            "vocab_size", "hidden_size", "num_layers", "num_heads",
+            "intermediate_size", "max_seq_len", "use_rmsnorm",
+            "tie_word_embeddings")}}
+
+    def decode_capture_args(self):
+        """(step function, arguments) of the decode step at this
+        engine's fixed shapes: batch max_batch, one query row per slot.
+        The per-step inputs are the staging views, all slots inactive."""
+        b, maxp = self.config.max_batch, self.max_pages_per_seq
+        _, (vi, vf) = self._staging(
+            "serving/decode_step",
+            [(b,), (b,), (b, maxp), (b,), (b,), (b,), (b,), (b,)],
+            [((b,), 0.0), ((b,), 1.0)])
+        tokens, positions, tables, ctx, spages, soffs, seeds, top_ks = vi
+        temps, top_ps = vf
+        return decode_step, (
+            self.params, self.cache.k, self.cache.v, tokens, positions,
+            tables, ctx, spages, soffs, seeds, temps, top_ks, top_ps,
+            self.num_heads)
+
+    def verify_capture_args(self, spec_k=None):
+        """(step function, arguments) of the speculative verify step at
+        this engine's fixed shapes: batch max_batch, k + 1 query rows per
+        slot."""
+        k = int(spec_k if spec_k is not None else self.config.spec_k)
+        if k < 1:
+            raise ValueError("verify capture needs spec_k >= 1")
+        b, maxp, kp1 = self.config.max_batch, self.max_pages_per_seq, k + 1
+        _, (vi, vf) = self._staging(
+            f"serving/verify_step_k{k}",
+            [(b, kp1), (b, kp1), (b, maxp), (b,), (b, kp1), (b, kp1),
+             (b, k), (b,), (b,)],
+            [((b,), 0.0), ((b,), 1.0)])
+        tokens, positions, tables, ctx0, spages, soffs, drafts, seeds, \
+            top_ks = vi
+        temps, top_ps = vf
+        return verify_step, (
+            self.params, self.cache.k, self.cache.v, tokens, positions,
+            tables, ctx0, spages, soffs, drafts, seeds, temps, top_ks,
+            top_ps, self.num_heads)
 
     # -- request side --------------------------------------------------------
     def submit(self, request):
@@ -507,18 +614,13 @@ class ServingEngine:
             seeds[i], temps[i], top_ks[i], top_ps[i] = \
                 self._sampling_row(seq.request)
             active.append(seq)
-        (tokens_t, positions_t, tables_t, ctx_t, spages_t, soffs_t,
-         seeds_t, top_ks_t) = self._to_device(
-            torch.int32, tokens, positions, _flat(tables), ctx, spages,
-            soffs, seeds, top_ks)
-        temps_t, top_ps_t = self._to_device(torch.float32, temps, top_ps)
+        _, args = self.decode_capture_args()
+        self._stage("serving/decode_step",
+                    [tokens, positions, _flat(tables), ctx, spages, soffs,
+                     seeds, top_ks], [temps, top_ps])
         with trace.span("serve.decode_step", occupancy=len(active),
                         batch=b, rids=[s.request.rid for s in active]):
-            nxt = decode_step(
-                self.params, self.cache.k, self.cache.v, tokens_t,
-                positions_t, tables_t.reshape(b, maxp), ctx_t, spages_t,
-                soffs_t, seeds_t, temps_t, top_ks_t, top_ps_t,
-                self.num_heads)
+            nxt = self._decode(*args)
             out = nxt.tolist()          # the step's one host transfer
         self.decode_steps += 1
         for seq in active:
@@ -587,21 +689,15 @@ class ServingEngine:
             seeds[i], temps[i], top_ks[i], top_ps[i] = \
                 self._sampling_row(req)
             active.append(seq)
-        (tokens_t, positions_t, tables_t, ctx_t, spages_t, soffs_t,
-         drafts_t, seeds_t, top_ks_t) = self._to_device(
-            torch.int32, _flat(tokens), _flat(positions), _flat(tables),
-            ctx0, _flat(spages), _flat(soffs), _flat(drafts), seeds, top_ks)
-        temps_t, top_ps_t = self._to_device(torch.float32, temps, top_ps)
+        _, args = self.verify_capture_args()
+        self._stage(f"serving/verify_step_k{k}",
+                    [_flat(tokens), _flat(positions), _flat(tables), ctx0,
+                     _flat(spages), _flat(soffs), _flat(drafts), seeds,
+                     top_ks], [temps, top_ps])
         with trace.span("serve.verify_step", occupancy=len(active),
                         batch=b, spec_k=k,
                         rids=[s.request.rid for s in active]):
-            samples, n_acc = verify_step(
-                self.params, self.cache.k, self.cache.v,
-                tokens_t.reshape(b, kp1), positions_t.reshape(b, kp1),
-                tables_t.reshape(b, maxp), ctx_t,
-                spages_t.reshape(b, kp1), soffs_t.reshape(b, kp1),
-                drafts_t.reshape(b, k), seeds_t, temps_t, top_ks_t,
-                top_ps_t, self.num_heads)
+            samples, n_acc = self._verify(*args)
             # one transfer for both results
             both = torch.cat([samples, n_acc[:, None].to(samples.dtype)],
                              dim=1).tolist()

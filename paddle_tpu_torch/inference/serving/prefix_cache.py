@@ -50,6 +50,7 @@ class PrefixCache:
         self._refs = {}                     # key -> refcount
         self._by_page = {}                  # page_id -> key
         self._lru = OrderedDict()           # key -> None (refcount == 0)
+        self._touched = OrderedDict()       # resident key, publish recency
         self.hits = 0
         self.lookups = 0
         if enabled:
@@ -151,6 +152,14 @@ class PrefixCache:
             self._refs[key] = 1                # held by this sequence
             table.shared[i] = True             # release() -> self.release
             published += 1
+        # affinity index: every key of this prompt's resident chain
+        # refreshes its recency, so a shared system prefix, touched by
+        # every follower, stays at the hot end of the bounded digest the
+        # replica advertises while one-off tails age out first
+        for k in keys[:len(table.pages)]:
+            if k in self._pages:
+                self._touched[k] = None
+                self._touched.move_to_end(k)
         return published
 
     # -- reclaim (the allocator's hook) --------------------------------------
@@ -164,8 +173,23 @@ class PrefixCache:
             page = self._pages.pop(key)
             self._by_page.pop(page, None)
             self._refs.pop(key, None)
+            # an evicted key stops being advertised (the router treats
+            # affinity as a hint; the prefill-time re-lookup stays exact)
+            self._touched.pop(key, None)
             return page
         return None
+
+    def chain_heads(self, limit=32):
+        """The most-recently-touched resident chain keys, newest first,
+        at most ``limit``: the affinity digest a replica publishes beside
+        its occupancy gauges. The keys are ``_chunk_keys``' own, which the
+        router recomputes a prompt's chain with, so the two sides cannot
+        drift."""
+        if not self.enabled or not self._touched:
+            return []
+        out = list(self._touched)[-int(limit):]
+        out.reverse()
+        return out
 
     # -- introspection -------------------------------------------------------
     @property

@@ -56,7 +56,8 @@ def filter_logits(logits, temps, top_ks, top_ps):
     srt = torch.sort(lg, dim=-1, descending=True).values
     kth_idx = top_ks.long().clamp(1, v) - 1
     kth = srt.gather(-1, kth_idx[:, None])
-    neg_inf = torch.tensor(float("-inf"), device=lg.device)
+    # a fill, not a host-to-device copy: this runs inside captured graphs
+    neg_inf = lg.new_full((), float("-inf"))
     lg = torch.where((top_ks > 0)[:, None] & (lg < kth), neg_inf, lg)
     probs = torch.softmax(srt, dim=-1)
     cum = torch.cumsum(probs, dim=-1)
@@ -75,3 +76,33 @@ def sample_tokens(logits, seeds, positions, temps, top_ks, top_ps):
     u = token_uniforms(seeds, positions, logits.shape[-1])
     sampled = (filtered - torch.log(-torch.log(u))).argmax(dim=-1)
     return torch.where(temps > 0, sampled, greedy).to(torch.int32)
+
+
+def speculative_accept(key, p_logits, q_probs, draft_token):
+    """Textbook speculative-sampling acceptance for one position with a
+    general draft distribution q: accept ``draft_token`` (drawn from q)
+    with probability min(1, p/q), else resample from the residual
+    norm(max(p - q, 0)). Returns (accepted bool tensor, committed int32
+    token). The committed token is distributed exactly as p whatever q
+    is. ``key`` is a (seed, position) pair: as every draw here, both
+    uniforms are pure functions of it (the accept uniform from the pair,
+    the residual draw from the pair with its seed re-mixed), where the
+    reference splits a PRNG key. The serving engine's n-gram draft is the
+    point-mass case, which ``sample_tokens``' recompute-and-compare
+    covers."""
+    seed, pos = (int(x) for x in key)
+    dev = p_logits.device
+    v = p_logits.shape[-1]
+    u = token_uniforms(torch.tensor([seed, seed ^ 0x5BD1E995], device=dev),
+                       torch.tensor([pos, pos], device=dev), v)
+    p = torch.softmax(p_logits.float(), dim=-1)
+    q = q_probs.float()
+    ratio = p[draft_token] / q[draft_token].clamp_min(1e-30)
+    accepted = u[0, 0] < ratio.clamp_max(1.0)
+    resid = (p - q).clamp_min(0.0)
+    resid = resid / resid.sum().clamp_min(1e-30)
+    resampled = (torch.log(resid + 1e-38) - torch.log(-torch.log(u[1]))) \
+        .argmax()
+    token = torch.where(accepted, torch.as_tensor(draft_token, device=dev),
+                        resampled).to(torch.int32)
+    return accepted, token

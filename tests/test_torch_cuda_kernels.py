@@ -409,6 +409,113 @@ def test_engine_runs_every_layer_through_the_paged_kernel(cuda_device):
             assert r.output_tokens == want.tolist()
 
 
+def _graph_engine(cuda_device, dtype, cache_dir, spec_k=0):
+    from paddle_tpu_torch.inference.serving import (Request, ServingConfig,
+                                                    ServingEngine)
+    from paddle_tpu_torch.text.gpt import GPTConfig, GPTForPretraining
+    cfg = GPTConfig(vocab_size=128, hidden_size=128, num_layers=2,
+                    num_heads=2, max_seq_len=256)
+    model = GPTForPretraining(cfg, device=cuda_device, seed=0,
+                              dtype=getattr(torch, dtype)).eval()
+    eng = ServingEngine(model, ServingConfig(
+        page_size=16, max_batch=4, spec_k=spec_k,
+        compile_cache_dir=cache_dir and str(cache_dir)), device=cuda_device)
+    rng = np.random.default_rng(1)
+    for n in (5, 16, 40):
+        eng.submit(Request(rng.integers(1, 128, n).tolist(),
+                           max_new_tokens=24))
+    return eng, cfg
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+@pytest.mark.parametrize("program", ["decode", "verify"])
+def test_captured_step_replays_the_eager_step_bit_identically(
+        cuda_device, tmp_path, program, dtype):
+    """Mid-serve, with live slots in the pools: the step's staged inputs
+    run once eagerly and once as the captured graph's replay from the
+    same pool state; outputs and pools agree bit for bit, and the replay
+    adds its K1 launches (one per layer) to the counts."""
+    from paddle_tpu_torch.inference.serving import engine as engine_mod
+    from paddle_tpu_torch.inference.serving.compile_cache import \
+        CapturedStep
+    eng, cfg = _graph_engine(cuda_device, dtype, tmp_path,
+                             spec_k=3 if program == "verify" else 0)
+    for _ in range(4):
+        eng.step()
+    captured = eng._verify if program == "verify" else eng._decode
+    assert isinstance(captured, CapturedStep)
+    eager_fn = engine_mod.verify_step if program == "verify" \
+        else engine_mod.decode_step
+    _, args = eng.verify_capture_args() if program == "verify" \
+        else eng.decode_capture_args()
+    assert int(args[6].count_nonzero()) > 0      # live slots
+    k0, v0 = eng.cache.k.clone(), eng.cache.v.clone()
+    eager = [t.clone() for t in
+             (eager_fn(*args) if program == "verify"
+              else (eager_fn(*args),))]
+    k_e, v_e = eng.cache.k.clone(), eng.cache.v.clone()
+    eng.cache.k.copy_(k0)
+    eng.cache.v.copy_(v0)
+    before = ck.PAGED_ATTENTION.launches
+    out = captured(*args)
+    replayed = list(out) if program == "verify" else [out]
+    torch.cuda.synchronize()
+    assert ck.PAGED_ATTENTION.launches - before == cfg.num_layers
+    for a, b in zip(eager, replayed):
+        assert torch.equal(a, b)
+    assert torch.equal(eng.cache.k, k_e) and torch.equal(eng.cache.v, v_e)
+
+
+def test_graph_engine_serves_the_eager_tokens_with_replays_counted(
+        cuda_device, tmp_path):
+    """The cache on against off, plain and speculative (fp32, exact): the
+    first engine misses and checks each capture, a second engine over the
+    same directory hits; after init, K1 launches = layers x dispatches."""
+    results = {}
+    for spec_k in (0, 3):
+        for label, cache_dir in (("miss", tmp_path / f"k{spec_k}"),
+                                 ("hit", tmp_path / f"k{spec_k}"),
+                                 ("off", None)):
+            eng, cfg = _graph_engine(cuda_device, "float32", cache_dir,
+                                     spec_k=spec_k)
+            if cache_dir is not None:
+                c = eng.compile_cache
+                programs = 2 if spec_k else 1
+                assert c.graphs == programs
+                assert (c.hits, c.misses) == ((0, programs)
+                                              if label == "miss"
+                                              else (programs, 0))
+            before = ck.PAGED_ATTENTION.launches
+            done = eng.run_until_done()
+            assert ck.PAGED_ATTENTION.launches - before \
+                == cfg.num_layers * eng.decode_steps
+            results[spec_k, label] = sorted(
+                (r.prompt_tokens, r.output_tokens) for r in done)
+        assert results[spec_k, "miss"] == results[spec_k, "hit"] \
+            == results[spec_k, "off"]
+
+
+def test_a_capture_that_fails_raises(cuda_device, tmp_path):
+    from paddle_tpu_torch.inference.serving.compile_cache import \
+        CompileCache
+
+    def fails_under_capture(x):
+        y = x * 2
+        if torch.cuda.is_current_stream_capturing():
+            raise ValueError("refuses to be captured")
+        return y
+
+    cache = CompileCache(str(tmp_path))
+    x = torch.ones(8, device=cuda_device)
+    with pytest.raises(RuntimeError, match="capture of probe failed"):
+        cache.adopt(fails_under_capture, (x,), "probe")
+    assert cache.graphs == 0 and not list(tmp_path.iterdir())
+    # the card is usable afterwards, and a capturable step captures
+    got = cache.adopt(lambda t: t * 3, (x,), "probe")
+    assert torch.equal(got(torch.full((8,), 2.0, device=cuda_device)),
+                       torch.full((8,), 6.0, device=cuda_device))
+
+
 # K4/K5, packed varlen attention: (q lengths, k lengths or None for q's,
 # d, causal). Tolerances as K2's and K3's. The last five sit at the edges
 # of the tensor-core route's tiles: T = 163 (not a multiple of 4 or 64:

@@ -59,6 +59,23 @@ def test_importing_the_port_loads_neither_package():
         "import paddle_tpu_torch.optimizer.lr\n"
         "import paddle_tpu_torch.optimizer.lbfgs\n"
         "import paddle_tpu_torch.observability.perf\n"
+        "import paddle_tpu_torch.distributed.store\n"
+        "import paddle_tpu_torch.distributed.substrate\n"
+        "import paddle_tpu_torch.distributed.elastic\n"
+        "import paddle_tpu_torch.utils.native_build\n"
+        "import paddle_tpu_torch.observability.metrics\n"
+        "import paddle_tpu_torch.observability.trace\n"
+        "import paddle_tpu_torch.observability.requesttrace\n"
+        "import paddle_tpu_torch.observability.flight\n"
+        "import paddle_tpu_torch.observability.slo\n"
+        "import paddle_tpu_torch.observability.expo\n"
+        "import paddle_tpu_torch.inference.serving.compile_cache\n"
+        "import paddle_tpu_torch.inference.serving.fleet\n"
+        "import paddle_tpu_torch.inference.serving.degrade\n"
+        "import paddle_tpu_torch.inference.serving.replica\n"
+        "import paddle_tpu_torch.inference.serving.router\n"
+        "import paddle_tpu_torch.inference.serving.load\n"
+        "import paddle_tpu_torch.inference.serving.autoscaler\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in %r)\n"

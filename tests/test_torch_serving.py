@@ -322,9 +322,23 @@ class TestEngineParity:
             ServingEngine(pm, ServingConfig(page_size=16), device=CPU)
         assert str(perr.value) == str(jerr.value)
 
-    def test_compile_cache_is_not_ported_yet(self):
-        with pytest.raises(NotImplementedError):
-            ServingConfig(compile_cache_dir="somewhere")
+    def test_compile_cache_is_not_ported_yet(self, models, tmp_path):
+        """Named before the cache was ported: ``compile_cache_dir`` used to
+        raise. Now the config takes it, and the engine with the cache on
+        serves the tokens of the engine with it off, plain and speculative
+        (exact equality, fp32)."""
+        _, pm = models
+        rng = np.random.RandomState(9)
+        prompts = [rng.randint(1, 128, n).tolist() for n in (7, 20, 33)]
+        for spec_k in (0, 3):
+            cfg = ServingConfig(compile_cache_dir=str(tmp_path / "cc"))
+            assert cfg.compile_cache_dir == str(tmp_path / "cc")
+            on, on_reqs = _run_port(pm, prompts, 8, spec_k=spec_k,
+                                    compile_cache_dir=str(tmp_path / "cc"))
+            assert on.compile_cache is not None
+            _, off_reqs = _run_port(pm, prompts, 8, spec_k=spec_k)
+            assert [r.output_tokens for r in on_reqs] \
+                == [r.output_tokens for r in off_reqs]
 
 
 class TestRollbackUnderPressure:
