@@ -657,26 +657,36 @@ def serving_requests(torch, vocab, seed=0):
     return [Request(p, max_new_tokens=32) for p in prompts]
 
 
-def run_engine(torch, model, requests, ck=None, **cfg):
+def run_engine(torch, model, requests, ck=None, eager=False, prof=None,
+               **cfg):
     """Serve ``requests`` through one engine; the stats count from after
-    the engine's construction (with the compile cache on, its capture),
-    K1's launches in that span among them when ``ck`` is given."""
+    the engine's construction (its graph capture and check), K1's
+    launches in that span among them when ``ck`` is given. ``eager``
+    sets the engine's decode and verify back to the eager step functions
+    (the reference the graphs are held to); ``prof`` is a profiler the
+    serving alone runs under."""
+    import contextlib
     from paddle_tpu_torch.inference.serving import (ServingConfig,
                                                     ServingEngine)
+    from paddle_tpu_torch.inference.serving import engine as engine_mod
     from paddle_tpu_torch.observability.metrics import percentile
     eng = ServingEngine(model, ServingConfig(page_size=16, max_batch=8,
                                              **cfg), device="cuda")
+    if eager:
+        eng._decode = engine_mod.decode_step
+        eng._verify = engine_mod.verify_step
     torch.cuda.synchronize()
     before = ck.PAGED_ATTENTION.launches if ck is not None else 0
-    t0 = time.perf_counter()
-    for r in requests:
-        # TTFT counts from the run's start, not from when the request
-        # was built (before the engine and, cache on, its capture)
-        r.arrival_t = t0
-        eng.submit(r)
-    eng.run_until_done()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    with prof if prof is not None else contextlib.nullcontext():
+        t0 = time.perf_counter()
+        for r in requests:
+            # TTFT counts from the run's start, not from when the request
+            # was built (before the engine and its capture)
+            r.arrival_t = t0
+            eng.submit(r)
+        eng.run_until_done()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
     new_tokens = sum(len(r.output_tokens) for r in requests)
     stats = {
         "requests": len(requests), "new_tokens": new_tokens,
@@ -700,10 +710,15 @@ def run_engine(torch, model, requests, ck=None, **cfg):
 
 
 def phase_serving(torch, ck, smi):
-    """GPT-124M bf16 serving, spec off and spec k = 4, each with the
-    compile cache off (eager steps) and on (decode and verify replayed
-    from CUDA graphs): the same tokens both ways, TPOT and tokens/s side
-    by side, and K1 once per layer and dispatch, replays counted."""
+    """GPT-124M bf16 serving, spec off and spec k = 4, each three ways:
+    the eager steps (the reference), the engine's CUDA graphs (each
+    checked at init), and the graphs with a compile cache directory (the
+    spec-k4 engine finds the decode manifest the spec-off one stored).
+    The same tokens every way, TPOT and tokens/s side by side, and K1
+    once per layer and dispatch, replays counted. One more spec-off graph
+    run under the profiler takes K1's launches and device time per
+    decode step from the trace, and its launch count must equal the
+    wrapper count."""
     import tempfile
     from paddle_tpu_torch.inference.serving import Request
     from paddle_tpu_torch.text.gpt import GPTForPretraining, gpt_small
@@ -717,64 +732,82 @@ def phase_serving(torch, ck, smi):
            "model": "gpt_small (GPT-124M), bf16, random weights seed 0"}
     launches = dispatches = 0
     tokens = {}
+    ways = ("eager", "graphs", "cache_dir")
     with tempfile.TemporaryDirectory(prefix="compile_cache.") as cache_dir:
-        for label, spec_k, cache in (("spec_off", 0, None),
-                                     ("spec_k4", 4, None),
-                                     ("spec_off_graphs", 0, cache_dir),
-                                     ("spec_k4_graphs", 4, cache_dir)):
-            reqs = serving_requests(torch, cfg.vocab_size)
-            torch.cuda.reset_peak_memory_stats()
-            eng, stats = run_engine(torch, model, reqs, ck=ck, spec_k=spec_k,
-                                    compile_cache_dir=cache)
-            stats["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
-            if spec_k:
-                stats["verify_steps"] = eng.spec_verify_steps
-                stats["accepted_drafts"] = eng.spec_accepted_total
-            out[label] = stats
-            dispatches += eng.decode_steps
-            launches += stats["paged_attention_launches"]
-            tokens[label] = [r.output_tokens for r in reqs]
-            if any(len(r.output_tokens) != 32 for r in reqs):
-                raise AssertionError(f"{label}: a request did not get its "
-                                     "32 tokens")
-            if stats["prefix_hit_requests"] < 1:
-                raise AssertionError(f"{label}: no prefix-cache hit")
-    out["tpot_p50_ms_cache_off_on"] = {
-        k: [out[k]["tpot_p50_ms"], out[k + "_graphs"]["tpot_p50_ms"]]
-        for k in ("spec_off", "spec_k4")}
-    out["tokens_per_s_cache_off_on"] = {
-        k: [out[k]["tokens_per_s"], out[k + "_graphs"]["tokens_per_s"]]
-        for k in ("spec_off", "spec_k4")}
-    # K1's device time per decode step: one more spec-off run under the
-    # profiler (its TPOT is not reported: the profiler slows the host)
+        for way in ways:
+            for spec_k in (0, 4):
+                spec = "spec_k4" if spec_k else "spec_off"
+                label = f"{spec}_{way}"
+                reqs = serving_requests(torch, cfg.vocab_size)
+                torch.cuda.reset_peak_memory_stats()
+                eng, stats = run_engine(
+                    torch, model, reqs, ck=ck, spec_k=spec_k,
+                    eager=way == "eager",
+                    compile_cache_dir=cache_dir if way == "cache_dir"
+                    else None)
+                stats["peak_memory_bytes"] = \
+                    torch.cuda.max_memory_allocated()
+                if spec_k:
+                    stats["verify_steps"] = eng.spec_verify_steps
+                    stats["accepted_drafts"] = eng.spec_accepted_total
+                out[label] = stats
+                dispatches += eng.decode_steps
+                launches += stats["paged_attention_launches"]
+                tokens[spec, way] = [r.output_tokens for r in reqs]
+                if any(len(r.output_tokens) != 32 for r in reqs):
+                    raise AssertionError(f"{label}: a request did not get "
+                                         "its 32 tokens")
+                if stats["prefix_hit_requests"] < 1:
+                    raise AssertionError(f"{label}: no prefix-cache hit")
+    for metric in ("tpot_p50_ms", "tokens_per_s"):
+        out[f"{metric}_eager_graphs_cache_dir"] = {
+            k: [out[f"{k}_{way}"][metric] for way in ways]
+            for k in ("spec_off", "spec_k4")}
+    # K1 in the trace of one more spec-off graph run (its TPOT is not
+    # reported: the profiler slows the host): CUPTI records the kernel
+    # nodes a graph replay launches, and each K1 launch runs each of its
+    # kernels once (bf16: the split-context pass, then the combine)
     reqs = serving_requests(torch, cfg.vocab_size)
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        eng, stats = run_engine(torch, model, reqs, ck=ck)
+    prof = torch.profiler.profile(activities=acts)
+    eng, stats = run_engine(torch, model, reqs, ck=ck, prof=prof)
     dispatches += eng.decode_steps
     launches += stats["paged_attention_launches"]
-    k1_us = {e.key: e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == torch.autograd.DeviceType.CUDA
-             and "paged_" in e.key}
+    k1 = {e.key: (e.count, e.self_device_time_total)
+          for e in prof.key_averages()
+          if e.device_type == torch.autograd.DeviceType.CUDA
+          and "paged_" in e.key}
     out["paged_attention_device_ms_per_decode_step"] = \
-        sum(k1_us.values()) / 1e3 / eng.decode_steps
-    out["paged_attention_device_us_by_kernel"] = k1_us
+        sum(us for _, us in k1.values()) / 1e3 / eng.decode_steps
+    out["paged_attention_traced"] = {k: {"launches": n, "device_us": us}
+                                     for k, (n, us) in k1.items()}
     out["profiled_decode_steps"] = eng.decode_steps
+    want = cfg.num_layers * eng.decode_steps
+    out["profiled_paged_attention_launches"] = {
+        "wrapper": stats["paged_attention_launches"],
+        "layers_x_dispatches": want}
     out["paged_attention_launches"] = launches
     out["dispatches"] = dispatches
-    out["spec_on_off_same_tokens"] = tokens["spec_off"] == tokens["spec_k4"]
-    graphs_same = {k: tokens[k] == tokens[k + "_graphs"]
-                   for k in ("spec_off", "spec_k4")}
-    out["graphs_same_tokens"] = graphs_same
+    same = {f"{spec}_{way}": tokens[spec, way] == tokens[spec, "eager"]
+            for spec, way in tokens}
+    out["same_tokens_as_eager"] = same
+    out["spec_on_off_same_tokens"] = \
+        tokens["spec_off", "eager"] == tokens["spec_k4", "eager"]
     emit(out)
     if launches != cfg.num_layers * dispatches:
         raise AssertionError(
             f"paged attention launched {launches} times for {dispatches} "
             f"dispatches of {cfg.num_layers} layers")
-    if not all(graphs_same.values()):
-        raise AssertionError(f"the compile cache changed tokens: "
-                             f"{graphs_same}")
+    if not k1 or stats["paged_attention_launches"] != want \
+            or any(n != want for n, _ in k1.values()):
+        raise AssertionError(
+            f"K1 in the trace {out['paged_attention_traced']}, counted "
+            f"{stats['paged_attention_launches']} times, against "
+            f"{want} = layers x dispatches")
+    if not all(same.values()):
+        raise AssertionError(f"tokens differ from the eager steps': "
+                             f"{same}")
 
 
 # -- phase 4 ------------------------------------------------------------------

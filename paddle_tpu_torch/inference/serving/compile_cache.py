@@ -1,6 +1,6 @@
 """Compile cache: CUDA-graph capture of the serving engine's fixed-shape
-steps, with a digest-verified manifest on disk (counterpart:
-``paddle_tpu/inference/serving/compile_cache.py``).
+steps, each held to its eager step once, with a digest-verified manifest
+on disk (counterpart: ``paddle_tpu/inference/serving/compile_cache.py``).
 
 The reference persists XLA executables keyed by the fingerprint of their
 StableHLO, so a replica spawned by a scale event deserializes instead of
@@ -9,13 +9,22 @@ cannot be written to disk. What maps across:
 
 - **The artifact** is a ``torch.cuda.CUDAGraph`` of one step at its exact
   shapes: decode at (max_batch, KQ = 1) and verify at (max_batch,
-  KQ = spec_k + 1). ``adopt(step_fn, example_args, program)`` captures
-  ``step_fn`` at ``example_args`` and returns a ``CapturedStep``: a call
-  copies each tensor argument that is not already the captured buffer
-  into it, replays, and returns the captured outputs (valid until the
-  next replay). A graph is bound to its engine's parameter and pool
-  addresses, so capture is per engine. Prefill is not captured: it runs
-  at the tail's exact length, so it has no bucket to capture.
+  KQ = spec_k + 1). On CUDA the engine captures both at init, with or
+  without a cache directory: graph replay is how the port runs them.
+  ``adopt`` captures ``step_fn`` at ``example_args`` and returns a
+  ``CapturedStep``: a call copies each tensor argument that is not
+  already the captured buffer into it, replays, and returns the captured
+  outputs (valid until the next replay). A graph is bound to its
+  engine's parameter and pool addresses, so capture is per engine.
+  Prefill is not captured: it runs at the tail's exact length, so it has
+  no bucket to capture.
+- **The check.** A fresh graph is held to the eager step once, on live
+  inputs: the caller's ``live()`` stages them into the captured input
+  buffers (the engine: every slot active over pages of random K/V, at
+  context lengths spread up to the model length, greedy and sampled rows
+  mixed) and returns the tensors the step writes. The eager step runs,
+  then the replay, which rewrites the same rows; the outputs and the
+  written tensors must agree bit for bit, or ``adopt`` raises.
 - **The entry** ``<dir>/<key>.ptgraph`` is a canonical JSON manifest of
   the program: its name, the argument shapes and dtypes, the model
   config, the device name and compute capability, the torch version and
@@ -24,23 +33,26 @@ cannot be written to disk. What maps across:
   JSON; ``<key>.ptgraph.sha256`` is the digest sidecar. Writes are atomic
   (tmp + rename), so a crashed writer never leaves a torn entry a reader
   could trust.
-- **What a hit saves.** On a miss, ``adopt`` holds the new graph to the
-  eager step once: one replay against one eager call on the same inputs
-  must be bit-identical, and only then is the manifest stored. On a
-  digest-verified hit that check is skipped.
+- **What a hit saves** is the check. An entry is stored only after its
+  program passed the check, so a digest-verified entry says that this
+  program (these shapes, model config, device, torch version and kernel
+  libraries) replays as its eager step does; the engine that finds it
+  trusts its own capture without running the check. Without a cache
+  directory every graph is checked.
 - **Refusals.** A missing sidecar, a digest mismatch or an unreadable
   manifest refuses the entry with its reason: it is counted and traced
-  (``cache.compile_refused``), then treated as a miss. A corrupt cache
-  costs time, never correctness.
-- **On CPU tensors** ``adopt`` returns the eager step unchanged; the
-  manifest, digest and refusal logic still run. **On CUDA tensors** a
-  capture that fails raises: nothing falls back to the eager step.
+  (``cache.compile_refused``), then treated as a miss, so the check runs.
+  A corrupt cache costs time, never correctness.
+- **On CPU tensors** the engine steps eagerly: ``adopt`` returns
+  ``step_fn`` unchanged, and the manifest, digest and refusal logic still
+  run. **On CUDA tensors** a capture that fails raises: nothing falls
+  back to the eager step.
 
 Launch counts. A replay runs no Python, so the wrapper counts of
 ``ops/cuda_kernels.py`` would not see it. The capture records the
-launches per kernel and route that it made, takes them back out of the
-counts (capturing launches nothing on the card), and every replay adds
-them again.
+launches its own thread makes (``cuda_kernels.recording_launches``: a
+capture runs nothing on the card, and a launch another thread makes
+meanwhile is not the graph's), and every replay adds them to the counts.
 
 Threads. Capture runs with ``capture_error_mode="thread_local"``, so CUDA
 work that another thread (a second in-process replica) launches meanwhile
@@ -52,9 +64,9 @@ of a fresh entry (attrs ``program`` and ``key``), the
 ``cache.compile_refused`` event with its ``reason``, and ``fleet.prewarm``
 around ``prewarm``.
 
-Env knob: ``PADDLE_SERVE_COMPILE_CACHE`` — a directory turns the cache on
-(replicas sharing it share manifests); unset or empty leaves it off and
-the engine steps eagerly.
+Env knob: ``PADDLE_SERVE_COMPILE_CACHE`` names the directory (replicas
+sharing it skip the checks one of them made); unset or empty, the engine
+keeps no manifests and checks every graph it captures.
 """
 from __future__ import annotations
 
@@ -85,7 +97,7 @@ COMPILE_CACHE_GRAPHS = metrics.counter(
 
 def from_env(env=None):
     """A ``CompileCache`` when ``PADDLE_SERVE_COMPILE_CACHE`` names a
-    directory, else None (the cache is strictly opt-in)."""
+    directory, else None (no manifests kept: every graph is checked)."""
     path = (env or os.environ).get("PADDLE_SERVE_COMPILE_CACHE", "")
     return CompileCache(path) if path else None
 
@@ -103,16 +115,6 @@ def _spec(leaf):
     if torch.is_tensor(leaf):
         return [list(leaf.shape), str(leaf.dtype).replace("torch.", "")]
     return repr(leaf)
-
-
-def _launch_counts():
-    return {k.name: dict(k.route_launches) for k in ck.KERNELS}
-
-
-def _add_launches(counts, sign=1):
-    for k in ck.KERNELS:
-        for route, n in counts.get(k.name, {}).items():
-            k.route_launches[route] += sign * n
 
 
 class CapturedStep:
@@ -147,9 +149,87 @@ class CapturedStep:
                 raise ValueError(f"{self.program}: argument {a!r} is not "
                                  f"the captured {s!r}")
         self.graph.replay()
-        _add_launches(self.launches)
+        ck.add_launches(self.launches)
         self.replays += 1
         return self.outputs
+
+
+def capture(step_fn, example_args, program):
+    """Warm the step up on a side stream (libraries loaded, cuBLAS
+    handles made), then capture it into a CUDA graph at
+    ``example_args``. A capture that fails raises."""
+    device = next(x for x in _leaves(example_args)
+                  if torch.is_tensor(x)).device
+    side = torch.cuda.Stream(device=device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(side):
+        step_fn(*example_args)
+    torch.cuda.current_stream(device).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    try:
+        with ck.recording_launches() as launches, \
+                torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            out = step_fn(*example_args)
+    except Exception as e:
+        raise RuntimeError(f"CUDA-graph capture of {program} failed: "
+                           f"{type(e).__name__}: {e}") from e
+    COMPILE_CACHE_GRAPHS.inc()
+    return CapturedStep(graph, _leaves(example_args), out, launches,
+                        program)
+
+
+def check(step_fn, example_args, captured, live=None):
+    """Hold ``captured`` to the eager step on the inputs ``live()``
+    stages into ``example_args`` (as they stand when ``live`` is None).
+    ``live()`` returns (the tensors the step writes, a function that
+    undoes the staging). The eager step runs first, then the replay,
+    which rewrites the same rows; outputs and written tensors must be
+    bit-identical, or this raises."""
+    written, restore = live() if live is not None else ((), None)
+    try:
+        eager = [t.clone() for t in _leaves(step_fn(*example_args))]
+        after = [t.clone() for t in written]
+        replayed = _leaves(captured(*example_args))
+        same = all(map(torch.equal, eager, replayed)) \
+            and all(map(torch.equal, after, written))
+    finally:
+        if restore is not None:
+            restore()
+    if not same:
+        raise RuntimeError(f"CUDA graph of {captured.program} replays "
+                           f"differently from the eager step")
+
+
+def adopt(step_fn, example_args, program, cache=None, meta=None,
+          live=None):
+    """The engine's program hook. Returns (the step to call, its
+    manifest). On CUDA tensors the step is ``step_fn`` captured at
+    ``example_args``' exact shapes, checked against the eager step
+    (``check``) unless ``cache`` holds a digest-verified manifest of the
+    program; a manifest checked here is stored in ``cache``. On CPU
+    tensors the step is ``step_fn`` itself, and ``cache`` still looks up
+    and stores the manifest."""
+    device = next((x.device for x in _leaves(example_args)
+                   if torch.is_tensor(x)), torch.device("cpu"))
+    if device.type != "cuda":
+        manifest = CompileCache.manifest(program, example_args, meta,
+                                         device=device)
+        if cache is not None:
+            cache._ensure(manifest, check=None)
+        return step_fn, manifest
+    captured = capture(step_fn, example_args, program)
+    manifest = CompileCache.manifest(program, example_args, meta,
+                                     launches=captured.launches,
+                                     device=device)
+    run_check = lambda: check(step_fn, example_args,  # noqa: E731
+                              captured, live)
+    if cache is None:
+        run_check()
+    else:
+        with cache._lock:
+            cache.graphs += 1
+        cache._ensure(manifest, check=run_check)
+    return captured, manifest
 
 
 class CompileCache:
@@ -273,28 +353,9 @@ class CompileCache:
         COMPILE_CACHE_HITS.inc()
         return key, True
 
-    # -- the engine-facing seam ----------------------------------------------
-    def adopt(self, step_fn, example_args, program, meta=None):
-        """The engine's program hook: on CUDA tensors, capture ``step_fn``
-        at ``example_args``' exact shapes and return the ``CapturedStep``;
-        on CPU tensors, return ``step_fn`` unchanged. Either way the
-        program's manifest is looked up, and on a miss stored (on CUDA,
-        only after the graph replayed bit-identically to the eager
-        step)."""
-        tensors = [x for x in _leaves(example_args) if torch.is_tensor(x)]
-        device = tensors[0].device if tensors else torch.device("cpu")
-        if device.type != "cuda":
-            self._ensure(self.manifest(program, example_args, meta,
-                                       device=device), check=None)
-            return step_fn
-        captured = self._capture(step_fn, example_args, program, device)
-        manifest = self.manifest(program, example_args, meta,
-                                 launches=captured.launches, device=device)
-        self._ensure(manifest, check=lambda: self._check(
-            step_fn, example_args, captured))
-        return captured
-
     def _ensure(self, manifest, check):
+        """Look ``manifest`` up; on a miss run ``check`` (when given),
+        then store the manifest. Returns the key."""
         key, hit = self.lookup(manifest)
         if hit:
             return key
@@ -308,70 +369,22 @@ class CompileCache:
             self.store(key, self.canonical(manifest))
         return key
 
-    def _capture(self, step_fn, example_args, program, device):
-        """Warm the step up on a side stream (libraries loaded, cuBLAS
-        handles made), then capture it."""
-        side = torch.cuda.Stream(device=device)
-        side.wait_stream(torch.cuda.current_stream(device))
-        with torch.cuda.stream(side):
-            step_fn(*example_args)
-        torch.cuda.current_stream(device).wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        before = _launch_counts()
-        try:
-            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
-                out = step_fn(*example_args)
-        except Exception as e:
-            raise RuntimeError(f"CUDA-graph capture of {program} failed: "
-                               f"{type(e).__name__}: {e}") from e
-        after = _launch_counts()
-        launches = {name: {r: after[name][r] - before[name][r]
-                           for r in after[name]} for name in after}
-        # the capture recorded these launches; none ran on the card
-        _add_launches(launches, sign=-1)
-        with self._lock:
-            self.graphs += 1
-        COMPILE_CACHE_GRAPHS.inc()
-        return CapturedStep(graph, _leaves(example_args), out, launches,
-                            program)
-
-    @staticmethod
-    def _check(step_fn, example_args, captured):
-        """One replay against one eager call on the same inputs: the
-        outputs must be bit-identical, or the capture raises."""
-        eager = [t.clone() for t in _leaves(step_fn(*example_args))]
-        replayed = _leaves(captured(*example_args))
-        for a, b in zip(eager, replayed):
-            if not torch.equal(a, b):
-                raise RuntimeError(
-                    f"CUDA graph of {captured.program} replays "
-                    f"differently from the eager step")
-
     # -- pre-warm ------------------------------------------------------------
     def prewarm(self, engine, background=True):
-        """Adopt the engine's whole program set (decode, and verify when
-        speculative) and install it on the engine; the programs the engine
-        already holds as captured steps are counted as ensured. Run it
-        before the engine serves (a replica prewarms before it attaches).
-        ``background=True`` returns the daemon thread immediately; False
-        runs inline and returns the number of programs ensured."""
+        """Ensure the manifests of the engine's whole program set (decode,
+        and verify when speculative) are in this cache, so the replicas a
+        scale event spawns over it skip the checks. The engine captured
+        and checked (or found verified) each program at init; a manifest
+        missing here is stored from the engine's record. ``background=True``
+        returns the daemon thread immediately; False runs inline and
+        returns the number of programs ensured."""
         if background:
             t = threading.Thread(
                 target=self.prewarm, name="compile-cache-prewarm",
                 kwargs={"engine": engine, "background": False}, daemon=True)
             t.start()
             return t
-        ensured = 0
         with trace.span("fleet.prewarm", cache=self.path):
-            programs = [("_decode", engine.decode_capture_args,
-                         "serving/decode_step")]
-            if engine.config.spec_k > 0:
-                programs.append(("_verify", engine.verify_capture_args,
-                                 "serving/verify_step"))
-            for attr, capture_args, program in programs:
-                if not isinstance(getattr(engine, attr), CapturedStep):
-                    fn, args = capture_args()
-                    setattr(engine, attr, self.adopt(
-                        fn, args, program, meta=engine.cache_meta()))
-                ensured += 1
-        return ensured
+            for manifest in engine.programs.values():
+                self._ensure(manifest, check=None)
+        return len(engine.programs)

@@ -27,12 +27,15 @@ the device. Each step reads its tokens back with one host transfer.
 
 Decode and verify read their per-step inputs from one int32 and one fp32
 device buffer per program, filled from a (pinned, on the card) host
-staging buffer with one copy each. With the compile cache on
-(``compile_cache_dir`` or ``PADDLE_SERVE_COMPILE_CACHE``), those buffers
-are the static inputs of the CUDA graphs ``compile_cache.py`` captures at
-init: decode at (max_batch, KQ = 1), verify at (max_batch, KQ = spec_k +
-1); each step then copies its inputs in and replays. Prefill stays eager
-(it runs at the tail's exact length, so it has no shape to capture).
+staging buffer with one copy each. On CUDA those buffers are the static
+inputs of the CUDA graphs ``compile_cache.py`` captures at init and
+holds to the eager steps: decode at (max_batch, KQ = 1), verify at
+(max_batch, KQ = spec_k + 1); each step then copies its inputs in and
+replays. A compile cache directory (``compile_cache_dir`` or
+``PADDLE_SERVE_COMPILE_CACHE``) keeps the checked programs' manifests,
+so engines over it skip the check. Prefill stays eager (it runs at the
+tail's exact length, so it has no shape to capture). On the CPU every
+step runs eagerly.
 
 Instrumentation: ``serve.step`` / ``serve.admit`` / ``serve.prefill`` /
 ``serve.decode_step`` / ``serve.verify_step`` spans; TTFT/TPOT
@@ -55,6 +58,7 @@ import torch
 from ... import resolve_device
 from ...observability import metrics, trace
 from ...ops import cuda_kernels as ck
+from . import compile_cache
 from .kv_cache import PagedKVCache
 from .prefix_cache import PrefixCache
 from .sampling import sample_tokens
@@ -97,8 +101,8 @@ class ServingConfig:
                  spec_ngram=None, compile_cache_dir=None, queue_limit=None):
         env = os.environ.get
         self.page_size = int(page_size or env("PADDLE_SERVE_PAGE_SIZE", 16))
-        # compile cache: a directory turns on CUDA-graph capture of decode
-        # and verify, with manifests shared by every replica reading it
+        # compile cache: where the manifests of checked step graphs are
+        # kept, shared by every replica reading the directory
         self.compile_cache_dir = compile_cache_dir \
             if compile_cache_dir is not None \
             else (env("PADDLE_SERVE_COMPILE_CACHE", "") or None)
@@ -364,23 +368,88 @@ class ServingEngine:
         self.spec_verify_steps = 0     # per-sequence verify dispatches
         self.spec_accepted_total = 0   # accepted draft tokens
         self.spec_committed_total = 0  # accepted + bonus tokens
-        # the step programs: the eager step functions, or (compile cache
-        # on) their CUDA graphs, captured here at init so the first
-        # request never pays a capture
+        # the step programs: on CUDA their graphs, captured and checked
+        # here at init so the first request never pays a capture; on the
+        # CPU the eager step functions
         self._staged = {}              # program -> staging buffers
-        self._decode = decode_step
+        self.programs = {}             # program -> its manifest
+        self.compile_cache = compile_cache.CompileCache(
+            c.compile_cache_dir) if c.compile_cache_dir else None
+        self._decode = self._adopt("serving/decode_step", 1,
+                                   *self.decode_capture_args())
         self._verify = verify_step
-        self.compile_cache = None
-        if c.compile_cache_dir:
-            from .compile_cache import CompileCache
-            self.compile_cache = CompileCache(c.compile_cache_dir)
-            fn, args = self.decode_capture_args()
-            self._decode = self.compile_cache.adopt(
-                fn, args, "serving/decode_step", meta=self.cache_meta())
-            if self.speculator is not None:
-                fn, args = self.verify_capture_args()
-                self._verify = self.compile_cache.adopt(
-                    fn, args, "serving/verify_step", meta=self.cache_meta())
+        if self.speculator is not None:
+            self._verify = self._adopt("serving/verify_step", c.spec_k + 1,
+                                       *self.verify_capture_args())
+
+    def _adopt(self, program, kq, fn, args):
+        """``program``'s step (``compile_cache.adopt``), its graph checked
+        on a live batch of ``kq`` query rows per slot."""
+        step, self.programs[program] = compile_cache.adopt(
+            fn, args, program, cache=self.compile_cache,
+            meta=self.cache_meta(),
+            live=lambda: self._stage_check_batch(kq))
+        return step
+
+    def _stage_check_batch(self, kq):
+        """Stage a live batch into the inputs of the step with ``kq``
+        query rows per slot, for the check of its graph
+        (``compile_cache.check``): every slot active over pages of its
+        own filled with random K/V, at context lengths spread up to the
+        model length, greedy and sampled rows mixed. Returns the tensors
+        the step writes (the pools) and the function that zeroes the
+        pages and frees them again."""
+        b, maxp, ps = self.config.max_batch, self.max_pages_per_seq, \
+            self.page_size
+        k = kq - 1
+        g = torch.Generator().manual_seed(0)
+        vocab = self.params["wte"].shape[0]
+        per_slot = self.cache.free_page_count // b
+        rows = {n: [[0] * kq for _ in range(b)] for n in (
+            "tokens", "positions", "spages", "soffs")}
+        tables = [[0] * maxp for _ in range(b)]
+        ctx, seeds, top_ks = [0] * b, [0] * b, [0] * b
+        temps, top_ps = [0.0] * b, [1.0] * b
+        pages = []
+        for i in range(b):
+            n = min((i + 1) * (self.max_model_len - kq) // b,
+                    per_slot * ps - kq)           # committed tokens
+            if n < 0:
+                continue                          # no room: inactive
+            own = [self.cache.allocate_page()
+                   for _ in range(-(-(n + kq) // ps))]
+            pages += own
+            tables[i][:len(own)] = own
+            rows["tokens"][i] = torch.randint(1, vocab, (kq,),
+                                              generator=g).tolist()
+            rows["positions"][i] = list(range(n, n + kq))
+            rows["spages"][i] = [own[(n + j) // ps] for j in range(kq)]
+            rows["soffs"][i] = [(n + j) % ps for j in range(kq)]
+            ctx[i] = n + 1
+            seeds[i] = 1000 + i
+            temps[i] = 0.0 if i % 2 == 0 else 0.8
+            top_ks[i], top_ps[i] = (20, 0.9) if i % 4 == 3 else (0, 1.0)
+        ints = [_flat(rows[n]) for n in ("tokens", "positions")] \
+            + [_flat(tables), ctx, _flat(rows["spages"]),
+               _flat(rows["soffs"])]
+        if k:
+            ints.append([t for r in rows["tokens"] for t in r[1:]])
+        self._stage("serving/decode_step" if not k
+                    else f"serving/verify_step_k{k}",
+                    ints + [seeds, top_ks], [temps, top_ps])
+        idx = torch.tensor(pages, dtype=torch.long, device=self.device)
+        dev_gen = torch.Generator(self.device).manual_seed(0)
+        for pool in (self.cache.k, self.cache.v):
+            pool[:, idx] = torch.randn(
+                (pool.shape[0], len(pages)) + pool.shape[2:],
+                generator=dev_gen, device=self.device).to(pool.dtype)
+
+        def restore():
+            for pool in (self.cache.k, self.cache.v):
+                pool[:, idx] = 0
+            for p in pages:
+                self.cache.free_page(p)
+        return (self.cache.k, self.cache.v), restore
 
     def _to_device(self, dtype, *rows):
         """Flat number lists -> 1-D device tensors of ``dtype``, in one
@@ -394,7 +463,7 @@ class ServingEngine:
         one fp32 device buffer split into views of ``int_shapes`` and of
         ``float_rows``' (shape, initial value) pairs, each filled from a
         host buffer (pinned on the card). The views are the program's
-        inputs, and with the compile cache on its graph's static inputs."""
+        inputs, and on CUDA its graph's static inputs."""
         st = self._staged.get(program)
         if st is not None:
             return st

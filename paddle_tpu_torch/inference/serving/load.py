@@ -70,17 +70,14 @@ def synth_requests(n, vocab_size, *, rate=50.0, prompt_lens=(16, 48),
 
 
 def run_open_loop(model, schedule, config=None, static=False,
-                  time_scale=1.0, prewarm=False, device=None):
+                  time_scale=1.0, device=None):
     """Replay ``schedule`` (from ``synth_requests``) open-loop against a
     fresh engine. ``time_scale`` compresses the arrival clock (0 = all
     requests arrive immediately — the backlogged regime benchmarks
-    use). ``prewarm=True`` (needs a configured compile cache) ensures
-    the engine's programs inline BEFORE the arrival clock starts, so
-    measured TTFT excludes capture time — the warmed-fleet regime.
-    ``device`` follows the port's rule. Returns (results, stats)."""
+    use). The arrival clock starts after the engine's construction, so
+    TTFT excludes its graph capture. ``device`` follows the port's rule.
+    Returns (results, stats)."""
     eng = ServingEngine(model, config, device=device)
-    if prewarm and eng.compile_cache is not None:
-        eng.compile_cache.prewarm(eng, background=False)
     if static:
         eng.scheduler.static_batching = True
     t0 = time.perf_counter()

@@ -581,9 +581,9 @@ def main(argv=None):
         from ...ops import cuda_kernels as ck
         ck.build_kernels()
     from .engine import ServingConfig, ServingEngine
-    # with PADDLE_SERVE_COMPILE_CACHE set, the engine captures its decode
-    # (and verify) graphs here, before the replica attaches; prefill stays
-    # eager, so there is nothing left to prewarm in the background
+    # on CUDA the engine captures its decode (and verify) graphs here,
+    # before the replica attaches (PADDLE_SERVE_COMPILE_CACHE lets it skip
+    # their checks); prefill stays eager, so nothing is left to prewarm
     engine = ServingEngine(model, ServingConfig(), device=device)
     stop = threading.Event()
     prev_term = None

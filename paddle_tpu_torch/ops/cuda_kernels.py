@@ -24,7 +24,10 @@ Each kernel sits beside its plain PyTorch version (``*_reference``),
 which the CPU tests and ``chip_smoke.py`` hold the kernel against. A
 wrapper takes the plain version only when every tensor it was given lies
 on the CPU; on CUDA tensors it launches the kernel or raises, and never
-falls back. Each launch adds one to the kernel's ``launches`` count.
+falls back. Each launch adds one to the kernel's ``launches`` count;
+a launch that a CUDA-graph capture records on this thread goes to the
+capture's tally instead (``recording_launches``), and each replay of
+the graph adds the tally to the counts.
 
 The gates (``*_available``) keep the JAX package's shape contract, minus
 its TPU-only backend check and its 512-token floor; they decide by shape
@@ -32,8 +35,10 @@ alone, never by whether a kernel built.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import math
+import threading
 import weakref
 from typing import NamedTuple
 
@@ -44,6 +49,7 @@ from . import _build
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 ROUTES = ("fp32", "bf16", "fp16")   # the route of each dtype code
 _MAX_SMEM = 232448   # bytes of shared memory one H100 block can use
+_RECORDING = threading.local()   # .tally: this thread's capture's tally
 
 
 class Kernel:
@@ -84,7 +90,10 @@ class Kernel:
         if rc != 0:
             raise RuntimeError(f"{self.name} kernel launch failed with CUDA "
                                f"error {rc}")
-        self.route_launches[ROUTES[args[-1]]] += 1
+        tally = getattr(_RECORDING, "tally", None)
+        counts = self.route_launches if tally is None else \
+            tally.setdefault(self.name, dict.fromkeys(ROUTES, 0))
+        counts[ROUTES[args[-1]]] += 1
 
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -125,6 +134,28 @@ def build_kernels():
 def reset_launch_counts():
     for k in KERNELS:
         k.route_launches = dict.fromkeys(ROUTES, 0)
+
+
+@contextlib.contextmanager
+def recording_launches():
+    """Within the block, this thread's launches go to the yielded tally,
+    ``{kernel name: {route: n}}``, not to the counts: a CUDA-graph capture
+    records its kernels and runs none. Other threads count as before."""
+    prev = getattr(_RECORDING, "tally", None)
+    _RECORDING.tally = tally = {}
+    try:
+        yield tally
+    finally:
+        _RECORDING.tally = prev
+
+
+def add_launches(tally):
+    """Add a ``recording_launches`` tally to the counts (one replay of
+    the graph it was recorded for)."""
+    by_name = {k.name: k for k in KERNELS}
+    for name, routes in tally.items():
+        for route, n in routes.items():
+            by_name[name].route_launches[route] += n
 
 
 def _on_cpu(*tensors):

@@ -18,69 +18,12 @@ _REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 _BUILD_DIR = os.path.join(_REPO_ROOT, "build", "native")
 
-# PADDLE_NATIVE_SANITIZE=thread builds every native component under
-# ThreadSanitizer: the threading-heavy store paths (journal,
-# synchronous mirroring, epoch fencing, per-connection handler threads)
-# get data-race coverage instead of hope. PADDLE_NATIVE_SANITIZE=address
-# builds under AddressSanitizer + UBSan: heap/stack
-# overflow, use-after-free (the failover client's retired-connection
-# class), and undefined behavior in the wire-parsing paths. Each
-# instrumented object gets its own cache name (lib<name>.tsan.so /
-# lib<name>.asan.so) so the plain build is never clobbered. NOTE:
-# loading a sanitized .so into an uninstrumented python requires the
-# runtime FIRST — LD_PRELOAD tsan_runtime_path()/asan_runtime_path()
-# into the process (tests/test_store_tsan.py / test_store_asan.py are
-# the canonical drivers).
-SANITIZE_ENV = "PADDLE_NATIVE_SANITIZE"
-_SAN_FLAGS = {
-    "thread": ["-fsanitize=thread", "-O1", "-g", "-fno-omit-frame-pointer"],
-    "address": ["-fsanitize=address,undefined", "-fno-sanitize-recover=all",
-                "-O1", "-g", "-fno-omit-frame-pointer"],
-}
 
-
-def sanitize_mode():
-    mode = os.environ.get(SANITIZE_ENV, "").strip().lower()
-    if mode and mode not in _SAN_FLAGS:
-        raise ValueError(
-            f"unsupported {SANITIZE_ENV}={mode!r} "
-            f"(supported: {sorted(_SAN_FLAGS)})")
-    return mode
-
-
-def _runtime_path(libname):
-    proc = subprocess.run(["g++", f"-print-file-name={libname}"],
-                          capture_output=True, text=True)
-    path = proc.stdout.strip()
-    if proc.returncode == 0 and os.path.isabs(path) and os.path.exists(path):
-        return os.path.realpath(path)
-    return None
-
-
-def tsan_runtime_path():
-    """Absolute path of gcc's libtsan.so for LD_PRELOAD into an
-    uninstrumented host process (python), or None when the toolchain
-    has no TSAN runtime (the sanitizer test leg skips then)."""
-    return _runtime_path("libtsan.so")
-
-
-def asan_runtime_path():
-    """gcc's libasan.so for LD_PRELOAD. UBSan needs
-    no separate preload here: -fsanitize=address,undefined links the
-    ubsan runtime into the instrumented .so itself."""
-    return _runtime_path("libasan.so")
-
-
-def build_shared(name, sources, extra_flags=()):
+def build_shared(name, sources):
     """Compile ``sources`` (repo-root-relative) into build/native/lib<name>.so
     and return its path; rebuild only when a source is newer."""
     with _lock:
         os.makedirs(_BUILD_DIR, exist_ok=True)
-        mode = sanitize_mode()
-        flags = list(extra_flags)
-        if mode:
-            name = f"{name}.{mode[0]}san"
-            flags += _SAN_FLAGS[mode]
         out = os.path.join(_BUILD_DIR, f"lib{name}.so")
         srcs = [os.path.join(_REPO_ROOT, s) for s in sources]
         if os.path.exists(out) and all(
@@ -90,7 +33,7 @@ def build_shared(name, sources, extra_flags=()):
         # (a test worker, a replica) may load the library meanwhile
         tmp = f"{out}.tmp.{os.getpid()}"
         cmd = ["g++", "-O2", "-std=c++17", "-shared", "-fPIC", "-pthread",
-               *flags, *srcs, "-o", tmp]
+               *srcs, "-o", tmp]
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(

@@ -2,11 +2,13 @@
 compile_cache.py``) on the CPU: the entry is named by the sha256 of its
 manifest; a torn entry, a missing sidecar and a digest mismatch are each
 refused with their reason traced, then treated as a miss; a second
-instance over the same directory hits; and an engine with the cache on
+instance over the same directory hits; an engine with the cache on
 serves exactly the tokens of the engine with it off, whose tokens the
-JAX engine's equal on the same weights (fp32, exact). On CPU tensors
-``adopt`` returns the eager step: the graph capture itself runs on the
-card (``tests/test_torch_cuda_kernels.py``).
+JAX engine's equal on the same weights (fp32, exact); and the check that
+holds a captured step to its eager step runs on a live batch the engine
+stages, and catches a replay that computes or writes something else. On
+CPU tensors ``adopt`` returns the eager step: the graph capture itself
+runs on the card (``tests/test_torch_cuda_kernels.py``).
 
 The reference's cache serializes XLA executables, which the port has no
 counterpart of, so the port's cache is held to the port's eager engine
@@ -115,7 +117,7 @@ def test_bad_entry_refused_with_its_reason(models, tmp_path, corrupt):
     trace.enable()
     try:
         again = _engine(models[1], str(tmp_path))
-        events = trace.chrome_events()
+        events = trace.TRACER.chrome_events()
     finally:
         trace.disable()
         trace.clear()
@@ -159,10 +161,60 @@ def test_prewarm_ensures_the_program_set(models, tmp_path):
         assert cache.prewarm(eng, background=False) == 2
         t = cache.prewarm(eng, background=True)
         t.join(timeout=30)
-        names = {e["name"] for e in trace.chrome_events()}
+        names = {e["name"] for e in trace.TRACER.chrome_events()}
     finally:
         trace.disable()
         trace.clear()
     assert "fleet.prewarm" in names and "cache.compile_hit" in names
     assert (cache.misses, cache.hits) == (2, 2)
     assert len(os.listdir(tmp_path)) == 4      # two entries, two sidecars
+
+
+class _Replay:
+    """Stands in for a captured step on the CPU: the eager step, then
+    ``perturb`` applied to its outputs and arguments."""
+
+    def __init__(self, fn, perturb=None):
+        self.fn, self.perturb, self.program = fn, perturb, "probe"
+        self.calls = []
+
+    def __call__(self, *args):
+        self.calls.append([int(c) for c in args[6]])
+        out = self.fn(*args)
+        return self.perturb(out, args) if self.perturb else out
+
+
+@pytest.mark.parametrize("program", ["decode", "verify"])
+def test_the_check_runs_on_a_live_batch(models, program):
+    """Every slot of the staged batch is active (ctx > 0) over pages of
+    its own, with contexts spread up to the model length; a replay equal
+    to the eager step passes, one that returns other tokens or writes
+    another pool row raises; either way the pages come back zeroed and
+    free."""
+    verify = program == "verify"
+    eng = _engine(models[1], spec_k=3 if verify else 0)
+    fn, args = eng.verify_capture_args() if verify \
+        else eng.decode_capture_args()
+    kq = 4 if verify else 1
+    free = eng.cache.free_page_count
+    live = lambda: eng._stage_check_batch(kq)  # noqa: E731
+    faithful = _Replay(fn)
+    cc.check(fn, args, faithful, live)
+    ctx = faithful.calls[0]
+    assert min(ctx) > 0 and len(set(ctx)) == len(ctx)
+    assert max(ctx) == eng.max_model_len - kq + 1
+    assert eng.cache.free_page_count == free
+    assert not eng.cache.k.any() and not eng.cache.v.any()
+
+    def other_tokens(out, a):
+        return (out[0] + 1, out[1]) if verify else out + 1
+
+    def other_row(out, a):
+        a[1][0, int(a[7].flatten()[0]), 0, 0] += 1.0
+        return out
+
+    for perturb in (other_tokens, other_row):
+        with pytest.raises(RuntimeError, match="replays differently"):
+            cc.check(fn, args, _Replay(fn, perturb), live)
+        assert eng.cache.free_page_count == free
+        assert not eng.cache.k.any() and not eng.cache.v.any()

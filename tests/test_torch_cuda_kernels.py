@@ -468,16 +468,26 @@ def test_captured_step_replays_the_eager_step_bit_identically(
 
 def test_graph_engine_serves_the_eager_tokens_with_replays_counted(
         cuda_device, tmp_path):
-    """The cache on against off, plain and speculative (fp32, exact): the
-    first engine misses and checks each capture, a second engine over the
-    same directory hits; after init, K1 launches = layers x dispatches."""
+    """Graph replay against the eager steps, plain and speculative (fp32,
+    exact): the first engine over a cache directory misses and checks
+    each capture, a second one over it hits, an engine without one
+    captures and checks as well, and an engine whose steps are set back
+    to the eager functions gives the reference tokens. After init, K1
+    launches = layers x dispatches, replays counted."""
+    from paddle_tpu_torch.inference.serving import engine as engine_mod
+    from paddle_tpu_torch.inference.serving.compile_cache import \
+        CapturedStep
     results = {}
     for spec_k in (0, 3):
         for label, cache_dir in (("miss", tmp_path / f"k{spec_k}"),
                                  ("hit", tmp_path / f"k{spec_k}"),
-                                 ("off", None)):
+                                 ("off", None), ("eager", None)):
             eng, cfg = _graph_engine(cuda_device, "float32", cache_dir,
                                      spec_k=spec_k)
+            assert isinstance(eng._decode, CapturedStep)
+            if label == "eager":
+                eng._decode = engine_mod.decode_step
+                eng._verify = engine_mod.verify_step
             if cache_dir is not None:
                 c = eng.compile_cache
                 programs = 2 if spec_k else 1
@@ -492,12 +502,12 @@ def test_graph_engine_serves_the_eager_tokens_with_replays_counted(
             results[spec_k, label] = sorted(
                 (r.prompt_tokens, r.output_tokens) for r in done)
         assert results[spec_k, "miss"] == results[spec_k, "hit"] \
-            == results[spec_k, "off"]
+            == results[spec_k, "off"] == results[spec_k, "eager"]
 
 
 def test_a_capture_that_fails_raises(cuda_device, tmp_path):
-    from paddle_tpu_torch.inference.serving.compile_cache import \
-        CompileCache
+    from paddle_tpu_torch.inference.serving.compile_cache import (
+        CompileCache, adopt)
 
     def fails_under_capture(x):
         y = x * 2
@@ -508,12 +518,30 @@ def test_a_capture_that_fails_raises(cuda_device, tmp_path):
     cache = CompileCache(str(tmp_path))
     x = torch.ones(8, device=cuda_device)
     with pytest.raises(RuntimeError, match="capture of probe failed"):
-        cache.adopt(fails_under_capture, (x,), "probe")
+        adopt(fails_under_capture, (x,), "probe", cache=cache)
     assert cache.graphs == 0 and not list(tmp_path.iterdir())
     # the card is usable afterwards, and a capturable step captures
-    got = cache.adopt(lambda t: t * 3, (x,), "probe")
+    got, _ = adopt(lambda t: t * 3, (x,), "probe", cache=cache)
     assert torch.equal(got(torch.full((8,), 2.0, device=cuda_device)),
                        torch.full((8,), 6.0, device=cuda_device))
+
+
+def test_a_graph_that_replays_differently_raises(cuda_device, tmp_path):
+    """The check holds a fresh graph to the eager step: a step whose
+    captured form computes something else raises, and its manifest is
+    not stored."""
+    from paddle_tpu_torch.inference.serving.compile_cache import (
+        CompileCache, adopt)
+
+    def differs_under_capture(x):
+        return x * (3 if torch.cuda.is_current_stream_capturing() else 2)
+
+    cache = CompileCache(str(tmp_path))
+    x = torch.ones(8, device=cuda_device)
+    with pytest.raises(RuntimeError, match="replays differently"):
+        adopt(differs_under_capture, (x,), "probe", cache=cache)
+    assert (cache.graphs, cache.misses, cache.stores) == (1, 1, 0)
+    assert not list(tmp_path.iterdir())
 
 
 # K4/K5, packed varlen attention: (q lengths, k lengths or None for q's,

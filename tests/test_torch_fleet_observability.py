@@ -120,7 +120,7 @@ def _request_story():
     """A re-routed request's merged trace: submit and routes on the
     router (pid 1), admit and prefill on replica 0 (pid 2), which dies,
     the death verdict, the re-route, and the survivor's (pid 3) work."""
-    S, M = ptrace.make_span, ptrace.make_marker
+    S, M = jtrace.make_span, jtrace.make_marker
     t = 1_000_000.0
     return [
         M("serve.submit", t, pid=1, rid="5", origin_unix_us=t),
