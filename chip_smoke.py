@@ -71,6 +71,17 @@ by route) set to 0 just before it and read just after:
   on the card against the CPU (loss and every gradient; for ERNIE also a
   padded batch's forward on the dense path).
 
+- the ``paddle.*`` eager surface: GPT-124M's eager fp16 AMP loop
+  written as an upstream user writes it (``paddle.seed``,
+  ``paddle.set_device("gpu")``, ``paddle.to_tensor`` batches, a loss that
+  is a paddle Tensor, ``float(loss)``), bit-equal to the same steps fed
+  torch tensors (losses, scales, every final parameter), with K2 and K3
+  once per layer and step on their fp16 route and tokens/s both ways;
+  ``paddle.grad`` through ``F.flash_attention`` on paddle Tensors at
+  [16, 1024, 12, 64] bf16, bit-equal to the torch-fed call; and every
+  entry of the op table on the card against the port's CPU result at its
+  tolerance, with the random ops held by moments and seeded reruns.
+
 Last, it times each kernel beside its bound, its plain version and,
 where one exists, a PyTorch call that computes the same function (also
 by their device time alone, which leaves out the host's launch gaps);
@@ -1564,6 +1575,154 @@ def phase_gpt124m_fp16_amp(torch, ck, smi):
         raise AssertionError("decorate left a parameter that is not fp16")
 
 
+SURFACE_WARMUP, SURFACE_TIMED = 2, 4
+SURFACE_ATTENTION = (16, 1024, 12, 64)
+
+
+def surface_amp_loop(torch, np_ids, np_labels, surface):
+    """``gpt124m_fp16_amp``'s recipe (``eager_amp_steps``) from the same
+    seed and batch. With ``surface`` it runs on the ``paddle.*`` surface
+    as an upstream user writes it: ``paddle.seed(0)``,
+    ``paddle.set_device("gpu")``, ids and labels from
+    ``paddle.to_tensor``, so the model is called on paddle Tensors and
+    its loss is one; without, the same steps are fed torch tensors.
+    Returns (model, eager_amp_steps' rows, the scale after the last)."""
+    import paddle_tpu_torch as paddle
+    model, opt, sched, scaler, _, _ = gpt124m_fp16_amp(torch)
+    if surface:
+        paddle.seed(0)
+        paddle.set_device("gpu")
+        ids, labels = paddle.to_tensor(np_ids), paddle.to_tensor(np_labels)
+    else:
+        ids = torch.from_numpy(np_ids).to("cuda")
+        labels = torch.from_numpy(np_labels).to("cuda")
+    steps = eager_amp_steps(torch, model, ids, labels,
+                            SURFACE_WARMUP + SURFACE_TIMED, "O2", "float16",
+                            sched, scaler, opt)
+    return model, steps, scaler._scale
+
+
+def surface_flash_grad(torch, causal):
+    """``paddle.grad`` through ``F.flash_attention`` on paddle Tensors at
+    [16, 1024, 12, 64] bf16 against the torch-fed call on the same
+    inputs: (out, dq, dk, dv) must be bit-equal."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.nn import functional as F
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    q, k, v, do = (torch.randn(SURFACE_ATTENTION, generator=gen,
+                               device="cuda").to(torch.bfloat16)
+                   for _ in range(4))
+    qt, kt, vt = (t.clone().requires_grad_() for t in (q, k, v))
+    out_t, _ = F.flash_attention(qt, kt, vt, causal=causal)
+    want = (out_t, *torch.autograd.grad(out_t, (qt, kt, vt), do))
+    qp, kp, vp = (paddle.to_tensor(t, stop_gradient=False)
+                  for t in (q, k, v))
+    out_p, _ = F.flash_attention(qp, kp, vp, causal=causal)
+    grads = paddle.grad(out_p, [qp, kp, vp],
+                        grad_outputs=paddle.to_tensor(do))
+    got = [out_p._value] + [g._value for g in grads]
+    equal = [bool(torch.equal(a, b)) for a, b in zip(got, want)]
+    if not all(equal):
+        raise AssertionError(f"paddle.grad through flash_attention "
+                             f"(causal={causal}) is not bit-equal to the "
+                             f"torch-fed call: out, dq, dk, dv equal "
+                             f"{equal}")
+    return equal
+
+
+def phase_paddle_surface(torch, ck, smi):
+    """The ``paddle.*`` eager surface on the card, three parts:
+
+    1. GPT-124M's eager fp16 AMP loop (``surface_amp_loop``) on paddle
+       Tensors and on torch tensors, from the same seed and batch: the
+       losses, the scale trajectory and every final parameter must be
+       bit-equal, and the surface loop must launch K2 and K3 once per
+       layer and step on their fp16 route; tokens/s both ways;
+    2. ``paddle.grad`` through ``F.flash_attention`` (``surface_flash_grad``),
+       causal and not;
+    3. the op sweep: every entry of the op table on the card against the
+       port's own CPU result at the entry's tolerance (fp32, TF32 off;
+       gradients in fp64 where the entry has them), and the random ops by
+       their moments and seeded reruns."""
+    from paddle_tpu_torch.ops import sweep
+    from paddle_tpu_torch.text.gpt import gpt_small
+    cfg = gpt_small()
+    ids, labels = _token_batches(torch, cfg.vocab_size,
+                                 (TRAIN_BATCH, cfg.max_seq_len),
+                                 (TRAIN_BATCH, cfg.max_seq_len),
+                                 cfg.vocab_size)()
+    np_ids, np_labels = ids.cpu().numpy(), labels.cpu().numpy()
+    before = {k.name: dict(k.route_launches) for k in ck.KERNELS}
+    s_model, s_steps, s_last = surface_amp_loop(torch, np_ids, np_labels,
+                                                surface=True)
+    routes = {k.name: {r: n - before[k.name][r]
+                       for r, n in k.route_launches.items()}
+              for k in ck.KERNELS}
+    import paddle_tpu_torch as paddle
+    with paddle.no_grad():
+        _, loss = s_model(paddle.to_tensor(np_ids[:1, :128]),
+                          labels=paddle.to_tensor(np_labels[:1, :128]))
+    if not isinstance(loss, paddle.Tensor):
+        raise AssertionError(f"the model fed paddle Tensors returned a "
+                             f"{type(loss)} loss, not a paddle Tensor")
+    t_model, t_steps, t_last = surface_amp_loop(torch, np_ids, np_labels,
+                                                surface=False)
+    s_losses, t_losses = [r[0] for r in s_steps], [r[0] for r in t_steps]
+    s_scales = [r[1] for r in s_steps] + [s_last]
+    t_scales = [r[1] for r in t_steps] + [t_last]
+    s_secs, t_secs = [r[-1] for r in s_steps], [r[-1] for r in t_steps]
+    layers = s_model.config.num_layers
+    steps = SURFACE_WARMUP + SURFACE_TIMED
+    tokens = np_ids.size
+    differing = [n for (n, a), b in zip(s_model.named_parameters(),
+                                        t_model.parameters())
+                 if not torch.equal(a, b)]
+    del s_model, t_model
+    torch.cuda.empty_cache()
+    flash = {"causal": surface_flash_grad(torch, True),
+             "non_causal": surface_flash_grad(torch, False)}
+    t0 = time.perf_counter()
+    sweep_report, sweep_failures = sweep.device_sweep("gpu")
+    random_report, random_failures = sweep.random_checks("gpu")
+    sweep_s = time.perf_counter() - t0
+    out = {"phase": "paddle_surface", "nvidia_smi": smi,
+           "model": "gpt_small (GPT-124M) at 16 x 1024, the eager fp16 "
+                    "AMP recipe of gpt124m_fp16_amp, fed paddle Tensors "
+                    "and torch tensors",
+           "steps": steps, "timed_steps": SURFACE_TIMED,
+           "tokens_per_s_surface": tokens * SURFACE_TIMED
+           / sum(s_secs[SURFACE_WARMUP:]),
+           "tokens_per_s_torch": tokens * SURFACE_TIMED
+           / sum(t_secs[SURFACE_WARMUP:]),
+           "step_ms_surface": [s * 1e3 for s in s_secs],
+           "step_ms_torch": [s * 1e3 for s in t_secs],
+           "losses_surface": s_losses, "losses_torch": t_losses,
+           "scales": s_scales, "launches_by_route": routes,
+           "params_differing": differing,
+           "flash_grad_bit_equal": flash,
+           "sweep_ops": sum(r["ops"] for r in sweep_report.values()),
+           "sweep_worst_by_family": sweep_report,
+           "sweep_failures": sweep_failures,
+           "random_ops": random_report,
+           "random_failures": random_failures,
+           "sweep_seconds": sweep_s}
+    emit(out)
+    if s_losses != t_losses or s_scales != t_scales or differing:
+        raise AssertionError(
+            f"the surface loop is not bit-equal to the torch-fed one: "
+            f"losses {s_losses} vs {t_losses}, scales {s_scales} vs "
+            f"{t_scales}, parameters differing {differing[:5]}")
+    want = layers * steps
+    for name in ("flash_fwd", "flash_bwd"):
+        if routes[name] != {"fp32": 0, "bf16": 0, "fp16": want}:
+            raise AssertionError(f"the surface loop's {steps} steps of "
+                                 f"{layers} layers launched {name} "
+                                 f"{routes[name]}; want {want} on fp16")
+    if sweep_failures or random_failures:
+        raise AssertionError(f"the op sweep failed on the card: "
+                             f"{sweep_failures} {random_failures}")
+
+
 def gpt124m_scheduled(torch):
     """GPT-124M through ``CompiledTrainStep`` at O2 bf16 with
     ``examples/train_gpt.py``'s surface at bench.py's widths: AdamW under
@@ -2624,7 +2783,7 @@ def main():
     # on their fp16 route), training with the schedule, nan check and
     # StepMeter (K2, K3), packed attention (K4, K5), ERNIE pretraining and
     # BERT finetuning (K2, K3, non-causal), then ResNet-50 and LeNet
-    # training (none)
+    # training (none), then the paddle.* surface (K2, K3)
     paths = (("serving", ("paged_attention", "flash_fwd"),
               lambda: (phase_serving(torch, ck, smi),
                        phase_exactness_fp32(torch, ck))),
@@ -2651,7 +2810,9 @@ def main():
               lambda: (phase_training_bf16(torch, ck, smi, "bert"),
                        phase_bert_exactness_fp32(torch, ck))),
              # no hand-written kernel on this path, as in the reference
-             ("resnet50_training", (), lambda: phase_vision(torch, ck, smi)))
+             ("resnet50_training", (), lambda: phase_vision(torch, ck, smi)),
+             ("paddle_surface", ("flash_fwd", "flash_bwd"),
+              lambda: phase_paddle_surface(torch, ck, smi)))
     launches = {k.name: 0 for k in ck.KERNELS}
     path_launches, path_routes = {}, {}
     for path, kernels, drive in paths:

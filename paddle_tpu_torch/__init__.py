@@ -45,3 +45,32 @@ def resolve_device(device=None):
 
 __all__ = ["__version__", "default_device", "resolve_device", "get_flags",
            "set_flags"]
+
+
+# the paddle.* eager surface: dtypes, places, the random state, Tensor,
+# the op library (hoisted from ops/ into this namespace and attached as
+# Tensor methods) and the autograd API
+from .framework import (  # noqa: E402
+    DType, bfloat16, float16, float32, float64, int8, int16, int32, int64,
+    uint8, bool_ as bool, complex64, complex128, set_default_dtype,
+    get_default_dtype, seed, get_rng_state, set_rng_state)
+from .framework.dtype import iinfo, finfo  # noqa: E402
+from .framework.random import (  # noqa: E402
+    get_cuda_rng_state, set_cuda_rng_state)
+from .framework.place import (  # noqa: E402
+    CPUPlace, XPUPlace, CUDAPlace, CUDAPinnedPlace, IPUPlace, CustomPlace,
+    set_device, get_device, is_compiled_with_cuda, is_compiled_with_xpu,
+    is_compiled_with_tpu, is_compiled_with_cinn, is_compiled_with_rocm,
+    is_compiled_with_ipu, is_compiled_with_custom_device, device_count)
+from .tensor import Tensor, Parameter, to_tensor, create_parameter  # noqa: E402,E501
+from . import tensor_methods as _tensor_methods  # noqa: E402,F401
+from .ops import collect_public_ops as _collect_public_ops  # noqa: E402
+from .autograd import (no_grad, enable_grad, set_grad_enabled,  # noqa: E402
+                       is_grad_enabled, grad, PyLayer)
+
+_g = globals()
+for _name, _fn in _collect_public_ops().items():
+    _g.setdefault(_name, _fn)
+del _g, _name, _fn
+
+from . import amp, autograd, nn, optimizer  # noqa: E402

@@ -1,4 +1,7 @@
-from .activation import gelu, relu, tanh
+from .activation import (celu, elu, gelu, hardsigmoid, hardswish, hardtanh,
+                         leaky_relu, log_sigmoid, log_softmax, mish, relu,
+                         relu6, selu, sigmoid, silu, softmax, softplus,
+                         softsign, swish, tanh, tanhshrink)
 from .common import embedding, linear
 from .attention import (_sdpa_impl, _unpadded_impl, flash_attention,
                         flash_attn_unpadded, scaled_dot_product_attention)
@@ -14,7 +17,11 @@ from .pooling import (adaptive_avg_pool1d, adaptive_avg_pool2d,
 
 __all__ = ["scaled_dot_product_attention", "flash_attention",
            "flash_attn_unpadded", "_sdpa_impl", "_unpadded_impl", "gelu",
-           "relu", "tanh", "cross_entropy", "conv1d", "conv2d", "conv3d",
+           "relu", "tanh", "relu6", "sigmoid", "silu", "swish", "mish",
+           "softplus", "softsign", "tanhshrink", "hardtanh", "hardswish",
+           "hardsigmoid", "elu", "selu", "celu", "leaky_relu",
+           "log_sigmoid", "softmax", "log_softmax", "cross_entropy",
+           "conv1d", "conv2d", "conv3d",
            "conv1d_transpose", "conv2d_transpose", "conv3d_transpose",
            "batch_norm", "layer_norm", "rms_norm", "linear", "embedding",
            "max_pool1d", "max_pool2d", "max_pool3d",

@@ -1,6 +1,7 @@
 from .activation import GELU, ReLU, Tanh
 from .common import Dropout, Embedding, Flatten, Linear, Sequential
 from .conv import Conv1D, Conv2D, Conv3D
+from .layers import Layer
 from .loss import CrossEntropyLoss
 from .norm import (BatchNorm, BatchNorm1D, BatchNorm2D, BatchNorm3D,
                    LayerNorm, RMSNorm, SyncBatchNorm)
@@ -11,7 +12,7 @@ from .pooling import (AdaptiveAvgPool1D, AdaptiveAvgPool2D,
 from .transformer import (MultiHeadAttention, TransformerEncoder,
                           TransformerEncoderLayer)
 
-__all__ = ["Linear", "Embedding", "Dropout", "Flatten", "Sequential",
+__all__ = ["Layer", "Linear", "Embedding", "Dropout", "Flatten", "Sequential",
            "GELU", "ReLU", "Tanh", "Conv1D", "Conv2D", "Conv3D",
            "CrossEntropyLoss", "BatchNorm", "BatchNorm1D", "BatchNorm2D",
            "BatchNorm3D", "SyncBatchNorm", "LayerNorm", "RMSNorm",

@@ -2,12 +2,11 @@
 each calls its functional with the arguments it was built with."""
 from __future__ import annotations
 
-from torch import nn
-
 from .. import functional as F
+from .layers import Layer
 
 
-class GELU(nn.Module):
+class GELU(Layer):
     """Exact erf GELU unless ``approximate`` is set."""
 
     def __init__(self, approximate=False, name=None):
@@ -18,12 +17,12 @@ class GELU(nn.Module):
         return F.gelu(x, self.approximate)
 
 
-class Tanh(nn.Module):
+class Tanh(Layer):
     def forward(self, x):
         return F.tanh(x)
 
 
-class ReLU(nn.Module):
+class ReLU(Layer):
     def __init__(self, name=None):
         super().__init__()
 

@@ -24,6 +24,7 @@ from torch import nn
 
 from ... import resolve_device
 from .. import functional as F
+from .layers import Layer
 
 
 def generator_from(seed):
@@ -45,7 +46,7 @@ def _xavier_uniform(shape, generator):
     return torch.empty(shape).uniform_(-limit, limit, generator=generator)
 
 
-class Linear(nn.Module):
+class Linear(Layer):
     """``y = x @ weight + bias`` with weight [in, out] (Paddle's layout)."""
 
     def __init__(self, in_features, out_features, bias=True, device=None,
@@ -62,7 +63,7 @@ class Linear(nn.Module):
         return F.linear(x, self.weight, self.bias)
 
 
-class Embedding(nn.Module):
+class Embedding(Layer):
     """Rows of ``weight`` [num_embeddings, embedding_dim] picked by id. A
     ``padding_idx`` row starts at zero, and positions holding that id
     give zeros (so the row gets no gradient), as in the reference."""
@@ -87,7 +88,7 @@ class Embedding(nn.Module):
         return F.embedding(x, self.weight, self._padding_idx)
 
 
-class Dropout(nn.Module):
+class Dropout(Layer):
     """Zero each entry with probability ``p`` in training. Mode
     "upscale_in_train" scales the kept entries by 1 / (1 - p);
     "downscale_in_infer" keeps them as they are in training and scales by
@@ -121,7 +122,7 @@ class Dropout(nn.Module):
         return x * keep
 
 
-class Flatten(nn.Module):
+class Flatten(Layer):
     """Axes ``start_axis`` to ``stop_axis`` merged into one."""
 
     def __init__(self, start_axis=1, stop_axis=-1):
@@ -133,7 +134,7 @@ class Flatten(nn.Module):
         return torch.flatten(x, self.start_axis, self.stop_axis)
 
 
-class Sequential(nn.Sequential):
+class Sequential(Layer, nn.Sequential):
     """Layers applied in order. Given as layers, a child is named by its
     position ("0", "1", ...); given as (name, layer) pairs, or as one list
     of them, by its name: the reference's state names either way."""
@@ -142,6 +143,6 @@ class Sequential(nn.Sequential):
         if len(layers) == 1 and isinstance(layers[0], (list, tuple)) and \
                 layers[0] and isinstance(layers[0][0], tuple):
             layers = layers[0]
-        super().__init__(OrderedDict(
+        nn.Sequential.__init__(self, OrderedDict(
             layer if isinstance(layer, tuple) else (str(i), layer)
             for i, layer in enumerate(layers)))

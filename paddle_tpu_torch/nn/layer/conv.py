@@ -14,10 +14,10 @@ from __future__ import annotations
 import math
 
 import torch
-from torch import nn
 
 from .. import functional as F
 from .common import _param
+from .layers import Layer
 
 
 def _ntuple(v, n):
@@ -33,7 +33,7 @@ def _xavier_conv(shape, generator):
     return torch.empty(shape).uniform_(-limit, limit, generator=generator)
 
 
-class _ConvNd(nn.Module):
+class _ConvNd(Layer):
     _fn = None
 
     def __init__(self, ndim, in_channels, out_channels, kernel_size,

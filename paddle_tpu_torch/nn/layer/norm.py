@@ -19,14 +19,14 @@ A7).
 from __future__ import annotations
 
 import torch
-from torch import nn
 
 from ... import resolve_device
 from .. import functional as F
 from .common import _param
+from .layers import Layer
 
 
-class LayerNorm(nn.Module):
+class LayerNorm(Layer):
     def __init__(self, normalized_shape, epsilon=1e-5, weight_attr=None,
                  bias_attr=None, name=None, device=None, dtype=None):
         super().__init__()
@@ -44,7 +44,7 @@ class LayerNorm(nn.Module):
                             self.bias, self._epsilon)
 
 
-class RMSNorm(nn.Module):
+class RMSNorm(Layer):
     def __init__(self, hidden_size, epsilon=1e-6, weight_attr=None,
                  name=None, device=None, dtype=None):
         super().__init__()
@@ -55,7 +55,7 @@ class RMSNorm(nn.Module):
         return F.rms_norm(x, self.weight, self._epsilon)
 
 
-class _BatchNormBase(nn.Module):
+class _BatchNormBase(Layer):
     def __init__(self, num_features, momentum=0.9, epsilon=1e-5,
                  weight_attr=None, bias_attr=None, data_format="NCHW",
                  use_global_stats=None, name=None, device=None, dtype=None):

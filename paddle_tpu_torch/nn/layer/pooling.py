@@ -3,12 +3,11 @@ calls its functional (``nn/functional/pooling.py``) with the arguments it
 was built with."""
 from __future__ import annotations
 
-from torch import nn
-
 from .. import functional as F
+from .layers import Layer
 
 
-class _Pool(nn.Module):
+class _Pool(Layer):
     _fn = None
 
     def __init__(self, kernel_size=None, stride=None, padding=0, **kwargs):
@@ -47,7 +46,7 @@ class AvgPool3D(_Pool):
     _fn = "avg_pool3d"
 
 
-class _AdaptivePool(nn.Module):
+class _AdaptivePool(Layer):
     _fn = None
 
     def __init__(self, output_size, **kwargs):

@@ -28,6 +28,7 @@ from ...ops.math import add
 from .. import functional as F
 from .common import Dropout, Linear
 from .norm import LayerNorm
+from .layers import Layer
 
 
 def _no_cache(cache):
@@ -44,7 +45,7 @@ def _no_attrs(weight_attr, bias_attr):
             "reference's default initializers")
 
 
-class MultiHeadAttention(nn.Module):
+class MultiHeadAttention(Layer):
     """Self or cross attention over [b, s, embed_dim] inputs with separate
     q, k, v and output projections. A 3-D ``attn_mask`` [b, sq, sk] is
     broadcast over heads; a 4-D one is used as it is (bool: True keeps;
@@ -91,7 +92,7 @@ class MultiHeadAttention(nn.Module):
         return self.out_proj(out.reshape(b, s, self.embed_dim))
 
 
-class TransformerEncoderLayer(nn.Module):
+class TransformerEncoderLayer(Layer):
     """Self-attention then a feed-forward block, each with a residual and
     a LayerNorm: after the sum (post-LN, the default) or before the block
     (``normalize_before``). ``activation`` names a function of the port's
@@ -141,7 +142,7 @@ class TransformerEncoderLayer(nn.Module):
         return src
 
 
-class TransformerEncoder(nn.Module):
+class TransformerEncoder(Layer):
     """``encoder_layer`` and ``num_layers - 1`` deep copies of it, applied
     in turn, then ``norm`` when one is given."""
 

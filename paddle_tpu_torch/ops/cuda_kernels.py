@@ -620,7 +620,9 @@ class FlashAttention(torch.autograd.Function):
     of the JAX package's custom-vjp ``_flash_core_lse``. Forward: K2 on
     CUDA tensors, the plain version on CPU ones; it saves q, k, v, o and
     lse. Backward: K3 likewise, with the lse cotangent folded into delta
-    (a missing cotangent counts as zero)."""
+    (a missing cotangent counts as zero). K3 has no double backward: a
+    backward asked to build a graph (``create_graph=True``) raises, on
+    either device."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, sm_scale):
@@ -637,6 +639,11 @@ class FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, do, dlse):
+        if torch.is_grad_enabled():
+            raise RuntimeError(
+                "flash attention has no double backward (K3 computes its "
+                "gradients without a graph): create_graph=True cannot "
+                "pass through it")
         q, k, v, o, lse = ctx.saved_tensors
         if do is None:
             do = torch.zeros_like(o)

@@ -8,24 +8,37 @@ The port's functionals that the JAX GPT dispatches (``embedding``,
 ``scaled_dot_product_attention``, ``gelu``, ``cross_entropy``) call
 ``dispatch`` with the reference's op names, so an ``auto_cast`` block
 casts each op's inputs as the reference does. With amp off and the flag
-clear, the seam costs two attribute reads and one call. It carries no
-executable cache and no tape: PyTorch's autograd records the op and the
-casts (the rest of the reference's dispatch is ROADMAP A5).
+clear, the seam costs a type check per input, two attribute reads and
+one call. It carries no executable cache and no tape (the reference's
+per-op jit cache and GradNodes have no counterpart): PyTorch's autograd
+records the op and the casts.
 
 ``CompiledTrainStep`` runs its forward and backward inside
 ``op_scan_off()``: its own fused check over (loss, gradients) stands in
 for the per-op scan there, as in the reference, whose compiled step is
 traced and scans no op.
+
+The seam also carries the reference's ``unwrap``/``wrap``
+(``paddle_tpu/ops/dispatch.py``): an op given a paddle ``Tensor`` among
+its inputs unwraps them, applies the amp casts, runs its torch impl,
+scans the outputs and wraps them as paddle Tensors. Called with torch
+tensors alone, as the models call it, it returns torch tensors and
+costs one more type check per input. ``nondiff`` is the same seam for
+ops that are never differentiable (comparisons, indices): it runs the
+impl under ``torch.no_grad()`` and applies no amp cast.
 """
 from __future__ import annotations
 
 import contextlib
 import threading
 
+import numpy as np
 import torch
 
 from ..amp.auto_cast import _tls as _amp_tls
 from ..amp.auto_cast import maybe_cast_inputs
+from ..framework import dtype as dtype_mod
+from ..tensor import Tensor
 from ..utils import flags as _flags
 
 _scan = threading.local()
@@ -34,7 +47,11 @@ _scan = threading.local()
 def dispatch(op_name, fn, *tensors, **attrs):
     """``fn(*tensors, **attrs)`` with the amp casts applied to
     ``tensors`` first and, when ``FLAGS_check_nan_inf`` is set, every
-    floating output scanned after."""
+    floating output scanned after. With a paddle ``Tensor`` among
+    ``tensors`` the inputs are unwrapped first and the outputs wrapped."""
+    for t in tensors:
+        if isinstance(t, Tensor):
+            return _surface(op_name, fn, tensors, attrs, True)
     if getattr(_amp_tls, "enabled", False):
         tensors = maybe_cast_inputs(op_name, tensors)
     out = fn(*tensors, **attrs)
@@ -72,3 +89,73 @@ def _check_nan_inf(op_name, out):
                 f"{str(o.dtype).replace('torch.', '')}) contains "
                 f"{n_nan} nan / {n_inf} inf values")
     return out
+
+
+def nondiff(op_name, fn, *tensors, **attrs):
+    """``dispatch`` for ops that are never differentiable: ``fn`` runs
+    under ``torch.no_grad()`` with no amp cast."""
+    for t in tensors:
+        if isinstance(t, Tensor):
+            return _surface(op_name, fn, tensors, attrs, False)
+    with torch.no_grad():
+        out = fn(*tensors, **attrs)
+    if _flags.FAST.check_nan_inf and not getattr(_scan, "off", False):
+        _check_nan_inf(op_name, out)
+    return out
+
+
+def _surface(op_name, fn, tensors, attrs, diff):
+    vals = tuple(t._value if isinstance(t, Tensor) else t for t in tensors)
+    if diff:
+        if getattr(_amp_tls, "enabled", False):
+            vals = maybe_cast_inputs(op_name, vals)
+        out = fn(*vals, **attrs)
+    else:
+        with torch.no_grad():
+            out = fn(*vals, **attrs)
+    if _flags.FAST.check_nan_inf and not getattr(_scan, "off", False):
+        _check_nan_inf(op_name, out)
+    return wrap(out)
+
+
+def wrap(value):
+    """Torch tensors (also inside tuples and lists) as paddle Tensors;
+    anything else as it is."""
+    if isinstance(value, torch.Tensor):
+        return Tensor._wrap(value)
+    if isinstance(value, tuple):
+        return tuple(wrap(v) for v in value)
+    if isinstance(value, list):
+        return [wrap(v) for v in value]
+    return value
+
+
+def unwrap(x, dtype=None, device=None):
+    """Tensor | torch tensor | array-like -> torch tensor.
+
+    The reference's number promotion: Python floats land on the default
+    float dtype (float32), Python ints on int64, NumPy arrays keep their
+    dtype. A new tensor (from numbers or arrays) is made on ``device``,
+    the current place's device when None; ``dtype`` sets its dtype."""
+    if isinstance(x, Tensor):
+        return x._value
+    if isinstance(x, torch.Tensor):
+        return x
+    if not isinstance(x, (bool, int, float, complex, np.ndarray, np.generic,
+                          list, tuple)):
+        raise TypeError(f"cannot convert {type(x)} to a tensor")
+    if device is None:
+        from ..framework.place import current_device
+        device = current_device()
+    from_np = isinstance(x, (np.ndarray, np.generic))
+    arr = np.asarray(x)
+    if arr.dtype == object:
+        raise TypeError(f"cannot convert {type(x)} to a tensor")
+    if dtype is not None:
+        td = dtype_mod.to_torch_dtype(dtype)
+    elif arr.dtype == np.float64 and not from_np:
+        td = dtype_mod.default_float().torch_dtype
+    else:
+        td = None
+    v = torch.tensor(arr)
+    return v.to(device=device, dtype=td or v.dtype)

@@ -71,6 +71,8 @@ class Optimizer:
                 pname, p = entry
             else:
                 pname, p = getattr(entry, "name", None), entry
+            # a paddle Tensor (the surface's) is updated through its value
+            p = getattr(p, "_value", p)
             self._parameters.append(p)
             self._names.append(pname)
         self._name_of = {id(p): pname

@@ -21,6 +21,7 @@ from ..nn.layer.transformer import TransformerEncoder
 from ..ops.math import add
 from .ernie import (ErnieLMHead, ErniePooler, encoder_layer, mlm_loss,
                     padding_mask)
+from ..nn.layer.layers import Layer
 
 BertPooler = ErniePooler
 
@@ -49,7 +50,7 @@ class BertConfig:
         self.num_labels = num_labels
 
 
-class BertEmbeddings(nn.Module):
+class BertEmbeddings(Layer):
     """Word + position + token-type embeddings, then LayerNorm and
     dropout."""
 
@@ -80,7 +81,7 @@ class BertEmbeddings(nn.Module):
         return self.dropout(self.layer_norm(x))
 
 
-class BertModel(nn.Module):
+class BertModel(Layer):
     """PaddleNLP's ``BertModel`` surface: (sequence_output,
     pooled_output)."""
 
@@ -102,7 +103,7 @@ class BertModel(nn.Module):
         return seq, self.pooler(seq)
 
 
-class BertForSequenceClassification(nn.Module):
+class BertForSequenceClassification(Layer):
     """The finetuning model: a classifier over the pooled output."""
 
     def __init__(self, config, num_classes=None, dropout=None, device=None,
@@ -126,7 +127,7 @@ class BertForSequenceClassification(nn.Module):
         return logits
 
 
-class BertForTokenClassification(nn.Module):
+class BertForTokenClassification(Layer):
     def __init__(self, config, num_classes=None, dropout=None, device=None,
                  dtype=torch.float32, seed=0):
         super().__init__()
@@ -151,7 +152,7 @@ class BertForTokenClassification(nn.Module):
         return logits
 
 
-class BertForQuestionAnswering(nn.Module):
+class BertForQuestionAnswering(Layer):
     def __init__(self, config, device=None, dtype=torch.float32, seed=0):
         super().__init__()
         device, gen = resolve_device(device), generator_from(seed)
@@ -183,7 +184,7 @@ class BertPretrainingHeads(ErnieLMHead):
                 self.seq_relationship(pooled_output))
 
 
-class BertForPretraining(nn.Module):
+class BertForPretraining(Layer):
     """Masked LM plus next-sentence prediction."""
 
     def __init__(self, config, device=None, dtype=torch.float32, seed=0):

@@ -42,6 +42,7 @@ from ..nn.layer.common import Dropout, Embedding, Linear, generator_from
 from ..nn.layer.norm import LayerNorm
 from ..nn.layer.transformer import TransformerEncoder, TransformerEncoderLayer
 from ..ops.math import add, matmul
+from ..nn.layer.layers import Layer
 
 
 class ErnieConfig:
@@ -102,7 +103,7 @@ def mlm_loss(prediction, labels):
         labels.reshape(-1), ignore_index=-100)
 
 
-class ErnieEmbeddings(nn.Module):
+class ErnieEmbeddings(Layer):
     """Word + position + token-type (+ task-type) embeddings, then
     LayerNorm and dropout."""
 
@@ -142,7 +143,7 @@ class ErnieEmbeddings(nn.Module):
         return self.dropout(self.layer_norm(x))
 
 
-class ErniePooler(nn.Module):
+class ErniePooler(Layer):
     """tanh(dense(first token's hidden state))."""
 
     def __init__(self, cfg, device=None, dtype=None, generator=None):
@@ -155,7 +156,7 @@ class ErniePooler(nn.Module):
         return self.activation(self.dense(hidden_states[:, 0]))
 
 
-class ErnieModel(nn.Module):
+class ErnieModel(Layer):
     """PaddleNLP's ``ErnieModel`` surface: (sequence_output,
     pooled_output)."""
 
@@ -178,7 +179,7 @@ class ErnieModel(nn.Module):
         return seq, self.pooler(seq)
 
 
-class ErnieForSequenceClassification(nn.Module):
+class ErnieForSequenceClassification(Layer):
     def __init__(self, config, num_classes=None, dropout=None, device=None,
                  dtype=torch.float32, seed=0):
         super().__init__()
@@ -200,7 +201,7 @@ class ErnieForSequenceClassification(nn.Module):
         return logits
 
 
-class ErnieForTokenClassification(nn.Module):
+class ErnieForTokenClassification(Layer):
     def __init__(self, config, num_classes=None, dropout=None, device=None,
                  dtype=torch.float32, seed=0):
         super().__init__()
@@ -225,7 +226,7 @@ class ErnieForTokenClassification(nn.Module):
         return logits
 
 
-class ErnieForQuestionAnswering(nn.Module):
+class ErnieForQuestionAnswering(Layer):
     def __init__(self, config, device=None, dtype=torch.float32, seed=0):
         super().__init__()
         device, gen = resolve_device(device), generator_from(seed)
@@ -241,7 +242,7 @@ class ErnieForQuestionAnswering(nn.Module):
         return logits[..., 0], logits[..., 1]
 
 
-class ErnieLMHead(nn.Module):
+class ErnieLMHead(Layer):
     """Masked-LM head: transform, GELU, LayerNorm, then the tied decoder
     (``x @ embedding.weight^T + decoder_bias``). ``embedding`` is the
     word-embedding layer, whose weight is read on every call."""
@@ -268,7 +269,7 @@ class ErnieLMHead(nn.Module):
                    self.decoder_bias)
 
 
-class ErnieForMaskedLM(nn.Module):
+class ErnieForMaskedLM(Layer):
     def __init__(self, config, device=None, dtype=torch.float32, seed=0):
         super().__init__()
         device, gen = resolve_device(device), generator_from(seed)

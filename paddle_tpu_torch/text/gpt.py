@@ -36,6 +36,7 @@ from ..nn import functional as F
 from ..nn.layer.common import Linear
 from ..nn.layer.norm import LayerNorm, RMSNorm
 from ..ops.math import add, matmul
+from ..nn.layer.layers import Layer
 
 
 class GPTConfig:
@@ -55,7 +56,7 @@ class GPTConfig:
         self.initializer_range = initializer_range
 
 
-class GPTAttention(nn.Module):
+class GPTAttention(Layer):
     def __init__(self, cfg, device=None, dtype=None):
         super().__init__()
         self.num_heads = cfg.num_heads
@@ -89,7 +90,7 @@ class GPTAttention(nn.Module):
         return out
 
 
-class GPTMLP(nn.Module):
+class GPTMLP(Layer):
     def __init__(self, cfg, device=None, dtype=None):
         super().__init__()
         self.fc_in = Linear(cfg.hidden_size, cfg.intermediate_size,
@@ -111,7 +112,7 @@ def _norm(cfg, device, dtype):
     return LayerNorm(cfg.hidden_size, device=device, dtype=dtype)
 
 
-class GPTBlock(nn.Module):
+class GPTBlock(Layer):
     def __init__(self, cfg, device=None, dtype=None):
         super().__init__()
         self.ln1 = _norm(cfg, device, dtype)
@@ -132,7 +133,7 @@ class GPTBlock(nn.Module):
         return x
 
 
-class GPTModel(nn.Module):
+class GPTModel(Layer):
     def __init__(self, config, device=None, dtype=None):
         super().__init__()
         self.config = config
@@ -164,7 +165,7 @@ class GPTModel(nn.Module):
         return x
 
 
-class GPTForPretraining(nn.Module):
+class GPTForPretraining(Layer):
     """GPT with a language-model head (tied to ``wte`` by default).
 
     ``device`` follows the port's rule: "cuda" unless ``device="cpu"`` is

@@ -10,9 +10,10 @@ from torch import nn
 from ... import resolve_device
 from ...nn import Conv2D, Linear, MaxPool2D, ReLU, Sequential
 from ...nn.layer.common import generator_from
+from ...nn.layer.layers import Layer
 
 
-class LeNet(nn.Module):
+class LeNet(Layer):
     def __init__(self, num_classes=10, device=None, dtype=None, seed=0):
         super().__init__()
         kw = dict(device=resolve_device(device), dtype=dtype,

@@ -28,9 +28,10 @@ from ... import resolve_device
 from ...nn import (AdaptiveAvgPool2D, BatchNorm2D, Conv2D, Linear,
                    MaxPool2D, ReLU, Sequential)
 from ...nn.layer.common import generator_from
+from ...nn.layer.layers import Layer
 
 
-class BasicBlock(nn.Module):
+class BasicBlock(Layer):
     expansion = 1
 
     def __init__(self, inplanes, planes, stride=1, downsample=None, groups=1,
@@ -60,7 +61,7 @@ class BasicBlock(nn.Module):
         return self.relu(out + identity)
 
 
-class BottleneckBlock(nn.Module):
+class BottleneckBlock(Layer):
     expansion = 4
 
     def __init__(self, inplanes, planes, stride=1, downsample=None, groups=1,
@@ -94,7 +95,7 @@ class BottleneckBlock(nn.Module):
         return self.relu(out + identity)
 
 
-class ResNet(nn.Module):
+class ResNet(Layer):
     def __init__(self, block, depth=50, width=64, num_classes=1000,
                  with_pool=True, groups=1, data_format="NCHW", device=None,
                  dtype=None, seed=0):

@@ -743,3 +743,45 @@ def test_varlen_gate_compares_inference_tensors_every_time(cuda_device):
         before, after, got, dense = _gate_after_in_place_write(cuda_device)
     assert before and not after
     torch.testing.assert_close(got, dense, atol=2e-5, rtol=0)
+
+
+# -- the paddle.* surface on the card ----------------------------------------
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_on_paddle_tensors_launches_k2_k3_bit_equal(
+        cuda_device, causal):
+    """``F.flash_attention`` on paddle Tensors and ``paddle.grad`` through
+    it launch K2 and K3 once each and give the torch-fed call's bits."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.nn import functional as F
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    q, k, v, do = (torch.randn((2, 256, 2, 64), generator=gen,
+                               device=cuda_device).to(torch.bfloat16)
+                   for _ in range(4))
+    qt, kt, vt = (t.clone().requires_grad_() for t in (q, k, v))
+    out_t, _ = F.flash_attention(qt, kt, vt, causal=causal)
+    want = (out_t, *torch.autograd.grad(out_t, (qt, kt, vt), do))
+    ck.reset_launch_counts()
+    qp, kp, vp = (paddle.to_tensor(t, stop_gradient=False)
+                  for t in (q, k, v))
+    out_p, _ = F.flash_attention(qp, kp, vp, causal=causal)
+    assert isinstance(out_p, paddle.Tensor)
+    grads = paddle.grad(out_p, [qp, kp, vp],
+                        grad_outputs=paddle.to_tensor(do))
+    assert ck.FLASH_FWD.launches == 1 and ck.FLASH_BWD.launches == 1
+    for a, b in zip([out_p] + grads, want):
+        assert torch.equal(a._value, b)
+
+
+def test_to_tensor_with_no_place_lands_on_the_card(cuda_device):
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.framework import place
+    prev = place._current_place
+    place._current_place = None
+    try:
+        assert paddle.get_device() == "gpu:0"
+        for t in (paddle.to_tensor([1.0, 2.0]), paddle.ones([2]),
+                  paddle.rand([2]), paddle.arange(3)):
+            assert t._value.device == torch.device("cuda", 0)
+            assert t.place == paddle.CUDAPlace(0)
+    finally:
+        place._current_place = prev

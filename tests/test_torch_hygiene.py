@@ -1,6 +1,7 @@
-"""Import hygiene of the port: ``paddle_tpu_torch``, ``chip_smoke.py`` and
-``scripts/profile_torch_train_step.py`` import neither ``jax`` nor
-anything of ``paddle_tpu`` — not even its modules that do not import JAX. Later slices that reach into the JAX
+"""Import hygiene of the port: ``paddle_tpu_torch``, ``chip_smoke.py``,
+``scripts/profile_torch_train_step.py`` and ``scripts/ab_eager_amp.py``
+import neither ``jax`` nor anything of ``paddle_tpu`` — not even its
+modules that do not import JAX. Later slices that reach into the JAX
 package fail here."""
 import ast
 import os
@@ -17,7 +18,8 @@ FORBIDDEN = ("jax", "jaxlib", "paddle_tpu")
 def _port_files():
     files = sorted((ROOT / "paddle_tpu_torch").rglob("*.py"))
     return files + [ROOT / "chip_smoke.py",
-                    ROOT / "scripts" / "profile_torch_train_step.py"]
+                    ROOT / "scripts" / "profile_torch_train_step.py",
+                    ROOT / "scripts" / "ab_eager_amp.py"]
 
 
 def _imported_roots(path):
@@ -76,6 +78,23 @@ def test_importing_the_port_loads_neither_package():
         "import paddle_tpu_torch.inference.serving.router\n"
         "import paddle_tpu_torch.inference.serving.load\n"
         "import paddle_tpu_torch.inference.serving.autoscaler\n"
+        "import paddle_tpu_torch.framework, paddle_tpu_torch.tensor\n"
+        "import paddle_tpu_torch.framework.dtype\n"
+        "import paddle_tpu_torch.framework.place\n"
+        "import paddle_tpu_torch.framework.random\n"
+        "import paddle_tpu_torch.tensor_methods\n"
+        "import paddle_tpu_torch.autograd, paddle_tpu_torch.autograd.tape\n"
+        "import paddle_tpu_torch.autograd.grad_mode\n"
+        "import paddle_tpu_torch.autograd.functional\n"
+        "import paddle_tpu_torch.autograd.py_layer\n"
+        "import paddle_tpu_torch.ops.op_table, paddle_tpu_torch.ops.registry\n"
+        "import paddle_tpu_torch.ops.common, paddle_tpu_torch.ops.comparison\n"
+        "import paddle_tpu_torch.ops.creation\n"
+        "import paddle_tpu_torch.ops.random_ops\n"
+        "import paddle_tpu_torch.ops.manipulation\n"
+        "import paddle_tpu_torch.ops.indexing, paddle_tpu_torch.ops.linalg\n"
+        "import paddle_tpu_torch.ops.sweep\n"
+        "import paddle_tpu_torch.nn.layer.layers\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in %r)\n"
