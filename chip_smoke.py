@@ -80,7 +80,20 @@ by route) set to 0 just before it and read just after:
   ``paddle.grad`` through ``F.flash_attention`` on paddle Tensors at
   [16, 1024, 12, 64] bf16, bit-equal to the torch-fed call; and every
   entry of the op table on the card against the port's CPU result at its
-  tolerance, with the random ops held by moments and seeded reruns.
+  tolerance, with the random ops held by moments and seeded reruns;
+- checkpoints and the data pipeline: GPT-124M as the scheduled path
+  builds it, 8 uninterrupted steps (twice: the reruns must agree) against
+  4 steps, ``paddle.save``, a model built from another seed,
+  ``paddle.load`` and 4 more (losses, rates, parameters and AdamW
+  moments bit-equal), the same through ``distributed.checkpoint`` with
+  an asynchronous save taken while the next step runs,
+  ``latest_checkpoint``, and a flipped shard byte that must fail the
+  load and send ``latest_checkpoint`` to the earlier checkpoint; then
+  ResNet-50 through ``Model.fit`` with ``ModelCheckpoint`` and two
+  DataLoader worker processes, resumed from ``final`` in another seed's
+  model, bit-equal to two uninterrupted epochs, each worker noting that
+  it never initialized CUDA (save and load seconds and GB/s, the async
+  save's blocked seconds, epoch-2 images/s with 0 and 2 workers).
 
 Last, it times each kernel beside its bound, its plain version and,
 where one exists, a PyTorch call that computes the same function (also
@@ -1723,22 +1736,25 @@ def phase_paddle_surface(torch, ck, smi):
                              f"{sweep_failures} {random_failures}")
 
 
-def gpt124m_scheduled(torch):
+def gpt124m_scheduled(torch, seed=0, check_nan=True):
     """GPT-124M through ``CompiledTrainStep`` at O2 bf16 with
     ``examples/train_gpt.py``'s surface at bench.py's widths: AdamW under
     ``CosineAnnealingDecay(3e-4, 14)`` with ``ClipGradByGlobalNorm(1.0)``,
     ``FLAGS_check_nan_inf`` set before the step is built (it is read
-    then) and ``set_meter_info(tokens_per_step=16384)``. Returns (model,
-    opt, sched, step, batch) with ``batch`` as ``gpt124m_training``'s;
-    ``scripts/profile_torch_train_step.py`` traces this same workload."""
+    then; ``check_nan=False`` leaves it as it is) and
+    ``set_meter_info(tokens_per_step=16384)``, weights from ``seed``.
+    Returns (model, opt, sched, step, batch) with ``batch`` as
+    ``gpt124m_training``'s; ``scripts/profile_torch_train_step.py`` traces
+    this same workload."""
     from paddle_tpu_torch import optimizer as popt
     from paddle_tpu_torch import set_flags
     from paddle_tpu_torch.jit import CompiledTrainStep
     from paddle_tpu_torch.nn.clip import ClipGradByGlobalNorm
     from paddle_tpu_torch.text.gpt import GPTForPretraining, gpt_small
-    set_flags({"FLAGS_check_nan_inf": True})
+    if check_nan:
+        set_flags({"FLAGS_check_nan_inf": True})
     cfg = gpt_small()
-    model = GPTForPretraining(cfg, device="cuda", seed=0)
+    model = GPTForPretraining(cfg, device="cuda", seed=seed)
     sched = popt.lr.CosineAnnealingDecay(3e-4, TRAIN_WARMUP + TRAIN_TIMED + 1)
     opt = popt.AdamW(learning_rate=sched, parameters=model.parameters(),
                      grad_clip=ClipGradByGlobalNorm(1.0))
@@ -2467,6 +2483,400 @@ def phase_vision(torch, ck, smi):
 
 
 # -- phase 8 ------------------------------------------------------------------
+# -- the checkpoint_resume path -----------------------------------------------
+CKPT_STEPS, CKPT_SPLIT = 8, 4
+
+
+def _route_counts(ck):
+    return {k.name: dict(k.route_launches) for k in ck.KERNELS}
+
+
+def _launch_delta(ck, before, name, route):
+    k = next(k for k in ck.KERNELS if k.name == name)
+    return k.route_launches[route] - before[name][route]
+
+
+def _gpt_state(model, opt):
+    """Copies of every parameter and every optimizer accumulator, by
+    name, on the card."""
+    params = {n: p.detach().clone() for n, p in model.named_parameters()}
+    accs = {f"{n}.{a}": v.detach().clone()
+            for n, p in model.named_parameters()
+            for a, v in opt._accumulators.get(id(p), {}).items()}
+    return params, accs
+
+
+def _state_diff(torch, got, want):
+    """The largest absolute difference between two ``_gpt_state``s (inf
+    when their names or dtypes differ)."""
+    worst = 0.0
+    for a, b in zip(got, want):
+        if a.keys() != b.keys():
+            return math.inf
+        for k in a:
+            if a[k].dtype != b[k].dtype:
+                return math.inf
+            worst = max(worst, (a[k].double() - b[k].double()).abs()
+                        .max().item())
+    return worst
+
+
+def _gpt_run(torch, ck, step, opt, sched, ids, labels, lo, hi):
+    """Steps ``lo`` to ``hi`` over the fixed batches, the scheduler
+    stepped after each: (losses, rates read, K2/K3 bf16 launches)."""
+    before = _route_counts(ck)
+    losses, lrs = [], []
+    for i in range(lo, hi):
+        lrs.append(opt.get_lr())
+        losses.append(step(ids[i], labels[i]).item())
+        sched.step()
+    return losses, lrs, {n: _launch_delta(ck, before, n, "bf16")
+                         for n in ("flash_fwd", "flash_bwd")}
+
+
+def _synced(torch, fn):
+    """(fn(), seconds on the host clock between two synchronizes)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _dir_bytes(*paths):
+    import os
+    return sum(os.path.getsize(p) for p in paths)
+
+
+def phase_checkpoint_gpt(torch, ck, smi, tmp):
+    """(a) and (b) of the checkpoint path: GPT-124M as
+    ``gpt124m_scheduled`` builds it (the nan check off), 8 uninterrupted
+    steps (run A, twice: the reruns must agree bit for bit, or their
+    difference becomes the gate), then 4 steps, ``paddle.save`` of the
+    model's and the optimizer's state, a build from seed 1,
+    ``paddle.load`` into both, a new ``CompiledTrainStep`` and 4 more
+    steps: steps 5 to 8, the rates, every parameter and every AdamW
+    moment must equal run A's. The same resume through
+    ``distributed.checkpoint``: a synchronous checkpoint at step 2, an
+    asynchronous one at step 4 taken while step 5 runs (its files must
+    hold step 4's values), ``mark_complete``, ``latest_checkpoint``; then
+    a flipped byte in the step-4 shard must fail the load and send
+    ``latest_checkpoint`` back to step 2. K2 and K3 launch 12 times a step
+    on the bf16 route throughout."""
+    import os
+
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.distributed import checkpoint as dck
+    from paddle_tpu_torch.distributed import elastic
+    from paddle_tpu_torch.jit import CompiledTrainStep
+    from paddle_tpu_torch.text.gpt import gpt_small
+    cfg = gpt_small()
+    layers = cfg.num_layers
+    shape = (TRAIN_BATCH, cfg.max_seq_len)
+    ids, labels = _token_batches(torch, cfg.vocab_size, shape, shape,
+                                 cfg.vocab_size)(CKPT_STEPS)
+    launches = []
+
+    def build(seed):
+        model, opt, sched, step, _ = gpt124m_scheduled(torch, seed=seed,
+                                                       check_nan=False)
+        return model, opt, sched, step
+
+    def run(parts, lo, hi):
+        model, opt, sched, step = parts
+        losses, lrs, n = _gpt_run(torch, ck, step, opt, sched, ids, labels,
+                                  lo, hi)
+        launches.append((hi - lo, n))
+        return losses, lrs
+
+    def uninterrupted():
+        parts = build(0)
+        losses, lrs = run(parts, 0, CKPT_STEPS)
+        state = _gpt_state(parts[0], parts[1])
+        del parts
+        torch.cuda.empty_cache()
+        return losses, lrs, state
+
+    a_losses, a_lrs, a_state = uninterrupted()
+    r_losses, r_lrs, r_state = uninterrupted()
+    rerun_diff = max(_state_diff(torch, r_state, a_state),
+                     max(abs(x - y) for x, y in zip(r_losses, a_losses)))
+    del r_state
+
+    ckdir = os.path.join(tmp, "elastic")
+    p = os.path.join(tmp, "gpt124m")
+    parts = build(0)
+    b_losses, b_lrs = run(parts, 0, 2)
+    model, opt = parts[0], parts[1]
+    step2 = elastic.checkpoint_path(2, ckdir)
+    _, sync_s = _synced(torch, lambda: dck.save_state_dict(
+        {"model": model.state_dict(), "opt": opt.state_dict()}, step2))
+    elastic.mark_complete(step2)
+    more = run(parts, 2, CKPT_SPLIT)
+    b_losses += more[0]
+    b_lrs += more[1]
+    _, save_s = _synced(torch, lambda: (
+        paddle.save(model.state_dict(), p + ".pdparams"),
+        paddle.save(opt.state_dict(), p + ".pdopt")))
+    nbytes = _dir_bytes(p + ".pdparams", p + ".pdopt")
+    step4 = elastic.checkpoint_path(CKPT_SPLIT, ckdir)
+    t0 = time.perf_counter()
+    handle = dck.save_state_dict(
+        {"model": model.state_dict(), "opt": opt.state_dict()}, step4,
+        async_save=True)
+    blocked_s = time.perf_counter() - t0
+    # one more step while the files are written: they must hold step 4
+    b5 = run(parts, CKPT_SPLIT, CKPT_SPLIT + 1)[0]
+    handle.wait(timeout=600)
+    async_s = time.perf_counter() - t0
+    elastic.mark_complete(step4)
+    del parts, model, opt, handle
+    torch.cuda.empty_cache()
+
+    def resumed(load):
+        parts = build(1)
+        model, opt, sched, step = parts
+        (missing, unexpected), load_s = _synced(torch, lambda: load(model,
+                                                                    opt))
+        if missing or unexpected:
+            raise AssertionError(f"the load missed {missing}, found "
+                                 f"{unexpected}")
+        if opt._step_count != CKPT_SPLIT or sched.last_epoch != CKPT_SPLIT:
+            raise AssertionError(
+                f"the optimizer resumed at step {opt._step_count}, the "
+                f"scheduler at {sched.last_epoch}")
+        step = CompiledTrainStep(step.fn, model, opt, amp_level="O2")
+        losses, lrs = run((model, opt, sched, step), CKPT_SPLIT, CKPT_STEPS)
+        state = _gpt_state(model, opt)
+        del parts, model, opt, sched, step
+        torch.cuda.empty_cache()
+        return losses, lrs, state, load_s
+
+    def load_files(model, opt):
+        got = model.set_state_dict(paddle.load(p + ".pdparams"))
+        opt.set_state_dict(paddle.load(p + ".pdopt"))
+        return got
+
+    found = elastic.latest_checkpoint(ckdir)
+
+    def load_dck(model, opt):
+        for q in model.parameters():   # the skeleton's accumulators
+            opt._get_accumulators(q)
+        skeleton = {"model": model.state_dict(), "opt": opt.state_dict()}
+        dck.load_state_dict(skeleton, found)
+        opt.set_state_dict(skeleton["opt"])
+        return [], []
+
+    results = {"paddle_save": resumed(load_files),
+               "distributed_checkpoint": resumed(load_dck)}
+    # a flipped byte: the load refuses, latest_checkpoint falls back
+    shard = os.path.join(step4, "shard_0.pkl")
+    with open(shard, "r+b") as f:
+        f.seek(os.path.getsize(shard) // 2)
+        byte = f.read(1)
+        f.seek(-1, 1)
+        f.write(bytes([byte[0] ^ 0xFF]))
+    try:
+        dck.load_state_dict({}, step4)
+    except ValueError as e:
+        corrupt_refused = "corrupt" in str(e)
+    else:
+        corrupt_refused = False
+    fallback = elastic.latest_checkpoint(ckdir)
+
+    out = {"phase": "checkpoint_resume_gpt124m", "nvidia_smi": smi,
+           "model": "gpt_small (GPT-124M), CompiledTrainStep O2 bf16, AdamW "
+                    "under CosineAnnealingDecay(3e-4, 14), "
+                    "ClipGradByGlobalNorm(1.0), seed 0; resumed into a seed-1 "
+                    "build", "dropout": 0.0,
+           "steps": CKPT_STEPS, "resume_at": CKPT_SPLIT,
+           "run_a_losses": a_losses, "run_a_lrs": a_lrs,
+           "rerun_bit_equal": rerun_diff == 0.0, "rerun_max_diff": rerun_diff,
+           "interrupted_losses_1_to_5": b_losses + b5,
+           "checkpoint_bytes": nbytes, "paddle_save_s": save_s,
+           "paddle_save_gb_per_s": nbytes / save_s / 1e9,
+           "dck_sync_save_s": sync_s, "dck_async_blocked_s": blocked_s,
+           "dck_async_write_s": async_s,
+           "dck_shard_bytes": _dir_bytes(shard),
+           "latest_checkpoint": found, "corrupt_load_refused":
+               corrupt_refused, "fallback_checkpoint": fallback,
+           "launches_bf16_per_step": [
+               {"steps": n, **c} for n, c in launches]}
+    failures = []
+    for name, (losses, lrs, state, load_s) in results.items():
+        diff = max(_state_diff(torch, state, a_state),
+                   max(abs(x - y) for x, y in
+                       zip(losses, a_losses[CKPT_SPLIT:])))
+        out[name] = {"losses_5_to_8": losses, "lrs": lrs, "load_s": load_s,
+                     "load_gb_per_s": nbytes / load_s / 1e9,
+                     "max_diff_to_run_a": diff}
+        if diff > rerun_diff or lrs != a_lrs[CKPT_SPLIT:]:
+            failures.append(f"{name}: resumed steps differ from run A by "
+                            f"{diff} (reruns: {rerun_diff})")
+    emit(out)
+    if b_losses + b5 != a_losses[:CKPT_SPLIT + 1] and rerun_diff == 0.0:
+        failures.append("the interrupted run's first five losses differ "
+                        "from run A's (the async save changed step 5?)")
+    if found != step4 or not corrupt_refused or fallback != step2:
+        failures.append(f"latest_checkpoint {found}, corrupt load refused "
+                        f"{corrupt_refused}, fallback {fallback}")
+    bad = [(n, c) for n, c in launches
+           if c != {"flash_fwd": layers * n, "flash_bwd": layers * n}]
+    if bad:
+        failures.append(f"K2/K3 bf16 launches, not 12 a step: {bad}")
+    if failures:
+        raise AssertionError("; ".join(failures))
+
+
+class _WorkerCudaCheck:
+    """A DataLoader ``worker_init_fn`` (picklable: module level) noting in
+    ``mark_dir`` whether CUDA was initialized in the worker, and failing
+    the worker when it was."""
+
+    def __init__(self, mark_dir):
+        self.mark_dir = mark_dir
+
+    def __call__(self, wid):
+        import os
+
+        import torch
+        inited = torch.cuda.is_initialized()
+        with open(os.path.join(self.mark_dir,
+                               f"worker_{wid}_{os.getpid()}"), "w") as f:
+            f.write(str(inited))
+        if inited:
+            raise RuntimeError(f"DataLoader worker {wid} initialized CUDA")
+
+
+def phase_checkpoint_resnet50_fit(torch, smi, tmp):
+    """(c) of the checkpoint path: ResNet-50 through ``Model.fit`` on
+    ``phase_resnet50_fit_bf16``'s input (8 x 256 images, O2, Momentum,
+    ``steps_per_execution=8``, cuDNN deterministic): 2 epochs with no
+    workers; then 1 epoch with 2 worker processes and
+    ``ModelCheckpoint``, which must write ``0`` and ``final``; a seed-1
+    model ``load``s ``final`` and trains 1 more epoch with 2 workers. Its
+    8 losses must equal the uninterrupted run's second epoch bit for bit
+    (the same batches in the same order, the same state). Every worker
+    notes that CUDA was not initialized in it."""
+    import os
+
+    import numpy as np
+
+    from paddle_tpu_torch.hapi import Model
+    from paddle_tpu_torch.hapi.callbacks import ModelCheckpoint
+    from paddle_tpu_torch.io import DataLoader, TensorDataset
+    from paddle_tpu_torch.nn import CrossEntropyLoss
+    from paddle_tpu_torch.optimizer import Momentum
+    from paddle_tpu_torch.vision.models import resnet50
+
+    class FirstBatchTimed(DataLoader):
+        """Notes the seconds from the start of each pass to its first
+        batch."""
+        first_batch_s = None
+
+        def __iter__(self):
+            t0 = time.perf_counter()
+            it = super().__iter__()
+            for i, batch in enumerate(it):
+                if i == 0:
+                    self.first_batch_s = time.perf_counter() - t0
+                yield batch
+
+    block = _image_batches(torch, (RESNET_BATCH, 3, RESNET_SIZE,
+                                   RESNET_SIZE), RESNET_CLASSES,
+                           device=None)(RESNET_K)
+    ds = TensorDataset([block[0].reshape((-1,) + block[0].shape[2:]),
+                        block[1].reshape(-1)])
+    marks = os.path.join(tmp, "worker_marks")
+    os.makedirs(marks)
+    save_dir = os.path.join(tmp, "resnet50_ckpt")
+
+    def model_of(seed):
+        net = resnet50(num_classes=RESNET_CLASSES, device="cuda", seed=seed)
+        opt = Momentum(learning_rate=0.1, momentum=0.9,
+                       parameters=net.parameters())
+        return Model(net).prepare(opt, CrossEntropyLoss(), amp_configs="O2")
+
+    def fit(model, workers, epochs, callbacks=()):
+        loader = FirstBatchTimed(
+            ds, batch_size=RESNET_BATCH, shuffle=False, num_workers=workers,
+            worker_init_fn=_WorkerCudaCheck(marks) if workers else None,
+            timeout=120)
+        rec = fit_recorder(torch)
+        model.fit(loader, epochs=epochs, verbose=0,
+                  steps_per_execution=RESNET_K,
+                  callbacks=[rec, *callbacks])
+        return rec, loader
+
+    torch.backends.cudnn.deterministic = True
+    try:
+        straight, l0 = fit(model_of(0), 0, 2)
+        torch.cuda.empty_cache()
+        first, _ = fit(model_of(0), 2, 1,
+                       [ModelCheckpoint(save_dir=save_dir)])
+        files = sorted(os.listdir(save_dir))
+        torch.cuda.empty_cache()
+        resumed_model = model_of(1)
+        _, load_s = _synced(torch, lambda: resumed_model.load(
+            os.path.join(save_dir, "final")))
+        second, l2 = fit(resumed_model, 2, 1)
+        del resumed_model
+        torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.deterministic = False
+    worker_marks = {}
+    for name in os.listdir(marks):
+        with open(os.path.join(marks, name)) as f:
+            worker_marks[name] = f.read()
+    images = RESNET_K * RESNET_BATCH
+    out = {"phase": "checkpoint_resume_resnet50_fit", "nvidia_smi": smi,
+           "entry": "Model(resnet50).prepare(Momentum(0.1, 0.9), "
+                    "CrossEntropyLoss(), amp_configs='O2').fit(DataLoader("
+                    "TensorDataset(8 x 256 images), batch_size=256, "
+                    "num_workers=0 or 2), steps_per_execution=8); "
+                    "ModelCheckpoint; Model.load",
+           "cudnn_deterministic": True,
+           "uninterrupted_losses": straight.losses,
+           "interrupted_epoch1_losses": first.losses,
+           "resumed_epoch2_losses": second.losses,
+           "checkpoint_files": files, "model_load_s": load_s,
+           "epoch2_s_workers0": straight.epoch_s[1],
+           "epoch2_s_workers2": second.epoch_s[0],
+           "images_per_s_epoch2_workers0": images / straight.epoch_s[1],
+           "images_per_s_epoch2_workers2": images / second.epoch_s[0],
+           "first_batch_s_workers0": l0.first_batch_s,
+           "first_batch_s_workers2": l2.first_batch_s,
+           "worker_start_s": l2.worker_start_s,
+           "images_per_s_epoch2_workers2_after_first_batch":
+               images / (second.epoch_s[0] - l2.first_batch_s),
+           "worker_cuda_initialized": worker_marks}
+    emit(out)
+    want_files = ["0.pdopt", "0.pdparams", "final.pdopt", "final.pdparams"]
+    if files != want_files:
+        raise AssertionError(f"ModelCheckpoint wrote {files}")
+    if len(straight.losses) != 2 * RESNET_K or \
+            first.losses != straight.losses[:RESNET_K] or \
+            second.losses != straight.losses[RESNET_K:]:
+        raise AssertionError(
+            f"the resumed losses {first.losses} + {second.losses} differ "
+            f"from the uninterrupted {straight.losses}")
+    if len(worker_marks) != 4 or set(worker_marks.values()) != {"False"}:
+        raise AssertionError(f"worker CUDA marks: {worker_marks}")
+
+
+def phase_checkpoint_resume(torch, ck, smi):
+    """The checkpoint path: (a) and (b) on GPT-124M, (c) on ResNet-50,
+    their files under one temporary directory, removed at the end."""
+    import shutil
+    import tempfile
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        phase_checkpoint_gpt(torch, ck, smi, tmp)
+        phase_checkpoint_resnet50_fit(torch, smi, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def paged_bound(torch, q, kp, bt, cl):
     """Least time for K1 on these inputs: bytes each slot's visible rows
     need (K and V once, the table entries it reads, q, lens, out) versus
@@ -2783,7 +3193,8 @@ def main():
     # on their fp16 route), training with the schedule, nan check and
     # StepMeter (K2, K3), packed attention (K4, K5), ERNIE pretraining and
     # BERT finetuning (K2, K3, non-causal), then ResNet-50 and LeNet
-    # training (none), then the paddle.* surface (K2, K3)
+    # training (none), then the paddle.* surface (K2, K3), then the
+    # checkpoint path (K2, K3 on GPT-124M's resumes; none on ResNet-50's)
     paths = (("serving", ("paged_attention", "flash_fwd"),
               lambda: (phase_serving(torch, ck, smi),
                        phase_exactness_fp32(torch, ck))),
@@ -2812,12 +3223,16 @@ def main():
              # no hand-written kernel on this path, as in the reference
              ("resnet50_training", (), lambda: phase_vision(torch, ck, smi)),
              ("paddle_surface", ("flash_fwd", "flash_bwd"),
-              lambda: phase_paddle_surface(torch, ck, smi)))
+              lambda: phase_paddle_surface(torch, ck, smi)),
+             ("checkpoint_resume", ("flash_fwd", "flash_bwd"),
+              lambda: phase_checkpoint_resume(torch, ck, smi)))
     launches = {k.name: 0 for k in ck.KERNELS}
-    path_launches, path_routes = {}, {}
+    path_launches, path_routes, path_seconds = {}, {}, {}
     for path, kernels, drive in paths:
         ck.reset_launch_counts()
+        t_path = time.perf_counter()
         drive()
+        path_seconds[path] = time.perf_counter() - t_path
         counts = {k.name: k.launches for k in ck.KERNELS}
         missing = [n for n in kernels if counts[n] == 0]
         if missing:
@@ -2831,7 +3246,7 @@ def main():
         for name, c in counts.items():
             launches[name] += c
     emit({"phase": "path_launches", "launches": path_launches,
-          "by_route": path_routes})
+          "by_route": path_routes, "seconds": path_seconds})
     kernels = phase_timing(torch, ck, launches, path_launches, path_routes,
                            smi)
     emit({"phase": "done", "seconds": time.perf_counter() - t0})

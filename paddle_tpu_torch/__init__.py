@@ -74,3 +74,8 @@ for _name, _fn in _collect_public_ops().items():
 del _g, _name, _fn
 
 from . import amp, autograd, nn, optimizer  # noqa: E402
+# checkpoints, the data pipeline and the high-level API, where the
+# reference exports them
+from .framework.io import save, load  # noqa: E402
+from . import io, metric, utils  # noqa: E402
+from .hapi import Model, summary, flops, callbacks  # noqa: E402

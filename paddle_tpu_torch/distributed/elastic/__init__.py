@@ -1,16 +1,37 @@
-"""Elastic training's checkpoint digest gate (counterpart:
-``paddle_tpu/distributed/elastic/__init__.py``, its ``verify_checkpoint``
-only). The serving replica gates every model bundle through it; the rest
-of the elastic plane (the relaunch manager, the failure detector, the
-preemption hook) is still to port (ROADMAP A8).
+"""Elastic training's checkpoint lifecycle (counterpart:
+``paddle_tpu/distributed/elastic/__init__.py``): where a step's checkpoint
+lives (``checkpoint_path``), the digest gate (``verify_checkpoint``), the
+completion marker and retention (``mark_complete``, ``gc_checkpoints``),
+the newest complete and intact checkpoint (``latest_checkpoint``), the
+SIGTERM hook that takes a final checkpoint (``enable_preemption_checkpoint``)
+and the relaunch count (``restart_count``). The serving replica gates
+every model bundle through ``verify_checkpoint``. The relaunch manager
+(``ElasticManager``, ``elastic_launch``), the agent and the failure
+detector wait for the control plane (ROADMAP A8).
 """
 from __future__ import annotations
 
 import os
+import signal
+import sys
 
 from ...observability import trace as _obs_trace
 
-__all__ = ["verify_checkpoint"]
+__all__ = ["enable_preemption_checkpoint", "latest_checkpoint",
+           "verify_checkpoint", "checkpoint_path", "mark_complete",
+           "gc_checkpoints", "restart_count", "CKPT_DIR_ENV", "RESTART_ENV",
+           "KEEP_CKPTS_ENV", "GENERATION_ENV"]
+
+CKPT_DIR_ENV = "PADDLE_ELASTIC_CKPT_DIR"
+RESTART_ENV = "PADDLE_RESTART_COUNT"
+KEEP_CKPTS_ENV = "PADDLE_ELASTIC_KEEP_CKPTS"
+GENERATION_ENV = "PADDLE_ELASTIC_GENERATION"
+
+
+def checkpoint_path(step, ckpt_dir=None):
+    """Canonical elastic checkpoint location for a step."""
+    d = ckpt_dir or os.environ.get(CKPT_DIR_ENV, "./elastic_ckpt")
+    return os.path.join(d, f"step_{step}")
 
 
 def verify_checkpoint(path):
@@ -64,3 +85,151 @@ def _verify_checkpoint_impl(path):
             return False, (f"{name} fails its recorded sha256 "
                            "(torn or bit-flipped write)")
     return True, None
+
+
+def latest_checkpoint(ckpt_dir=None):
+    """Newest complete AND INTACT checkpoint dir (by step) or None. A
+    checkpoint is complete when its ``.done`` marker exists (writers
+    create the marker LAST, so a crash mid-save never yields a half
+    checkpoint). Completeness is necessary but not sufficient: a torn or
+    bit-flipped shard under a valid ``.done`` would fail the restore leg
+    AFTER detection and rendezvous already succeeded, so any checkpoint
+    failing ``verify_checkpoint`` is skipped (with a logged reason) and
+    the previous ``.done`` one is returned instead."""
+    d = ckpt_dir or os.environ.get(CKPT_DIR_ENV, "./elastic_ckpt")
+    if not os.path.isdir(d):
+        return None
+    done = []
+    for name in os.listdir(d):
+        if not name.startswith("step_"):
+            continue
+        path = os.path.join(d, name)
+        if not os.path.exists(os.path.join(path, ".done")):
+            continue
+        try:
+            step = int(name.split("_", 1)[1])
+        except ValueError:
+            continue
+        done.append((step, path))
+    for _, path in sorted(done, reverse=True):
+        ok, reason = verify_checkpoint(path)
+        if ok:
+            return path
+        print(f"elastic: skipping corrupt checkpoint {path}: {reason}",
+              file=sys.stderr, flush=True)
+    return None
+
+
+def mark_complete(path, keep_last_k=None):
+    """Write the completion marker (call after all shards are on disk),
+    then garbage-collect old checkpoints: ``keep_last_k`` (or the
+    ``PADDLE_ELASTIC_KEEP_CKPTS`` env contract, so launcher-managed
+    trainers get retention without code changes) bounds the ``step_*``
+    dirs a long elastic run accumulates. No limit configured → no GC
+    (back-compat)."""
+    with open(os.path.join(path, ".done"), "w") as f:
+        f.write("1")
+    if keep_last_k is None:
+        try:
+            keep_last_k = int(os.environ.get(KEEP_CKPTS_ENV, "0")) or None
+        except ValueError:
+            keep_last_k = None  # malformed knob: retention off, not a
+            # trainer crash after every successful save
+    if keep_last_k is not None:
+        gc_checkpoints(os.path.dirname(os.path.abspath(path)),
+                       keep_last_k=keep_last_k)
+
+
+def gc_checkpoints(ckpt_dir=None, keep_last_k=3):
+    """Delete old ``step_*`` checkpoint dirs, keeping the ``keep_last_k``
+    newest COMPLETE ones. Safety invariants:
+
+    - the newest ``.done`` checkpoint is NEVER deleted (``keep_last_k``
+      is clamped to >= 1) — it is what relaunch-restore resumes from;
+    - dirs newer than the newest complete step are never touched (they
+      are in-progress saves, possibly another rank's);
+    - incomplete dirs OLDER than the newest complete step are removed
+      too (crash leftovers that latest_checkpoint() skips forever).
+
+    Returns the list of deleted paths."""
+    import shutil
+    d = ckpt_dir or os.environ.get(CKPT_DIR_ENV, "./elastic_ckpt")
+    if not os.path.isdir(d):
+        return []
+    steps = []
+    for name in os.listdir(d):
+        if not name.startswith("step_"):
+            continue
+        try:
+            step = int(name.split("_", 1)[1])
+        except ValueError:
+            continue
+        path = os.path.join(d, name)
+        steps.append((step, path,
+                      os.path.exists(os.path.join(path, ".done"))))
+    done_steps = sorted(s for s, _, ok in steps if ok)
+    if not done_steps:
+        return []  # nothing restorable yet: delete nothing
+    keep_last_k = max(1, int(keep_last_k))
+    kept_done = set(done_steps[-keep_last_k:])
+    newest_done = done_steps[-1]
+    deleted = []
+    for step, path, ok in steps:
+        if step > newest_done or step in kept_done:
+            continue
+        shutil.rmtree(path, ignore_errors=True)
+        deleted.append(path)
+    return deleted
+
+
+_preempt_state = {"installed": False, "save_fn": None, "prev": None,
+                  "exit_code": 0}
+
+
+def enable_preemption_checkpoint(save_fn, exit_code=0):
+    """Turn SIGTERM (a scheduler's preemption or maintenance notice) into
+    a final checkpoint: ``save_fn()`` runs once, then the process exits
+    cleanly so a relaunching manager (or the scheduler) can restore from
+    it.
+
+    Returns a disable() callable restoring the previous handler."""
+    _preempt_state["save_fn"] = save_fn
+    _preempt_state["exit_code"] = exit_code
+
+    def _handler(signum, frame):
+        # restore the previous handler FIRST: a second SIGTERM (the
+        # scheduler losing patience mid-save_fn, or arriving after the
+        # checkpoint was already taken) must force exit through the
+        # default disposition instead of being silently swallowed by a
+        # no-op re-entry
+        prev = _preempt_state["prev"]
+        signal.signal(signal.SIGTERM,
+                      prev if prev is not None else signal.SIG_DFL)
+        _preempt_state["installed"] = False
+        fn = _preempt_state["save_fn"]
+        if fn is None:
+            # save_fn already consumed: re-deliver to the restored
+            # disposition (default: terminate)
+            os.kill(os.getpid(), signum)
+            return
+        _preempt_state["save_fn"] = None  # run once
+        try:
+            fn()
+        finally:
+            sys.exit(_preempt_state["exit_code"])
+
+    prev = signal.signal(signal.SIGTERM, _handler)
+    _preempt_state.update(installed=True, prev=prev)
+
+    def disable():
+        if _preempt_state["installed"]:
+            signal.signal(signal.SIGTERM, _preempt_state["prev"])
+            _preempt_state.update(installed=False, save_fn=None)
+
+    return disable
+
+
+def restart_count():
+    """How many times a relaunching manager has restarted this trainer
+    (``PADDLE_RESTART_COUNT``, 0 when unset)."""
+    return int(os.environ.get(RESTART_ENV, "0"))

@@ -46,10 +46,19 @@ def get_rng_state(device=None):
     return [generator(torch.device("cpu")).get_state()]
 
 
+def _state_tensor(state):
+    """A generator state as ``set_state`` takes it (a uint8 tensor on the
+    host), from a torch tensor, a paddle ``Tensor`` or a NumPy array: a
+    state saved with ``paddle.save`` loads as a ``Tensor`` on the current
+    place."""
+    from ..ops.dispatch import unwrap
+    return unwrap(state, device=torch.device("cpu")).to("cpu", torch.uint8)
+
+
 def set_rng_state(state_list, device=None):
     states = state_list if isinstance(state_list, (list, tuple)) \
         else [state_list]
-    generator(torch.device("cpu")).set_state(states[0])
+    generator(torch.device("cpu")).set_state(_state_tensor(states[0]))
 
 
 def get_cuda_rng_state():
@@ -66,4 +75,4 @@ def set_cuda_rng_state(state_list):
             f"{len(state_list)} states for "
             f"{torch.cuda.device_count()} cards")
     for i, st in enumerate(state_list):
-        generator(torch.device("cuda", i)).set_state(st)
+        generator(torch.device("cuda", i)).set_state(_state_tensor(st))

@@ -4,12 +4,14 @@ callbacks.py``): ``Callback``, ``CallbackList``, ``ProgBarLogger``,
 batch, ``by_step``, or per epoch, ``by_epoch``) and ``ReduceLROnPlateau``
 (the reference's: it scales a float learning rate by ``factor`` after
 ``patience`` epochs without a better monitored value, and leaves a
-scheduler alone). ``ModelCheckpoint`` waits for ``Model.save`` (ROADMAP
-A6) and ``VisualDL`` for the observability plane (ROADMAP A9); each
-raises when built."""
+scheduler alone) and ``ModelCheckpoint`` (``Model.save`` to
+``save_dir/{epoch}`` every ``save_freq`` epochs and to
+``save_dir/final`` when training ends). ``VisualDL`` waits for the
+observability plane (ROADMAP A9) and raises when built."""
 from __future__ import annotations
 
 import numbers
+import os
 import time
 
 import numpy as np
@@ -44,8 +46,8 @@ class Callback:
 
 class CallbackList:
     """The callbacks given, with a ``ProgBarLogger`` first when
-    ``verbose`` and none was given; ``save_dir`` asks for a
-    ``ModelCheckpoint``, which is not ported."""
+    ``verbose`` and none was given, and a ``ModelCheckpoint`` last when
+    ``save_dir`` is given and none was."""
 
     def __init__(self, callbacks=None, model=None, **params):
         self.callbacks = list(callbacks or [])
@@ -54,8 +56,10 @@ class CallbackList:
                                for c in self.callbacks):
             self.callbacks.insert(0, ProgBarLogger(
                 params.get("log_freq", 10), verbose=verbose))
-        if params.get("save_dir"):
-            ModelCheckpoint(params.get("save_freq", 1), params["save_dir"])
+        if params.get("save_dir") and not any(
+                isinstance(c, ModelCheckpoint) for c in self.callbacks):
+            self.callbacks.append(ModelCheckpoint(params.get("save_freq", 1),
+                                                  params["save_dir"]))
         for c in self.callbacks:
             c.set_model(model)
             c.set_params(params)
@@ -111,6 +115,21 @@ class ProgBarLogger(Callback):
             items = [f"{k}: {v:.4f}" for k, v in (logs or {}).items()
                      if isinstance(v, numbers.Number)]
             print(f"Epoch {epoch} done: " + ", ".join(items))
+
+
+class ModelCheckpoint(Callback):
+    def __init__(self, save_freq=1, save_dir=None):
+        super().__init__()
+        self.save_freq = save_freq
+        self.save_dir = save_dir
+
+    def on_epoch_end(self, epoch, logs=None):
+        if self.model and self.save_dir and epoch % self.save_freq == 0:
+            self.model.save(os.path.join(self.save_dir, f"{epoch}"))
+
+    def on_train_end(self, logs=None):
+        if self.model and self.save_dir:
+            self.model.save(os.path.join(self.save_dir, "final"))
 
 
 class EarlyStopping(Callback):
@@ -219,5 +238,4 @@ class ReduceLROnPlateau(Callback):
                 self.wait = 0
 
 
-ModelCheckpoint = _not_ported("ModelCheckpoint", "A6, framework/io.py")
 VisualDL = _not_ported("VisualDL", "A9")

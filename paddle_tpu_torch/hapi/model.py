@@ -11,14 +11,17 @@ eager ``backward`` (and ``step``) instead. Batches come from the port's
 here, one copy a batch (one a block under ``steps_per_execution``).
 
 Single process only: the reference's multi-process branches wait for the
-distributed data plane (ROADMAP A7); ``save`` and ``load`` for
-``framework/io.py`` (ROADMAP A6). When the optimizer's learning rate is
+distributed data plane (ROADMAP A7). ``save`` writes ``path.pdparams``
+and ``path.pdopt`` through ``paddle.save`` and ``load`` reads them back
+in place; ``save(training=False)``, an inference export, waits for the
+jit surface (ROADMAP A10). When the optimizer's learning rate is
 an ``LRScheduler``, ``fit`` steps it once per epoch, after the epoch's
 batches and before the evaluation, as the reference does (the
 ``LRScheduler`` callback can step it per batch as well).
 """
 from __future__ import annotations
 
+import os
 import warnings
 
 import numpy as np
@@ -348,12 +351,44 @@ class Model:
 
     # -- io ------------------------------------------------------------------
     def save(self, path, training=True):
-        raise NotImplementedError(
-            "Model.save waits for framework/io.py (ROADMAP A6)")
+        """``path.pdparams`` (the network's ``state_dict``) and, with an
+        optimizer, ``path.pdopt`` (its ``state_dict``), through
+        ``paddle.save``. ``training=False`` asks for an inference export
+        through ``jit.save``, which is not ported (ROADMAP A10)."""
+        if not training:
+            raise NotImplementedError(
+                "Model.save(training=False) exports through jit.save, "
+                "which waits for the jit surface (ROADMAP A10)")
+        from ..framework.io import save as psave
+        psave(self.network.state_dict(), path + ".pdparams")
+        if self._optimizer is not None:
+            psave(self._optimizer.state_dict(), path + ".pdopt")
 
     def load(self, path, skip_mismatch=False, reset_optimizer=False):
-        raise NotImplementedError(
-            "Model.load waits for framework/io.py (ROADMAP A6)")
+        """Load ``path.pdparams`` into the network in place and, unless
+        ``reset_optimizer`` or there is no optimizer or no ``path.pdopt``,
+        the optimizer's state. ``skip_mismatch`` leaves out, with a
+        warning, the entries whose shape differs from the network's (else
+        they raise ValueError)."""
+        from ..framework.io import load as pload
+        state = pload(path + ".pdparams")
+        if skip_mismatch:
+            own = self.network.state_dict()
+            for k in [k for k, v in state.items() if k in own and
+                      tuple(v.shape) != tuple(own[k].shape)]:
+                warnings.warn(f"Model.load skips {k}: shape "
+                              f"{tuple(state[k].shape)} against the "
+                              f"network's {tuple(own[k].shape)}")
+                del state[k]
+        self.network.set_state_dict(state)
+        opt_path = path + ".pdopt"
+        if not reset_optimizer and self._optimizer is not None and \
+                os.path.exists(opt_path):
+            self._optimizer.set_state_dict(pload(opt_path))
+
+    def summary(self, input_size=None, dtype=None):
+        from .summary import summary as _summary
+        return _summary(self.network, input_size, dtypes=dtype)
 
 
 def _as_cpu_tensor(t):

@@ -1,7 +1,11 @@
-"""Samplers (counterpart: ``paddle_tpu/io/sampler.py``)."""
+"""Samplers (counterpart: ``paddle_tpu/io/sampler.py``). The random ones
+draw from numpy's global generator, as the reference's do, or from a
+``torch.Generator`` where the caller passes one. ``DistributedBatchSampler``
+waits for the distributed data plane (ROADMAP A7)."""
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 
 class Sampler:
@@ -39,6 +43,44 @@ class RandomSampler(Sampler):
         if self.replacement:
             return iter(np.random.randint(0, n, self.num_samples).tolist())
         return iter(np.random.permutation(n)[:self.num_samples].tolist())
+
+    def __len__(self):
+        return self.num_samples
+
+
+class SubsetRandomSampler(Sampler):
+    """``indices`` in a random order."""
+
+    def __init__(self, indices, generator=None):
+        super().__init__()
+        self.indices = list(indices)
+        self.generator = generator
+
+    def __iter__(self):
+        if self.generator is not None:
+            order = torch.randperm(len(self.indices),
+                                   generator=self.generator).tolist()
+            return iter([self.indices[i] for i in order])
+        return iter(np.random.permutation(self.indices).tolist())
+
+    def __len__(self):
+        return len(self.indices)
+
+
+class WeightedRandomSampler(Sampler):
+    """``num_samples`` indices drawn with probability proportional to
+    ``weights`` (with replacement unless ``replacement=False``)."""
+
+    def __init__(self, weights, num_samples, replacement=True):
+        super().__init__()
+        self.weights = np.asarray([float(w) for w in weights])
+        self.num_samples = num_samples
+        self.replacement = replacement
+
+    def __iter__(self):
+        p = self.weights / self.weights.sum()
+        return iter(np.random.choice(len(self.weights), self.num_samples,
+                                     replace=self.replacement, p=p).tolist())
 
     def __len__(self):
         return self.num_samples

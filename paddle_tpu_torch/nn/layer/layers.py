@@ -10,13 +10,21 @@ surface and their torch-native insides.
   ops and Tensor methods work inside its ``forward``.
 - Parameters stay ``torch.nn.Parameter``s, which the port's optimizers
   update and ``paddle.grad`` and the ops accept.
+- ``state_dict`` lists parameters, then persistable buffers, as the
+  reference does; ``set_state_dict`` (``set_dict``, ``load_dict``)
+  writes into them in place, never swapping a parameter: optimizers key
+  their state by the parameter's identity and a ``CompiledTrainStep``
+  holds the parameters it was built with.
 """
 from __future__ import annotations
+
+import collections
 
 import torch
 from torch import nn
 
 from ...framework import dtype as dtype_mod
+from ...ops.dispatch import unwrap
 from ...tensor import Tensor
 
 _PACKAGE = __name__.split(".")[0] + "."
@@ -66,6 +74,57 @@ class Layer(nn.Module):
             kwargs = {k: _unwrap_tree(v) for k, v in kwargs.items()}
             return _wrap_tree(super().__call__(*args, **kwargs))
         return super().__call__(*args, **kwargs)
+
+    # -- state dict ----------------------------------------------------------
+    def state_dict(self, destination=None, include_sublayers=True,
+                   structured_name_prefix="", use_hook=True, *,
+                   prefix=None, keep_vars=False):
+        """The reference's order: every parameter (a tied one once), then
+        every persistable buffer, each under its structured name, as
+        detached tensors that share the live ones' storage. Called the
+        way ``torch.nn.Module`` calls its children (``prefix``,
+        ``keep_vars``), it is torch's ``state_dict``."""
+        if prefix is not None or keep_vars:
+            return super().state_dict(destination=destination,
+                                      prefix=prefix or "",
+                                      keep_vars=keep_vars)
+        dest = destination if destination is not None else \
+            collections.OrderedDict()
+        pre = structured_name_prefix
+        for name, p in self.named_parameters(recurse=include_sublayers):
+            dest[pre + name] = p.detach()
+        modules = dict(self.named_modules())
+        for name, b in self.named_buffers(recurse=include_sublayers):
+            owner, _, short = name.rpartition(".")
+            if short not in modules[owner]._non_persistent_buffers_set:
+                dest[pre + name] = b.detach()
+        return dest
+
+    def set_state_dict(self, state_dict, use_structured_name=True):
+        """Copy ``state_dict``'s values (paddle ``Tensor``s, torch
+        tensors, NumPy arrays) into this layer's parameters and buffers in
+        place, each keeping its own dtype and device, so that optimizers
+        and train steps holding them see the new values. Returns
+        (missing, unexpected) keys; a shape mismatch raises ValueError."""
+        own = self.state_dict()
+        matched, unexpected = set(), []
+        with torch.no_grad():
+            for k, v in state_dict.items():
+                if k not in own:
+                    unexpected.append(k)
+                    continue
+                src = unwrap(v, device=torch.device("cpu"))
+                dst = own[k]
+                if tuple(src.shape) != tuple(dst.shape):
+                    raise ValueError(
+                        f"shape mismatch for {k}: {tuple(src.shape)} vs "
+                        f"{tuple(dst.shape)}")
+                dst.copy_(src.to(device=dst.device, dtype=dst.dtype))
+                matched.add(k)
+        return [k for k in own if k not in matched], unexpected
+
+    set_dict = set_state_dict
+    load_dict = set_state_dict
 
     def create_parameter(self, shape, attr=None, dtype=None, is_bias=False,
                          default_initializer=None):

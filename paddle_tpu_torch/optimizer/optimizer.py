@@ -30,6 +30,7 @@ from __future__ import annotations
 
 import torch
 
+from ..ops.dispatch import unwrap
 from .lr import LRScheduler
 
 _pre_step_hooks: dict = {}
@@ -182,19 +183,35 @@ class Optimizer:
         state["@step"] = self._step_count
         return state
 
+    @torch.no_grad()
     def set_state_dict(self, state):
+        """Take a ``state_dict`` back, as ``paddle.load`` returns it (paddle
+        ``Tensor``s or NumPy arrays) or as ``state_dict`` gave it. Each
+        accumulator keeps its saved dtype and lands on its parameter's
+        device, copied into the existing accumulator when one of that
+        shape and dtype is there. As in the reference, keys are matched by
+        parameter name or position (``param_<i>``) and a key that names no
+        parameter is skipped."""
         self._step_count = int(state.get("@step", 0))
         if "LR_Scheduler" in state and isinstance(self._learning_rate,
                                                   LRScheduler):
             self._learning_rate.set_state_dict(state["LR_Scheduler"])
         for pname, p in zip(self._state_names(), self._parameters):
-            accs = {}
+            accs = self._accumulators.get(id(p), {})
+            loaded = {}
             for key, value in state.items():
-                if key.startswith(pname + "."):
-                    accs[key[len(pname) + 1:]] = torch.as_tensor(
-                        value, device=p.device).clone()
-            if accs:
-                self._accumulators[id(p)] = accs
+                if not key.startswith(pname + "."):
+                    continue
+                aname = key[len(pname) + 1:]
+                src = unwrap(value, device=p.device).detach()
+                old = accs.get(aname)
+                if old is not None and old.shape == src.shape and \
+                        old.dtype == src.dtype:
+                    loaded[aname] = old.copy_(src)
+                else:
+                    loaded[aname] = src.to(device=p.device, copy=True)
+            if loaded:
+                self._accumulators[id(p)] = {**accs, **loaded}
 
     # decay helper shared by subclasses -------------------------------------
     def _apply_decay(self, p, g):

@@ -1,3 +1,3 @@
-from . import flags
+from . import dlpack, flags
 
-__all__ = ["flags"]
+__all__ = ["dlpack", "flags"]

@@ -785,3 +785,34 @@ def test_to_tensor_with_no_place_lands_on_the_card(cuda_device):
             assert t.place == paddle.CUDAPlace(0)
     finally:
         place._current_place = prev
+
+
+def test_paddle_save_load_keeps_bf16_on_the_card(cuda_device, tmp_path):
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.framework import place
+    x = torch.randn(64, 32, device="cuda").to(torch.bfloat16)
+    prev = place._current_place
+    paddle.set_device("gpu")
+    try:
+        path = str(tmp_path / "bf16.pdparams")
+        paddle.save({"t": paddle.Tensor._wrap(x.clone()), "raw": x}, path)
+        got = paddle.load(path)
+    finally:
+        place._current_place = prev
+    for name in ("t", "raw"):
+        v = got[name]._value
+        assert v.is_cuda and v.dtype == torch.bfloat16, name
+        assert torch.equal(v, x), name   # the bits, exactly
+
+
+def test_dataloader_workers_leave_cuda_uninitialized(cuda_device):
+    from _torch_dl_helpers import WorkerInfoDataset, record_init
+    from paddle_tpu_torch.io import DataLoader
+    torch.zeros(1, device="cuda")
+    assert torch.cuda.is_initialized()
+    dl = DataLoader(WorkerInfoDataset(), batch_size=4, num_workers=2,
+                    worker_init_fn=record_init, timeout=120)
+    rows = torch.cat(list(dl)).numpy()
+    assert rows[:, 0].tolist() == list(range(32))
+    # no worker initialized CUDA, at its init or after its samples
+    assert (rows[:, 4] == 0).all() and (rows[:, 5] == 0).all()

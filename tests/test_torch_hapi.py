@@ -18,7 +18,8 @@ networks' weights.
   ResNet-18 in eval mode within 1e-5 of JAX's (continuous random logits,
   so no ties reorder the top-k).
 - ``DataLoader``: order, ``shuffle`` under ``np.random.seed`` (the same
-  permutation as JAX's), ``drop_last``, the collate; the refusals.
+  permutation as JAX's), ``drop_last``, the collate; the refusals left
+  (``Model.save(training=False)``, ``VisualDL``).
 """
 import numpy as np
 import pytest
@@ -33,7 +34,7 @@ from paddle_tpu_torch import optimizer as port_opt
 from paddle_tpu_torch.convert import load_jax_state
 from paddle_tpu_torch.hapi import Model
 from paddle_tpu_torch.hapi.callbacks import (Callback, EarlyStopping,
-                                             ModelCheckpoint)
+                                             ModelCheckpoint, VisualDL)
 from paddle_tpu_torch.io import (BatchSampler, DataLoader, RandomSampler,
                                  TensorDataset)
 from paddle_tpu_torch.jit import CompiledTrainStep
@@ -285,14 +286,13 @@ def test_refusals():
     net = models.LeNet(device="cpu", seed=14)
     model = Model(net).prepare(port_opt.SGD(parameters=net.parameters()),
                                pnn.CrossEntropyLoss())
-    with pytest.raises(NotImplementedError, match="A6"):
-        model.save("x")
-    with pytest.raises(NotImplementedError, match="A6"):
-        model.load("x")
-    with pytest.raises(NotImplementedError, match="A6"):
-        ModelCheckpoint()
-    with pytest.raises(NotImplementedError, match="A6"):
-        model.fit(TensorDataset(list(_images(14, 4, (1, 28, 28)))),
-                  verbose=0, save_dir="somewhere")
-    with pytest.raises(NotImplementedError, match="A6"):
-        DataLoader(TensorDataset([np.zeros((2, 1))]), num_workers=2)
+    # what is left after checkpoints and workers were ported: the
+    # inference export and the VisualDL callback
+    with pytest.raises(NotImplementedError, match="A10"):
+        model.save("x", training=False)
+    with pytest.raises(NotImplementedError, match="A9"):
+        VisualDL()
+    assert isinstance(ModelCheckpoint(), Callback)
+    loader = DataLoader(TensorDataset([np.zeros((2, 1))]), num_workers=2,
+                        use_shared_memory=False, timeout=60)
+    assert [b[0].shape[0] for b in loader] == [1, 1]

@@ -64,6 +64,10 @@ def test_importing_the_port_loads_neither_package():
         "import paddle_tpu_torch.distributed.store\n"
         "import paddle_tpu_torch.distributed.substrate\n"
         "import paddle_tpu_torch.distributed.elastic\n"
+        "import paddle_tpu_torch.distributed.checkpoint\n"
+        "import paddle_tpu_torch.framework.io\n"
+        "import paddle_tpu_torch.utils.dlpack\n"
+        "import paddle_tpu_torch.hapi.summary, paddle_tpu_torch.hapi.flops\n"
         "import paddle_tpu_torch.utils.native_build\n"
         "import paddle_tpu_torch.observability.metrics\n"
         "import paddle_tpu_torch.observability.trace\n"
