@@ -93,7 +93,23 @@ by route) set to 0 just before it and read just after:
   DataLoader worker processes, resumed from ``final`` in another seed's
   model, bit-equal to two uninterrupted epochs, each worker noting that
   it never initialized CUDA (save and load seconds and GB/s, the async
-  save's blocked seconds, epoch-2 images/s with 0 and 2 workers).
+  save's blocked seconds, epoch-2 images/s with 0 and 2 workers);
+- the data-parallel plane: this script again, as ranks under the port's
+  launcher (``--nccl-world-one`` and ``--data-parallel-rank``): one rank
+  that must join NCCL at world 1 and pass every collective on the card,
+  then two ranks sharing the card over gloo (NCCL refuses two ranks on
+  one device) that train GPT-124M under ``paddle.DataParallel`` with the
+  eager fp16 recipe, 8 x 1024 tokens a rank from a
+  ``DistributedBatchSampler`` (rank 1 starts from other weights; the
+  parameters must be bit-equal after the wrap and after every step, K2
+  and K3 once per layer and step in each rank), run a 2-layer fp32 step
+  that this process holds to one step on the concatenated batch, check
+  ``no_sync``, fit ResNet-50 with ``SyncBatchNorm`` through ``Model.fit``
+  (bit-equal parameters and statistics, equal metrics) and hold the sync
+  batch norm at ResNet-50's first batch norm to fp64; each rank's
+  launches are added to this process's counts (global tokens/s, the
+  comm plane's stats, buckets and bytes all-reduced a step, and apart,
+  a step under ``no_sync`` and the buckets' all-reduce alone).
 
 Last, it times each kernel beside its bound, its plain version and,
 where one exists, a PyTorch call that computes the same function (also
@@ -311,6 +327,16 @@ ERNIE_ATTENTION = ("ernie_noncausal", ERNIE_BATCH, ERNIE_SEQ, ERNIE_SEQ, 12,
                    12, 64, False)
 BERT_ATTENTION = ("bert_noncausal", BERT_BATCH, BERT_SEQ, BERT_SEQ, 12, 12,
                   64, False)
+# the data-parallel path's attention (GPT-124M, causal): each rank's
+# batch of 8 (fp16), and the fp32 exactness step's ranks (2 each) and its
+# one-process step on their batches concatenated (4)
+DP_RANKS, DP_BATCH, DP_EXACT_BATCH = 2, 8, 2
+DP_ATTENTION = [
+    ("dp_rank", DP_BATCH, 1024, 1024, 12, 12, 64, True),
+    ("dp_exact_rank", DP_EXACT_BATCH, 1024, 1024, 12, 12, 64, True),
+    ("dp_exact_one_process", DP_RANKS * DP_EXACT_BATCH, 1024, 1024, 12, 12,
+     64, True),
+]
 FLASH_CASES = [
     ("gpt124m_causal", 1, 1024, 1024, 12, 12, 64, True),
     ("gqa_causal", 2, 256, 256, 12, 4, 64, True),
@@ -329,7 +355,7 @@ FLASH_CASES = [
     ("d256_causal", 1, 512, 512, 8, 8, 256, True),
     ERNIE_ATTENTION,
     BERT_ATTENTION,
-]
+] + DP_ATTENTION
 # K3: the forward's cases and one with an lse cotangent
 FLASH_BWD_CASES = FLASH_CASES + [
     ("dlse_causal", 1, 256, 256, 12, 12, 64, True)]
@@ -2877,6 +2903,606 @@ def phase_checkpoint_resume(torch, ck, smi):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# -- the data-parallel path ----------------------------------------------------
+# Two ranks share the one card over gloo (NCCL refuses two ranks on one
+# device); a separate rank of one proves the NCCL backend on the card. The
+# ranks are this script started by the port's launcher with a rank flag.
+# (DP_RANKS, DP_BATCH and DP_EXACT_BATCH stand beside FLASH_CASES)
+DP_WARMUP, DP_TIMED = 3, 5
+DP_RESNET_BATCH, DP_RESNET_STEPS, DP_RESNET_EVAL = 64, 4, 128
+DP_BN_SHAPE = (2 * DP_RESNET_BATCH, 64, 112, 112)   # ResNet-50's first bn
+DP_RANK_TIMEOUT_S = 600
+
+
+def _digest(tensors):
+    """sha256 over the bytes of ``tensors`` (bit-equality across ranks)."""
+    import hashlib
+
+    import torch
+    h = hashlib.sha256()
+    for t in tensors:
+        t = t.detach().contiguous().reshape(-1).view(torch.uint8)
+        h.update(t.cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _state_tensors(model):
+    return list(model.parameters()) + list(model.buffers())
+
+
+def _same_on_ranks(dist, what, digest):
+    seen = []
+    dist.all_gather_object(seen, digest)
+    if len(set(seen)) != 1:
+        raise AssertionError(f"{what}: the ranks differ ({seen})")
+
+
+def _rank_emit(rank, obj):
+    emit(dict(obj, rank=rank))
+
+
+def nccl_world_one_rank(torch):
+    """One rank under ``init_parallel_env()`` with its default backend,
+    which must be NCCL on the card; each collective on CUDA tensors."""
+    import paddle_tpu_torch.distributed as dist
+    env = dist.init_parallel_env()
+    backend = dist.get_backend()
+    if backend != "nccl" or env.world_size != 1:
+        raise AssertionError(f"backend {backend}, world {env.world_size}")
+    x = torch.arange(1.0, 7.0, device="cuda")
+    checks = {}
+    for name, op in (("sum", dist.ReduceOp.SUM), ("max", dist.ReduceOp.MAX),
+                     ("min", dist.ReduceOp.MIN), ("prod", dist.ReduceOp.PROD),
+                     ("avg", dist.ReduceOp.AVG)):
+        t = x.clone()
+        dist.all_reduce(t, op)
+        checks[f"all_reduce_{name}"] = torch.equal(t, x)
+    rows = []
+    dist.all_gather(rows, x)
+    checks["all_gather"] = len(rows) == 1 and torch.equal(rows[0], x)
+    t = x.clone()
+    dist.broadcast(t, 0)
+    checks["broadcast"] = torch.equal(t, x)
+    t = x.clone()
+    dist.reduce(t, 0, dist.ReduceOp.SUM)
+    checks["reduce"] = torch.equal(t, x)
+    t = torch.zeros_like(x)
+    dist.scatter(t, [x], src=0)
+    checks["scatter"] = torch.equal(t, x)
+    t = torch.zeros_like(x)
+    dist.reduce_scatter(t, [x])
+    checks["reduce_scatter"] = torch.equal(t, x)
+    got = []
+    dist.alltoall(got, [x])
+    checks["alltoall"] = torch.equal(got[0], x)
+    t = torch.zeros_like(x)
+    dist.alltoall_single(t, x)
+    checks["alltoall_single"] = torch.equal(t, x)
+    objs = []
+    dist.all_gather_object(objs, {"rank": 0})
+    checks["all_gather_object"] = objs == [{"rank": 0}]
+    dist.barrier()
+    checks["barrier"] = True
+    torch.cuda.synchronize()
+    emit({"phase": "nccl_world_one", "backend": backend,
+          "device": str(env.device), "checks": checks})
+    dist.destroy_process_group()
+    if not all(checks.values()):
+        raise AssertionError(f"NCCL world-1 collectives: {checks}")
+
+
+def _gloo_cuda_ops(torch, dist, rank):
+    """Which collectives this torch's gloo takes on CUDA tensors: every
+    rank tries each, in one order; a refusal is recorded with its message
+    (the port names the op and the backend)."""
+    x = torch.full((4,), float(rank + 1), device="cuda")
+    tries = {
+        "all_reduce": lambda: dist.all_reduce(x.clone()),
+        "broadcast": lambda: dist.broadcast(x.clone(), 0),
+        "all_gather": lambda: dist.all_gather([], x),
+        "all_gather_object": lambda: dist.all_gather_object([], rank),
+        "reduce": lambda: dist.reduce(x.clone(), 0),
+        "scatter": lambda: dist.scatter(x.clone(), [x, x] if rank == 0
+                                        else None, src=0),
+        "reduce_scatter": lambda: dist.reduce_scatter(
+            x[:2].clone(), [x[:2], x[2:]]),
+        "alltoall_single": lambda: dist.alltoall_single(x.clone(), x),
+        "barrier": lambda: dist.barrier(),
+    }
+    out = {}
+    for name, fn in tries.items():
+        try:
+            fn()
+            torch.cuda.synchronize()
+            out[name] = "ok"
+        except RuntimeError as e:
+            out[name] = str(e).splitlines()[0][:200]
+    return out
+
+
+def dp_gpt124m_rank(torch, ck, dist, rank, world):
+    """GPT-124M at bench.py's widths, ``gpt124m_fp16_amp``'s eager recipe
+    with the model wrapped in ``paddle.DataParallel``, batch 8 x 1024 a
+    rank from a ``DistributedBatchSampler`` over one seeded token set.
+    Rank 1 starts from perturbed weights; the wrap must make them equal,
+    and every step must end with bit-equal parameters and K2/K3 launched
+    once per layer on each rank."""
+    import numpy as np
+
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch import optimizer as popt
+    from paddle_tpu_torch.distributed import comm_plane
+    from paddle_tpu_torch.io import (DataLoader, DistributedBatchSampler,
+                                     TensorDataset)
+    from paddle_tpu_torch.nn.clip import ClipGradByGlobalNorm
+    from paddle_tpu_torch.text.gpt import GPTForPretraining, gpt_small
+    cfg = gpt_small()
+    model = GPTForPretraining(cfg, device="cuda", seed=0)
+    if rank == 1:
+        with torch.no_grad():
+            for p in model.parameters():
+                p.add_(1e-2)
+    sched = amp_schedule(popt.lr)
+    opt = popt.AdamW(learning_rate=sched, parameters=model.parameters(),
+                     grad_clip=ClipGradByGlobalNorm(1.0))
+    model, opt = amp.decorate(model, opt, level="O2", dtype="float16")
+    scaler = amp.GradScaler(init_loss_scaling=2.0 ** 15)
+    perturbed = _digest(model.parameters())
+    dp = paddle.DataParallel(model)
+    wrapped = _digest(model.parameters())
+    _same_on_ranks(dist, "parameters after the wrap", wrapped)
+    steps = DP_WARMUP + DP_TIMED
+    seq = cfg.max_seq_len
+    rng = np.random.default_rng(0)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                           (world * DP_BATCH * steps,
+                                            seq + 1)))
+    data = TensorDataset([tokens[:, :-1], tokens[:, 1:]])
+    sampler = DistributedBatchSampler(data, DP_BATCH)
+    loader = DataLoader(data, batch_sampler=sampler)
+    layers = cfg.num_layers
+    plane = comm_plane.get_plane()
+    rows = []
+    torch.cuda.reset_peak_memory_stats()
+    for i, (ids, labels) in enumerate(loader):
+        if i == DP_WARMUP:
+            plane.reset_stats()
+        ids, labels = ids.to("cuda"), labels.to("cuda")
+        before = {k.name: dict(k.route_launches) for k in ck.KERNELS}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        scale = scaler._scale
+        with amp.auto_cast(level="O2", dtype="float16"):
+            _, loss = dp(ids, labels=labels)
+        scaler.scale(loss).backward()
+        scaler.step(opt)
+        opt.clear_grad()
+        sched.step()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        fp16 = {n: k.route_launches["fp16"] - before[k.name]["fp16"]
+                for n, k in ((k.name, k) for k in ck.KERNELS)}
+        if fp16["flash_fwd"] != layers or fp16["flash_bwd"] != layers:
+            raise AssertionError(f"step {i} launched {fp16} on fp16")
+        _same_on_ranks(dist, f"parameters after step {i}",
+                       _digest(model.parameters()))
+        rows.append({"loss": loss.item(), "scale": scale, "s": dt,
+                     "skipped": scaler._scale < scale})
+    if len(rows) != steps:
+        raise AssertionError(f"the sampler gave {len(rows)} batches")
+    bad = [i for i, r in enumerate(rows)
+           if not r["skipped"] and not math.isfinite(r["loss"])]
+    if bad:
+        raise AssertionError(f"non-finite loss on kept steps {bad}")
+    stats = plane.stats()
+    timed = [r["s"] for r in rows[DP_WARMUP:]]
+    step_s = sum(timed) / len(timed)
+    slab = sum(b.nelem for b in dp._buckets) * 4
+    # the step's two parts apart, in this run: a step with no gradient
+    # sync (under no_sync: no bucket launches; the ranks' weights part
+    # after it, which nothing reads), and the buckets' AVG all-reduce alone
+    # (slabs of the same sizes, launched back to back and drained)
+    local_s, allreduce_s = [], []
+    slabs = [torch.zeros(b.nelem, device="cuda") for b in dp._buckets]
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with dp.no_sync():
+            with amp.auto_cast(level="O2", dtype="float16"):
+                _, loss = dp(ids, labels=labels)
+            scaler.scale(loss).backward()
+        scaler.step(opt)
+        opt.clear_grad()
+        torch.cuda.synchronize()
+        local_s.append(time.perf_counter() - t0)
+        dist.barrier()
+        t0 = time.perf_counter()
+        for flat in slabs:
+            dist.all_reduce(flat, dist.ReduceOp.AVG, sync_op=False)
+        comm_plane.drain()
+        torch.cuda.synchronize()
+        allreduce_s.append(time.perf_counter() - t0)
+    if dp._bucket_launch_count != steps * len(dp._buckets):
+        raise AssertionError("a no_sync step launched a bucket")
+    out = {"phase": "data_parallel_gpt124m", "world": world,
+           "backend": dist.get_backend(),
+           "batch_per_rank": [DP_BATCH, seq],
+           "step_ms": step_s * 1e3, "step_ms_each": [r["s"] * 1e3
+                                                     for r in rows],
+           "rank_tokens_per_s": DP_BATCH * seq / step_s,
+           "losses": [r["loss"] for r in rows],
+           "scale": [r["scale"] for r in rows],
+           "skipped_steps": [i for i, r in enumerate(rows) if r["skipped"]],
+           "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+           "comm_plane": stats, "buckets": len(dp._buckets),
+           "local_step_ms_each": [t * 1e3 for t in local_s],
+           "allreduce_alone_ms_each": [t * 1e3 for t in allreduce_s],
+           "allreduced_bytes_per_step": slab,
+           "wrap_changed_weights": perturbed != wrapped,
+           "bucket_launches": dp._bucket_launch_count,
+           "syncs": dp._sync_count}
+    if (perturbed != wrapped) != (rank == 1):
+        raise AssertionError("the wrap-time broadcast left rank 1's "
+                             "perturbed weights")
+    del dp, model, opt, scaler, slabs
+    torch.cuda.empty_cache()
+    return out
+
+
+def dp_exactness_rank(torch, dist, rank, out_dir):
+    """GPT-124M's widths, 2 layers, fp32: one AdamW step under
+    DataParallel on this rank's 2 x 1024 tokens (rank 0 saves the loss
+    of both ranks, the synced gradients and the updated parameters for the
+    parent's one-process step); then ``no_sync``: two micro-steps under
+    it and one outside, each bucket launched once."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.text.gpt import GPTConfig, GPTForPretraining
+    cfg = GPTConfig(hidden_size=768, num_layers=2, num_heads=12)
+    ids, labels = _seeded_ids(torch, cfg.vocab_size,
+                              (DP_EXACT_BATCH, cfg.max_seq_len),
+                              seed=10 + rank)
+    model = GPTForPretraining(cfg, device="cuda", seed=0)
+    dp = paddle.DataParallel(model)
+    opt = AdamW(learning_rate=1e-4, parameters=model.parameters())
+    loss = dp(ids.cuda(), labels=labels.cuda())[1]
+    loss.backward()
+    grads = {n: p.grad.detach().cpu().clone()
+             for n, p in model.named_parameters() if p.grad is not None}
+    opt.step()
+    losses = []
+    dist.all_gather_object(losses, loss.item())
+    _same_on_ranks(dist, "fp32 parameters after the step",
+                   _digest(model.parameters()))
+    if rank == 0:
+        torch.save({"losses": losses, "grads": grads,
+                    "params": {n: p.detach().cpu()
+                               for n, p in model.named_parameters()}},
+                   f"{out_dir}/exact.pt")
+    opt.clear_grad()
+    launches, syncs = dp._bucket_launch_count, dp._sync_count
+    with dp.no_sync():
+        for _ in range(2):
+            dp(ids.cuda(), labels=labels.cuda())[1].backward()
+    under = dp._bucket_launch_count - launches
+    dp(ids.cuda(), labels=labels.cuda())[1].backward()
+    out = {"phase": "data_parallel_no_sync", "buckets": len(dp._buckets),
+           "launches_under_no_sync": under,
+           "launches_after": dp._bucket_launch_count - launches,
+           "syncs": dp._sync_count - syncs}
+    _same_on_ranks(dist, "gradients after no_sync",
+                   _digest(p.grad for p in model.parameters()
+                           if p.grad is not None))
+    if under or out["launches_after"] != len(dp._buckets) or \
+            out["syncs"] != 1:
+        raise AssertionError(f"no_sync: {out}")
+    del dp, model, opt
+    torch.cuda.empty_cache()
+    return out
+
+
+def dp_resnet50_fit_rank(torch, dist, rank, world):
+    """``resnet50_training``'s model at O2, NCHW, after
+    ``SyncBatchNorm.convert_sync_batchnorm``, through ``Model.fit``: one
+    epoch of 4 batches of 64 images a rank from the same seeded set, then
+    ``evaluate`` with ``Accuracy`` on 128 more images (every rank the whole
+    set). Parameters and running statistics must end bit-equal, and the
+    metrics equal on every rank."""
+    from paddle_tpu_torch.hapi import Model
+    from paddle_tpu_torch.io import TensorDataset
+    from paddle_tpu_torch.metric import Accuracy
+    from paddle_tpu_torch.nn import CrossEntropyLoss, SyncBatchNorm
+    from paddle_tpu_torch.optimizer import Momentum
+    from paddle_tpu_torch.vision.models import resnet50
+    net = resnet50(num_classes=RESNET_CLASSES, device="cuda", seed=0)
+    net = SyncBatchNorm.convert_sync_batchnorm(net)
+    n_sync = sum(isinstance(m, SyncBatchNorm) for m in net.modules())
+    opt = Momentum(learning_rate=0.1, momentum=0.9,
+                   parameters=net.parameters())
+    model = Model(net).prepare(opt, CrossEntropyLoss(), metrics=Accuracy(),
+                               amp_configs="O2")
+    shape = (3, RESNET_SIZE, RESNET_SIZE)
+    batch = _image_batches(torch, (DP_RESNET_EVAL,) + shape, RESNET_CLASSES,
+                           device=None)
+    images, labels = batch(world * DP_RESNET_STEPS * DP_RESNET_BATCH
+                           // DP_RESNET_EVAL)
+    images, labels = images.reshape((-1,) + shape), labels.reshape(-1)
+    ev_images, ev_labels = batch()
+    rec = fit_recorder(torch)
+    torch.cuda.reset_peak_memory_stats()
+    model.fit(TensorDataset([images, labels]), batch_size=DP_RESNET_BATCH,
+              epochs=1, shuffle=False, verbose=0, callbacks=[rec])
+    peak = torch.cuda.max_memory_allocated()
+    _same_on_ranks(dist, "ResNet-50 parameters and statistics after fit",
+                   _digest(_state_tensors(net)))
+    evaluated = model.evaluate(TensorDataset([ev_images, ev_labels]),
+                               batch_size=DP_RESNET_BATCH, verbose=0)
+    _same_on_ranks(dist, "evaluate's metrics", repr(evaluated))
+    out = {"phase": "data_parallel_resnet50_fit", "sync_batch_norms": n_sync,
+           "images_per_rank": DP_RESNET_STEPS * DP_RESNET_BATCH,
+           "losses": rec.losses, "epoch_s": rec.epoch_s,
+           "rank_images_per_s": DP_RESNET_STEPS * DP_RESNET_BATCH
+           / rec.epoch_s[0], "peak_memory_bytes": peak,
+           "evaluate": evaluated}
+    if len(rec.losses) != DP_RESNET_STEPS or \
+            not all(math.isfinite(x) for x in rec.losses):
+        raise AssertionError(f"fit's losses: {rec.losses}")
+    del net, opt, model
+    torch.cuda.empty_cache()
+    return out
+
+
+def dp_sync_batch_norm_rank(torch, dist, rank):
+    """``SyncBatchNorm`` in fp32 at ResNet-50's first batch norm, each
+    rank half of a [128, 64, 112, 112] batch, against ``BatchNorm2D`` on
+    the whole batch in this process and against fp64: y, dx, dγ and dβ
+    (the ranks' local dγ, dβ summed), each within 1e-5 of its largest
+    fp64 entry or twice ``BatchNorm2D``'s own fp32 error where that is
+    larger (fp32 does not determine all of the backward's digits); the
+    running statistics within 1e-6 of BatchNorm2D's."""
+    from paddle_tpu_torch.nn import BatchNorm2D, SyncBatchNorm
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    x = torch.randn(DP_BN_SHAPE, generator=gen, device="cuda") + 0.5
+    dy = torch.randn(DP_BN_SHAPE, generator=gen, device="cuda")
+    c = DP_BN_SHAPE[1]
+    w = torch.rand(c, generator=gen, device="cuda") + 0.5
+    b = torch.randn(c, generator=gen, device="cuda")
+    half = slice(rank * DP_RESNET_BATCH, (rank + 1) * DP_RESNET_BATCH)
+
+    def run(layer, xin, dyin):
+        with torch.no_grad():
+            layer.weight.copy_(w)
+            layer.bias.copy_(b)
+        xin = xin.clone().requires_grad_(True)
+        y = layer(xin)
+        (y * dyin).sum().backward()
+        return (y.detach(), xin.grad, layer.weight.grad.clone(),
+                layer.bias.grad.clone(), layer._mean, layer._variance)
+
+    sync = run(SyncBatchNorm(c, device="cuda"), x[half], dy[half])
+    dist.all_reduce(sync[2])
+    dist.all_reduce(sync[3])
+    full = run(BatchNorm2D(c, device="cuda"), x, dy)
+    x64 = x.double().requires_grad_(True)
+    w64 = w.double().requires_grad_(True)
+    b64 = b.double().requires_grad_(True)
+    y64 = torch.nn.functional.batch_norm(x64, None, None, w64, b64,
+                                         training=True, eps=1e-5)
+    (y64 * dy.double()).sum().backward()
+    exact = (y64.detach()[half], x64.grad[half], w64.grad, b64.grad)
+    full_half = (full[0][half], full[1][half], full[2], full[3])
+    names = ("y", "dx", "dw", "db")
+    err, bound = {}, {}
+    for n, got, ref32, ref in zip(names, sync, full_half, exact):
+        top = float(ref.abs().max())
+        err[n] = float((got.double() - ref).abs().max()) / top
+        aten = float((ref32.double() - ref).abs().max()) / top
+        bound[n] = max(1e-5, 2 * aten)
+    stats = max(float((sync[4] - full[4]).abs().max()),
+                float((sync[5] - full[5]).abs().max()))
+    out = {"phase": "data_parallel_sync_batch_norm_fp32",
+           "shape": list(DP_BN_SHAPE), "tf32": False,
+           "rel_err_vs_fp64": err, "bound": bound,
+           "running_stats_abs_err": stats, "running_stats_tol": 1e-6}
+    if any(err[n] > bound[n] for n in names) or stats > 1e-6:
+        raise AssertionError(f"sync batch norm: {out}")
+    return out
+
+
+def data_parallel_rank(torch, out_dir):
+    """One rank of the data-parallel path (started by the launcher): the
+    GPT-124M steps, the fp32 step and no_sync, ResNet-50's fit, the sync
+    batch norm against one process, then the gloo op record. Prints one
+    JSON line per phase and last its launches by route."""
+    import paddle_tpu_torch.distributed as dist
+    from paddle_tpu_torch.ops import cuda_kernels as ck
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    env = dist.init_parallel_env(timeout=DP_RANK_TIMEOUT_S)
+    rank, world = env.rank, env.world_size
+    if dist.get_backend() != "gloo" or world != DP_RANKS:
+        raise AssertionError(f"backend {dist.get_backend()}, world {world}")
+    ck.reset_launch_counts()
+    for phase in (lambda: dp_gpt124m_rank(torch, ck, dist, rank, world),
+                  lambda: dp_exactness_rank(torch, dist, rank, out_dir),
+                  lambda: dp_resnet50_fit_rank(torch, dist, rank, world),
+                  lambda: dp_sync_batch_norm_rank(torch, dist, rank)):
+        _rank_emit(rank, phase())
+    _rank_emit(rank, {"phase": "gloo_cuda_ops",
+                      "ops": _gloo_cuda_ops(torch, dist, rank)})
+    _rank_emit(rank, {"rank_launches": {k.name: dict(k.route_launches)
+                                        for k in ck.KERNELS}})
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def _run_ranks(n, flag, out_dir, extra_env=None):
+    """This script's ``flag`` mode on ``n`` ranks through the port's
+    launcher; returns each rank's JSON lines. A rank that fails, times out
+    or prints no launch record fails the path. The launcher and its ranks
+    run in a session of their own, killed whole if they outlive the
+    timeout or this process fails while waiting."""
+    import os
+    import signal
+    root = os.path.dirname(os.path.abspath(__file__))
+    log_dir = os.path.join(out_dir, f"logs{flag}")
+    env = dict(os.environ, PYTHONPATH=root, **(extra_env or {}))
+    env.pop("PADDLE_MASTER", None)
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "paddle_tpu_torch.distributed.launch",
+         "--nproc_per_node", str(n), "--log_dir", log_dir,
+         os.path.join(root, "chip_smoke.py"), flag, out_dir],
+        cwd=root, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True, start_new_session=True)
+    try:
+        _, stderr = proc.communicate(timeout=DP_RANK_TIMEOUT_S)
+    finally:
+        if proc.poll() is None or proc.returncode != 0:
+            try:
+                os.killpg(proc.pid, signal.SIGKILL)
+            except ProcessLookupError:
+                pass
+            proc.wait()
+    logs = {}
+    for r in range(n):
+        path = os.path.join(log_dir, f"workerlog.{r}")
+        logs[r] = open(path).read() if os.path.exists(path) else ""
+    if proc.returncode != 0:
+        tails = {r: text[-4000:] for r, text in logs.items()}
+        raise AssertionError(f"{flag} ranks failed (rc {proc.returncode}): "
+                             f"{stderr[-2000:]} {tails}")
+    lines = {r: [json.loads(line) for line in text.splitlines()
+                 if line.startswith("{")] for r, text in logs.items()}
+    for r, rows in lines.items():
+        if not rows or "rank_launches" not in rows[-1]:
+            raise AssertionError(f"{flag} rank {r} printed no result")
+    return lines
+
+
+def phase_data_parallel_exactness(torch, ck, out_dir):
+    """The fp32 DataParallel step against one step in this process on the
+    two ranks' batches concatenated (4 x 1024), from the same weights:
+    the loss within 1e-5 of itself, every synced gradient within 1e-5 of
+    its largest entry (a gradient zero up to rounding, below 1e-6 of the
+    model's largest, on both), and every entry of every updated parameter
+    within 1e-5 of the tensor's largest entry once the difference that
+    AdamW's first update (lr * g / (|g| + eps)) makes of the two
+    gradients is taken out: that update is AdamW's own first step from a
+    zero parameter with each gradient. Where |g| is near eps the update
+    hangs on digits of g that fp32 leaves open; held this way no entry
+    is left out (the count of entries with |g| < 1e-6, 100 x eps, is
+    printed)."""
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.text.gpt import GPTConfig, GPTForPretraining
+    cfg = GPTConfig(hidden_size=768, num_layers=2, num_heads=12)
+    pairs = [_seeded_ids(torch, cfg.vocab_size,
+                         (DP_EXACT_BATCH, cfg.max_seq_len), seed=10 + r)
+             for r in range(DP_RANKS)]
+    ids, labels = (torch.cat(col) for col in zip(*pairs))
+    model = GPTForPretraining(cfg, device="cuda", seed=0)
+    opt = AdamW(learning_rate=1e-4, parameters=model.parameters())
+    loss = model(ids.cuda(), labels=labels.cuda())[1]
+    loss.backward()
+    grads = {n: p.grad.detach().cpu()
+             for n, p in model.named_parameters() if p.grad is not None}
+    opt.step()
+    dp = torch.load(f"{out_dir}/exact.pt")
+    dp_loss = sum(dp["losses"]) / len(dp["losses"])
+    loss_rel = abs(dp_loss - loss.item()) / abs(loss.item())
+    top = max(float(g.abs().max()) for g in grads.values())
+    zero = sorted(n for n, g in grads.items()
+                  if float(g.abs().max()) <= 1e-6 * top)
+    grad_rel = {n: max_err(dp["grads"][n], g) / float(g.abs().max())
+                for n, g in grads.items() if n not in zero}
+    zero_ok = all(float(dp["grads"][n].abs().max()) <= 1e-6 * top
+                  for n in zero)
+    def first_step_from_zero(g):
+        z = torch.nn.Parameter(torch.zeros_like(g, device="cuda"))
+        z.grad = g.cuda()
+        AdamW(learning_rate=1e-4, parameters=[z]).step()
+        return z.detach().cpu().double()
+
+    param_rel, near_eps = {}, 0
+    for n, p in model.named_parameters():
+        got, want = dp["params"][n], p.detach().cpu()
+        diff = got.double() - want.double()
+        g = grads.get(n)
+        if g is not None:
+            near_eps += int((g.abs() < 1e-6).sum())
+            diff -= first_step_from_zero(dp["grads"][n]) - \
+                first_step_from_zero(g)
+        param_rel[n] = float(diff.abs().max()) / float(want.abs().max())
+    worst_g = max(grad_rel, key=grad_rel.get)
+    worst_p = max(param_rel, key=param_rel.get)
+    out = {"phase": "data_parallel_exactness_fp32", "tf32": False,
+           "model": "GPT-124M widths, 2 layers, fp32, AdamW lr 1e-4; "
+                    "2 ranks x 2 x 1024 under DataParallel against one "
+                    "process on 4 x 1024",
+           "loss_dp": dp_loss, "loss_one_process": loss.item(),
+           "loss_rel_err": loss_rel, "loss_rel_tol": 1e-5,
+           "grad_max_rel_err": grad_rel[worst_g], "grad_worst": worst_g,
+           "grads_zero_up_to_rounding": zero,
+           "param_max_rel_err": param_rel[worst_p], "param_worst": worst_p,
+           "param_rule": "every entry of p_dp - p_one - (z(g_dp) - "
+                         "z(g_one)), z(g) AdamW's first step from zero",
+           "entries_grad_below_1e-6": near_eps, "rel_tol": 1e-5}
+    emit(out)
+    if loss_rel > 1e-5 or grad_rel[worst_g] > 1e-5 or not zero_ok or \
+            param_rel[worst_p] > 1e-5:
+        raise AssertionError(f"the DataParallel step differs from one "
+                             f"process: {out}")
+
+
+def phase_data_parallel(torch, ck, smi):
+    """The data-parallel path: NCCL at world 1, then two gloo ranks on the
+    card (GPT-124M's DataParallel steps, its fp32 step and no_sync,
+    ResNet-50's fit with SyncBatchNorm, the sync batch norm's exactness),
+    then this process's one-process step against the ranks' fp32 step.
+    The ranks' kernel launches are added to this process's counts."""
+    import shutil
+    import tempfile
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dp_")
+    try:
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        nccl = _run_ranks(1, "--nccl-world-one", tmp)
+        t_nccl = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ranks = _run_ranks(DP_RANKS, "--data-parallel-rank", tmp,
+                           {"PADDLE_DISTRI_BACKEND": "gloo"})
+        t_ranks = time.perf_counter() - t0
+        for rows in list(nccl.values()) + list(ranks.values()):
+            for row in rows[:-1]:
+                emit(row)
+            ck.add_launches(rows[-1]["rank_launches"])
+        phase_data_parallel_exactness(torch, ck, tmp)
+        gpt = [next(r for r in rows if r.get("phase") ==
+                    "data_parallel_gpt124m") for rows in ranks.values()]
+        step_s = max(g["step_ms"] for g in gpt) / 1e3
+        tokens = sum(g["batch_per_rank"][0] * g["batch_per_rank"][1]
+                     for g in gpt)
+        emit({"phase": "data_parallel", "nvidia_smi": smi,
+              "ranks": DP_RANKS, "backend": gpt[0]["backend"],
+              "global_batch": [DP_RANKS * DP_BATCH,
+                               gpt[0]["batch_per_rank"][1]],
+              "global_tokens_per_s": tokens / step_s,
+              "step_ms_slowest_rank": step_s * 1e3,
+              "peak_memory_bytes_per_rank": [g["peak_memory_bytes"]
+                                             for g in gpt],
+              "comm_plane_per_rank": [g["comm_plane"] for g in gpt],
+              "local_step_ms_per_rank": [g["local_step_ms_each"]
+                                         for g in gpt],
+              "allreduce_alone_ms_per_rank": [g["allreduce_alone_ms_each"]
+                                              for g in gpt],
+              "buckets": gpt[0]["buckets"],
+              "allreduced_bytes_per_step": gpt[0]["allreduced_bytes_per_step"],
+              "nccl_world_one_s": t_nccl, "gloo_ranks_s": t_ranks})
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def paged_bound(torch, q, kp, bt, cl):
     """Least time for K1 on these inputs: bytes each slot's visible rows
     need (K and V once, the table entries it reads, q, lens, out) versus
@@ -3183,6 +3809,13 @@ def main():
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # the data-parallel path's ranks: this script under the port's launcher
+    if sys.argv[1:2] == ["--nccl-world-one"]:
+        nccl_world_one_rank(torch)
+        print(json.dumps({"rank_launches": {}}), flush=True)
+        return 0
+    if sys.argv[1:2] == ["--data-parallel-rank"]:
+        return data_parallel_rank(torch, sys.argv[2])
     from paddle_tpu_torch.ops import cuda_kernels as ck
 
     t0 = time.perf_counter()
@@ -3194,7 +3827,8 @@ def main():
     # StepMeter (K2, K3), packed attention (K4, K5), ERNIE pretraining and
     # BERT finetuning (K2, K3, non-causal), then ResNet-50 and LeNet
     # training (none), then the paddle.* surface (K2, K3), then the
-    # checkpoint path (K2, K3 on GPT-124M's resumes; none on ResNet-50's)
+    # checkpoint path (K2, K3 on GPT-124M's resumes; none on ResNet-50's),
+    # then the data-parallel path (K2, K3 in each GPT rank)
     paths = (("serving", ("paged_attention", "flash_fwd"),
               lambda: (phase_serving(torch, ck, smi),
                        phase_exactness_fp32(torch, ck))),
@@ -3225,7 +3859,11 @@ def main():
              ("paddle_surface", ("flash_fwd", "flash_bwd"),
               lambda: phase_paddle_surface(torch, ck, smi)),
              ("checkpoint_resume", ("flash_fwd", "flash_bwd"),
-              lambda: phase_checkpoint_resume(torch, ck, smi)))
+              lambda: phase_checkpoint_resume(torch, ck, smi)),
+             # the ranks are processes: each reports its launches, which
+             # phase_data_parallel adds to this process's counts
+             ("data_parallel", ("flash_fwd", "flash_bwd"),
+              lambda: phase_data_parallel(torch, ck, smi)))
     launches = {k.name: 0 for k in ck.KERNELS}
     path_launches, path_routes, path_seconds = {}, {}, {}
     for path, kernels, drive in paths:

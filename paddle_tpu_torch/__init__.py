@@ -79,3 +79,6 @@ from . import amp, autograd, nn, optimizer  # noqa: E402
 from .framework.io import save, load  # noqa: E402
 from . import io, metric, utils  # noqa: E402
 from .hapi import Model, summary, flops, callbacks  # noqa: E402
+# the data-parallel plane
+from . import distributed  # noqa: E402
+from .distributed import DataParallel  # noqa: E402

@@ -1,6 +1,40 @@
-"""The port's distributed control plane (counterpart:
-``paddle_tpu.distributed``): the membership ``TCPStore`` over
-``native/store/tcp_store.cpp`` (``store``), the injectable clock and
-transport seam (``substrate``) and the checkpoint digest gate
-(``elastic.verify_checkpoint``). The data plane (collectives, sharding,
-pipelines) is still to port (ROADMAP A7)."""
+"""``paddle.distributed`` of the port (counterpart:
+``paddle_tpu.distributed``).
+
+- The data plane over ``torch.distributed``: ``init_parallel_env`` and
+  the env contract (``env``), the collectives (``collective``, ``stream``,
+  ``communication``), the comm plane of pending works (``comm_plane``), the
+  quantized wire (``comm_quant``), ``DataParallel`` with bucketed
+  gradient sync (``parallel``), ``spawn`` and the launcher
+  (``python -m paddle_tpu_torch.distributed.launch``).
+- The control plane's pieces ported so far: the membership ``TCPStore``
+  over ``native/store/tcp_store.cpp`` (``store``), the clock and
+  transport seam (``substrate``), the checkpoint digest gate
+  (``elastic.verify_checkpoint``) and ``checkpoint``.
+
+Still to port (ROADMAP A7, A8): ZeRO and the fleet facade, tensor and
+context parallelism, the pipeline, resharding on load, the in-program
+quantized collectives, elastic launch and RPC.
+"""
+from .env import (ParallelEnv, ParallelMode, init_parallel_env,  # noqa: F401
+                  is_available, is_initialized, get_rank, get_world_size,
+                  set_rank_world_size, find_free_port)
+from .collective import (ReduceOp, Group, new_group, get_group,  # noqa: F401
+                         all_reduce, all_gather, all_gather_object,
+                         broadcast, broadcast_object_list,
+                         scatter_object_list, reduce, scatter,
+                         reduce_scatter, alltoall, alltoall_single, send,
+                         recv, isend, irecv, barrier, wait, get_backend,
+                         P2POp, batch_isend_irecv, destroy_process_group,
+                         P2PTimeout)
+from . import comm_plane, comm_quant, stream, communication  # noqa: F401
+from .comm_plane import CollectiveWork  # noqa: F401
+from .comm_quant import QuantConfig  # noqa: F401
+from .parallel import DataParallel, sync_params_buffers  # noqa: F401
+from .spawn import spawn  # noqa: F401
+from .launch.main import launch  # noqa: F401
+
+
+def get_device():
+    from ..framework.place import get_device as _g
+    return _g()

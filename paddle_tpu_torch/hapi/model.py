@@ -10,8 +10,15 @@ eager ``backward`` (and ``step``) instead. Batches come from the port's
 ``io.DataLoader`` as CPU tensors and are moved to the network's device
 here, one copy a batch (one a block under ``steps_per_execution``).
 
-Single process only: the reference's multi-process branches wait for the
-distributed data plane (ROADMAP A7). ``save`` writes ``path.pdparams``
+Multi-process (a world of more than one rank, ``init_parallel_env``
+under the launcher or ``spawn``): the train loader is a
+``DistributedBatchSampler`` over the rank's share with ``drop_last``
+forced, so every rank takes the same number of steps; the eval and
+predict loaders give every rank the whole set in order (``shuffle`` is
+refused with a warning), so every rank computes the same metrics, while
+the train metrics are each rank's own. The gradients are averaged
+across the ranks before the clip and the update, in
+``CompiledTrainStep``. ``save`` writes ``path.pdparams``
 and ``path.pdopt`` through ``paddle.save`` and ``load`` reads them back
 in place; ``save(training=False)``, an inference export, waits for the
 jit surface (ROADMAP A10). When the optimizer's learning rate is
@@ -36,15 +43,6 @@ def _to_list(x):
     if x is None:
         return []
     return list(x) if isinstance(x, (list, tuple)) else [x]
-
-
-def _single_process():
-    if torch.distributed.is_available() and \
-            torch.distributed.is_initialized() and \
-            torch.distributed.get_world_size() > 1:
-        raise NotImplementedError(
-            "multi-process Model.fit waits for the distributed data plane "
-            "(ROADMAP A7)")
 
 
 class Model:
@@ -164,10 +162,33 @@ class Model:
 
     # -- loops ---------------------------------------------------------------
     def _make_loader(self, data, batch_size, shuffle, drop_last,
-                     num_workers=0):
-        _single_process()
+                     num_workers=0, shard=True):
+        """A ``DataLoader`` over ``data``. In a world of more than one
+        rank, ``shard`` (training) gives each rank its share with
+        ``drop_last`` forced; otherwise every rank gets the whole set in
+        order."""
         if data is None or isinstance(data, DataLoader):
             return data
+        from ..distributed import get_rank, get_world_size
+        world = get_world_size()
+        if world > 1 and shard:
+            if not drop_last:
+                warnings.warn(
+                    "multi-process fit forces drop_last=True: a ragged "
+                    "final batch cannot tile the mesh batch axes uniformly "
+                    "across hosts", UserWarning)
+            from ..io import DistributedBatchSampler
+            sampler = DistributedBatchSampler(
+                data, batch_size, num_replicas=world, rank=get_rank(),
+                shuffle=shuffle, drop_last=True)
+            return DataLoader(data, batch_sampler=sampler,
+                              num_workers=num_workers)
+        if world > 1 and shuffle:
+            warnings.warn(
+                "multi-process replicated loader ignores shuffle=True "
+                "(batch order must be identical on every host)",
+                UserWarning)
+            shuffle = False
         return DataLoader(data, batch_size=batch_size, shuffle=shuffle,
                           num_workers=num_workers, drop_last=drop_last)
 
@@ -201,7 +222,7 @@ class Model:
         loader = self._make_loader(train_data, batch_size, shuffle,
                                    drop_last, num_workers)
         eval_loader = self._make_loader(eval_data, batch_size, False, False,
-                                        num_workers)
+                                        num_workers, shard=False)
         cbks = CallbackList(callbacks, self, verbose=verbose, epochs=epochs,
                             log_freq=log_freq, save_dir=save_dir,
                             save_freq=save_freq,
@@ -314,7 +335,7 @@ class Model:
         """Mean loss over the batches and each metric's accumulated value,
         in eval mode (batch norms on their running statistics)."""
         loader = self._make_loader(eval_data, batch_size, False, False,
-                                   num_workers)
+                                   num_workers, shard=False)
         for m in self._metrics:
             m.reset()
         losses = []
@@ -341,7 +362,7 @@ class Model:
         """The network's outputs per batch as numpy arrays ([batch][output]),
         or with ``stack_outputs`` one array per output."""
         loader = self._make_loader(test_data, batch_size, False, False,
-                                   num_workers)
+                                   num_workers, shard=False)
         outputs = [self.predict_batch(self._split_batch(batch)[0])
                    for batch in loader]
         if stack_outputs:

@@ -1,8 +1,15 @@
 """Samplers (counterpart: ``paddle_tpu/io/sampler.py``). The random ones
 draw from numpy's global generator, as the reference's do, or from a
-``torch.Generator`` where the caller passes one. ``DistributedBatchSampler``
-waits for the distributed data plane (ROADMAP A7)."""
+``torch.Generator`` where the caller passes one.
+``DistributedBatchSampler`` gives each data-parallel rank its share of
+the indices, as the reference's does: the same
+``np.random.RandomState(epoch)`` permutation on every rank, padded by
+wrapping to a multiple of the world, and rank r taking every world-th
+index from r; its world and rank default to the port's
+``distributed.get_world_size``/``get_rank``."""
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
@@ -120,3 +127,51 @@ class BatchSampler(Sampler):
         if self.drop_last:
             return n // self.batch_size
         return (n + self.batch_size - 1) // self.batch_size
+
+
+class DistributedBatchSampler(BatchSampler):
+    """Batches of this rank's share of ``dataset`` (upstream
+    ``paddle.io.DistributedBatchSampler``). Call ``set_epoch`` each epoch
+    for a new shuffle, the same on every rank."""
+
+    def __init__(self, dataset, batch_size, num_replicas=None, rank=None,
+                 shuffle=False, drop_last=False):
+        self.dataset = dataset
+        self.batch_size = batch_size
+        self.shuffle = shuffle
+        self.drop_last = drop_last
+        if num_replicas is None or rank is None:
+            from ..distributed import get_rank, get_world_size
+            num_replicas = num_replicas or get_world_size()
+            rank = rank if rank is not None else get_rank()
+        self.nranks = num_replicas
+        self.local_rank = rank
+        self.epoch = 0
+        self.num_samples = int(math.ceil(len(dataset) / self.nranks))
+        self.total_size = self.num_samples * self.nranks
+
+    def __iter__(self):
+        n = len(self.dataset)
+        if self.shuffle:
+            indices = np.random.RandomState(self.epoch).permutation(n) \
+                .tolist()
+        else:
+            indices = list(range(n))
+        indices += indices[:(self.total_size - len(indices))]
+        indices = indices[self.local_rank:self.total_size:self.nranks]
+        batch = []
+        for idx in indices:
+            batch.append(idx)
+            if len(batch) == self.batch_size:
+                yield batch
+                batch = []
+        if batch and not self.drop_last:
+            yield batch
+
+    def __len__(self):
+        if self.drop_last:
+            return self.num_samples // self.batch_size
+        return (self.num_samples + self.batch_size - 1) // self.batch_size
+
+    def set_epoch(self, epoch):
+        self.epoch = epoch

@@ -37,8 +37,17 @@ come after the block's updates.
 ``run_steps`` block runs inside ``METER.step`` (one attribute check when
 it is off).
 
+Data parallelism: when the step's model is a ``distributed.
+DataParallel``, or the step runs in a world of more than one rank, each
+step averages its gradients across the ranks (the DataParallel's group,
+else the world) between the backward and the clip, as flat fp32 buckets
+through the comm plane (``distributed.parallel.all_reduce_gradients``).
+This is the port's counterpart of the gradient psum XLA puts into the
+reference's mesh-sharded step; ``torch.autograd.grad`` leaves ``.grad``
+alone, so a DataParallel's own hooks never fire here.
+
 Not in this slice: the DGC/LocalSGD meta-optimizers, refused with an
-error; mesh and ZeRO placements (the port has no mesh yet).
+error; mesh and ZeRO placements (ROADMAP A7).
 """
 from __future__ import annotations
 
@@ -113,6 +122,10 @@ class CompiledTrainStep:
             optimizer._get_accumulators(p)
         self._n_calls = 0
         self._check_nan = bool(get_flag("FLAGS_check_nan_inf"))
+        from ..distributed.parallel import DataParallel
+        dp = [m for layer in layers for m in layer.modules()
+              if isinstance(m, DataParallel)]
+        self._dp = dp[0] if dp else None
 
     meter_tokens = None
     meter_flops = None
@@ -151,6 +164,7 @@ class CompiledTrainStep:
         with torch.no_grad():
             grads = [torch.zeros_like(p) if g is None else g.to(p.dtype)
                      for g, p in zip(grads, self.trainable)]
+            grads = self._sync(grads)
             if check:
                 # one fused flag per (loss, grad_i), before the clip, and
                 # one host read
@@ -166,6 +180,15 @@ class CompiledTrainStep:
                 self.optimizer._apply(p, g, lr)
         return loss.detach(), tuple(a.detach() if torch.is_tensor(a) else a
                                     for a in aux)
+
+    def _sync(self, grads):
+        """The gradients averaged across the data-parallel ranks (as they
+        are in a world of one process)."""
+        from ..distributed.parallel import all_reduce_gradients
+        if self._dp is not None:
+            return all_reduce_gradients(grads, self._dp._group,
+                                        self._dp._comm_buffer_size)
+        return all_reduce_gradients(grads)
 
     def __call__(self, *args, **kwargs):
         if not _perf.METER.enabled:

@@ -8,7 +8,7 @@ from .attention import (_sdpa_impl, _unpadded_impl, flash_attention,
 from .conv import (conv1d, conv1d_transpose, conv2d, conv2d_transpose,
                    conv3d, conv3d_transpose)
 from .loss import cross_entropy
-from .norm import batch_norm, layer_norm, rms_norm
+from .norm import batch_norm, layer_norm, rms_norm, sync_batch_norm
 from .pooling import (adaptive_avg_pool1d, adaptive_avg_pool2d,
                       adaptive_avg_pool3d, adaptive_max_pool1d,
                       adaptive_max_pool2d, adaptive_max_pool3d, avg_pool1d,
@@ -23,7 +23,7 @@ __all__ = ["scaled_dot_product_attention", "flash_attention",
            "log_sigmoid", "softmax", "log_softmax", "cross_entropy",
            "conv1d", "conv2d", "conv3d",
            "conv1d_transpose", "conv2d_transpose", "conv3d_transpose",
-           "batch_norm", "layer_norm", "rms_norm", "linear", "embedding",
+           "batch_norm", "sync_batch_norm", "layer_norm", "rms_norm", "linear", "embedding",
            "max_pool1d", "max_pool2d", "max_pool3d",
            "avg_pool1d", "avg_pool2d", "avg_pool3d", "adaptive_avg_pool1d",
            "adaptive_avg_pool2d", "adaptive_avg_pool3d",

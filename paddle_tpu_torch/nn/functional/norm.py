@@ -1,5 +1,6 @@
 """Normalization functionals (counterpart: ``paddle_tpu/nn/functional/
-norm.py``): ``batch_norm``, ``layer_norm`` and ``rms_norm``.
+norm.py``): ``batch_norm``, ``sync_batch_norm``, ``layer_norm`` and
+``rms_norm``.
 
 ``layer_norm`` and ``rms_norm`` go through the per-op seam
 (``ops/dispatch.py``) under the reference's op names: an ``auto_cast``
@@ -31,6 +32,25 @@ written by hand here. The semantics are the reference's:
 In bf16 the JAX forward rounds its per-channel scale and shift to bf16
 and applies one bf16 FMA per element, where cuDNN rounds once, so bf16
 outputs differ within bf16's rounding while fp32 ones agree (ROADMAP C).
+
+``sync_batch_norm`` (``SyncBatchNorm`` in training, over a group of more
+than one rank) normalizes by the statistics of the whole group's batch,
+as upstream Paddle does and as the reference's data-parallel compiled
+step computes them over the mesh. It is written over
+``torch.distributed`` rather than ``torch.nn.SyncBatchNorm``, which
+refuses CPU tensors, so one code runs under gloo on the CPU and on the
+card:
+
+- forward: one all-reduce of [Σx, Σx², count] per channel in fp32; mean
+  = Σx / N, var = Σx² / N − mean² (biased, for the normalization), and
+  the running statistics move as ``batch_norm``'s do, with the unbiased
+  var · N / (N − 1);
+- backward: one all-reduce of [Σdy, Σdy·x̂]; dx = w·invstd·(dy − Σdy/N −
+  x̂·Σdy·x̂/N) with the group's sums, while dw and db are this rank's own
+  Σdy·x̂ and Σdy: the data-parallel gradient sync averages them like any
+  other parameter's gradient.
+
+The output takes ``x``'s dtype; the arithmetic is fp32.
 """
 from __future__ import annotations
 
@@ -81,4 +101,85 @@ def batch_norm(x, running_mean, running_var, weight=None, bias=None,
         x, running_mean, running_var, weight, bias,
         training=bool(training and not use_global_stats),
         momentum=1.0 - float(momentum), eps=float(epsilon))
+    return restore_layout(y, moved)
+
+
+def _channel_dims(x):
+    return [d for d in range(x.ndim) if d != 1]
+
+
+def _per_channel(v, x):
+    return v.reshape([1, -1] + [1] * (x.ndim - 2))
+
+
+def _group_sum(buf, group):
+    """Sum ``buf`` over ``group`` in place."""
+    import torch.distributed as dist
+    dist.all_reduce(buf, group=group.pg)
+    return buf
+
+
+class _SyncBatchNorm(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, weight, bias, running_mean, running_var, momentum,
+                eps, group):
+        dims = _channel_dims(x)
+        xf = x.to(torch.float32)
+        c = x.shape[1]
+        count = torch.tensor([x.numel() // c], dtype=torch.float32,
+                             device=x.device)
+        buf = _group_sum(torch.cat([xf.sum(dims), (xf * xf).sum(dims),
+                                    count]), group)
+        n = buf[-1]
+        mean = buf[:c] / n
+        var = torch.clamp(buf[c:2 * c] / n - mean * mean, min=0.0)
+        invstd = torch.rsqrt(var + eps)
+        w = torch.ones_like(mean) if weight is None else \
+            weight.to(torch.float32)
+        b = torch.zeros_like(mean) if bias is None else \
+            bias.to(torch.float32)
+        y = (xf - _per_channel(mean, x)) * _per_channel(invstd * w, x) \
+            + _per_channel(b, x)
+        with torch.no_grad():
+            running_mean.mul_(momentum).add_(
+                (1.0 - momentum) * mean.to(running_mean.dtype))
+            running_var.mul_(momentum).add_(
+                (1.0 - momentum) * (var * n / (n - 1)).to(running_var.dtype))
+        ctx.save_for_backward(x, weight, mean, invstd, n)
+        ctx.group = group
+        ctx.has_bias = bias is not None
+        ctx.bias_dtype = None if bias is None else bias.dtype
+        return y.to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, weight, mean, invstd, n = ctx.saved_tensors
+        dims = _channel_dims(x)
+        c = x.shape[1]
+        dyf = dy.to(torch.float32)
+        xhat = (x.to(torch.float32) - _per_channel(mean, x)) \
+            * _per_channel(invstd, x)
+        sdy = dyf.sum(dims)
+        sdyx = (dyf * xhat).sum(dims)
+        buf = _group_sum(torch.cat([sdy, sdyx]), ctx.group)
+        w = torch.ones_like(mean) if weight is None else \
+            weight.to(torch.float32)
+        dx = _per_channel(w * invstd, x) * (
+            dyf - _per_channel(buf[:c] / n, x)
+            - xhat * _per_channel(buf[c:] / n, x))
+        dw = None if weight is None else sdyx.to(weight.dtype)
+        db = sdy.to(ctx.bias_dtype) if ctx.has_bias else None
+        return dx.to(x.dtype), dw, db, None, None, None, None, None
+
+
+def sync_batch_norm(x, running_mean, running_var, weight=None, bias=None,
+                    momentum=0.9, epsilon=1e-5, data_format="NCHW",
+                    group=None):
+    """Training-mode batch norm over the whole ``group``'s batch (the
+    default group: the world); see the module docstring."""
+    from ...distributed.collective import _get_group
+    x, moved = channels_first(x, data_format)
+    y = _SyncBatchNorm.apply(x, weight, bias, running_mean, running_var,
+                             float(momentum), float(epsilon),
+                             _get_group(group))
     return restore_layout(y, moved)

@@ -13,8 +13,17 @@ reference's state names, so ``convert.load_jax_state`` carries them
 across as they are. In training the layer normalizes by the batch and
 moves the running statistics (``momentum`` 0.9 keeps 0.9 of the old
 value); in eval mode it normalizes by the running statistics
-(``nn/functional/norm.py``). ``SyncBatchNorm`` is not ported (ROADMAP
-A7).
+(``nn/functional/norm.py``).
+
+``SyncBatchNorm`` normalizes a training batch by the statistics of the
+whole data-parallel group (``F.sync_batch_norm``); in eval mode, and in
+a group of one rank, it is ``BatchNorm2D`` exactly.
+``SyncBatchNorm.convert_sync_batchnorm(model)`` swaps every batch norm of
+``model`` for one that keeps the same parameter and buffer objects.
+The reference's eager multi-process ``SyncBatchNorm`` keeps local
+statistics (``paddle_tpu/nn/layer/norm.py:83-86``); its compiled
+data-parallel step and upstream Paddle take the group's, as the port does
+(ROADMAP C).
 """
 from __future__ import annotations
 
@@ -127,11 +136,45 @@ class BatchNorm3D(_BatchNormBase):
 
 
 class SyncBatchNorm(_BatchNormBase):
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "SyncBatchNorm needs the distributed data plane (ROADMAP A7)")
+    def __init__(self, num_features, momentum=0.9, epsilon=1e-5,
+                 weight_attr=None, bias_attr=None, data_format="NCHW",
+                 use_global_stats=None, name=None, device=None, dtype=None,
+                 group=None):
+        super().__init__(num_features, momentum, epsilon, weight_attr,
+                         bias_attr, data_format, use_global_stats, name,
+                         device, dtype)
+        self._group = group
+
+    def forward(self, x):
+        from ...distributed.parallel import _sync_group
+        if self.training and not self._use_global_stats and \
+                _sync_group(self._group) is not None:
+            return F.sync_batch_norm(x, self._mean, self._variance,
+                                     self.weight, self.bias,
+                                     momentum=self._momentum,
+                                     epsilon=self._epsilon,
+                                     data_format=self._data_format,
+                                     group=self._group)
+        return super().forward(x)
 
     @classmethod
     def convert_sync_batchnorm(cls, layer):
-        raise NotImplementedError(
-            "SyncBatchNorm needs the distributed data plane (ROADMAP A7)")
+        """``layer`` with every batch norm in it replaced by a
+        ``SyncBatchNorm`` holding the same parameters and statistics;
+        returns the (possibly new) top layer."""
+        out = layer
+        if isinstance(layer, _BatchNormBase) and \
+                not isinstance(layer, SyncBatchNorm):
+            out = cls(layer._num_features, layer._momentum, layer._epsilon,
+                      weight_attr=False, bias_attr=False,
+                      data_format=layer._data_format,
+                      use_global_stats=layer._use_global_stats,
+                      device=layer._mean.device)
+            out.weight = layer.weight
+            out.bias = layer.bias
+            out._mean = layer._mean
+            out._variance = layer._variance
+            out.train(layer.training)
+        for name, sub in list(layer.named_children()):
+            layer._modules[name] = cls.convert_sync_batchnorm(sub)
+        return out

@@ -18,14 +18,23 @@ returning a shared no-op; a step opened inside an open step on the same
 thread is the same no-op, so a metered caller around a metered step
 counts it once.
 
-Not in this slice: the reference's comm-plane meters (the port has no
-comm plane yet, ROADMAP A7) and its cross-rank straggler detection over
+The comm meters, as in the reference: when a comm plane is live
+(``distributed.comm_plane``, or a provider given to
+``set_comm_stats_provider``), each step reads its ``stats()`` at the
+start and the end and records the deltas: ``perf_step_comm_ms`` (time
+the step's collectives were in flight), ``perf_step_exposed_ms`` (time
+the step blocked waiting for them) and ``perf_step_hidden_ms`` (the
+rest, hidden behind compute). A provider that raises at the end of a
+step is counted (``perf_straggler_check_errors_total``), not raised.
+
+Not in this slice: the reference's cross-rank straggler detection over
 the membership store with triggered tracing: ``configure_straggler``
-raises ``NotImplementedError`` until the store is ported (ROADMAP A8).
+raises ``NotImplementedError`` (ROADMAP A8).
 """
 from __future__ import annotations
 
 import os
+import sys
 import threading
 import time
 
@@ -56,13 +65,14 @@ NULL_STEP = _NullStep()
 
 
 class _Step:
-    __slots__ = ("_meter", "tokens", "flops", "attrs", "t0")
+    __slots__ = ("_meter", "tokens", "flops", "attrs", "t0", "_comm0")
 
     def __init__(self, meter, tokens, flops, attrs):
         self._meter = meter
         self.tokens = tokens
         self.flops = flops
         self.attrs = attrs
+        self._comm0 = None
 
     def set_info(self, tokens=None, flops=None, **attrs):
         """Fill in the accounting mid-step (a caller that knows the
@@ -75,7 +85,15 @@ class _Step:
         return self
 
     def __enter__(self):
+        # claimed here, not in step(): if the provider raises, __exit__
+        # never runs, and the flag must not stay set
         self._meter._tls.open = True
+        provider = self._meter._comm_stats
+        try:
+            self._comm0 = provider() if provider is not None else None
+        except Exception:
+            self._meter._tls.open = False
+            raise
         self.t0 = time.perf_counter_ns()
         return self
 
@@ -96,6 +114,7 @@ class StepMeter:
         self._tls = threading.local()
         self._ceiling_tflops = None
         self._metrics = None
+        self._comm_stats = _default_comm_stats
 
     def enable(self):
         self.enabled = True
@@ -110,6 +129,12 @@ class StepMeter:
         self._ceiling_tflops = float(tflops) if tflops else None
         if self._ceiling_tflops and self._metrics:
             self._metrics["ceiling_tflops"].set(self._ceiling_tflops)
+        return self
+
+    def set_comm_stats_provider(self, fn):
+        """``fn() -> {"comm_ms":, "exposed_ms":, ...}`` read at each step's
+        start and end (default: the live comm plane's ``stats()``)."""
+        self._comm_stats = fn
         return self
 
     def configure_straggler(self, store, rank, **kwargs):
@@ -138,6 +163,11 @@ class StepMeter:
                 "achieved_tflops": metrics.gauge("perf_achieved_tflops"),
                 "ceiling_tflops": metrics.gauge("perf_ceiling_tflops"),
                 "ceiling_frac": metrics.gauge("perf_ceiling_frac"),
+                "comm_ms": metrics.gauge("perf_step_comm_ms"),
+                "exposed_ms": metrics.gauge("perf_step_exposed_ms"),
+                "hidden_ms": metrics.gauge("perf_step_hidden_ms"),
+                "check_errors": metrics.counter(
+                    "perf_straggler_check_errors_total"),
             }
             if self._ceiling_tflops:
                 m["ceiling_tflops"].set(self._ceiling_tflops)
@@ -150,6 +180,22 @@ class StepMeter:
         span_attrs = dict(step.attrs, step_ms=round(step_ms, 3))
         m["step_ms"].observe(step_ms)
         m["steps"].inc()
+        if step._comm0 is not None:
+            try:
+                c1 = self._comm_stats()
+            except Exception:  # counted: a sick provider must not end a step
+                c1 = None
+                m["check_errors"].inc()
+            if c1 is not None:
+                comm = c1["comm_ms"] - step._comm0["comm_ms"]
+                exposed = c1["exposed_ms"] - step._comm0["exposed_ms"]
+                hidden = max(comm - exposed, 0.0)
+                m["comm_ms"].set(round(comm, 3))
+                m["exposed_ms"].set(round(exposed, 3))
+                m["hidden_ms"].set(round(hidden, 3))
+                span_attrs["comm_ms"] = round(comm, 3)
+                span_attrs["exposed_ms"] = round(exposed, 3)
+                span_attrs["hidden_ms"] = round(hidden, 3)
         dt_s = step_ms / 1e3
         if step.tokens is not None and dt_s > 0:
             tps = step.tokens / dt_s
@@ -167,11 +213,23 @@ class StepMeter:
         trace.complete_span("perf.step", step.t0, t1, **span_attrs)
 
 
+def _default_comm_stats():
+    """The live comm plane's ``stats()``, when its module is already
+    imported and a plane exists in this process (never imports it)."""
+    mod = sys.modules.get(
+        __name__.split(".")[0] + ".distributed.comm_plane")
+    if mod is None:
+        return None
+    plane = mod.live_plane()
+    return None if plane is None else plane.stats()
+
+
 METER = StepMeter()
 
 step = METER.step
 configure_straggler = METER.configure_straggler
 set_ceiling_tflops = METER.set_ceiling_tflops
+set_comm_stats_provider = METER.set_comm_stats_provider
 
 
 def enable():

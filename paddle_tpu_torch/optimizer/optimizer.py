@@ -23,8 +23,9 @@ taken, as in the reference.
 The optimizer boundary: ``step``, ``clear_grad`` and
 ``amp.GradScaler.unscale_`` run the pre-step hooks first
 (``register_pre_step_hook``), the seam where a gradient-sync plane drains
-its in-flight collectives. Nothing registers one yet; with none the cost
-is one empty-dict check.
+its in-flight collectives: ``distributed.comm_plane`` registers its
+``drain`` when its plane is made. With none the cost is one empty-dict
+check.
 """
 from __future__ import annotations
 

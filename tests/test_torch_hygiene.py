@@ -1,8 +1,8 @@
 """Import hygiene of the port: ``paddle_tpu_torch``, ``chip_smoke.py``,
-``scripts/profile_torch_train_step.py`` and ``scripts/ab_eager_amp.py``
-import neither ``jax`` nor anything of ``paddle_tpu`` — not even its
-modules that do not import JAX. Later slices that reach into the JAX
-package fail here."""
+``scripts/profile_torch_train_step.py``, ``scripts/ab_eager_amp.py`` and
+``scripts/ab_data_parallel.py`` import neither ``jax`` nor anything of
+``paddle_tpu`` — not even its modules that do not import JAX. Later
+slices that reach into the JAX package fail here."""
 import ast
 import os
 import subprocess
@@ -19,7 +19,8 @@ def _port_files():
     files = sorted((ROOT / "paddle_tpu_torch").rglob("*.py"))
     return files + [ROOT / "chip_smoke.py",
                     ROOT / "scripts" / "profile_torch_train_step.py",
-                    ROOT / "scripts" / "ab_eager_amp.py"]
+                    ROOT / "scripts" / "ab_eager_amp.py",
+                    ROOT / "scripts" / "ab_data_parallel.py"]
 
 
 def _imported_roots(path):
@@ -99,6 +100,13 @@ def test_importing_the_port_loads_neither_package():
         "import paddle_tpu_torch.ops.indexing, paddle_tpu_torch.ops.linalg\n"
         "import paddle_tpu_torch.ops.sweep\n"
         "import paddle_tpu_torch.nn.layer.layers\n"
+        "import paddle_tpu_torch.distributed.collective\n"
+        "import paddle_tpu_torch.distributed.comm_plane\n"
+        "import paddle_tpu_torch.distributed.comm_quant\n"
+        "import paddle_tpu_torch.distributed.parallel\n"
+        "import paddle_tpu_torch.distributed.spawn\n"
+        "import paddle_tpu_torch.distributed.launch.main\n"
+        "import paddle_tpu_torch.distributed.communication.stream\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in %r)\n"

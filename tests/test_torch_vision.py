@@ -240,8 +240,12 @@ def test_batch_norm_layer_state_names_and_eval():
     want = (x - stats[0][:, None, None]) / torch.sqrt(
         stats[1][:, None, None] + 1e-5)
     torch.testing.assert_close(y, want, atol=1e-5, rtol=0)
-    with pytest.raises(NotImplementedError, match="A7"):
-        pnn.SyncBatchNorm(4)
+    # SyncBatchNorm in a world of one process is this layer, exactly
+    sync = pnn.SyncBatchNorm(5, device="cpu")
+    fresh = pnn.BatchNorm2D(5, device="cpu")
+    assert torch.equal(sync(x), fresh(x))
+    assert torch.equal(sync._mean, fresh._mean)
+    assert torch.equal(sync._variance, fresh._variance)
 
 
 # -- pooling ------------------------------------------------------------------
