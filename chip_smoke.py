@@ -109,13 +109,30 @@ by route) set to 0 just before it and read just after:
   batch norm at ResNet-50's first batch norm to fp64; each rank's
   launches are added to this process's counts (global tokens/s, the
   comm plane's stats, buckets and bytes all-reduced a step, and apart,
-  a step under ``no_sync`` and the buckets' all-reduce alone).
+  a step under ``no_sync`` and the buckets' all-reduce alone);
+- the hybrid plane: this script again as two gloo ranks sharing the card
+  (``--hybrid-parallel-rank``), first at mp 2 after ``fleet.init``:
+  GPT-124M at bench.py's widths under ``tensor_parallel`` (6 heads a
+  rank, the global 8 x 1024, O2, AdamW, ``CompiledTrainStep``, 3 + 5
+  calls and one with the mp collectives metered), the fp32 2-layer TP and
+  SP steps, and ``distributed.checkpoint`` both ways (this process's
+  whole checkpoint into the TP ranks, each slice bit-equal; the ranks'
+  checkpoint into this process, bit-equal, and refused with a flipped
+  byte); then at sharding 2: ERNIE-3.0-base under
+  ``group_sharded_parallel(..., "p_g_os")`` as ``benchmarks/matrix.py:
+  125-166`` runs it (16 x 512 global) and the fp32 ``os``, ``os_g`` and
+  ``p_g_os`` steps. This process holds the five fp32 steps to one
+  process on the same global batch (step ms of the slowest rank, global
+  tokens/s, comm ms, peak memory and parameter + optimizer bytes a rank
+  against one process's; K2/K3 once per layer and call in each rank).
 
 Last, it times each kernel beside its bound, its plain version and,
 where one exists, a PyTorch call that computes the same function (also
 by their device time alone, which leaves out the host's launch gaps);
 K1 also at a bytes-heavy shape (64 slots of 1024 tokens), K2 and K3
-also at the ERNIE and BERT paths' non-causal shapes, and each kernel's
+also at the ERNIE and BERT paths' non-causal shapes and the hybrid
+path's ranks' shapes ([8, 1024, 6, 64] causal, [8, 512, 12, 64]
+non-causal), and each kernel's
 fp16 route (K2 and K3 at the fp16 AMP path's shape). Each
 phase prints one JSON line; any failure raises and the script exits
 non-zero. It needs a CUDA card: without one it exits 2 and prints no
@@ -337,6 +354,16 @@ DP_ATTENTION = [
     ("dp_exact_one_process", DP_RANKS * DP_EXACT_BATCH, 1024, 1024, 12, 12,
      64, True),
 ]
+# the hybrid-parallel path's attention: a TP GPT-124M rank's 6 heads at
+# the global 8 x 1024 (bf16), a ZeRO-3 ERNIE rank's 8 x 512 (bf16) and the
+# fp32 TP and SP steps' ranks at 4 x 1024 with 6 heads (the fp32 ZeRO
+# ranks' 2 x 1024 and the one-process 4 x 1024 are DP_ATTENTION's)
+HP_RANKS, HP_TP_BATCH, HP_ERNIE_BATCH, HP_EXACT_BATCH = 2, 8, 8, 4
+HP_ATTENTION = [
+    ("tp_gpt124m_rank", HP_TP_BATCH, 1024, 1024, 6, 6, 64, True),
+    ("zero3_ernie_rank", HP_ERNIE_BATCH, 512, 512, 12, 12, 64, False),
+    ("tp_exact_rank", HP_EXACT_BATCH, 1024, 1024, 6, 6, 64, True),
+]
 FLASH_CASES = [
     ("gpt124m_causal", 1, 1024, 1024, 12, 12, 64, True),
     ("gqa_causal", 2, 256, 256, 12, 4, 64, True),
@@ -355,7 +382,7 @@ FLASH_CASES = [
     ("d256_causal", 1, 512, 512, 8, 8, 256, True),
     ERNIE_ATTENTION,
     BERT_ATTENTION,
-] + DP_ATTENTION
+] + DP_ATTENTION + HP_ATTENTION
 # K3: the forward's cases and one with an lse cotangent
 FLASH_BWD_CASES = FLASH_CASES + [
     ("dlse_causal", 1, 256, 256, 12, 12, 64, True)]
@@ -1254,17 +1281,22 @@ def ernie_pretraining(torch):
     it: ``ErnieForPretraining`` with fp32 parameters from seed 0, AdamW at
     lr 1e-4, a bf16 O2 ``CompiledTrainStep`` over ``lambda ids, l:
     net(ids, labels=l)[1]``; ids and labels of shape lead + (16, 512)
-    drawn in [0, 40000). One cut: ``group_sharded_parallel(net, opt,
-    "p_g_os")`` is left out; on one device it is the plain optimizer.
-    Returns (model, step, batch) as ``gpt124m_training`` does."""
+    drawn in [0, 40000). As there, the model and optimizer go through
+    ``group_sharded_parallel(net, opt, "p_g_os")`` and the step gets the
+    unwrapped net and ``getattr(opt2, "_optim", opt2)``; in one process
+    the sharding degree is 1 and ZeRO changes nothing (the
+    ``hybrid_parallel`` path runs it at sharding 2). Returns (model, step,
+    batch) as ``gpt124m_training`` does."""
+    from paddle_tpu_torch.distributed.sharding import group_sharded_parallel
     from paddle_tpu_torch.jit import CompiledTrainStep
     from paddle_tpu_torch.optimizer import AdamW
     from paddle_tpu_torch.text.ernie import ErnieForPretraining
     cfg = ernie_config()
     model = ErnieForPretraining(cfg, device="cuda", seed=0)
     opt = AdamW(learning_rate=1e-4, parameters=model.parameters())
-    step = CompiledTrainStep(lambda ids, l: model(ids, labels=l)[1], model,
-                             opt, amp_level="O2")
+    net, opt2, _ = group_sharded_parallel(model, opt, "p_g_os")
+    step = CompiledTrainStep(lambda ids, l: net(ids, labels=l)[1], model,
+                             getattr(opt2, "_optim", opt2), amp_level="O2")
     shape = (ERNIE_BATCH, ERNIE_SEQ)
     return model, step, _token_batches(torch, cfg.vocab_size, shape, shape,
                                        cfg.vocab_size)
@@ -3383,17 +3415,8 @@ def _run_ranks(n, flag, out_dir, extra_env=None):
 
 def phase_data_parallel_exactness(torch, ck, out_dir):
     """The fp32 DataParallel step against one step in this process on the
-    two ranks' batches concatenated (4 x 1024), from the same weights:
-    the loss within 1e-5 of itself, every synced gradient within 1e-5 of
-    its largest entry (a gradient zero up to rounding, below 1e-6 of the
-    model's largest, on both), and every entry of every updated parameter
-    within 1e-5 of the tensor's largest entry once the difference that
-    AdamW's first update (lr * g / (|g| + eps)) makes of the two
-    gradients is taken out: that update is AdamW's own first step from a
-    zero parameter with each gradient. Where |g| is near eps the update
-    hangs on digits of g that fp32 leaves open; held this way no entry
-    is left out (the count of entries with |g| < 1e-6, 100 x eps, is
-    printed)."""
+    two ranks' batches concatenated (4 x 1024), from the same weights, by
+    ``_held_to_one_process``'s bounds."""
     from paddle_tpu_torch.optimizer import AdamW
     from paddle_tpu_torch.text.gpt import GPTConfig, GPTForPretraining
     cfg = GPTConfig(hidden_size=768, num_layers=2, num_heads=12)
@@ -3410,14 +3433,44 @@ def phase_data_parallel_exactness(torch, ck, out_dir):
     opt.step()
     dp = torch.load(f"{out_dir}/exact.pt")
     dp_loss = sum(dp["losses"]) / len(dp["losses"])
-    loss_rel = abs(dp_loss - loss.item()) / abs(loss.item())
+    out = _held_to_one_process(torch, dp_loss, dp["grads"], dp["params"],
+                               loss.item(), grads, model)
+    out = {"phase": "data_parallel_exactness_fp32", "tf32": False,
+           "model": "GPT-124M widths, 2 layers, fp32, AdamW lr 1e-4; "
+                    "2 ranks x 2 x 1024 under DataParallel against one "
+                    "process on 4 x 1024",
+           "loss_dp": dp_loss, "loss_one_process": out.pop("loss_one"),
+           **{k: v for k, v in out.items() if k != "loss_got"}}
+    emit(out)
+    if not out["held"]:
+        raise AssertionError(f"the DataParallel step differs from one "
+                             f"process: {out}")
+
+
+def _held_to_one_process(torch, got_loss, got_grads, got_params, loss,
+                         grads, model):
+    """A multi-rank fp32 step (its loss, synced gradients and updated
+    parameters, whole on the host) against one step in this process from
+    the same weights (``loss``, ``grads``, the updated ``model``): the loss
+    within 1e-5 of itself, every gradient within 1e-5 of its largest entry
+    (a gradient zero up to rounding, below 1e-6 of the model's largest, on
+    both), and every entry of every updated parameter within 1e-5 of the
+    tensor's largest entry once the difference that AdamW's first update
+    (lr * g / (|g| + eps)) makes of the two gradients is taken out: that
+    update is AdamW's own first step from a zero parameter with each
+    gradient. Where |g| is near eps the update hangs on digits of g that
+    fp32 leaves open; held this way no entry is left out (the count of
+    entries with |g| < 1e-6, 100 x eps, is returned)."""
+    from paddle_tpu_torch.optimizer import AdamW
+    loss_rel = abs(got_loss - loss) / abs(loss)
     top = max(float(g.abs().max()) for g in grads.values())
     zero = sorted(n for n, g in grads.items()
                   if float(g.abs().max()) <= 1e-6 * top)
-    grad_rel = {n: max_err(dp["grads"][n], g) / float(g.abs().max())
+    grad_rel = {n: max_err(got_grads[n], g) / float(g.abs().max())
                 for n, g in grads.items() if n not in zero}
-    zero_ok = all(float(dp["grads"][n].abs().max()) <= 1e-6 * top
+    zero_ok = all(float(got_grads[n].abs().max()) <= 1e-6 * top
                   for n in zero)
+
     def first_step_from_zero(g):
         z = torch.nn.Parameter(torch.zeros_like(g, device="cuda"))
         z.grad = g.cuda()
@@ -3426,33 +3479,27 @@ def phase_data_parallel_exactness(torch, ck, out_dir):
 
     param_rel, near_eps = {}, 0
     for n, p in model.named_parameters():
-        got, want = dp["params"][n], p.detach().cpu()
+        got, want = got_params[n], p.detach().cpu()
         diff = got.double() - want.double()
         g = grads.get(n)
         if g is not None:
             near_eps += int((g.abs() < 1e-6).sum())
-            diff -= first_step_from_zero(dp["grads"][n]) - \
+            diff -= first_step_from_zero(got_grads[n]) - \
                 first_step_from_zero(g)
         param_rel[n] = float(diff.abs().max()) / float(want.abs().max())
     worst_g = max(grad_rel, key=grad_rel.get)
     worst_p = max(param_rel, key=param_rel.get)
-    out = {"phase": "data_parallel_exactness_fp32", "tf32": False,
-           "model": "GPT-124M widths, 2 layers, fp32, AdamW lr 1e-4; "
-                    "2 ranks x 2 x 1024 under DataParallel against one "
-                    "process on 4 x 1024",
-           "loss_dp": dp_loss, "loss_one_process": loss.item(),
-           "loss_rel_err": loss_rel, "loss_rel_tol": 1e-5,
-           "grad_max_rel_err": grad_rel[worst_g], "grad_worst": worst_g,
-           "grads_zero_up_to_rounding": zero,
-           "param_max_rel_err": param_rel[worst_p], "param_worst": worst_p,
-           "param_rule": "every entry of p_dp - p_one - (z(g_dp) - "
-                         "z(g_one)), z(g) AdamW's first step from zero",
-           "entries_grad_below_1e-6": near_eps, "rel_tol": 1e-5}
-    emit(out)
-    if loss_rel > 1e-5 or grad_rel[worst_g] > 1e-5 or not zero_ok or \
-            param_rel[worst_p] > 1e-5:
-        raise AssertionError(f"the DataParallel step differs from one "
-                             f"process: {out}")
+    held = loss_rel <= 1e-5 and grad_rel[worst_g] <= 1e-5 and zero_ok and \
+        param_rel[worst_p] <= 1e-5
+    return {"loss_got": got_loss, "loss_one": loss,
+            "loss_rel_err": loss_rel, "loss_rel_tol": 1e-5,
+            "grad_max_rel_err": grad_rel[worst_g], "grad_worst": worst_g,
+            "grads_zero_up_to_rounding": zero,
+            "param_max_rel_err": param_rel[worst_p], "param_worst": worst_p,
+            "param_rule": "every entry of p_got - p_one - (z(g_got) - "
+                          "z(g_one)), z(g) AdamW's first step from zero",
+            "entries_grad_below_1e-6": near_eps, "rel_tol": 1e-5,
+            "held": held}
 
 
 def phase_data_parallel(torch, ck, smi):
@@ -3499,6 +3546,497 @@ def phase_data_parallel(torch, ck, smi):
               "buckets": gpt[0]["buckets"],
               "allreduced_bytes_per_step": gpt[0]["allreduced_bytes_per_step"],
               "nccl_world_one_s": t_nccl, "gloo_ranks_s": t_ranks})
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+# -- the hybrid-parallel path -----------------------------------------------------
+# Two gloo ranks share the card, as the data-parallel path's do: first as
+# mp 2 (TP GPT-124M at bench.py's widths, the fp32 TP and SP steps, the
+# resharding checkpoint), then, after a second fleet.init, as sharding 2
+# (ERNIE-3.0-base under ZeRO-3 as benchmarks/matrix.py:125-166 runs it,
+# the fp32 ZeRO steps). (HP_RANKS and the batches stand beside FLASH_CASES)
+HP_WARMUP, HP_TIMED = 3, 5
+HP_ZERO_LEVELS = ("os", "os_g", "p_g_os")
+
+
+def _hp_fleet(fleet, **degrees):
+    strategy = fleet.DistributedStrategy()
+    strategy.hybrid_configs = dict({"dp_degree": 1}, **degrees)
+    fleet.init(is_collective=True, strategy=strategy)
+    return fleet.get_hybrid_communicate_group().mesh
+
+
+def _whole_bytes(tensors):
+    """Bytes of the global tensors behind ``tensors`` (one process holding
+    the whole model and its state): (tensor, placement or None) pairs, or
+    tensors whose own placement is read."""
+    from paddle_tpu_torch.distributed.sharding_api import placement_of
+    total = 0
+    for t in tensors:
+        t, pl = t if isinstance(t, tuple) else (t, placement_of(t))
+        n = math.prod(pl.global_shape) if pl is not None else t.numel()
+        total += n * t.element_size()
+    return total
+
+
+def _state_tensors_of(opt, params):
+    """(state tensor, its placement) of every parameter's optimizer state:
+    a TP parameter's moments are split like it, a ZeRO partition's are its
+    rows."""
+    import torch
+
+    from paddle_tpu_torch.distributed.fleet.meta_parallel.sharding import (
+        state_placement)
+    return [(v, state_placement(p, v)) for p in params
+            for v in opt._accumulators.get(id(p), {}).values()
+            if torch.is_tensor(v)]
+
+
+def _timed_training(torch, ck, step, batch, layers, route="bf16",
+                    at_timed=None):
+    """HP_WARMUP + HP_TIMED calls of ``step(*batch)``, each synchronized
+    (``at_timed()`` runs before the first timed one); K2/K3 must launch
+    once per layer and call on ``route``. Returns (losses, seconds per
+    call)."""
+    losses, secs = [], []
+    for i in range(HP_WARMUP + HP_TIMED):
+        if i == HP_WARMUP and at_timed is not None:
+            at_timed()
+        before = {k.name: k.route_launches[route] for k in ck.KERNELS}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = step(*batch)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        got = {k.name: k.route_launches[route] - before[k.name]
+               for k in ck.KERNELS}
+        if got["flash_fwd"] != layers or got["flash_bwd"] != layers:
+            raise AssertionError(f"call {i} launched {got} on {route}")
+        losses.append(loss.item())
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"non-finite losses {losses}")
+    return losses, secs
+
+
+def hp_tp_gpt124m_rank(torch, ck, dist, rank, mesh):
+    """GPT-124M at bench.py's widths under ``tensor_parallel`` at mp 2:
+    each rank holds half of every split weight and 6 of the 12 heads, and
+    both run the global batch of 8 x 1024 (one data rank). O2 bf16,
+    AdamW lr 1e-4, ``CompiledTrainStep``; then one more call with the mp
+    collectives metered (comm ms a step)."""
+    from paddle_tpu_torch.distributed.fleet.meta_parallel import mp_layers
+    from paddle_tpu_torch.jit import CompiledTrainStep
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.text.gpt import GPTForPretraining, gpt_small
+    cfg = gpt_small(tensor_parallel=True)
+    model = GPTForPretraining(cfg, device="cuda", seed=0)
+    opt = AdamW(learning_rate=1e-4, parameters=model.parameters())
+    step = CompiledTrainStep(lambda ids, labels: model(ids, labels=labels)[1],
+                             model, opt, amp_level="O2")
+    ids, labels = (t.cuda() for t in _seeded_ids(
+        torch, cfg.vocab_size, (HP_TP_BATCH, cfg.max_seq_len), seed=20))
+    torch.cuda.reset_peak_memory_stats()
+    losses, secs = _timed_training(torch, ck, step, (ids, labels),
+                                   cfg.num_layers)
+    peak = torch.cuda.max_memory_allocated()
+    mp_layers.comm_meter(on=True, reset=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step(ids, labels)
+    torch.cuda.synchronize()
+    metered_s = time.perf_counter() - t0
+    comm = mp_layers.comm_meter(on=False)
+    seen = []
+    dist.all_gather_object(seen, losses)
+    if seen[0] != seen[1]:
+        raise AssertionError(f"the mp ranks' losses differ: {seen}")
+    params = list(model.parameters())
+    states = _state_tensors_of(opt, params)
+    timed = secs[HP_WARMUP:]
+    out = {"phase": "hybrid_parallel_tp_gpt124m", "mp": 2,
+           "batch_global": [HP_TP_BATCH, cfg.max_seq_len],
+           "heads_per_rank": cfg.num_heads // 2,
+           "step_ms": 1e3 * sum(timed) / len(timed),
+           "step_ms_each": [1e3 * s for s in secs], "losses": losses,
+           "comm_ms_per_step": comm["ms"], "comm_calls_per_step":
+           comm["calls"], "comm_bytes_per_step": comm["bytes"],
+           "metered_step_ms": 1e3 * metered_s,
+           "peak_memory_bytes": peak,
+           "param_bytes": sum(p.numel() * p.element_size() for p in params),
+           "optimizer_bytes": sum(v.numel() * v.element_size()
+                                  for v, _ in states),
+           "one_process_param_bytes": _whole_bytes(params),
+           "one_process_optimizer_bytes": _whole_bytes(states),
+           "flash_launches_per_step": [cfg.num_layers, cfg.num_layers]}
+    del model, opt, step
+    torch.cuda.empty_cache()
+    return out
+
+
+def hp_ernie_zero3_rank(torch, ck, dist, rank, mesh):
+    """``ernie_pretraining``'s model under ``group_sharded_parallel(...,
+    "p_g_os")`` at sharding 2, ``CompiledTrainStep`` on the unwrapped net
+    and the inner optimizer, O2 bf16, the global 16 x 512 split 8 + 8."""
+    from paddle_tpu_torch.distributed import comm_plane
+    from paddle_tpu_torch.distributed.fleet.meta_parallel.sharding import (
+        group_sharded_parallel)
+    from paddle_tpu_torch.jit import CompiledTrainStep
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.text.ernie import ErnieForPretraining
+    cfg = ernie_config()
+    model = ErnieForPretraining(cfg, device="cuda", seed=0)
+    whole = _whole_bytes(model.parameters())
+    opt = AdamW(learning_rate=1e-4, parameters=model.parameters())
+    net, opt2, _ = group_sharded_parallel(model, opt, "p_g_os")
+    step = CompiledTrainStep(lambda ids, l: net(ids, labels=l)[1], model,
+                             getattr(opt2, "_optim", opt2), amp_level="O2")
+    ids, labels = _seeded_ids(torch, cfg.vocab_size,
+                              (HP_RANKS * HP_ERNIE_BATCH, ERNIE_SEQ),
+                              seed=30)
+    rows = slice(rank * HP_ERNIE_BATCH, (rank + 1) * HP_ERNIE_BATCH)
+    batch = (ids[rows].cuda(), labels[rows].cuda())
+    plane = comm_plane.get_plane()
+    torch.cuda.reset_peak_memory_stats()
+    losses, secs = _timed_training(torch, ck, step, batch,
+                                   cfg.num_hidden_layers,
+                                   at_timed=plane.reset_stats)
+    stats = plane.stats()
+    params = list(model.parameters())
+    states = _state_tensors_of(opt, params)
+    sharded = [p for p in params if getattr(p, "_zero", None) is not None]
+    timed = secs[HP_WARMUP:]
+    out = {"phase": "hybrid_parallel_ernie_zero3", "sharding": 2,
+           "level": "p_g_os", "batch_per_rank": [HP_ERNIE_BATCH, ERNIE_SEQ],
+           "step_ms": 1e3 * sum(timed) / len(timed),
+           "step_ms_each": [1e3 * s for s in secs], "losses": losses,
+           "comm_plane_per_step": {k: v / HP_TIMED if k != "overlap_"
+                                   "efficiency" else v
+                                   for k, v in stats.items()},
+           "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+           "param_bytes": sum(p.numel() * p.element_size() for p in params),
+           "optimizer_bytes": sum(v.numel() * v.element_size()
+                                  for v, _ in states),
+           "one_process_param_bytes": whole,
+           "one_process_optimizer_bytes": _whole_bytes(states),
+           "sharded_param_bytes": sum(p.numel() * p.element_size()
+                                      for p in sharded),
+           "one_process_sharded_param_bytes": _whole_bytes(sharded),
+           "params_sharded": len(sharded), "params": len(params),
+           "flash_launches_per_step": [cfg.num_hidden_layers] * 2}
+    del model, opt, opt2, step, net
+    torch.cuda.empty_cache()
+    return out
+
+
+def hp_exact_rank(torch, dist, rank, out_dir, mode):
+    """One fp32 AdamW step (lr 1e-4) of GPT-124M's widths at 2 layers
+    under ``mode`` (``tp``, ``sp`` at mp 2; a ZeRO level at sharding 2,
+    each rank on half the global 4 x 1024), through ``CompiledTrainStep``;
+    rank 0 saves the losses, the synced gradients and the updated
+    parameters, gathered whole, for the parent's one-process step. Returns
+    (the JSON row, the model, its optimizer)."""
+    from paddle_tpu_torch.distributed.fleet.meta_parallel.sharding import (
+        group_sharded_parallel, state_placement)
+    from paddle_tpu_torch.distributed.sharding_api import gather_global
+    from paddle_tpu_torch.jit import CompiledTrainStep
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.text.gpt import GPTConfig, GPTForPretraining
+    cfg = GPTConfig(hidden_size=768, num_layers=2, num_heads=12,
+                    tensor_parallel=mode == "tp",
+                    sequence_parallel=mode == "sp")
+    model = GPTForPretraining(cfg, device="cuda", seed=0)
+    opt = AdamW(learning_rate=1e-4, parameters=model.named_parameters())
+    ids, labels = _seeded_ids(torch, cfg.vocab_size,
+                              (HP_EXACT_BATCH, cfg.max_seq_len), seed=40)
+    net, inner = model, opt
+    if mode in HP_ZERO_LEVELS:
+        net, opt2, _ = group_sharded_parallel(model, opt, mode)
+        inner = getattr(opt2, "_optim", opt2)
+        half = HP_EXACT_BATCH // HP_RANKS
+        ids, labels = (t[rank * half:(rank + 1) * half] for t in (ids,
+                                                                   labels))
+    step = CompiledTrainStep(lambda a, b: net(a, labels=b)[1], model, inner)
+    real, seen = step._sync, {}
+    step._sync = lambda g: seen.setdefault("grads", real(g))
+    losses = []
+    dist.all_gather_object(losses, step(ids.cuda(), labels.cuda()).item())
+    if mode in ("tp", "sp") and losses[0] != losses[1]:
+        raise AssertionError(f"{mode}: the mp ranks' losses differ {losses}")
+
+    def placed(p, t):
+        split = hasattr(p, "_placement") or hasattr(p, "_zero")
+        return state_placement(p, t) if split else None
+
+    named = list(model.named_parameters())
+    grads = {n: gather_global(g, placed(p, g))
+             for (n, p), g in zip(named, seen["grads"])}
+    params = {n: gather_global(p) for n, p in named}
+    if rank == 0:
+        torch.save({"losses": losses, "grads": grads, "params": params},
+                   f"{out_dir}/hp_exact_{mode}.pt")
+    return {"phase": f"hybrid_parallel_exact_rank_{mode}",
+            "losses": losses}, model, opt
+
+
+def hp_reshard_rank(torch, dist, rank, out_dir, model, opt):
+    """The TP ranks save the fp32 TP model and its AdamW state through
+    ``distributed.checkpoint`` (rank 0 also saves the gathered moments);
+    then the parent's one-process checkpoint loads into a TP model of
+    another seed, each rank's slice of every parameter and moment
+    bit-equal to its piece of the whole."""
+    from paddle_tpu_torch.distributed import checkpoint as dck
+    from paddle_tpu_torch.distributed.sharding_api import (gather_global,
+                                                           placement_of)
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.text.gpt import GPTConfig, GPTForPretraining
+    dck.save_state_dict({"model": model.state_dict(),
+                         "opt": opt.state_dict()}, f"{out_dir}/hp_ckpt_tp")
+    moments = {k: gather_global(v) for k, v in opt.state_dict().items()
+               if torch.is_tensor(v) and v.ndim}
+    if rank == 0:
+        torch.save(moments, f"{out_dir}/hp_ckpt_tp_moments.pt")
+    cfg = GPTConfig(hidden_size=768, num_layers=2, num_heads=12,
+                    tensor_parallel=True)
+    m2 = GPTForPretraining(cfg, device="cuda", seed=6)
+    o2 = AdamW(learning_rate=1e-4, parameters=m2.named_parameters())
+    for p in m2.parameters():
+        o2._get_accumulators(p)
+    state = {"model": m2.state_dict(), "opt": o2.state_dict()}
+    dck.load_state_dict(state, f"{out_dir}/hp_whole")
+    o2.set_state_dict(state["opt"])
+    whole = torch.load(f"{out_dir}/hp_whole.pt")
+
+    def piece(t, full):
+        pl = placement_of(t)
+        return pl.take(full) if pl is not None else full
+
+    checked, bad = 0, []
+    for (n, t), full in [((n, p), whole["model"][n])
+                         for n, p in m2.named_parameters()] + \
+            [((k, v), whole["opt"][k]) for k, v in o2.state_dict().items()
+             if torch.is_tensor(v) and v.ndim]:
+        checked += 1
+        if not torch.equal(t.detach().cpu(), piece(t, full)):
+            bad.append(n)
+    if bad or o2._step_count != whole["step"]:
+        raise AssertionError(f"1 -> mp 2: slices differ {bad}")
+    return {"phase": "hybrid_parallel_reshard_rank",
+            "one_process_to_mp2_bit_equal": True, "tensors": checked,
+            "saved": "hp_ckpt_tp"}
+
+
+def hybrid_parallel_rank(torch, out_dir):
+    """One rank of the hybrid-parallel path (started by the launcher):
+    mp 2 (TP GPT-124M, the fp32 TP and SP steps, the checkpoint), then
+    sharding 2 (ERNIE under ZeRO-3, the fp32 ZeRO steps). Prints one JSON
+    line per phase and last its launches by route."""
+    import paddle_tpu_torch.distributed as dist
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.ops import cuda_kernels as ck
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    env = dist.init_parallel_env(timeout=DP_RANK_TIMEOUT_S)
+    rank, world = env.rank, env.world_size
+    if dist.get_backend() != "gloo" or world != HP_RANKS:
+        raise AssertionError(f"backend {dist.get_backend()}, world {world}")
+    ck.reset_launch_counts()
+    mesh = _hp_fleet(fleet, mp_degree=2)
+    _rank_emit(rank, hp_tp_gpt124m_rank(torch, ck, dist, rank, mesh))
+    row, tp_model, tp_opt = hp_exact_rank(torch, dist, rank, out_dir, "tp")
+    _rank_emit(rank, row)
+    _rank_emit(rank, hp_exact_rank(torch, dist, rank, out_dir, "sp")[0])
+    _rank_emit(rank, hp_reshard_rank(torch, dist, rank, out_dir, tp_model,
+                                     tp_opt))
+    del tp_model, tp_opt
+    mesh = _hp_fleet(fleet, sharding_degree=2)
+    _rank_emit(rank, hp_ernie_zero3_rank(torch, ck, dist, rank, mesh))
+    for level in HP_ZERO_LEVELS:
+        _rank_emit(rank, hp_exact_rank(torch, dist, rank, out_dir,
+                                       level)[0])
+    _rank_emit(rank, {"rank_launches": {k.name: dict(k.route_launches)
+                                        for k in ck.KERNELS}})
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def _one_process_gpt2(torch, seed):
+    """GPT-124M's widths at 2 layers, fp32, on the card, with AdamW lr 1e-4
+    over its named parameters."""
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.text.gpt import GPTConfig, GPTForPretraining
+    model = GPTForPretraining(GPTConfig(hidden_size=768, num_layers=2,
+                                        num_heads=12), device="cuda",
+                              seed=seed)
+    return model, AdamW(learning_rate=1e-4,
+                        parameters=model.named_parameters())
+
+
+def _hp_whole_checkpoint(torch, tmp):
+    """This process's checkpoint for the ranks to reshard: the 2-layer fp32
+    GPT (seed 5) and its AdamW state after one step, through
+    ``distributed.checkpoint``, and the same values in a torch file."""
+    from paddle_tpu_torch.distributed import checkpoint as dck
+    model, opt = _one_process_gpt2(torch, 5)
+    ids, labels = _seeded_ids(torch, model.config.vocab_size,
+                              (2, model.config.max_seq_len), seed=50)
+    model(ids.cuda(), labels=labels.cuda())[1].backward()
+    opt.step()
+    dck.save_state_dict({"model": model.state_dict(),
+                         "opt": opt.state_dict()}, f"{tmp}/hp_whole")
+    torch.save({"model": {n: p.detach().cpu()
+                          for n, p in model.named_parameters()},
+                "opt": {k: v.cpu() for k, v in opt.state_dict().items()
+                        if torch.is_tensor(v)},
+                "step": opt._step_count}, f"{tmp}/hp_whole.pt")
+    del model, opt
+
+
+def phase_hybrid_parallel_exactness(torch, ck, tmp):
+    """The ranks' fp32 TP, SP and ZeRO steps against one step in this
+    process on the global 4 x 1024 from the same weights, each held by
+    ``_held_to_one_process`` (PR 14's bounds)."""
+    model, opt = _one_process_gpt2(torch, 0)
+    ids, labels = _seeded_ids(torch, model.config.vocab_size,
+                              (HP_EXACT_BATCH, model.config.max_seq_len),
+                              seed=40)
+    loss = model(ids.cuda(), labels=labels.cuda())[1]
+    loss.backward()
+    grads = {n: p.grad.detach().cpu()
+             for n, p in model.named_parameters() if p.grad is not None}
+    opt.step()
+    rows = []
+    for mode in ("tp", "sp") + HP_ZERO_LEVELS:
+        got = torch.load(f"{tmp}/hp_exact_{mode}.pt")
+        got_loss = sum(got["losses"]) / len(got["losses"])
+        out = _held_to_one_process(torch, got_loss, got["grads"],
+                                   got["params"], loss.item(), grads, model)
+        out.update(phase=f"hybrid_parallel_exactness_fp32_{mode}",
+                   tf32=False,
+                   model=f"GPT-124M widths, 2 layers, fp32, AdamW lr 1e-4; "
+                         f"{mode} on 2 ranks against one process on "
+                         f"{HP_EXACT_BATCH} x 1024")
+        emit(out)
+        rows.append(out)
+    del model, opt
+    torch.cuda.empty_cache()
+    bad = [r["phase"] for r in rows if not r["held"]]
+    if bad:
+        raise AssertionError(f"hybrid steps differ from one process: {bad}")
+
+
+def phase_hybrid_parallel_reshard(torch, tmp):
+    """mp 2 -> 1: the TP ranks' checkpoint loads into one process bit-equal
+    to the ranks' gathered parameters and moments; then a copy with one
+    byte flipped in rank 1's shard must be refused."""
+    import shutil
+
+    from paddle_tpu_torch.distributed import checkpoint as dck
+    model, opt = _one_process_gpt2(torch, 7)
+    for p in model.parameters():
+        opt._get_accumulators(p)
+    state = {"model": model.state_dict(), "opt": opt.state_dict()}
+    dck.load_state_dict(state, f"{tmp}/hp_ckpt_tp")
+    opt.set_state_dict(state["opt"])
+    params = torch.load(f"{tmp}/hp_exact_tp.pt")["params"]
+    moments = torch.load(f"{tmp}/hp_ckpt_tp_moments.pt")
+    bad = [n for n, p in model.named_parameters()
+           if not torch.equal(p.detach().cpu(), params[n])]
+    bad += [k for k, v in opt.state_dict().items()
+            if k in moments and not torch.equal(v.cpu(), moments[k])]
+    flipped = f"{tmp}/hp_ckpt_tp_flipped"
+    shutil.copytree(f"{tmp}/hp_ckpt_tp", flipped)
+    with open(f"{flipped}/shard_1.pkl", "r+b") as f:
+        f.seek(4096)
+        byte = f.read(1)
+        f.seek(4096)
+        f.write(bytes([byte[0] ^ 0x40]))
+    try:
+        dck.load_state_dict({"model": model.state_dict()}, flipped)
+        refused = None
+    except ValueError as e:
+        refused = str(e)
+    out = {"phase": "hybrid_parallel_reshard",
+           "mp2_to_one_process_bit_equal": not bad, "mismatched": bad,
+           "tensors": len(params) + len(moments),
+           "flipped_byte_refused": refused is not None and
+           "corrupt" in refused, "refusal": refused}
+    emit(out)
+    del model, opt
+    if bad or not out["flipped_byte_refused"]:
+        raise AssertionError(f"resharding: {out}")
+
+
+def phase_hybrid_parallel(torch, ck, smi):
+    """The hybrid-parallel path: this process writes a one-process
+    checkpoint, two gloo ranks run TP GPT-124M, the fp32 TP/SP/ZeRO steps,
+    the resharding and ERNIE under ZeRO-3, then this process holds their
+    steps to one process and loads their TP checkpoint. The ranks' kernel
+    launches are added to this process's counts."""
+    import shutil
+    import tempfile
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_hp_")
+    try:
+        torch.cuda.empty_cache()
+        _hp_whole_checkpoint(torch, tmp)
+        t0 = time.perf_counter()
+        ranks = _run_ranks(HP_RANKS, "--hybrid-parallel-rank", tmp,
+                           {"PADDLE_DISTRI_BACKEND": "gloo"})
+        t_ranks = time.perf_counter() - t0
+        for rows in ranks.values():
+            for row in rows[:-1]:
+                emit(row)
+            ck.add_launches(rows[-1]["rank_launches"])
+        phase_hybrid_parallel_exactness(torch, ck, tmp)
+        phase_hybrid_parallel_reshard(torch, tmp)
+
+        def rows_of(phase):
+            return [next(r for r in rows if r.get("phase") == phase)
+                    for rows in ranks.values()]
+
+        tp = rows_of("hybrid_parallel_tp_gpt124m")
+        er = rows_of("hybrid_parallel_ernie_zero3")
+        tp_s = max(r["step_ms"] for r in tp) / 1e3
+        er_s = max(r["step_ms"] for r in er) / 1e3
+        emit({"phase": "hybrid_parallel", "nvidia_smi": smi,
+              "ranks": HP_RANKS, "backend": "gloo",
+              "tp_gpt124m": {
+                  "mp": 2, "global_batch": [HP_TP_BATCH, 1024],
+                  "step_ms_slowest_rank": tp_s * 1e3,
+                  "global_tokens_per_s": HP_TP_BATCH * 1024 / tp_s,
+                  "comm_ms_per_step": [r["comm_ms_per_step"] for r in tp],
+                  "peak_memory_bytes_per_rank": [r["peak_memory_bytes"]
+                                                 for r in tp],
+                  "param_plus_optimizer_bytes_per_rank": [
+                      r["param_bytes"] + r["optimizer_bytes"] for r in tp],
+                  "one_process_param_plus_optimizer_bytes":
+                      tp[0]["one_process_param_bytes"] +
+                      tp[0]["one_process_optimizer_bytes"],
+                  "flash_launches_per_step_per_rank":
+                      tp[0]["flash_launches_per_step"]},
+              "ernie_zero3": {
+                  "sharding": 2,
+                  "global_batch": [HP_RANKS * HP_ERNIE_BATCH, ERNIE_SEQ],
+                  "step_ms_slowest_rank": er_s * 1e3,
+                  "global_tokens_per_s":
+                      HP_RANKS * HP_ERNIE_BATCH * ERNIE_SEQ / er_s,
+                  "comm_plane_per_step": [r["comm_plane_per_step"]
+                                          for r in er],
+                  "peak_memory_bytes_per_rank": [r["peak_memory_bytes"]
+                                                 for r in er],
+                  "param_plus_optimizer_bytes_per_rank": [
+                      r["param_bytes"] + r["optimizer_bytes"] for r in er],
+                  "one_process_param_plus_optimizer_bytes":
+                      er[0]["one_process_param_bytes"] +
+                      er[0]["one_process_optimizer_bytes"],
+                  "sharded_param_bytes_per_rank": [
+                      r["sharded_param_bytes"] for r in er],
+                  "one_process_sharded_param_bytes":
+                      er[0]["one_process_sharded_param_bytes"],
+                  "flash_launches_per_step_per_rank":
+                      er[0]["flash_launches_per_step"]},
+              "ranks_s": t_ranks})
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -3767,7 +4305,9 @@ def phase_timing(torch, ck, launches, path_launches, routes, smi):
                            launches["flash_bwd"]),
             *time_packed(torch, ck, launches)]
     for case, path in ((ERNIE_ATTENTION, "ernie_pretraining"),
-                       (BERT_ATTENTION, "bert_finetune")):
+                       (BERT_ATTENTION, "bert_finetune"),
+                       (HP_ATTENTION[0], "hybrid_parallel"),
+                       (HP_ATTENTION[1], "hybrid_parallel")):
         counts = path_launches[path]
         for row in (time_flash(torch, ck, case, bf16, counts["flash_fwd"]),
                     time_flash_bwd(torch, ck, case, bf16,
@@ -3816,6 +4356,8 @@ def main():
         return 0
     if sys.argv[1:2] == ["--data-parallel-rank"]:
         return data_parallel_rank(torch, sys.argv[2])
+    if sys.argv[1:2] == ["--hybrid-parallel-rank"]:
+        return hybrid_parallel_rank(torch, sys.argv[2])
     from paddle_tpu_torch.ops import cuda_kernels as ck
 
     t0 = time.perf_counter()
@@ -3828,7 +4370,8 @@ def main():
     # BERT finetuning (K2, K3, non-causal), then ResNet-50 and LeNet
     # training (none), then the paddle.* surface (K2, K3), then the
     # checkpoint path (K2, K3 on GPT-124M's resumes; none on ResNet-50's),
-    # then the data-parallel path (K2, K3 in each GPT rank)
+    # then the data-parallel path (K2, K3 in each GPT rank), then the
+    # hybrid-parallel path (K2, K3 in each TP and ZeRO-3 rank)
     paths = (("serving", ("paged_attention", "flash_fwd"),
               lambda: (phase_serving(torch, ck, smi),
                        phase_exactness_fp32(torch, ck))),
@@ -3863,7 +4406,10 @@ def main():
              # the ranks are processes: each reports its launches, which
              # phase_data_parallel adds to this process's counts
              ("data_parallel", ("flash_fwd", "flash_bwd"),
-              lambda: phase_data_parallel(torch, ck, smi)))
+              lambda: phase_data_parallel(torch, ck, smi)),
+             # the same for the hybrid ranks (TP and ZeRO-3)
+             ("hybrid_parallel", ("flash_fwd", "flash_bwd"),
+              lambda: phase_hybrid_parallel(torch, ck, smi)))
     launches = {k.name: 0 for k in ck.KERNELS}
     path_launches, path_routes, path_seconds = {}, {}, {}
     for path, kernels, drive in paths:

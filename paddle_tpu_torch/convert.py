@@ -20,6 +20,15 @@ caller converts):
 
 Both packages keep Paddle's [in, out] Linear layout, so every array
 carries across as it is: no transpose.
+
+``slice_gpt_state`` cuts such a whole state into one rank's piece of a
+tensor-parallel GPT (``GPTConfig(tensor_parallel=True)`` or
+``sequence_parallel=True``), and of its ZeRO-3 rows, by the rules the
+model's layers follow: the packed qkv split per head within each of q,
+k and v (its columns and bias), ``fc_in`` by columns, ``out_proj`` and
+``fc_out`` by rows (their biases whole), ``wte`` by vocabulary rows,
+the norms, ``wpe`` and an untied ``lm_head`` whole; ZeRO-3 then keeps
+rows [i*n0/s, (i+1)*n0/s) of each piece whose dimension 0 divides.
 """
 from __future__ import annotations
 
@@ -82,3 +91,43 @@ def load_jax_gpt(port_model, np_state):
     ``GPTForPretraining`` through ``load_jax_state`` (a tied model has no
     ``lm_head.weight``). Returns the model."""
     return load_jax_state(port_model, gpt_state_from_jax(np_state))
+
+
+def _tp_rule(name):
+    """(dimension, packed blocks) a TP GPT splits ``name`` along over mp,
+    or None for a whole tensor."""
+    if name == "gpt.wte.weight":
+        return 0, 1
+    if name.endswith("attn.qkv_proj.weight"):
+        return 1, 3
+    if name.endswith("attn.qkv_proj.bias"):
+        return 0, 3
+    if name.endswith("mlp.fc_in.weight"):
+        return 1, 1
+    if name.endswith("mlp.fc_in.bias"):
+        return 0, 1
+    if name.endswith(("attn.out_proj.weight", "mlp.fc_out.weight")):
+        return 0, 1
+    return None
+
+
+def slice_gpt_state(np_state, mp_degree=1, mp_rank=0, sharding_degree=1,
+                    sharding_rank=0):
+    """{name: np.ndarray} of one rank of a TP (and ZeRO-3) GPT, from the
+    whole state in either input form (``gpt_state_from_jax``)."""
+    from .distributed.sharding_api import Placement, split_placement
+    out = {}
+    for name, arr in gpt_state_from_jax(np_state).items():
+        rule = _tp_rule(name)
+        if rule is None or mp_degree == 1:
+            pl = Placement.whole(arr.shape)
+        else:
+            pl = split_placement(arr.shape, rule[0], mp_degree, mp_rank,
+                                 rule[1])
+        piece = pl.take(arr)
+        if sharding_degree > 1 and piece.ndim and \
+                piece.shape[0] % sharding_degree == 0:
+            rows = piece.shape[0] // sharding_degree
+            piece = piece[sharding_rank * rows:(sharding_rank + 1) * rows]
+        out[name] = np.ascontiguousarray(piece)
+    return out

@@ -8,26 +8,29 @@ per-process shard files and one global ``metadata.json`` (counterpart:
 - ``shard_{rank}.pkl`` holds, per tensor key, a list of (index, array):
   the slice of the global tensor (one (start, stop) pair per dimension)
   and its values on the host; a ``.sha256`` sidecar beside it holds the
-  digest of its bytes. Every file is written to a temporary name and then
+  digest of its bytes. A tensor that carries a placement (a TP piece, a
+  ZeRO partition: ``sharding_api.Placement``) is written as the rank's
+  slices of the global tensor, whose shape goes into the metadata, by
+  the ranks at coordinate 0 of every mesh axis it is replicated over; a
+  tensor without one is replicated and written by the coordinator only. Every file is written to a temporary name and then
   renamed, so a crash mid-write leaves no truncated file under a valid
   name.
 - A bf16 tensor is stored as its int16 bits under the dtype "bfloat16"
   (NumPy has none); the JAX package's ml_dtypes bf16 slices read the same.
 - ``load_state_dict`` verifies each shard's digest before unpickling it,
-  assembles every requested tensor from whatever slices the shards hold
-  (so a checkpoint the JAX package wrote sharded over 8 devices loads
-  whole) and copies it into the destination tensor in place, in the
-  destination's dtype and on its device.
+  cuts each destination's own slices (its placement's, or the whole
+  tensor) out of whatever slices the shards hold and copies them into the
+  destination in place, in its dtype and on its device: a checkpoint
+  written by mp 2 loads into one process, one process's into mp 2, and
+  one the JAX package wrote sharded over 8 devices into either.
 - ``save_state_dict(..., async_save=True)`` copies every tensor to the
   host before it returns (a blocking copy: the next step may overwrite
   the values) and writes the files on a background thread; the returned
   ``AsyncSaveHandle.wait()`` joins it.
 
 The rank is ``torch.distributed.get_rank()`` when a process group is up,
-else 0. In this slice each process writes whole tensors (the port has no
-mesh yet); saving shards of a tensor split across processes and
-resharding on load across process counts wait for the distributed data
-plane (ROADMAP A7).
+else 0; with more than one rank a synchronous save ends in a barrier, so
+every shard is on disk when any rank returns (every rank must call it).
 """
 from __future__ import annotations
 
@@ -41,6 +44,7 @@ import numpy as np
 import torch
 
 from ...framework.io import bf16_tensor, host_array, read_pickle
+from ..sharding_api import peek_default_mesh, placement_of
 from ...observability import trace as _obs_trace
 from ...tensor import Tensor
 
@@ -63,8 +67,12 @@ def _flatten_state(state_dict, prefix=""):
         key = f"{prefix}.{k}" if prefix else str(k)
         if isinstance(v, dict):
             flat.update(_flatten_state(v, key))
+        elif isinstance(v, Tensor):
+            flat[key] = v._value
+            if placement_of(v) is not None:
+                flat[key]._placement = placement_of(v)
         else:
-            flat[key] = v._value if isinstance(v, Tensor) else v
+            flat[key] = v
     return flat
 
 
@@ -91,13 +99,23 @@ class AsyncSaveHandle:
         return not self._thread.is_alive()
 
 
-def _gather_host_shards(state_dict):
+def _gather_host_shards(state_dict, coordinator_rank=0):
     """The metadata and this process's shards, every tensor copied to the
     host now (values may be overwritten in place by the next step, so
     this part is never deferred)."""
     meta = {"tensors": {}, "python_state": {}}
     shards = {}
+    mesh = peek_default_mesh()
+    coordinator = _process_index() == coordinator_rank
     for key, v in _flatten_state(state_dict).items():
+        placement = placement_of(v)
+        if placement is not None and not placement.writer(mesh):
+            # a replica another rank writes: only its global shape
+            meta["tensors"][key] = {
+                "shape": list(placement.global_shape),
+                "dtype": "bfloat16" if v.dtype == torch.bfloat16 else
+                str(v.dtype).replace("torch.", "")}
+            continue
         if isinstance(v, torch.Tensor):
             array, tag = host_array(v, copy=True)
         elif isinstance(v, np.ndarray):
@@ -105,9 +123,15 @@ def _gather_host_shards(state_dict):
         else:
             meta["python_state"][key] = v
             continue
-        meta["tensors"][key] = {"shape": list(array.shape),
+        shape = placement.global_shape if placement is not None \
+            else array.shape
+        meta["tensors"][key] = {"shape": list(shape),
                                 "dtype": tag or str(array.dtype)}
-        shards[key] = [(tuple((0, s) for s in array.shape), array)]
+        if placement is not None:
+            shards[key] = [(gi, array[tuple(slice(*p) for p in li)])
+                           for li, gi in placement.pieces]
+        elif coordinator:
+            shards[key] = [(tuple((0, s) for s in array.shape), array)]
     return meta, shards
 
 
@@ -124,7 +148,7 @@ def save_state_dict(state_dict, path, process_group=None, coordinator_rank=0,
     ``AsyncSaveHandle`` once the values are on the host."""
     os.makedirs(path, exist_ok=True)
     rank = _process_index()
-    meta, shards = _gather_host_shards(state_dict)
+    meta, shards = _gather_host_shards(state_dict, coordinator_rank)
 
     def write():
         with _obs_trace.span("checkpoint.save", path=path, rank=rank,
@@ -146,6 +170,10 @@ def save_state_dict(state_dict, path, process_group=None, coordinator_rank=0,
 
     if not async_save:
         write()
+        if torch.distributed.is_available() and \
+                torch.distributed.is_initialized() and \
+                torch.distributed.get_world_size() > 1:
+            torch.distributed.barrier()
         return None
     handle = None
 
@@ -175,24 +203,34 @@ def _as_storage(data, dtype):
     return data.astype(dtype, copy=False)
 
 
-def _assemble(key, info, shard_files):
-    """The global tensor ``key`` on the host, from every slice the shard
-    files hold."""
+def _assemble(key, info, shard_files, want=None):
+    """The region ``want`` (one (start, stop) per dimension; default the
+    whole) of the global tensor ``key`` on the host, cut out of whatever
+    slices the shard files hold."""
     shape = tuple(info["shape"])
     dtype = _storage_dtype(info["dtype"])
     pieces = [(tuple(tuple(p) for p in idx), _as_storage(data, dtype))
               for shards in shard_files for idx, data in shards.get(key, [])]
     if not pieces:
         raise KeyError(f"no shard found for {key}")
-    whole = tuple((0, s) for s in shape)
-    out = next((data for idx, data in pieces if idx == whole), None)
+    want = tuple(tuple(p) for p in want) if want is not None else \
+        tuple((0, s) for s in shape)
+    out = next((data for idx, data in pieces if idx == want), None)
     if out is None:
-        out = np.zeros(shape, dtype)
-        filled = np.zeros(shape, bool)
+        region = tuple(hi - lo for lo, hi in want)
+        out = np.zeros(region, dtype)
+        filled = np.zeros(region, bool)
         for idx, data in pieces:
-            sl = tuple(slice(lo, hi) for lo, hi in idx)
-            out[sl] = data
-            filled[sl] = True
+            cut = [(max(a, c), min(b, d))
+                   for (a, b), (c, d) in zip(idx, want)]
+            if any(lo >= hi for lo, hi in cut):
+                continue
+            src = tuple(slice(lo - a, hi - a)
+                        for (lo, hi), (a, _) in zip(cut, idx))
+            dst = tuple(slice(lo - c, hi - c)
+                        for (lo, hi), (c, _) in zip(cut, want))
+            out[dst] = data[src]
+            filled[dst] = True
         if not bool(filled.all()):
             raise ValueError(
                 f"checkpoint incomplete for '{key}': missing slices (saved "
@@ -254,11 +292,21 @@ def _fill(d, prefix, meta, shard_files, path):
                     continue
                 raise KeyError(f"'{key}' not found in checkpoint {path}")
             dst = v._value if isinstance(v, Tensor) else v
-            src = _assemble(key, meta["tensors"][key], shard_files)
-            if tuple(src.shape) != tuple(dst.shape):
+            info = meta["tensors"][key]
+            placement = placement_of(v) or placement_of(dst)
+            want = placement.global_shape if placement is not None \
+                else tuple(dst.shape)
+            if tuple(info["shape"]) != tuple(want):
                 raise ValueError(
                     f"shape mismatch for '{key}': checkpoint "
-                    f"{tuple(src.shape)}, destination {tuple(dst.shape)}")
-            dst.copy_(src.to(device=dst.device, dtype=dst.dtype))
+                    f"{tuple(info['shape'])}, destination {tuple(want)}")
+            if placement is None:
+                src = _assemble(key, info, shard_files)
+                dst.copy_(src.to(device=dst.device, dtype=dst.dtype))
+                continue
+            for li, gi in placement.pieces:
+                src = _assemble(key, info, shard_files, gi)
+                dst[tuple(slice(*p) for p in li)].copy_(
+                    src.to(device=dst.device, dtype=dst.dtype))
         elif key in meta["python_state"]:
             d[k] = meta["python_state"][key]

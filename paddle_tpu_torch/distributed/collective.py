@@ -385,9 +385,14 @@ def reduce_scatter(tensor, tensor_list, op=ReduceOp.SUM, group=None,
         t.copy_(parts[max(g.rank, 0)])
         return _Done()
     flat = torch.cat([p.reshape(-1) for p in parts])
+    # one flat chunk per rank: the backend checks dim 0, not the count
+    out = t.view(-1) if t.is_contiguous() else torch.empty(
+        t.numel(), dtype=t.dtype, device=t.device)
 
     def run():
-        _reduce_scatter_single(t, flat, op=_TORCH_OPS[op], group=g.pg)
+        _reduce_scatter_single(out, flat, op=_TORCH_OPS[op], group=g.pg)
+        if out.data_ptr() != t.data_ptr():
+            t.copy_(out.view(t.shape))
         if op == ReduceOp.AVG:
             _divide(t, g.nranks)
 

@@ -31,6 +31,10 @@ thread of the plane's own.
 - ``reduce_array``: the one home of the all-reduce the collective API and
   the bucket reducer share: fp32 over ``torch.distributed`` with AVG as
   SUM / n, or the two-phase quantized schedule of ``comm_quant``.
+- ``async_all_gather`` and ``async_reduce_scatter``: ZeRO's parameter
+  gathers and gradient reduce-scatters, launched and metered the same
+  way. A backend work with no future (gloo's reduce-scatter) lands when
+  its first waiter's ``wait`` returns.
 
 The pipeline's stage-boundary transport (``pp_send``, ``pp_recv``) waits
 for the pipeline slice and raises (ROADMAP A7).
@@ -66,7 +70,7 @@ class CollectiveWork:
 
     __slots__ = ("label", "_work", "_then", "_done", "_exc", "_result",
                  "_plane", "_prev", "_t_launch", "_t_end", "_observed",
-                 "_settled", "_lock")
+                 "_settled", "_lock", "_no_future")
 
     def __init__(self, label, plane=None, work=None, then=None,
                  t_launch=None, result=None, prev=None):
@@ -83,11 +87,19 @@ class CollectiveWork:
         self._done = threading.Event()
         self._t_launch = t_launch or time.monotonic_ns()
         self._t_end = None
+        self._no_future = False
         if work is None:
             self._t_end = self._t_launch
             self._done.set()
-        else:
-            work.get_future().add_done_callback(self._landed)
+            return
+        try:
+            fut = work.get_future()
+        except RuntimeError:
+            # a backend work without a future (gloo's reduce-scatter):
+            # it lands when a waiter's wait returns
+            self._no_future = True
+            return
+        fut.add_done_callback(self._landed)
 
     def _landed(self, fut):
         """The backend's completion (on its thread): stamp and meter it."""
@@ -105,6 +117,18 @@ class CollectiveWork:
         """Wait for the landing, metering the blocked time as exposed;
         raise ``P2PTimeout`` past ``timeout``, not the work's error. Then
         settle the work (once)."""
+        if self._no_future and not self._done.is_set():
+            with self._lock:
+                if not self._done.is_set():
+                    t0 = time.monotonic_ns()
+                    try:
+                        self._work.wait()
+                    except Exception as e:  # noqa: BLE001 -- raised on the waiter below
+                        self._exc = e
+                    t1 = time.monotonic_ns()
+                    self._plane._landed(self, t1)
+                    self._plane._exposed(t1 - t0)
+                    self._done.set()
         if not self._done.is_set():
             t0 = time.monotonic_ns()
             ok = self._done.wait(timeout)
@@ -341,6 +365,43 @@ def async_all_reduce(tensor, group, op, quant_cfg=None, then=None,
     return get_plane().launch(
         lambda: dist.all_reduce(tensor, op=c._TORCH_OPS[op],
                                 group=group.pg, async_op=True),
+        then=landed, label=label, span=span, nranks=group.nranks, **attrs)
+
+
+def async_all_gather(outs, tensor, group, label="all_gather",
+                     span="comm_plane.all_gather", **attrs):
+    """Every rank's ``tensor`` into the list ``outs`` (one tensor like it
+    per rank, in rank order) as one backend all-gather launched now; a
+    pending work. A group of one rank copies ``tensor``."""
+    if not dist.is_initialized() or group.nranks == 1:
+        outs[0].copy_(tensor)
+        return CollectiveWork(label, result=outs)
+    return get_plane().launch(
+        lambda: dist.all_gather(outs, tensor, group=group.pg, async_op=True),
+        then=lambda: outs, label=label, span=span, nranks=group.nranks,
+        **attrs)
+
+
+def async_reduce_scatter(out, flat, group, op, label="reduce_scatter",
+                         span="comm_plane.reduce_scatter", **attrs):
+    """Chunk k of ``flat`` (``nranks`` chunks the size of ``out``) reduced
+    over the ranks into rank k's ``out``, as one backend reduce-scatter
+    launched now (AVG: SUM, then the division once it landed); a pending
+    work."""
+    from . import collective as c
+
+    def landed():
+        if op == c.ReduceOp.AVG and group.nranks > 1:
+            c._divide(out, group.nranks)
+        return out
+
+    if not dist.is_initialized() or group.nranks == 1:
+        out.copy_(flat.reshape(out.shape))
+        return CollectiveWork(label, result=out)
+    return get_plane().launch(
+        lambda: c._reduce_scatter_single(out.view(-1), flat,
+                                         op=c._TORCH_OPS[op],
+                                         group=group.pg, async_op=True),
         then=landed, label=label, span=span, nranks=group.nranks, **attrs)
 
 

@@ -18,7 +18,10 @@ predict loaders give every rank the whole set in order (``shuffle`` is
 refused with a warning), so every rank computes the same metrics, while
 the train metrics are each rank's own. The gradients are averaged
 across the ranks before the clip and the update, in
-``CompiledTrainStep``. ``save`` writes ``path.pdparams``
+``CompiledTrainStep``. Under a fleet mesh (``fleet.init``, with
+``fleet.distributed_model`` / ``distributed_optimizer``) the train
+loader is sharded over the data axes only (dp x sharding): the ranks of
+one mp group take the same batches. ``save`` writes ``path.pdparams``
 and ``path.pdopt`` through ``paddle.save`` and ``load`` reads them back
 in place; ``save(training=False)``, an inference export, waits for the
 jit surface (ROADMAP A10). When the optimizer's learning rate is
@@ -169,9 +172,11 @@ class Model:
         order."""
         if data is None or isinstance(data, DataLoader):
             return data
-        from ..distributed import get_rank, get_world_size
+        from ..distributed import get_world_size
+        from ..distributed.sharding_api import data_rank_world
         world = get_world_size()
-        if world > 1 and shard:
+        data_rank, data_world = data_rank_world()
+        if data_world > 1 and shard:
             if not drop_last:
                 warnings.warn(
                     "multi-process fit forces drop_last=True: a ragged "
@@ -179,7 +184,7 @@ class Model:
                     "across hosts", UserWarning)
             from ..io import DistributedBatchSampler
             sampler = DistributedBatchSampler(
-                data, batch_size, num_replicas=world, rank=get_rank(),
+                data, batch_size, num_replicas=data_world, rank=data_rank,
                 shuffle=shuffle, drop_last=True)
             return DataLoader(data, batch_sampler=sampler,
                               num_workers=num_workers)

@@ -46,14 +46,30 @@ This is the port's counterpart of the gradient psum XLA puts into the
 reference's mesh-sharded step; ``torch.autograd.grad`` leaves ``.grad``
 alone, so a DataParallel's own hooks never fire here.
 
+Hybrid parallelism: once a mesh is the default (``fleet.init``,
+``sharding_api.set_default_mesh``) with more than one rank, the step
+averages over the data axes only (dp x sharding), never over mp, where
+the reference commits its placements from the mesh: a whole gradient by
+all-reduce, a ZeRO-2 one by reduce-scatter onto its rows, a ZeRO-3 one
+(reduce-scattered by its gather's backward) over dp
+(``sharding.sync_gradients``). The clip takes its global norm across
+the groups (``sharding.hybrid_clip``) and a ZeRO-1/2 parameter is updated
+on its rows and gathered (``sharding.sharded_update``). The ZeRO state
+travels with the parameters (``p._zero``) and the inner optimizer's
+accumulators, so the step may be given the unwrapped net and the inner
+optimizer; a ``HybridParallelOptimizer`` or ZeRO wrapper is unwrapped.
+
 Not in this slice: the DGC/LocalSGD meta-optimizers, refused with an
-error; mesh and ZeRO placements (ROADMAP A7).
+error.
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
 
+from ..distributed.fleet.meta_parallel.sharding import (hybrid_clip,
+                                                        sharded_update,
+                                                        sync_gradients)
 from ..nn.clip import ClipGradByGlobalNorm, ClipGradByNorm, ClipGradByValue
 from ..observability import perf as _perf
 from ..ops.dispatch import op_scan_off
@@ -110,6 +126,9 @@ class CompiledTrainStep:
             raise NotImplementedError(
                 f"{type(optimizer).__name__} is not ported; the port's "
                 "train step runs the plain optimizers")
+        # the wrappers of fleet and ZeRO: their rules are the step's own
+        optimizer = getattr(optimizer, "_inner_opt", None) or \
+            getattr(optimizer, "_optim", optimizer)
         self.fn = fn
         self.optimizer = optimizer
         self.amp_level = amp_level
@@ -175,16 +194,33 @@ class CompiledTrainStep:
                         "FLAGS_check_nan_inf: non-finite values in "
                         f"compiled train step (step {self._n_calls}): "
                         + self._culprits(bad))
-            grads = _functional_clip(self._clip, grads)
-            for p, g in zip(self.trainable, grads):
-                self.optimizer._apply(p, g, lr)
+            mesh = self._mesh()
+            if mesh is None:
+                grads = _functional_clip(self._clip, grads)
+                for p, g in zip(self.trainable, grads):
+                    self.optimizer._apply(p, g, lr)
+            else:
+                grads = hybrid_clip(self._clip, self.trainable, grads, mesh)
+                sharded_update(self.optimizer, self.trainable, grads, lr)
         return loss.detach(), tuple(a.detach() if torch.is_tensor(a) else a
                                     for a in aux)
 
+    @staticmethod
+    def _mesh():
+        """The default mesh when it spans more than one rank, else None."""
+        from ..distributed.sharding_api import peek_default_mesh
+        mesh = peek_default_mesh()
+        return mesh if mesh is not None and mesh.size > 1 else None
+
     def _sync(self, grads):
         """The gradients averaged across the data-parallel ranks (as they
-        are in a world of one process)."""
+        are in a world of one process); under a mesh, over its data axes
+        only, ZeRO-aware."""
         from ..distributed.parallel import all_reduce_gradients
+        mesh = self._mesh()
+        if mesh is not None:
+            mb = self._dp._comm_buffer_size if self._dp is not None else 25
+            return sync_gradients(self.trainable, grads, mesh, bucket_mb=mb)
         if self._dp is not None:
             return all_reduce_gradients(grads, self._dp._group,
                                         self._dp._comm_buffer_size)
@@ -237,7 +273,11 @@ class CompiledTrainStep:
                 if p.dtype != torch.float32 and p.is_floating_point():
                     accs = self.optimizer._get_accumulators(p)
                     if "master_weight" not in accs:
-                        accs["master_weight"] = p.detach().float()
+                        z = getattr(p, "_zero", None)
+                        rows = p.detach()
+                        if z is not None and tuple(p.shape) == z.full_shape:
+                            rows = rows[z.lo:z.hi]   # ZeRO-1/2: its rows
+                        accs["master_weight"] = rows.float()
         pick = lambda a, i: a[i] if torch.is_tensor(a) else a  # noqa: E731
         losses = []
         for i in range(k):

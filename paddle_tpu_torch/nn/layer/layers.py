@@ -93,6 +93,8 @@ class Layer(nn.Module):
         pre = structured_name_prefix
         for name, p in self.named_parameters(recurse=include_sublayers):
             dest[pre + name] = p.detach()
+            if hasattr(p, "_placement"):    # a rank's piece (TP, ZeRO)
+                dest[pre + name]._placement = p._placement
         modules = dict(self.named_modules())
         for name, b in self.named_buffers(recurse=include_sublayers):
             owner, _, short = name.rpartition(".")

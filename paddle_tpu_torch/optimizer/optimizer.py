@@ -136,22 +136,25 @@ class Optimizer:
                 self._apply(p, g, lr)
 
     @torch.no_grad()
-    def _apply(self, param, g, lr):
+    def _apply(self, param, g, lr, target=None):
         """Update ``param`` in place from its gradient: through an fp32
         master copy when ``multi_precision`` and the parameter is not
-        fp32, else directly."""
+        fp32, else directly. ``target``: the part of ``param`` to update
+        (a ZeRO partition's rows, a view), with ``g`` and the
+        accumulators shaped like it."""
         accs = self._get_accumulators(param)
+        target = param.data if target is None else target
         if g.dtype != param.dtype:
             g = g.to(param.dtype)
         if self._multi_precision and param.dtype != torch.float32 and \
                 param.is_floating_point():
             master = accs.get("master_weight")
             if master is None:
-                master = accs["master_weight"] = param.detach().float()
+                master = accs["master_weight"] = target.detach().float()
             self._update_named(param, master, g.float(), accs, lr)
-            param.copy_(master)
+            target.copy_(master)
         else:
-            self._update_named(param, param.data, g, accs, lr)
+            self._update_named(param, target, g, accs, lr)
 
     def _update(self, p, g, accs, lr):
         raise NotImplementedError
@@ -178,6 +181,15 @@ class Optimizer:
         state = {}
         for pname, p in zip(self._state_names(), self._parameters):
             for aname, aval in self._accumulators.get(id(p), {}).items():
+                # a split parameter's state is split like it (the
+                # distributed checkpoint writes each rank's piece)
+                if torch.is_tensor(aval) and not hasattr(aval, "_placement") \
+                        and (hasattr(p, "_placement") or hasattr(p, "_zero")):
+                    from ..distributed.fleet.meta_parallel.sharding import \
+                        state_placement
+                    pl = state_placement(p, aval)
+                    if pl is not None:
+                        aval._placement = pl
                 state[f"{pname}.{aname}"] = aval
         if isinstance(self._learning_rate, LRScheduler):
             state["LR_Scheduler"] = self._learning_rate.state_dict()

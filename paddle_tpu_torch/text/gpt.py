@@ -1,6 +1,6 @@
 """GPT decoder transformer (counterpart: ``paddle_tpu/text/gpt.py``,
-the non-tensor-parallel ``GPTForPretraining`` family; no stacked or
-pipelined variant in this slice).
+the ``GPTForPretraining`` family; no stacked or pipelined variant yet,
+ROADMAP A7).
 
 ``Linear`` (``nn/layer/common.py``) keeps Paddle's [in, out] weight
 layout (``y = x @ W + b``), so the port's parameters are the JAX model's
@@ -25,6 +25,22 @@ Weights are random, drawn from ``seed`` with a ``torch.Generator`` on the
 CPU: embeddings and every projection at normal(0, 0.02)
 (``initializer_range``), biases zero, norms one/zero. Load trained or
 reference weights with ``convert.load_jax_gpt``.
+
+``tensor_parallel`` (the reference's ``GPTConfig`` field): the
+projections are ``ColumnParallelLinear``/``RowParallelLinear`` and
+``wte`` a ``VocabParallelEmbedding`` over the default mesh's mp group
+(``fleet.init``), each rank holding its piece. The packed qkv is split
+per head within each of q, k and v (rank r keeps heads [r*nh/mp,
+(r+1)*nh/mp) of each), never as one contiguous column range, and
+attention runs on the rank's nh/mp heads. The tied head gives
+vocab-split logits; the loss is ``ParallelCrossEntropy``, still in fp32.
+``sequence_parallel`` routes the blocks through the sequence-parallel
+layers: the residual stream is split over mp along the sequence between
+the embedding's scatter and the final gather, and the norms and the row
+biases, marked sequence-parallel, get their gradients summed over mp by
+hooks. Every rank draws the whole weights from ``seed`` and keeps its
+piece, so the global model is the same at every mp degree.
+``context_parallel`` raises (ROADMAP A7).
 """
 from __future__ import annotations
 
@@ -39,11 +55,48 @@ from ..ops.math import add, matmul
 from ..nn.layer.layers import Layer
 
 
+def _split(cfg):
+    """True when the model's projections are split over mp."""
+    return cfg.tensor_parallel or cfg.sequence_parallel
+
+
+def _linears(cfg, device, dtype):
+    """(column, row) projection constructors: ``col(i, o, packed=1)``."""
+    if cfg.sequence_parallel:
+        from ..distributed.fleet.utils.sequence_parallel_utils import (
+            ColumnSequenceParallelLinear, RowSequenceParallelLinear)
+        col = lambda i, o, packed=1: ColumnSequenceParallelLinear(  # noqa
+            i, o, device=device, dtype=dtype, packed=packed)
+        row = lambda i, o: RowSequenceParallelLinear(  # noqa: E731
+            i, o, device=device, dtype=dtype)
+        return col, row
+    if cfg.tensor_parallel:
+        from ..distributed.fleet.meta_parallel import (ColumnParallelLinear,
+                                                       RowParallelLinear)
+        col = lambda i, o, packed=1: ColumnParallelLinear(  # noqa: E731
+            i, o, gather_output=False, device=device, dtype=dtype,
+            packed=packed)
+        row = lambda i, o: RowParallelLinear(  # noqa: E731
+            i, o, input_is_parallel=True, device=device, dtype=dtype)
+        return col, row
+    col = lambda i, o, packed=1: Linear(i, o, device=device,  # noqa: E731
+                                        dtype=dtype)
+    return col, lambda i, o: Linear(i, o, device=device, dtype=dtype)
+
+
+def _mp_degree(cfg):
+    if not _split(cfg):
+        return 1
+    from ..distributed.sharding_api import get_default_mesh
+    return get_default_mesh().shape["mp"]
+
+
 class GPTConfig:
     def __init__(self, vocab_size=50304, hidden_size=768, num_layers=12,
                  num_heads=12, intermediate_size=None, max_seq_len=1024,
-                 dropout=0.0, use_rmsnorm=False, tie_word_embeddings=True,
-                 initializer_range=0.02):
+                 dropout=0.0, tensor_parallel=False, sequence_parallel=False,
+                 context_parallel=None, use_rmsnorm=False,
+                 tie_word_embeddings=True, initializer_range=0.02):
         self.vocab_size = vocab_size
         self.hidden_size = hidden_size
         self.num_layers = num_layers
@@ -51,6 +104,9 @@ class GPTConfig:
         self.intermediate_size = intermediate_size or 4 * hidden_size
         self.max_seq_len = max_seq_len
         self.dropout = dropout
+        self.tensor_parallel = tensor_parallel
+        self.sequence_parallel = sequence_parallel
+        self.context_parallel = context_parallel
         self.use_rmsnorm = use_rmsnorm
         self.tie_word_embeddings = tie_word_embeddings
         self.initializer_range = initializer_range
@@ -59,21 +115,29 @@ class GPTConfig:
 class GPTAttention(Layer):
     def __init__(self, cfg, device=None, dtype=None):
         super().__init__()
-        self.num_heads = cfg.num_heads
+        if cfg.context_parallel:
+            raise NotImplementedError("context parallelism is not ported "
+                                      "yet (ROADMAP A7)")
+        mp = _mp_degree(cfg)
+        if cfg.num_heads % mp:
+            raise ValueError(f"{cfg.num_heads} heads do not split over mp "
+                             f"{mp}")
+        # this rank's heads (all of them without TP)
+        self.num_heads = cfg.num_heads // mp
         self.head_dim = cfg.hidden_size // cfg.num_heads
-        self.hidden_size = cfg.hidden_size
-        self.qkv_proj = Linear(cfg.hidden_size, 3 * cfg.hidden_size,
-                               device=device, dtype=dtype)
-        self.out_proj = Linear(cfg.hidden_size, cfg.hidden_size,
-                               device=device, dtype=dtype)
+        self.hidden_size = self.num_heads * self.head_dim
+        col, row = _linears(cfg, device, dtype)
+        self.qkv_proj = col(cfg.hidden_size, 3 * cfg.hidden_size, packed=3)
+        self.out_proj = row(cfg.hidden_size, cfg.hidden_size)
         self.dropout = cfg.dropout
 
     def forward(self, x, cache=None):
-        b, s, _ = x.shape
         nh, hd = self.num_heads, self.head_dim
         qkv = self.qkv_proj(x)
+        # under sequence parallelism the projection gathered the sequence
+        b, s, _ = qkv.shape
         # column slices of the packed [b, s, 3*h*d] projection: q heads,
-        # then k heads, then v heads
+        # then k heads, then v heads (this rank's, under TP)
         q = qkv[:, :, :nh * hd].reshape(b, s, nh, hd)
         k = qkv[:, :, nh * hd:2 * nh * hd].reshape(b, s, nh, hd)
         v = qkv[:, :, 2 * nh * hd:].reshape(b, s, nh, hd)
@@ -93,10 +157,9 @@ class GPTAttention(Layer):
 class GPTMLP(Layer):
     def __init__(self, cfg, device=None, dtype=None):
         super().__init__()
-        self.fc_in = Linear(cfg.hidden_size, cfg.intermediate_size,
-                            device=device, dtype=dtype)
-        self.fc_out = Linear(cfg.intermediate_size, cfg.hidden_size,
-                             device=device, dtype=dtype)
+        col, row = _linears(cfg, device, dtype)
+        self.fc_in = col(cfg.hidden_size, cfg.intermediate_size)
+        self.fc_out = row(cfg.intermediate_size, cfg.hidden_size)
         self.drop = nn.Dropout(cfg.dropout)
 
     def forward(self, x):
@@ -137,8 +200,15 @@ class GPTModel(Layer):
     def __init__(self, config, device=None, dtype=None):
         super().__init__()
         self.config = config
-        self.wte = nn.Embedding(config.vocab_size, config.hidden_size,
-                                device=device, dtype=dtype)
+        if _split(config):
+            from ..distributed.fleet.meta_parallel import \
+                VocabParallelEmbedding
+            self.wte = VocabParallelEmbedding(
+                config.vocab_size, config.hidden_size, device=device,
+                dtype=dtype)
+        else:
+            self.wte = nn.Embedding(config.vocab_size, config.hidden_size,
+                                    device=device, dtype=dtype)
         self.wpe = nn.Embedding(config.max_seq_len, config.hidden_size,
                                 device=device, dtype=dtype)
         self.drop = nn.Dropout(config.dropout)
@@ -150,8 +220,13 @@ class GPTModel(Layer):
         b, s = input_ids.shape
         if position_ids is None:
             position_ids = torch.arange(s, device=input_ids.device)[None]
-        x = self.drop(add(F.embedding(input_ids, self.wte.weight),
-                          F.embedding(position_ids, self.wpe.weight)))
+        tok = self.wte(input_ids) if _split(self.config) else \
+            F.embedding(input_ids, self.wte.weight)
+        x = self.drop(add(tok, F.embedding(position_ids, self.wpe.weight)))
+        if self.config.sequence_parallel:
+            from ..distributed.fleet.utils.sequence_parallel_utils import \
+                ScatterOp
+            x = ScatterOp.apply(x)
         new_caches = [] if caches is not None else None
         for i, block in enumerate(self.blocks):
             if caches is not None:
@@ -160,6 +235,10 @@ class GPTModel(Layer):
             else:
                 x = block(x)
         x = self.ln_f(x)
+        if self.config.sequence_parallel:
+            from ..distributed.fleet.utils.sequence_parallel_utils import \
+                GatherOp
+            x = GatherOp.apply(x)
         if caches is not None:
             return x, new_caches
         return x
@@ -181,9 +260,20 @@ class GPTForPretraining(Layer):
             self.lm_head = Linear(config.hidden_size, config.vocab_size,
                                   bias=False, device=device, dtype=dtype)
         self._init_weights(seed)
+        if config.sequence_parallel:
+            from ..distributed.fleet.utils.sequence_parallel_utils import (
+                mark_as_sequence_parallel_parameter,
+                register_sequence_parallel_allreduce_hooks)
+            # the norms act on the rank's rows of the sequence
+            for name, p in self.named_parameters():
+                if ".ln" in name:
+                    mark_as_sequence_parallel_parameter(p)
+            register_sequence_parallel_allreduce_hooks(self)
 
     @torch.no_grad()
     def _init_weights(self, seed):
+        """Every rank draws each whole tensor in one order and keeps its
+        piece, so the global weights do not depend on the mp degree."""
         gen = torch.Generator().manual_seed(int(seed))
         std = self.config.initializer_range
         for name, p in self.named_parameters():
@@ -192,7 +282,10 @@ class GPTForPretraining(Layer):
             elif ".ln" in name:
                 p.fill_(1.0)
             else:
-                p.copy_(torch.normal(0.0, std, p.shape, generator=gen))
+                pl = getattr(p, "_placement", None)
+                shape = pl.global_shape if pl is not None else p.shape
+                full = torch.normal(0.0, std, shape, generator=gen)
+                p.copy_(pl.take(full) if pl is not None else full)
 
     @property
     def device(self):
@@ -200,11 +293,24 @@ class GPTForPretraining(Layer):
 
     def _logits(self, hidden):
         if self.config.tie_word_embeddings:
+            if _split(self.config):
+                # the vocab-split head: the hidden's gradient is summed
+                # over the mp ranks' vocabulary pieces
+                from ..distributed.fleet.meta_parallel.mp_layers import \
+                    c_identity
+                hidden = c_identity(hidden)
             return matmul(hidden, self.gpt.wte.weight, transpose_y=True)
         return self.lm_head(hidden)
 
     def forward(self, input_ids, labels=None, position_ids=None):
         logits = self._logits(self.gpt(input_ids, position_ids))
+        if labels is not None and _split(self.config) and \
+                self.config.tie_word_embeddings:
+            from ..distributed.fleet.meta_parallel import \
+                ParallelCrossEntropy
+            per = ParallelCrossEntropy()(logits.float(), labels)
+            count = torch.clamp((labels != -100).sum(), min=1)
+            return logits, per.sum() / count
         if labels is not None:
             # in fp32: under O2 the JAX loss works in the low dtype
             # (ROADMAP C)
@@ -225,6 +331,10 @@ class GPTForPretraining(Layer):
         keyed by (seed, absolute position)."""
         from ..inference.serving.sampling import sample_tokens
         cfg = self.config
+        if _split(cfg):
+            raise NotImplementedError(
+                "generate under tensor_parallel/sequence_parallel (its "
+                "logits are split over the vocabulary) is not ported")
         b, s = input_ids.shape
         dev = input_ids.device
         hd = cfg.hidden_size // cfg.num_heads

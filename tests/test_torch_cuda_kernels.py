@@ -57,6 +57,10 @@ FLASH_CASES = {   # b, sq, sk, h, kh, d, causal
     # pretraining at 16 x 512, BERT-base finetuning at 32 x 128
     "ernie_noncausal": (16, 512, 512, 12, 12, 64, False),
     "bert_noncausal": (32, 128, 128, 12, 12, 64, False),
+    # the hybrid-parallel path's: a TP GPT-124M rank's 6 heads at the
+    # global 8 x 1024, a ZeRO-3 ERNIE rank's 8 x 512
+    "tp_gpt124m_rank": (8, 1024, 1024, 6, 6, 64, True),
+    "zero3_ernie_rank": (8, 512, 512, 12, 12, 64, False),
 }
 # the training path's attention, GPT-124M at batch 16
 TRAIN_CASE = (16, 1024, 1024, 12, 12, 64, True)
