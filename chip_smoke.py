@@ -124,15 +124,29 @@ by route) set to 0 just before it and read just after:
   ``p_g_os`` steps. This process holds the five fp32 steps to one
   process on the same global batch (step ms of the slowest rank, global
   tokens/s, comm ms, peak memory and parameter + optimizer bytes a rank
-  against one process's; K2/K3 once per layer and call in each rank).
+  against one process's; K2/K3 once per layer and call in each rank);
+- context parallelism: this script again as two gloo ranks sharing the
+  card (``--context-parallel-rank``) at sep 2 after ``fleet.init``:
+  GPT-124M at bench.py's widths on the global 2 x 8192 tokens
+  (``benchmarks/matrix.py:306``'s seq 8192, sep 2), each rank [2, 4096],
+  O2, AdamW, ``CompiledTrainStep``, with ``context_parallel`` "ring" (the
+  zigzag schedule: K2 and K3 twice a layer and call) and "ulysses" (once),
+  2 + 3 calls each (global tokens/s, step ms of the slowest rank, the sep
+  transport's exchanges, bytes and ms a step, peak memory a rank); the
+  fp32 2-layer ring and Ulysses steps on 1 x 4096 (uneven ignored
+  labels), each rerun bit-identical and held by this process to one
+  process; then two more ranks (``--gloo-p2p-probe``) record which
+  point-to-point ops gloo takes on CUDA tensors (a record: the sep
+  transport stages them through the host on gloo).
 
 Last, it times each kernel beside its bound, its plain version and,
 where one exists, a PyTorch call that computes the same function (also
 by their device time alone, which leaves out the host's launch gaps);
 K1 also at a bytes-heavy shape (64 slots of 1024 tokens), K2 and K3
-also at the ERNIE and BERT paths' non-causal shapes and the hybrid
+also at the ERNIE and BERT paths' non-causal shapes, the hybrid
 path's ranks' shapes ([8, 1024, 6, 64] causal, [8, 512, 12, 64]
-non-causal), and each kernel's
+non-causal) and the context-parallel path's blocks (``CP_ATTENTION``),
+and each kernel's
 fp16 route (K2 and K3 at the fp16 AMP path's shape). Each
 phase prints one JSON line; any failure raises and the script exits
 non-zero. It needs a CUDA card: without one it exits 2 and prints no
@@ -364,6 +378,19 @@ HP_ATTENTION = [
     ("zero3_ernie_rank", HP_ERNIE_BATCH, 512, 512, 12, 12, 64, False),
     ("tp_exact_rank", HP_EXACT_BATCH, 1024, 1024, 6, 6, 64, True),
 ]
+# the context-parallel path's attention: GPT-124M at the global 2 x 8192
+# over sep 2 (benchmarks/matrix.py:306's seq 8192), each rank [2, 4096]:
+# the zigzag ring's own pair (causal), the earlier owner's head-half kv
+# against all of q and all of the later owner's kv against the tail half
+# of q (both non-causal), and Ulysses' whole sequence on 12 / 2 heads
+# (causal); its fp32 steps run 1 x 4096 (halves of 1024 a rank)
+CP_RANKS, CP_BATCH, CP_SEQ, CP_EXACT_SEQ = 2, 2, 8192, 4096
+CP_ATTENTION = [
+    ("cp_own_chunk", CP_BATCH, 4096, 4096, 12, 12, 64, True),
+    ("cp_earlier_owner", CP_BATCH, 4096, 2048, 12, 12, 64, False),
+    ("cp_later_owner", CP_BATCH, 2048, 4096, 12, 12, 64, False),
+    ("cp_ulysses", CP_BATCH, 8192, 8192, 6, 6, 64, True),
+]
 FLASH_CASES = [
     ("gpt124m_causal", 1, 1024, 1024, 12, 12, 64, True),
     ("gqa_causal", 2, 256, 256, 12, 4, 64, True),
@@ -382,7 +409,7 @@ FLASH_CASES = [
     ("d256_causal", 1, 512, 512, 8, 8, 256, True),
     ERNIE_ATTENTION,
     BERT_ATTENTION,
-] + DP_ATTENTION + HP_ATTENTION
+] + DP_ATTENTION + HP_ATTENTION + CP_ATTENTION
 # K3: the forward's cases and one with an lse cotangent
 FLASH_BWD_CASES = FLASH_CASES + [
     ("dlse_causal", 1, 256, 256, 12, 12, 64, True)]
@@ -3373,9 +3400,28 @@ def data_parallel_rank(torch, out_dir):
 def _run_ranks(n, flag, out_dir, extra_env=None):
     """This script's ``flag`` mode on ``n`` ranks through the port's
     launcher; returns each rank's JSON lines. A rank that fails, times out
-    or prints no launch record fails the path. The launcher and its ranks
-    run in a session of their own, killed whole if they outlive the
-    timeout or this process fails while waiting."""
+    or prints no launch record fails the path."""
+    rc, stderr, logs = _start_ranks(n, flag, out_dir, extra_env)
+    if rc != 0:
+        tails = {r: text[-4000:] for r, text in logs.items()}
+        raise AssertionError(f"{flag} ranks failed (rc {rc}): "
+                             f"{stderr[-2000:]} {tails}")
+    lines = {r: [json.loads(line) for line in text.splitlines()
+                 if line.startswith("{")] for r, text in logs.items()}
+    for r, rows in lines.items():
+        if not rows or "rank_launches" not in rows[-1]:
+            raise AssertionError(f"{flag} rank {r} printed no result")
+    return lines
+
+
+def _start_ranks(n, flag, out_dir, extra_env=None,
+                 timeout=DP_RANK_TIMEOUT_S):
+    """Run this script's ``flag`` mode on ``n`` ranks through the port's
+    launcher: (return code, the launcher's stderr, {rank: its log}); a
+    launcher still running after ``timeout`` seconds is killed (return
+    code None). The launcher and its ranks run in a session of their own,
+    killed whole if they outlive the timeout or this process fails while
+    waiting."""
     import os
     import signal
     root = os.path.dirname(os.path.abspath(__file__))
@@ -3388,8 +3434,12 @@ def _run_ranks(n, flag, out_dir, extra_env=None):
          os.path.join(root, "chip_smoke.py"), flag, out_dir],
         cwd=root, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
         text=True, start_new_session=True)
+    rc, stderr = None, ""
     try:
-        _, stderr = proc.communicate(timeout=DP_RANK_TIMEOUT_S)
+        _, stderr = proc.communicate(timeout=timeout)
+        rc = proc.returncode
+    except subprocess.TimeoutExpired:
+        pass
     finally:
         if proc.poll() is None or proc.returncode != 0:
             try:
@@ -3401,16 +3451,7 @@ def _run_ranks(n, flag, out_dir, extra_env=None):
     for r in range(n):
         path = os.path.join(log_dir, f"workerlog.{r}")
         logs[r] = open(path).read() if os.path.exists(path) else ""
-    if proc.returncode != 0:
-        tails = {r: text[-4000:] for r, text in logs.items()}
-        raise AssertionError(f"{flag} ranks failed (rc {proc.returncode}): "
-                             f"{stderr[-2000:]} {tails}")
-    lines = {r: [json.loads(line) for line in text.splitlines()
-                 if line.startswith("{")] for r, text in logs.items()}
-    for r, rows in lines.items():
-        if not rows or "rank_launches" not in rows[-1]:
-            raise AssertionError(f"{flag} rank {r} printed no result")
-    return lines
+    return rc, stderr, logs
 
 
 def phase_data_parallel_exactness(torch, ck, out_dir):
@@ -3594,14 +3635,17 @@ def _state_tensors_of(opt, params):
 
 
 def _timed_training(torch, ck, step, batch, layers, route="bf16",
-                    at_timed=None):
-    """HP_WARMUP + HP_TIMED calls of ``step(*batch)``, each synchronized
-    (``at_timed()`` runs before the first timed one); K2/K3 must launch
-    once per layer and call on ``route``. Returns (losses, seconds per
-    call)."""
+                    at_timed=None, warmup=None, timed=None):
+    """``warmup`` + ``timed`` (HP_WARMUP + HP_TIMED) calls of
+    ``step(*batch)``, each synchronized (``at_timed()`` runs before the
+    first timed one); K2/K3 must launch ``layers`` times a call on
+    ``route`` (once a layer, or more where a layer's attention is several
+    blocks). Returns (losses, seconds per call)."""
+    warmup = HP_WARMUP if warmup is None else warmup
+    timed = HP_TIMED if timed is None else timed
     losses, secs = [], []
-    for i in range(HP_WARMUP + HP_TIMED):
-        if i == HP_WARMUP and at_timed is not None:
+    for i in range(warmup + timed):
+        if i == warmup and at_timed is not None:
             at_timed()
         before = {k.name: k.route_launches[route] for k in ck.KERNELS}
         torch.cuda.synchronize()
@@ -4041,6 +4085,312 @@ def phase_hybrid_parallel(torch, ck, smi):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# -- the context-parallel path -----------------------------------------------------
+# Two gloo ranks share the card as sep 2 after fleet.init(sep_degree=2):
+# GPT-124M at bench.py's widths on the global 2 x 8192 tokens
+# (benchmarks/matrix.py:306, cp_longseq at seq 8192, sep 2), each rank
+# [2, 4096] (sep_local_batch), O2 bf16, AdamW lr 1e-4, CompiledTrainStep,
+# with the ring (zigzag schedule) and with Ulysses; then the fp32 steps at
+# 2 layers on 1 x 4096, held to one process by this one. (CP_RANKS and the
+# shapes stand beside FLASH_CASES)
+CP_WARMUP, CP_TIMED = 2, 3
+CP_MODES = ("ring", "ulysses")
+# K2 and K3 launches a layer and call on a rank at sep 2: the zigzag's own
+# pair and one half-shard block; Ulysses' one whole-sequence call
+CP_BLOCKS_PER_LAYER = {"ring": 2, "ulysses": 1}
+CP_P2P_PROBE_TIMEOUT_S = 120
+
+
+def cp_gpt124m_rank(torch, ck, dist, rank, mode):
+    """GPT-124M at bench.py's widths (``max_seq_len`` 8192) with
+    ``context_parallel=mode`` over sep 2, CP_WARMUP + CP_TIMED calls on
+    this rank's [2, 4096] of the global 2 x 8192; K2/K3 launch
+    ``CP_BLOCKS_PER_LAYER`` times a layer and call; the sep transport's
+    exchanges, bytes and ms over the timed calls; both ranks report the
+    same global losses."""
+    from paddle_tpu_torch.distributed import sep_transport
+    from paddle_tpu_torch.distributed.sharding_api import sep_local_batch
+    from paddle_tpu_torch.jit import CompiledTrainStep
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.text.gpt import GPTForPretraining, gpt_small
+    cfg = gpt_small(max_seq_len=CP_SEQ, context_parallel=mode)
+    model = GPTForPretraining(cfg, device="cuda", seed=0)
+    opt = AdamW(learning_rate=1e-4, parameters=model.parameters())
+    step = CompiledTrainStep(lambda ids, labels: model(ids, labels=labels)[1],
+                             model, opt, amp_level="O2")
+    ids, labels = (sep_local_batch(t).contiguous().cuda() for t in
+                   _seeded_ids(torch, cfg.vocab_size, (CP_BATCH, CP_SEQ),
+                               seed=60))
+    per_call = CP_BLOCKS_PER_LAYER[mode] * cfg.num_layers
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    losses, secs = _timed_training(torch, ck, step, (ids, labels), per_call,
+                                   at_timed=sep_transport.reset_stats,
+                                   warmup=CP_WARMUP, timed=CP_TIMED)
+    sep = sep_transport.stats()
+    peak = torch.cuda.max_memory_allocated()
+    seen = []
+    dist.all_gather_object(seen, losses)
+    if seen[0] != seen[1]:
+        raise AssertionError(f"{mode}: the sep ranks' losses differ {seen}")
+    timed = secs[CP_WARMUP:]
+    out = {"phase": f"context_parallel_gpt124m_{mode}", "sep": CP_RANKS,
+           "batch_global": [CP_BATCH, CP_SEQ],
+           "batch_rank": list(ids.shape),
+           "step_ms": 1e3 * sum(timed) / len(timed),
+           "step_ms_each": [1e3 * s for s in secs], "losses": losses,
+           "sep_exchanges_per_step": sep["exchanges"] / CP_TIMED,
+           "sep_bytes_per_step": sep["bytes"] / CP_TIMED,
+           "sep_ms_per_step": sep["ms"] / CP_TIMED,
+           "peak_memory_bytes": peak,
+           "flash_launches_per_step": per_call}
+    del model, opt, step
+    torch.cuda.empty_cache()
+    return out
+
+
+def _cp_exact_batch(torch):
+    """The fp32 steps' batch, 1 x 4096: the labels of the first 1536
+    tokens ignored, so sep rank 0 keeps 512 of its 2048 and rank 1 all."""
+    ids, labels = _seeded_ids(torch, 50304, (1, CP_EXACT_SEQ), seed=61)
+    labels[:, :1536] = -100
+    return ids, labels
+
+
+def cp_exact_rank(torch, dist, rank, out_dir, mode):
+    """One fp32 AdamW step (lr 1e-4) of GPT-124M's widths at 2 layers with
+    ``context_parallel=mode`` on this rank's half of ``_cp_exact_batch``,
+    twice from the same build: the reruns must be bit-identical (loss,
+    synced gradients, updated parameters). Rank 0 saves them for the
+    parent's one-process step."""
+    from paddle_tpu_torch.distributed.sharding_api import sep_local_batch
+    from paddle_tpu_torch.jit import CompiledTrainStep
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.text.gpt import GPTConfig, GPTForPretraining
+    cfg = GPTConfig(hidden_size=768, num_layers=2, num_heads=12,
+                    max_seq_len=CP_EXACT_SEQ, context_parallel=mode)
+    ids, labels = (sep_local_batch(t).contiguous().cuda()
+                   for t in _cp_exact_batch(torch))
+    runs = []
+    for _ in range(2):
+        model = GPTForPretraining(cfg, device="cuda", seed=0)
+        opt = AdamW(learning_rate=1e-4, parameters=model.named_parameters())
+        step = CompiledTrainStep(
+            lambda a, b, m=model: m(a, labels=b)[1], model, opt)
+        real, seen = step._sync, {}
+        step._sync = lambda g, real=real, seen=seen: \
+            seen.setdefault("grads", real(g))
+        loss = step(ids, labels).item()
+        named = list(model.named_parameters())
+        runs.append({"loss": loss,
+                     "grads": {n: g.detach().cpu() for (n, _), g in
+                               zip(named, seen["grads"])},
+                     "params": {n: p.detach().cpu() for n, p in named}})
+        del model, opt, step
+    a, b = runs
+    same = a["loss"] == b["loss"] and all(
+        torch.equal(a[k][n], b[k][n]) for k in ("grads", "params")
+        for n in a[k])
+    if not same:
+        raise AssertionError(f"{mode}: the fp32 CP step's rerun differs")
+    if rank == 0:
+        torch.save(a, f"{out_dir}/cp_exact_{mode}.pt")
+    return {"phase": f"context_parallel_exact_rank_{mode}",
+            "loss": a["loss"], "rerun_bit_identical": same}
+
+
+def context_parallel_rank(torch, out_dir):
+    """One rank of the context-parallel path (started by the launcher):
+    sep 2 after ``fleet.init``, the fp32 steps, then GPT-124M's timed
+    calls, each for the ring and Ulysses. Prints one JSON line per phase
+    and last its launches by route."""
+    import paddle_tpu_torch.distributed as dist
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.ops import cuda_kernels as ck
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    env = dist.init_parallel_env(timeout=DP_RANK_TIMEOUT_S)
+    rank, world = env.rank, env.world_size
+    if dist.get_backend() != "gloo" or world != CP_RANKS:
+        raise AssertionError(f"backend {dist.get_backend()}, world {world}")
+    ck.reset_launch_counts()
+    mesh = _hp_fleet(fleet, sep_degree=CP_RANKS)
+    if mesh.shape["sep"] != CP_RANKS:
+        raise AssertionError(f"mesh {mesh}")
+    for mode in CP_MODES:
+        _rank_emit(rank, cp_exact_rank(torch, dist, rank, out_dir, mode))
+    for mode in CP_MODES:
+        _rank_emit(rank, cp_gpt124m_rank(torch, ck, dist, rank, mode))
+    _rank_emit(rank, {"rank_launches": {k.name: dict(k.route_launches)
+                                        for k in ck.KERNELS}})
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def gloo_p2p_probe_rank(torch):
+    """Which point-to-point ops this torch's gloo takes on CUDA tensors,
+    on two ranks: send/recv, isend/irecv and batch_isend_irecv, each on a
+    group of its own (a refusal that breaks its pair breaks no other),
+    receives bounded at 20 s. Prints ``{"trying": op}`` before each and
+    the outcome after (ok, wrong values, or the error's first line), so a
+    rank that dies names the op. The sep transport stages gloo's CUDA
+    point-to-point through the host whatever this finds."""
+    import os
+
+    import paddle_tpu_torch.distributed as dist
+    env = dist.init_parallel_env(timeout=60)
+    rank, peer = env.rank, 1 - env.rank
+    names = ("send_recv", "isend_irecv", "batch_isend_irecv")
+    groups = {name: dist.new_group([0, 1]) for name in names}
+    out = {}
+    for name in names:
+        g = groups[name]
+        x = torch.full((4,), float(rank + 1), device="cuda")
+        y = torch.zeros(4, device="cuda")
+        print(json.dumps({"trying": name}), flush=True)
+        try:
+            if name == "send_recv":
+                for turn in (0, 1):
+                    if rank == turn:
+                        dist.send(x, peer, group=g)
+                    else:
+                        dist.recv(y, peer, group=g, timeout=20)
+            elif name == "isend_irecv":
+                for req in (dist.isend(x, peer, group=g),
+                            dist.irecv(y, peer, group=g)):
+                    req.wait(timeout=20)
+            else:
+                for req in dist.batch_isend_irecv(
+                        [dist.P2POp(dist.isend, x, peer, g),
+                         dist.P2POp(dist.irecv, y, peer, g)]):
+                    req.wait(timeout=20)
+            torch.cuda.synchronize()
+            got = y.tolist()
+            out[name] = "ok" if got == [float(peer + 1)] * 4 else \
+                f"wrong values {got}"
+        except (RuntimeError, TimeoutError) as e:
+            out[name] = str(e).splitlines()[0][:200]
+        print(json.dumps({"tried": name, "result": out[name]}), flush=True)
+    print(json.dumps({"phase": "gloo_cuda_p2p", "ops": out, "rank": rank}),
+          flush=True)
+    print(json.dumps({"rank_launches": {}}), flush=True)
+    # no teardown: a pair a refusal broke can hang it
+    os._exit(0)
+
+
+def _gloo_p2p_probe(tmp):
+    """``gloo_p2p_probe_rank`` on two ranks; {rank: {op: outcome}}. It is
+    a record, not a gate: a rank that died or hung reports the op it was
+    trying."""
+    rc, _, logs = _start_ranks(2, "--gloo-p2p-probe", tmp,
+                               {"PADDLE_DISTRI_BACKEND": "gloo"},
+                               timeout=CP_P2P_PROBE_TIMEOUT_S)
+    found = {}
+    for r, text in logs.items():
+        rows = [json.loads(line) for line in text.splitlines()
+                if line.startswith("{")]
+        ops = {row["tried"]: row["result"] for row in rows
+               if "tried" in row}
+        trying = [row["trying"] for row in rows if "trying" in row]
+        if trying and trying[-1] not in ops:
+            ops[trying[-1]] = f"rank died or hung (launcher rc {rc})"
+        found[r] = ops
+    return found
+
+
+def phase_context_parallel_exactness(torch, ck, tmp):
+    """The ranks' fp32 ring and Ulysses steps against one step in this
+    process on the whole 1 x 4096 from the same weights, by
+    ``_held_to_one_process``'s bounds."""
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.text.gpt import GPTConfig, GPTForPretraining
+    model = GPTForPretraining(GPTConfig(hidden_size=768, num_layers=2,
+                                        num_heads=12,
+                                        max_seq_len=CP_EXACT_SEQ),
+                              device="cuda", seed=0)
+    opt = AdamW(learning_rate=1e-4, parameters=model.named_parameters())
+    ids, labels = _cp_exact_batch(torch)
+    loss = model(ids.cuda(), labels=labels.cuda())[1]
+    loss.backward()
+    grads = {n: p.grad.detach().cpu()
+             for n, p in model.named_parameters() if p.grad is not None}
+    opt.step()
+    rows = []
+    for mode in CP_MODES:
+        got = torch.load(f"{tmp}/cp_exact_{mode}.pt")
+        out = _held_to_one_process(torch, got["loss"], got["grads"],
+                                   got["params"], loss.item(), grads, model)
+        out.update(phase=f"context_parallel_exactness_fp32_{mode}",
+                   tf32=False,
+                   model=f"GPT-124M widths, 2 layers, fp32, AdamW lr 1e-4; "
+                         f"{mode} on {CP_RANKS} sep ranks against one "
+                         f"process on 1 x {CP_EXACT_SEQ}, labels of the "
+                         "first 1536 tokens ignored")
+        emit(out)
+        rows.append(out)
+    del model, opt
+    torch.cuda.empty_cache()
+    bad = [r["phase"] for r in rows if not r["held"]]
+    if bad:
+        raise AssertionError(f"context-parallel steps differ from one "
+                             f"process: {bad}")
+
+
+def phase_context_parallel(torch, ck, smi):
+    """The context-parallel path: two gloo ranks at sep 2 (the fp32 ring
+    and Ulysses steps, then GPT-124M at 2 x 8192 each way), this process's
+    one-process step against their fp32 steps, then the record of gloo's
+    point-to-point ops on CUDA tensors. The ranks' kernel launches are
+    added to this process's counts."""
+    import shutil
+    import tempfile
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_cp_")
+    try:
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        ranks = _run_ranks(CP_RANKS, "--context-parallel-rank", tmp,
+                           {"PADDLE_DISTRI_BACKEND": "gloo"})
+        t_ranks = time.perf_counter() - t0
+        for rows in ranks.values():
+            for row in rows[:-1]:
+                emit(row)
+            ck.add_launches(rows[-1]["rank_launches"])
+        phase_context_parallel_exactness(torch, ck, tmp)
+        t0 = time.perf_counter()
+        probe = _gloo_p2p_probe(tmp)
+        t_probe = time.perf_counter() - t0
+        summary = {"phase": "context_parallel", "nvidia_smi": smi,
+                   "ranks": CP_RANKS, "backend": "gloo",
+                   "sep_transport": "point to point staged through the "
+                                    "host (gloo, CUDA tensors); all-to-all "
+                                    "by gloo's own CUDA path",
+                   "global_batch": [CP_BATCH, CP_SEQ]}
+        for mode in CP_MODES:
+            got = [next(r for r in rows if r.get("phase") ==
+                        f"context_parallel_gpt124m_{mode}")
+                   for rows in ranks.values()]
+            step_s = max(g["step_ms"] for g in got) / 1e3
+            summary[mode] = {
+                "step_ms_slowest_rank": step_s * 1e3,
+                "global_tokens_per_s": CP_BATCH * CP_SEQ / step_s,
+                "sep_bytes_per_step_per_rank": [g["sep_bytes_per_step"]
+                                                for g in got],
+                "sep_ms_per_step_per_rank": [g["sep_ms_per_step"]
+                                             for g in got],
+                "sep_exchanges_per_step": got[0]["sep_exchanges_per_step"],
+                "peak_memory_bytes_per_rank": [g["peak_memory_bytes"]
+                                               for g in got],
+                "flash_launches_per_step_per_rank":
+                    [g["flash_launches_per_step"] for g in got],
+                "losses": got[0]["losses"]}
+        summary.update(gloo_cuda_p2p=probe, ranks_s=t_ranks,
+                       p2p_probe_s=t_probe)
+        emit(summary)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def paged_bound(torch, q, kp, bt, cl):
     """Least time for K1 on these inputs: bytes each slot's visible rows
     need (K and V once, the table entries it reads, q, lens, out) versus
@@ -4114,7 +4464,9 @@ def time_flash(torch, ck, case, dtype, launches):
         lambda: ck.flash_attention_reference(q, k, v, causal=causal), 10)
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    same = sdpa_same_function(q, k)
+    # with no mask the two compute the same function at any sq, sk
+    same = sdpa_same_function(q, k) or (
+        not causal and k.shape[2] == q.shape[2])
     library_ms = cuda_time_ms(
         lambda: sdpa(qt, kt, vt, is_causal=causal), 100) if same else None
     library_dev_ms = device_time_ms(
@@ -4307,7 +4659,9 @@ def phase_timing(torch, ck, launches, path_launches, routes, smi):
     for case, path in ((ERNIE_ATTENTION, "ernie_pretraining"),
                        (BERT_ATTENTION, "bert_finetune"),
                        (HP_ATTENTION[0], "hybrid_parallel"),
-                       (HP_ATTENTION[1], "hybrid_parallel")):
+                       (HP_ATTENTION[1], "hybrid_parallel"),
+                       *((case, "context_parallel")
+                         for case in CP_ATTENTION)):
         counts = path_launches[path]
         for row in (time_flash(torch, ck, case, bf16, counts["flash_fwd"]),
                     time_flash_bwd(torch, ck, case, bf16,
@@ -4358,6 +4712,10 @@ def main():
         return data_parallel_rank(torch, sys.argv[2])
     if sys.argv[1:2] == ["--hybrid-parallel-rank"]:
         return hybrid_parallel_rank(torch, sys.argv[2])
+    if sys.argv[1:2] == ["--context-parallel-rank"]:
+        return context_parallel_rank(torch, sys.argv[2])
+    if sys.argv[1:2] == ["--gloo-p2p-probe"]:
+        return gloo_p2p_probe_rank(torch)
     from paddle_tpu_torch.ops import cuda_kernels as ck
 
     t0 = time.perf_counter()
@@ -4371,7 +4729,8 @@ def main():
     # training (none), then the paddle.* surface (K2, K3), then the
     # checkpoint path (K2, K3 on GPT-124M's resumes; none on ResNet-50's),
     # then the data-parallel path (K2, K3 in each GPT rank), then the
-    # hybrid-parallel path (K2, K3 in each TP and ZeRO-3 rank)
+    # hybrid-parallel path (K2, K3 in each TP and ZeRO-3 rank), then the
+    # context-parallel path (K2, K3 on every ring block and Ulysses call)
     paths = (("serving", ("paged_attention", "flash_fwd"),
               lambda: (phase_serving(torch, ck, smi),
                        phase_exactness_fp32(torch, ck))),
@@ -4409,7 +4768,10 @@ def main():
               lambda: phase_data_parallel(torch, ck, smi)),
              # the same for the hybrid ranks (TP and ZeRO-3)
              ("hybrid_parallel", ("flash_fwd", "flash_bwd"),
-              lambda: phase_hybrid_parallel(torch, ck, smi)))
+              lambda: phase_hybrid_parallel(torch, ck, smi)),
+             # and for the context-parallel ranks (ring and Ulysses)
+             ("context_parallel", ("flash_fwd", "flash_bwd"),
+              lambda: phase_context_parallel(torch, ck, smi)))
     launches = {k.name: 0 for k in ck.KERNELS}
     path_launches, path_routes, path_seconds = {}, {}, {}
     for path, kernels, drive in paths:

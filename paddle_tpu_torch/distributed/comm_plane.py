@@ -25,6 +25,10 @@ thread of the plane's own.
   ``comm_ms`` is the launch's cost, not the card's (ROADMAP C).
 - A collective of several backend calls (the quantized schedule) runs at
   once on the caller's thread; all its time is comm and exposed.
+- The plane meters with its ``clock`` (``CommPlane(clock=...)``; by
+  default ``substrate.SYSTEM_CLOCK``, whose ``monotonic_ns`` is the
+  steady clock), so a test can drive the meters from a clock of its own.
+  Deadlines stay on the steady clock: they bound real waits.
 - ``get_plane()`` makes the process's plane and registers ``drain`` as an
   optimizer pre-step hook: ``Optimizer.step``, ``clear_grad`` and
   ``GradScaler.unscale_`` never read a gradient a bucket still rewrites.
@@ -50,6 +54,11 @@ import torch.distributed as dist
 
 _PLANE = None
 _PLANE_LOCK = threading.Lock()
+
+
+def _system_clock():
+    from .substrate import SYSTEM_CLOCK
+    return SYSTEM_CLOCK
 
 
 def _p2p_timeout():
@@ -85,7 +94,8 @@ class CollectiveWork:
         self._settled = work is None
         self._lock = threading.Lock()
         self._done = threading.Event()
-        self._t_launch = t_launch or time.monotonic_ns()
+        self._t_launch = t_launch if t_launch is not None else \
+            self._clock().monotonic_ns()
         self._t_end = None
         self._no_future = False
         if work is None:
@@ -107,8 +117,12 @@ class CollectiveWork:
             fut.value()
         except Exception as e:  # noqa: BLE001 -- raised on the waiter (wait, drain), not on the backend's thread
             self._exc = e
-        self._plane._landed(self, time.monotonic_ns())
+        self._plane._landed(self, self._plane.clock.monotonic_ns())
         self._done.set()
+
+    def _clock(self):
+        return self._plane.clock if self._plane is not None else \
+            _system_clock()
 
     def is_completed(self):
         return self._done.is_set()
@@ -120,20 +134,21 @@ class CollectiveWork:
         if self._no_future and not self._done.is_set():
             with self._lock:
                 if not self._done.is_set():
-                    t0 = time.monotonic_ns()
+                    t0 = self._plane.clock.monotonic_ns()
                     try:
                         self._work.wait()
                     except Exception as e:  # noqa: BLE001 -- raised on the waiter below
                         self._exc = e
-                    t1 = time.monotonic_ns()
+                    t1 = self._plane.clock.monotonic_ns()
                     self._plane._landed(self, t1)
                     self._plane._exposed(t1 - t0)
                     self._done.set()
         if not self._done.is_set():
-            t0 = time.monotonic_ns()
+            clock = self._plane.clock
+            t0 = clock.monotonic_ns()
             ok = self._done.wait(timeout)
-            end = min(time.monotonic_ns(), self._t_end) if ok \
-                else time.monotonic_ns()
+            end = min(clock.monotonic_ns(), self._t_end) if ok \
+                else clock.monotonic_ns()
             self._plane._exposed(end - t0)
             if not ok:
                 raise _timeout_error(f"collective work '{self.label}'",
@@ -172,7 +187,8 @@ class CollectiveWork:
 class CommPlane:
     """The process's pending collectives and their meters."""
 
-    def __init__(self):
+    def __init__(self, clock=None):
+        self.clock = clock if clock is not None else _system_clock()
         self._lock = threading.Lock()
         self._pending = collections.deque()
         self._work_ns = 0
@@ -187,7 +203,7 @@ class CommPlane:
         ``async_op=True`` and returns its ``Work``; the plane owns it from
         then on. ``then()`` runs once it landed, on the waiter's thread."""
         from ..observability import trace as _obs_trace
-        t0 = time.monotonic_ns()
+        t0 = self.clock.monotonic_ns()
         with _obs_trace.span(span, label=label, **attrs):
             work = start()
         with self._lock:
@@ -204,11 +220,11 @@ class CommPlane:
     def run_inline(self, fn, label="collective"):
         """Run ``fn`` (several backend calls) now, on this thread, and
         return its completed work; all of its time is comm and exposed."""
-        t0 = time.monotonic_ns()
+        t0 = self.clock.monotonic_ns()
         try:
             result = fn()
         finally:
-            t1 = time.monotonic_ns()
+            t1 = self.clock.monotonic_ns()
             with self._lock:
                 self._works_total += 1
                 self._work_ns += t1 - t0

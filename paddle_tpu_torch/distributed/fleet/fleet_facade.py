@@ -7,7 +7,8 @@ fleet_facade.py``; upstream ``fleet/fleet.py``).
 world), builds the mesh and its groups and makes it the default, so the
 TP layers, ZeRO, ``CompiledTrainStep``, ``Model.fit`` and the checkpoint
 read one topology. ``distributed_model`` wraps the model in a
-``DataParallel`` over the data axes only (dp x sharding), never over mp.
+``DataParallel`` over the data axes only (dp x sharding), never over mp
+or sep (the optimizer's step sums gradients over sep).
 ``distributed_optimizer`` wraps the optimizer in a
 ``HybridParallelOptimizer`` (the global-norm clip across the groups);
 with a sharding degree above 1 it first shards the optimizer's state over

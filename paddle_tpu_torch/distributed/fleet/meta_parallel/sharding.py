@@ -496,8 +496,21 @@ def sync_gradients(params, grads, mesh, sync_plain=True, bucket_mb=25):
     over mp: a whole gradient all-reduced over both (``sync_plain``), a
     ZeRO-2 one reduce-scattered onto its rows over sharding, a ZeRO-3 one
     (already averaged over sharding by its gather's backward) and the
-    ZeRO-2 rows averaged over dp."""
+    ZeRO-2 rows averaged over dp. On a mesh with a sep axis the whole
+    gradients are first summed over sep, whether or not a DataParallel
+    averaged them over the data axes: each sep rank differentiated the
+    global loss through its own chunk of the sequence (``text/gpt.py``
+    under ``context_parallel``). ZeRO with sep raises (ROADMAP A7)."""
+    from ...collective import ReduceOp
     from ...parallel import all_reduce_gradients
+    sep = mesh.group("sep")
+    if sep.nranks > 1:
+        if any(getattr(p, "_zero", None) is not None for p in params):
+            raise NotImplementedError(
+                "ZeRO sharding with context parallelism (sep_degree > 1) "
+                "is not ported yet (ROADMAP A7)")
+        grads = all_reduce_gradients(list(grads), sep, bucket_mb,
+                                     op=ReduceOp.SUM)
     out = list(grads)
     plain, rs, z3 = [], [], []
     for i, p in enumerate(params):
@@ -538,7 +551,9 @@ def hybrid_clip(clip, params, grads, mesh):
     """The optimizer's clip with a global norm across the groups: the
     squares of mp-split gradients (``is_distributed``) summed over mp,
     replicated ones counted once, ZeRO rows summed over sharding; the same
-    scale as ``ClipGradByGlobalNorm`` in one process on the whole model."""
+    scale as ``ClipGradByGlobalNorm`` in one process on the whole model.
+    Every parameter is replicated over sep, with its gradient summed over
+    sep before the clip, so no sum runs over sep: each counts once."""
     from ....nn.clip import ClipGradByGlobalNorm, ClipGradByNorm, \
         ClipGradByValue
     if clip is None:

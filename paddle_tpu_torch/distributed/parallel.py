@@ -357,13 +357,15 @@ class DataParallel(Layer):
         return self._layers.set_state_dict(state_dict, *args, **kwargs)
 
 
-def all_reduce_gradients(grads, group=None, bucket_mb=25):
-    """Average ``grads`` over ``group`` (the world by default) as flat
-    fp32 buckets of at most ``bucket_mb`` MB through the comm plane;
-    returns the averaged tensors, each in its own dtype. In a world of
-    one process it returns ``grads``."""
+def all_reduce_gradients(grads, group=None, bucket_mb=25, op=None):
+    """Average ``grads`` over ``group`` (the world by default; ``op``
+    ``ReduceOp.SUM`` sums them) as flat fp32 buckets of at most
+    ``bucket_mb`` MB through the comm plane; returns the reduced tensors,
+    each in its own dtype. In a world of one process it returns
+    ``grads``."""
     from . import comm_plane
     from .collective import ReduceOp
+    op = ReduceOp.AVG if op is None else op
     g = _sync_group(group)
     if g is None:
         return grads
@@ -373,7 +375,7 @@ def all_reduce_gradients(grads, group=None, bucket_mb=25):
         flat = torch.cat([grads[i].reshape(-1).to(torch.float32)
                           for i in idx])
         comm_plane.async_all_reduce(
-            flat, g, ReduceOp.AVG, label="train_step.grad_sync",
+            flat, g, op, label="train_step.grad_sync",
             span="dp.bucket_launch", nelem=flat.numel(), quant="fp32")
         slabs.append(flat)
     comm_plane.drain()

@@ -19,9 +19,12 @@ their collectives over:
 
 ``build_mesh`` keeps the reference's degree rule: degrees that do not
 multiply to the world give the remainder to dp, and still-wrong degrees
-raise ``ValueError``. The pipeline (pp > 1), context parallelism
-(sep > 1) and DCN data parallelism (``dcn_dp`` > 1, ``dcn_grad_sync``)
-raise ``NotImplementedError`` naming ROADMAP A7.
+raise ``ValueError``. The sep axis carries context parallelism
+(``ops/ring_attention.py``, ``nn.functional.sep_parallel_attention``):
+its ranks share a batch's rows and split its sequence
+(``sep_local_batch``). The pipeline (pp > 1) and DCN data parallelism
+(``dcn_dp`` > 1, ``dcn_grad_sync``) raise ``NotImplementedError`` naming
+ROADMAP A7.
 
 ``process_local_batch`` keeps its contract: each process keeps its own
 rows (a rank already holds them: nothing is assembled), and a ragged
@@ -141,8 +144,6 @@ def build_mesh(dp=1, pp=1, sharding=1, sep=1, mp=1, devices=None, dcn_dp=1):
                 f"to {n} devices")
     if degrees["pp"] > 1:
         raise _a7("the pipeline (pp_degree > 1)")
-    if degrees["sep"] > 1:
-        raise _a7("context parallelism (sep_degree > 1)")
     return Mesh([degrees[a] for a in AXES])
 
 
@@ -224,6 +225,28 @@ def process_local_batch(value, mesh=None, spec=None, global_batch=None,
             f"(x{tile}); pad or drop the ragged final batch (Model.fit "
             "does this automatically with drop_last)")
     return t
+
+
+def sep_local_batch(value, mesh=None, seq_dim=1):
+    """This rank's chunk of ``value`` along the sequence: the sep ranks
+    share the batch's rows (``process_local_batch``'s, over the data axes)
+    and rank i of the sep group keeps chunk i of sep equal chunks, the
+    explicit-rank form of the reference's ``P("dp", "sep")`` input
+    sharding. A sequence that does not split raises ``ValueError``; a mesh
+    without a sep axis returns ``value``."""
+    from ..ops.dispatch import unwrap
+    t = unwrap(value)
+    mesh = mesh if mesh is not None else get_default_mesh()
+    n = mesh.shape["sep"]
+    if n == 1:
+        return t
+    s = t.shape[seq_dim]
+    if s % n:
+        raise ValueError(
+            f"sep_local_batch: sequence length {s} on dim {seq_dim} does "
+            f"not split over the sep degree {n}; pad the sequence to a "
+            f"multiple of {n} (of {2 * n} for the zigzag ring schedule)")
+    return t.narrow(seq_dim, mesh.axis_rank("sep") * (s // n), s // n)
 
 
 def replicated_batch(value, mesh=None):

@@ -44,6 +44,7 @@ class SystemClock:
     wall-clock steps."""
 
     monotonic = staticmethod(time.monotonic)
+    monotonic_ns = staticmethod(time.monotonic_ns)
     sleep = staticmethod(time.sleep)
 
     @staticmethod

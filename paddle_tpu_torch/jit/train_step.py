@@ -58,6 +58,10 @@ on its rows and gathered (``sharding.sharded_update``). The ZeRO state
 travels with the parameters (``p._zero``) and the inner optimizer's
 accumulators, so the step may be given the unwrapped net and the inner
 optimizer; a ``HybridParallelOptimizer`` or ZeRO wrapper is unwrapped.
+On a mesh with a sep axis (context parallelism) each rank's gradients
+come from its chunk of the sequence, so ``sync_gradients`` first sums
+them over sep; the loss a context-parallel GPT returns is already the
+global one.
 
 Not in this slice: the DGC/LocalSGD meta-optimizers, refused with an
 error.

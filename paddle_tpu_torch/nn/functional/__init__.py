@@ -4,7 +4,8 @@ from .activation import (celu, elu, gelu, hardsigmoid, hardswish, hardtanh,
                          softsign, swish, tanh, tanhshrink)
 from .common import embedding, linear
 from .attention import (_sdpa_impl, _unpadded_impl, flash_attention,
-                        flash_attn_unpadded, scaled_dot_product_attention)
+                        flash_attn_unpadded, scaled_dot_product_attention,
+                        sep_parallel_attention)
 from .conv import (conv1d, conv1d_transpose, conv2d, conv2d_transpose,
                    conv3d, conv3d_transpose)
 from .loss import cross_entropy
@@ -16,7 +17,8 @@ from .pooling import (adaptive_avg_pool1d, adaptive_avg_pool2d,
                       max_pool3d)
 
 __all__ = ["scaled_dot_product_attention", "flash_attention",
-           "flash_attn_unpadded", "_sdpa_impl", "_unpadded_impl", "gelu",
+           "flash_attn_unpadded", "sep_parallel_attention", "_sdpa_impl",
+           "_unpadded_impl", "gelu",
            "relu", "tanh", "relu6", "sigmoid", "silu", "swish", "mish",
            "softplus", "softsign", "tanhshrink", "hardtanh", "hardswish",
            "hardsigmoid", "elu", "selu", "celu", "leaky_relu",

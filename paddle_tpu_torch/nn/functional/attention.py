@@ -9,6 +9,11 @@ dense path the JAX package takes there (for example ``generate``'s
 one-token steps, whose sq is not a multiple of 128, and any call with a
 mask or dropout).
 
+``sep_parallel_attention`` is context-parallel attention over the
+default mesh's sep axis (``ops/ring_attention.py``: the ring, with the
+zigzag schedule for causal, or Ulysses); a mesh without one falls back to
+``scaled_dot_product_attention``.
+
 ``flash_attn_unpadded`` is packed varlen attention over [T, h, d] tokens
 with cu_seqlens prefix offsets: the varlen kernels (K4 forward, K5
 backward) where their gate admits the call and dropout is 0, the dense
@@ -137,3 +142,42 @@ def flash_attn_unpadded(query, key, value, cu_seqlens_q, cu_seqlens_k,
                          float(scale), bool(causal), int(max_seqlen_q),
                          int(max_seqlen_k))
     return out, None
+
+
+def sep_parallel_attention(query, key, value, mode="ring", is_causal=False,
+                           dropout_p=0.0, training=True, name=None):
+    """Context-parallel attention over the default mesh's sep axis, on
+    this rank's chunk [b, s/sep, h, d] of the sequence (the rank's heads
+    under tensor parallelism). ``mode`` "ring" rotates the kv chunks
+    around the sep ranks (causal: the zigzag schedule when the sequence
+    splits into 2·sep chunks and sk == sq; the natural chunks are
+    shuffled into it and back inside); any other mode runs Ulysses' head
+    exchange. A mesh without a sep axis falls back to
+    ``scaled_dot_product_attention``, so model code does not depend on the
+    mesh. Dropout while training is refused, as in the reference. It goes
+    through the per-op seam as op "sep_parallel_attention"."""
+    from ...distributed.sharding_api import get_default_mesh
+    mesh = get_default_mesh()
+    if mesh.shape.get("sep", 1) <= 1:
+        return scaled_dot_product_attention(query, key, value,
+                                            dropout_p=dropout_p,
+                                            is_causal=is_causal,
+                                            training=training)
+    if dropout_p > 0.0 and training:
+        raise NotImplementedError(
+            "attention-probability dropout is not supported under context "
+            "parallelism (blockwise softmax accumulation); set dropout to 0 "
+            "or disable context_parallel")
+    return dispatch("sep_parallel_attention", _sep_route, query, key, value,
+                    mode=mode, is_causal=bool(is_causal),
+                    group=mesh.group("sep"))
+
+
+def _sep_route(query, key, value, mode, is_causal, group):
+    from ...ops.ring_attention import (ring_attention_values,
+                                       ulysses_attention_values)
+    if mode == "ring":
+        return ring_attention_values(query, key, value, causal=is_causal,
+                                     zigzag=False, group=group)
+    return ulysses_attention_values(query, key, value, causal=is_causal,
+                                    group=group)

@@ -497,6 +497,18 @@ def flash_attention_reference(q, k, v, causal=False, sm_scale=None):
     return o.to(q.dtype), lse
 
 
+def flash_attention_fwd(q, k, v, causal=False, sm_scale=None):
+    """K2 outside autograd: (o, lse). On CUDA tensors this launches
+    ``csrc/flash_fwd.cu`` (q, k and v made contiguous here); on CPU
+    tensors it runs the plain version."""
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(q.shape[-1])
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    if _on_cpu(q, k, v):
+        return flash_attention_reference(q, k, v, causal, sm_scale)
+    return _flash_fwd(q, k, v, causal, sm_scale)
+
+
 def _flash_fwd(q, k, v, causal, sm_scale):
     """K2 on contiguous CUDA tensors: (o, lse)."""
     if not flash_attention_available(q, k, v, causal):
@@ -628,10 +640,7 @@ class FlashAttention(torch.autograd.Function):
     def forward(ctx, q, k, v, causal, sm_scale):
         # q, k, v arrive as column slices of the packed qkv: one copy each
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-        if _on_cpu(q, k, v):
-            o, lse = flash_attention_reference(q, k, v, causal, sm_scale)
-        else:
-            o, lse = _flash_fwd(q, k, v, causal, sm_scale)
+        o, lse = flash_attention_fwd(q, k, v, causal, sm_scale)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.causal, ctx.sm_scale = causal, sm_scale
         ctx.set_materialize_grads(False)

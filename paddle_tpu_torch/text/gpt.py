@@ -40,7 +40,20 @@ the embedding's scatter and the final gather, and the norms and the row
 biases, marked sequence-parallel, get their gradients summed over mp by
 hooks. Every rank draws the whole weights from ``seed`` and keeps its
 piece, so the global model is the same at every mp degree.
-``context_parallel`` raises (ROADMAP A7).
+
+``context_parallel`` ("ring" or "ulysses", the reference's field): on a
+mesh with a sep axis (``fleet.init`` with ``sep_degree``) each sep rank
+holds its chunk of every sequence (``sharding_api.sep_local_batch``):
+positions start at ``sep_rank · s_loc``, attention runs through
+``nn.functional.sep_parallel_attention`` (the ring with the zigzag
+schedule, or Ulysses; on the rank's heads under ``tensor_parallel``) and
+the loss is the reference's global mean over the labels that are not
+ignored: the rank's sum over the count summed over sep, summed over sep
+(``sep_transport.loss_sum``), so ``sharding.sync_gradients`` (in
+``CompiledTrainStep`` and in the fleet optimizer's step) sums the
+parameter gradients over sep. A cached call (``generate``) keeps plain
+attention, as in the reference; without a sep axis the model is the
+plain one. With ``sequence_parallel`` it raises (ROADMAP A7).
 """
 from __future__ import annotations
 
@@ -84,6 +97,16 @@ def _linears(cfg, device, dtype):
     return col, lambda i, o: Linear(i, o, device=device, dtype=dtype)
 
 
+def _sep_group(cfg):
+    """The default mesh's sep group when the model is context-parallel
+    over more than one rank, else None."""
+    if not cfg.context_parallel:
+        return None
+    from ..distributed.sharding_api import get_default_mesh
+    mesh = get_default_mesh()
+    return mesh.group("sep") if mesh.shape["sep"] > 1 else None
+
+
 def _mp_degree(cfg):
     if not _split(cfg):
         return 1
@@ -115,9 +138,10 @@ class GPTConfig:
 class GPTAttention(Layer):
     def __init__(self, cfg, device=None, dtype=None):
         super().__init__()
-        if cfg.context_parallel:
-            raise NotImplementedError("context parallelism is not ported "
-                                      "yet (ROADMAP A7)")
+        if cfg.context_parallel and cfg.sequence_parallel:
+            raise NotImplementedError(
+                "context_parallel with sequence_parallel (the sequence "
+                "split over sep and mp) is not ported yet (ROADMAP A7)")
         mp = _mp_degree(cfg)
         if cfg.num_heads % mp:
             raise ValueError(f"{cfg.num_heads} heads do not split over mp "
@@ -130,6 +154,7 @@ class GPTAttention(Layer):
         self.qkv_proj = col(cfg.hidden_size, 3 * cfg.hidden_size, packed=3)
         self.out_proj = row(cfg.hidden_size, cfg.hidden_size)
         self.dropout = cfg.dropout
+        self.context_parallel = cfg.context_parallel
 
     def forward(self, x, cache=None):
         nh, hd = self.num_heads, self.head_dim
@@ -145,9 +170,14 @@ class GPTAttention(Layer):
             k = torch.cat([cache[0], k], dim=1)
             v = torch.cat([cache[1], v], dim=1)
             cache = (k, v)
-        out = F.scaled_dot_product_attention(
-            q, k, v, is_causal=True, dropout_p=self.dropout,
-            training=self.training)
+        if self.context_parallel and cache is None:
+            out = F.sep_parallel_attention(
+                q, k, v, mode=self.context_parallel, is_causal=True,
+                dropout_p=self.dropout, training=self.training)
+        else:
+            out = F.scaled_dot_product_attention(
+                q, k, v, is_causal=True, dropout_p=self.dropout,
+                training=self.training)
         out = self.out_proj(out.reshape(b, s, self.hidden_size))
         if cache is not None:
             return out, cache
@@ -219,7 +249,11 @@ class GPTModel(Layer):
     def forward(self, input_ids, position_ids=None, caches=None):
         b, s = input_ids.shape
         if position_ids is None:
-            position_ids = torch.arange(s, device=input_ids.device)[None]
+            # a sep rank's chunk of the sequence starts at its offset
+            sep = _sep_group(self.config)
+            off = sep.rank * s if sep is not None else 0
+            position_ids = torch.arange(off, off + s,
+                                        device=input_ids.device)[None]
         tok = self.wte(input_ids) if _split(self.config) else \
             F.embedding(input_ids, self.wte.weight)
         x = self.drop(add(tok, F.embedding(position_ids, self.wpe.weight)))
@@ -304,21 +338,31 @@ class GPTForPretraining(Layer):
 
     def forward(self, input_ids, labels=None, position_ids=None):
         logits = self._logits(self.gpt(input_ids, position_ids))
-        if labels is not None and _split(self.config) and \
-                self.config.tie_word_embeddings:
+        if labels is None:
+            return logits
+        sep = _sep_group(self.config)
+        if _split(self.config) and self.config.tie_word_embeddings:
             from ..distributed.fleet.meta_parallel import \
                 ParallelCrossEntropy
-            per = ParallelCrossEntropy()(logits.float(), labels)
-            count = torch.clamp((labels != -100).sum(), min=1)
-            return logits, per.sum() / count
-        if labels is not None:
+            total = ParallelCrossEntropy()(logits.float(), labels).sum()
+        elif sep is not None:
+            total = F.cross_entropy(
+                logits.reshape(-1, logits.shape[-1]).float(),
+                labels.reshape(-1), reduction="sum")
+        else:
             # in fp32: under O2 the JAX loss works in the low dtype
             # (ROADMAP C)
-            loss = F.cross_entropy(
+            return logits, F.cross_entropy(
                 logits.reshape(-1, logits.shape[-1]).float(),
                 labels.reshape(-1))
-            return logits, loss
-        return logits
+        count = (labels != -100).sum()
+        if sep is not None:
+            # the global mean: every sep rank's sum over the whole count
+            from ..distributed import sep_transport
+            from ..distributed.collective import all_reduce
+            all_reduce(count, group=sep)
+            total = sep_transport.loss_sum(total, sep)
+        return logits, total / torch.clamp(count, min=1)
 
     @torch.no_grad()
     def generate(self, input_ids, max_new_tokens=20, do_sample=False,

@@ -61,6 +61,14 @@ FLASH_CASES = {   # b, sq, sk, h, kh, d, causal
     # global 8 x 1024, a ZeRO-3 ERNIE rank's 8 x 512
     "tp_gpt124m_rank": (8, 1024, 1024, 6, 6, 64, True),
     "zero3_ernie_rank": (8, 512, 512, 12, 12, 64, False),
+    # the context-parallel path's (GPT-124M at 2 x 8192 over sep 2, each
+    # rank [2, 4096]): the zigzag ring's own pair, its earlier-owner block
+    # (head-half kv) and later-owner block (tail-half q), and Ulysses'
+    # whole sequence on 12 / 2 heads
+    "cp_own_chunk": (2, 4096, 4096, 12, 12, 64, True),
+    "cp_earlier_owner": (2, 4096, 2048, 12, 12, 64, False),
+    "cp_later_owner": (2, 2048, 4096, 12, 12, 64, False),
+    "cp_ulysses": (2, 8192, 8192, 6, 6, 64, True),
 }
 # the training path's attention, GPT-124M at batch 16
 TRAIN_CASE = (16, 1024, 1024, 12, 12, 64, True)

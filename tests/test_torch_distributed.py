@@ -10,6 +10,7 @@ held bit-equal to the reference's two-rank ring
 (``paddle_tpu/distributed/collective.py`` ``_ring_allreduce_p2p_impl``)
 evaluated with the reference's codec on the same inputs; the codec's
 codes and scales are held bit-equal to the reference's."""
+import collections
 import threading
 import time
 
@@ -324,6 +325,22 @@ class _Wire:
         self.fut.set_result(value)
 
 
+class _FakeClock:
+    """A clock for ``CommPlane(clock=)`` that moves only when the test
+    moves it; it counts each thread's reads."""
+
+    def __init__(self):
+        self.ns = 0
+        self.reads = collections.Counter()
+
+    def monotonic_ns(self):
+        self.reads[threading.get_ident()] += 1
+        return self.ns
+
+    def advance_ms(self, ms):
+        self.ns += int(ms * 1e6)
+
+
 def _launch(plane, wire, then=None, label="w"):
     return plane.launch(lambda: wire, then=then, label=label)
 
@@ -448,15 +465,28 @@ class TestCommPlane:
     def test_comm_counts_each_work_after_the_one_launched_before(self):
         """Works that land out of launch order (the backend runs two at
         once) count as the reference's one worker would run them, so one
-        waiter draining in order never blocks longer than the comm."""
-        plane = comm_plane.CommPlane()
+        waiter draining in order never blocks longer than the comm. The
+        plane meters on a clock the test moves (``CommPlane(clock=)``),
+        so the host's load cannot move the readings."""
+        clock = _FakeClock()
+        plane = comm_plane.CommPlane(clock=clock)
         slow, fast = _Wire(), _Wire()
         _launch(plane, slow, label="slow")
         _launch(plane, fast, label="fast")
-        time.sleep(0.02)
+        clock.advance_ms(20)
         fast.land()                 # lands first: counts nothing
-        time.sleep(0.03)
-        threading.Timer(0.02, slow.land).start()
+        clock.advance_ms(30)
+        me = threading.get_ident()
+        before = clock.reads[me]
+
+        def land_once_drain_waits():
+            # the drain's wait reads the clock once before it blocks
+            while clock.reads[me] <= before:
+                time.sleep(0.001)
+            clock.advance_ms(20)
+            slow.land()
+
+        threading.Thread(target=land_once_drain_waits).start()
         plane.drain()
         st = plane.stats()
         assert 70 <= st["comm_ms"] < 1000

@@ -10,8 +10,9 @@ eight ranks is a layout whose groups are rank lists.
   query equal to the reference's.
 - ``build_mesh``: the remainder goes to dp, a degree set that cannot
   multiply to the world raises ``ValueError`` in both packages, and the
-  pipeline, context parallelism and DCN raise ``NotImplementedError``
-  naming ROADMAP A7.
+  pipeline (also on a mesh with a sep axis) and DCN raise
+  ``NotImplementedError`` naming ROADMAP A7. A sep axis alone builds
+  (context parallelism, ``tests/test_torch_context_parallel.py``).
 - ``fleet.init``'s mesh for dp 4 x mp 2 (``tests/test_fleet_e2e.py:68``):
   the reference's axis order and sizes.
 - What is not ported raises, naming ROADMAP A7: the pipeline classes,
@@ -114,7 +115,7 @@ def test_build_mesh_refuses_degrees_that_do_not_divide(degrees):
         jbuild_mesh(**degrees)
 
 
-@pytest.mark.parametrize("degrees", [dict(pp=2), dict(sep=2),
+@pytest.mark.parametrize("degrees", [dict(pp=2), dict(pp=2, sep=2),
                                      dict(dcn_dp=2)])
 def test_the_rest_raises_naming_a7(degrees):
     with pytest.raises(NotImplementedError, match="ROADMAP A7"):
