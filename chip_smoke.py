@@ -137,7 +137,25 @@ by route) set to 0 just before it and read just after:
   labels), each rerun bit-identical and held by this process to one
   process; then two more ranks (``--gloo-p2p-probe``) record which
   point-to-point ops gloo takes on CUDA tensors (a record: the sep
-  transport stages them through the host on gloo).
+  transport stages them through the host on gloo);
+- the pipeline: this script again as two gloo ranks sharing the card
+  (``--pipeline-rank``) at pp 2 after ``fleet.init``: a send to a stage
+  that has not posted its receive (64 B and a 3 MB boundary tensor) must
+  return at once; the fp32 steps at GPT-124M's widths and 4 layers (4 x
+  1024 in 4 microbatches): each eager schedule (``1f1b``,
+  ``zero_bubble``, ``gpipe``) through ``fleet.distributed_model``'s
+  ``PipelineParallel`` bit-identical to ``_local_train`` in the same
+  process, and ``GPTForPretrainingPipe`` at n_chunks 1 and 2 rerun
+  bit-identical and held by this process to the unpipelined model (loss,
+  gradients, parameters); then GPT-124M at bench.py's widths on the global
+  16 x 1024 in 8 microbatches of [2, 1024], O2 bf16, AdamW lr 1e-4: the
+  eager pipeline (a ``PipelineLayer`` of the embeddings, 12 blocks, ``ln_f``
+  and an untied head, 6 blocks a stage) in each schedule, and
+  ``GPTForPretrainingPipe`` through ``CompiledTrainStep`` at n_chunks 1
+  (GPipe, 9 ticks) and 2 (interleaved, 17 ticks), remat off and on, 1 + 3
+  steps each (step ms of the slowest rank, global tokens/s, the schedule,
+  boundary messages and bytes or the pipeline's exchanges a step, peak
+  memory a rank; K2 and K3 once per block and microbatch in each stage).
 
 Last, it times each kernel beside its bound, its plain version and,
 where one exists, a PyTorch call that computes the same function (also
@@ -145,7 +163,8 @@ by their device time alone, which leaves out the host's launch gaps);
 K1 also at a bytes-heavy shape (64 slots of 1024 tokens), K2 and K3
 also at the ERNIE and BERT paths' non-causal shapes, the hybrid
 path's ranks' shapes ([8, 1024, 6, 64] causal, [8, 512, 12, 64]
-non-causal) and the context-parallel path's blocks (``CP_ATTENTION``),
+non-causal), the context-parallel path's blocks (``CP_ATTENTION``) and
+the pipeline's microbatch ([2, 1024, 12, 64] causal, ``PP_ATTENTION``),
 and each kernel's
 fp16 route (K2 and K3 at the fp16 AMP path's shape). Each
 phase prints one JSON line; any failure raises and the script exits
@@ -391,6 +410,20 @@ CP_ATTENTION = [
     ("cp_later_owner", CP_BATCH, 2048, 4096, 12, 12, 64, False),
     ("cp_ulysses", CP_BATCH, 8192, 8192, 6, 6, 64, True),
 ]
+# the pipeline path: GPT-124M at bench.py's widths over pp 2, two gloo ranks
+# sharing the card, the global 16 x 1024 in 8 microbatches of [2, 1024];
+# the eager pipeline (6 blocks a stage, an untied head) in each schedule
+# and the SPMD pipeline (GPTForPretrainingPipe) at n_chunks 1 and 2, remat
+# off and on; the fp32 steps at 4 layers on 4 x 1024 in 4 microbatches
+PP_RANKS, PP_BATCH, PP_MICRO = 2, 16, 8
+PP_ATTENTION = [("pp_microbatch", PP_BATCH // PP_MICRO, 1024, 1024, 12, 12,
+                 64, True)]
+PP_WARMUP, PP_TIMED = 1, 3
+PP_MODES = ("1f1b", "zero_bubble", "gpipe")
+PP_SPMD = ((1, False), (1, True), (2, False), (2, True))
+PP_EXACT_LAYERS, PP_EXACT_BATCH, PP_EXACT_MICRO = 4, 4, 4
+PP_STATE_BYTES = 2 * 1024 * 768 * 2      # one microbatch's bf16 state
+PP_DEVICE = "cuda"
 FLASH_CASES = [
     ("gpt124m_causal", 1, 1024, 1024, 12, 12, 64, True),
     ("gqa_causal", 2, 256, 256, 12, 4, 64, True),
@@ -409,7 +442,7 @@ FLASH_CASES = [
     ("d256_causal", 1, 512, 512, 8, 8, 256, True),
     ERNIE_ATTENTION,
     BERT_ATTENTION,
-] + DP_ATTENTION + HP_ATTENTION + CP_ATTENTION
+] + DP_ATTENTION + HP_ATTENTION + CP_ATTENTION + PP_ATTENTION
 # K3: the forward's cases and one with an lse cotangent
 FLASH_BWD_CASES = FLASH_CASES + [
     ("dlse_causal", 1, 256, 256, 12, 12, 64, True)]
@@ -4391,6 +4424,502 @@ def phase_context_parallel(torch, ck, smi):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+class _PPHcg:
+    """One process owning both stages (``PipelineParallel._local_train``)."""
+
+    def get_pipe_parallel_world_size(self):
+        return PP_RANKS
+
+    def get_stage_id(self):
+        return 0
+
+    def get_pipe_parallel_group(self):
+        from types import SimpleNamespace
+        return SimpleNamespace(ranks=[0] * PP_RANKS)
+
+
+def _pp_glue(torch, cfg, device):
+    """The eager pipeline's first and last layers, built from the port's
+    modules: the token and position embeddings (normal(0, 0.02)), and
+    ``ln_f`` with an untied head; and its fp32 loss."""
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.nn.layer.common import Linear
+    from paddle_tpu_torch.nn.layer.layers import Layer
+    from paddle_tpu_torch.nn.layer.norm import LayerNorm
+
+    class Embed(Layer):
+        def __init__(self):
+            super().__init__()
+            self.wte = torch.nn.Embedding(cfg.vocab_size, cfg.hidden_size,
+                                          device=device)
+            self.wpe = torch.nn.Embedding(cfg.max_seq_len, cfg.hidden_size,
+                                          device=device)
+            with torch.no_grad():
+                for w in (self.wte.weight, self.wpe.weight):
+                    w.copy_(torch.normal(0.0, 0.02, tuple(w.shape)))
+
+        def forward(self, ids):
+            pos = torch.arange(ids.shape[1], device=ids.device)[None]
+            return F.embedding(ids, self.wte.weight) + \
+                F.embedding(pos, self.wpe.weight)
+
+    class Head(Layer):
+        def __init__(self):
+            super().__init__()
+            self.ln_f = LayerNorm(cfg.hidden_size, device=device)
+            self.lm_head = Linear(cfg.hidden_size, cfg.vocab_size,
+                                  bias=False, device=device)
+
+        def forward(self, x):
+            return self.lm_head(self.ln_f(x))
+
+    def loss_fn(logits, labels):
+        return F.cross_entropy(logits.reshape(-1, logits.shape[-1]).float(),
+                               labels.reshape(-1))
+
+    return Embed, Head, loss_fn
+
+
+def _pp_layer(torch, cfg, device=None, seed=0):
+    """GPT as a ``PipelineLayer`` over 2 stages: the embeddings, the
+    blocks (``text/gpt.py`` ``GPTBlock``), ``ln_f`` and the head; every
+    rank draws the same weights from ``seed``."""
+    from paddle_tpu_torch.distributed.fleet.meta_parallel import (
+        LayerDesc, PipelineLayer)
+    from paddle_tpu_torch.text.gpt import GPTBlock
+    device = device or PP_DEVICE
+    Embed, Head, loss_fn = _pp_glue(torch, cfg, device)
+    torch.manual_seed(seed)
+    descs = [LayerDesc(Embed)] + [
+        LayerDesc(GPTBlock, cfg, device) for _ in range(cfg.num_layers)] + [
+        LayerDesc(Head)]
+    return PipelineLayer(descs, num_stages=PP_RANKS, loss_fn=loss_fn)
+
+
+def _pp_strategy(fleet, mode, m):
+    strategy = fleet.get_strategy()
+    strategy.pipeline_configs = {"accumulate_steps": m,
+                                 "micro_batch_size": PP_BATCH // m,
+                                 "schedule_mode": mode}
+    return strategy
+
+
+def pp_send_probe(torch, mesh):
+    """A send to a peer that has not posted its receive, for 64 B and for
+    one microbatch's 3 MB bf16 state on the card: the seconds the send
+    took to return (stage 0) while stage 1 sleeps 1 s before receiving;
+    the received bits must equal the sent ones."""
+    from paddle_tpu_torch.distributed import comm_plane as cp
+    from paddle_tpu_torch.distributed.collective import barrier
+    group = mesh.group("pp")
+    stage = mesh.coord["pp"]
+    out = {"phase": "pipeline_send_before_receive", "send_s": {}}
+    for n in (32, PP_STATE_BYTES // 2):
+        x = torch.arange(n, device=PP_DEVICE).to(torch.bfloat16)
+        if stage == 0:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            work = cp.pp_send(x, group.ranks[1], "fwd", 0, group=group)
+            out["send_s"][str(n * 2)] = time.perf_counter() - t0
+            work.wait()
+        else:
+            time.sleep(1.0)
+            got = cp.pp_recv(group.ranks[0], "fwd", 0, group=group,
+                             device=PP_DEVICE).result()
+            if not torch.equal(got, x):
+                raise AssertionError(f"the {n * 2} B boundary tensor changed")
+        barrier()
+    if stage == 0 and max(out["send_s"].values()) > 0.5:
+        raise AssertionError(f"a send blocked on its receiver: {out}")
+    return out
+
+
+def pp_eager_exact_rank(torch, fleet, mode):
+    """Two fp32 AdamW steps (lr 1e-4) of GPT-124M's widths at
+    PP_EXACT_LAYERS layers through ``fleet.distributed_model``'s
+    ``PipelineParallel`` in ``mode`` across the two ranks, against the
+    same steps through ``_local_train`` in this process: losses and this
+    stage's parameters bit-identical."""
+    from paddle_tpu_torch.distributed.fleet.meta_parallel import \
+        PipelineParallel
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.text.gpt import GPTConfig
+    cfg = GPTConfig(hidden_size=768, num_layers=PP_EXACT_LAYERS,
+                    num_heads=12)
+    strategy = _pp_strategy(fleet, mode, PP_EXACT_MICRO)
+    batches = [tuple(t.to(PP_DEVICE) for t in _seeded_ids(
+        torch, cfg.vocab_size, (PP_EXACT_BATCH, 1024), seed=70 + i))
+        for i in range(2)]
+    local = PipelineParallel(_pp_layer(torch, cfg), _PPHcg(), strategy)
+    lopt = AdamW(learning_rate=1e-4, parameters=local.parameters())
+    want = [local.train_batch(b, lopt) for b in batches]
+    pipe = fleet.distributed_model(_pp_layer(torch, cfg))
+    if not (type(pipe) is PipelineParallel and pipe._multi):
+        raise AssertionError(f"distributed_model gave {type(pipe)}")
+    opt = AdamW(learning_rate=1e-4, parameters=pipe.parameters())
+    got = [pipe.train_batch(b, opt) for b in batches]
+    stage = pipe._stage
+    mine = [p for layer, _ in local._layers.get_stage_layers(stage)
+            for p in layer.parameters()]
+    theirs = list(pipe._layers.parameters())
+    same_loss = all(torch.equal(a, b) for a, b in zip(got, want))
+    same_params = len(mine) == len(theirs) and all(
+        torch.equal(a, b) for a, b in zip(mine, theirs))
+    if not (same_loss and same_params):
+        raise AssertionError(f"{mode}: the pipeline differs from "
+                             f"_local_train: losses {got} vs {want}, "
+                             f"parameters equal {same_params}")
+    out = {"phase": f"pipeline_eager_exact_{mode}", "stage": stage,
+           "losses": [float(x) for x in got],
+           "bit_identical_to_local_train": True,
+           "schedule": "".join(f"{op}{k}" for op, k in pipe._last_schedule),
+           "max_inflight": pipe._last_max_inflight}
+    del local, pipe, lopt, opt
+    torch.cuda.empty_cache()
+    return out
+
+
+def _pp_natural(torch, name, t, n_chunks):
+    """A gathered stacked tensor back in natural layer order."""
+    from paddle_tpu_torch.distributed.fleet.meta_parallel.spmd_pipeline \
+        import interleave_row_order
+    import numpy as np
+    if not name.startswith("blocks.") or n_chunks == 1:
+        return t
+    order = interleave_row_order(t.shape[0], PP_RANKS, n_chunks)
+    return t[torch.as_tensor(np.argsort(order))]
+
+
+def _pp_exact_batch(torch):
+    return _seeded_ids(torch, 50304, (PP_EXACT_BATCH, 1024), seed=72)
+
+
+def pp_spmd_exact_rank(torch, dist, rank, out_dir, n_chunks):
+    """One fp32 AdamW step (lr 1e-4) of ``GPTForPretrainingPipe`` at
+    GPT-124M's widths and PP_EXACT_LAYERS layers over pp 2 through
+    ``CompiledTrainStep``, twice from the same build: the reruns must be
+    bit-identical. Rank 0 saves the loss, the synced gradients and the
+    updated parameters (whole, natural layer order) for the parent's
+    one-process step."""
+    from paddle_tpu_torch.distributed.sharding_api import (gather_global,
+                                                           placement_of)
+    from paddle_tpu_torch.jit import CompiledTrainStep
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.text.gpt import GPTConfig, GPTForPretrainingPipe
+    cfg = GPTConfig(hidden_size=768, num_layers=PP_EXACT_LAYERS,
+                    num_heads=12)
+    ids, labels = (t.to(PP_DEVICE) for t in _pp_exact_batch(torch))
+    runs = []
+    for _ in range(2):
+        model = GPTForPretrainingPipe(cfg, n_microbatch=PP_EXACT_MICRO,
+                                      n_chunks=n_chunks, device=PP_DEVICE,
+                                      seed=0)
+        opt = AdamW(learning_rate=1e-4, parameters=model.parameters())
+        step = CompiledTrainStep(
+            lambda a, b, m=model: m(a, labels=b)[1], model, opt)
+        real, seen = step._sync, {}
+        step._sync = lambda g, real=real, seen=seen: \
+            seen.setdefault("grads", real(g))
+        loss = step(ids, labels).item()
+        named = list(model.named_parameters())
+        runs.append({
+            "loss": loss,
+            "grads": {n: _pp_natural(torch, n, gather_global(
+                g, placement_of(p)), n_chunks)
+                for (n, p), g in zip(named, seen["grads"])},
+            "params": {n: _pp_natural(torch, n, gather_global(p), n_chunks)
+                       for n, p in named}})
+        del model, opt, step
+    a, b = runs
+    same = a["loss"] == b["loss"] and all(
+        torch.equal(a[k][n], b[k][n]) for k in ("grads", "params")
+        for n in a[k])
+    if not same:
+        raise AssertionError(f"n_chunks {n_chunks}: the fp32 pipeline "
+                             "step's rerun differs")
+    if rank == 0:
+        torch.save(a, f"{out_dir}/pp_exact_{n_chunks}.pt")
+    torch.cuda.empty_cache()
+    return {"phase": f"pipeline_spmd_exact_rank_chunks{n_chunks}",
+            "loss": a["loss"], "rerun_bit_identical": same}
+
+
+def _pp_timed(torch, ck, dist, run, per_step):
+    """PP_WARMUP + PP_TIMED synchronized calls of ``run()``; K2 and K3
+    must launch ``per_step`` = (fwd, bwd) times a call on bf16. Returns
+    (losses, seconds of the timed calls, the slowest rank's mean ms)."""
+    losses, secs = [], []
+    for i in range(PP_WARMUP + PP_TIMED):
+        if i == PP_WARMUP:
+            from paddle_tpu_torch.distributed import comm_plane as cp
+            from paddle_tpu_torch.distributed import sep_transport
+            from paddle_tpu_torch.distributed.fleet.meta_parallel import \
+                spmd_pipeline
+            cp.reset_pp_stats()
+            cp.get_plane().reset_stats()
+            sep_transport.reset_stats()
+            spmd_pipeline.reset_stats()
+            torch.cuda.reset_peak_memory_stats()
+        before = {k.name: k.route_launches["bf16"] for k in ck.KERNELS}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = run()
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        got = (ck.FLASH_FWD.route_launches["bf16"] - before["flash_fwd"],
+               ck.FLASH_BWD.route_launches["bf16"] - before["flash_bwd"])
+        if got != per_step:
+            raise AssertionError(f"call {i} launched K2/K3 {got}, "
+                                 f"not {per_step}")
+        losses.append(float(loss))
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"non-finite losses {losses}")
+    timed = secs[PP_WARMUP:]
+    mean_ms = 1e3 * sum(timed) / len(timed)
+    seen = []
+    dist.all_gather_object(seen, mean_ms)
+    return losses, timed, max(seen)
+
+
+def pp_eager_gpt124m_rank(torch, ck, dist, fleet, mode):
+    """GPT-124M at bench.py's widths as a 2-stage ``PipelineLayer`` (6
+    blocks a stage, an untied head) through ``PipelineParallel.
+    train_batch`` in ``mode``: bf16 under O2 (``amp.decorate``), AdamW lr
+    1e-4, the global 16 x 1024 in 8 microbatches; the stage-boundary
+    messages and bytes a step, the schedule, peak memory; K2/K3 once per
+    block and microbatch."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.distributed import comm_plane as cp
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.text.gpt import gpt_small
+    cfg = gpt_small()
+    _pp_strategy(fleet, mode, PP_MICRO)
+    pipe = fleet.distributed_model(_pp_layer(torch, cfg))
+    opt = AdamW(learning_rate=1e-4, parameters=pipe.parameters())
+    amp.decorate(models=pipe, optimizers=opt, level="O2", dtype="bfloat16")
+    batch = tuple(t.to(PP_DEVICE) for t in _seeded_ids(
+        torch, cfg.vocab_size, (PP_BATCH, 1024), seed=74))
+    blocks = cfg.num_layers // PP_RANKS
+    per_step = (blocks * PP_MICRO, blocks * PP_MICRO)
+    losses, secs, slowest = _pp_timed(
+        torch, ck, dist, lambda: pipe.train_batch(batch, opt), per_step)
+    stats = cp.pp_stats()
+    out = {"phase": f"pipeline_eager_gpt124m_{mode}", "stage": pipe._stage,
+           "batch_global": [PP_BATCH, 1024], "microbatches": PP_MICRO,
+           "step_ms_each": [1e3 * s for s in secs],
+           "step_ms_slowest_rank": slowest,
+           "global_tokens_per_s": PP_BATCH * 1024 / (slowest / 1e3),
+           "losses": losses,
+           "schedule": "".join(f"{op}{k}" for op, k in pipe._last_schedule),
+           "max_inflight": pipe._last_max_inflight,
+           "boundary_sends_per_step": stats["sends"] / PP_TIMED,
+           "boundary_recvs_per_step": stats["recvs"] / PP_TIMED,
+           "boundary_bytes_sent_per_step": stats["bytes_sent"] / PP_TIMED,
+           "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+           "flash_launches_per_step": list(per_step)}
+    del pipe, opt
+    torch.cuda.empty_cache()
+    return out
+
+
+def pp_spmd_gpt124m_rank(torch, ck, dist, n_chunks, remat):
+    """GPT-124M at bench.py's widths as ``GPTForPretrainingPipe`` over pp
+    2 through ``CompiledTrainStep`` (O2 bf16, AdamW lr 1e-4), the global
+    16 x 1024 in 8 microbatches, ``n_chunks`` 1 (GPipe, 9 ticks) or 2
+    (interleaved, 17 ticks, 3 layers a chunk), ``remat`` off or on: the
+    pipeline's exchanges, bytes and ms a step, peak memory; K2 once per
+    layer and microbatch (twice with remat), K3 once."""
+    from paddle_tpu_torch.distributed import comm_plane as cp
+    from paddle_tpu_torch.distributed import sep_transport
+    from paddle_tpu_torch.distributed.fleet.meta_parallel import \
+        spmd_pipeline
+    from paddle_tpu_torch.jit import CompiledTrainStep
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.text.gpt import GPTForPretrainingPipe, gpt_small
+    cfg = gpt_small()
+    model = GPTForPretrainingPipe(cfg, n_microbatch=PP_MICRO,
+                                  n_chunks=n_chunks, remat=remat,
+                                  device=PP_DEVICE, seed=0)
+    opt = AdamW(learning_rate=1e-4, parameters=model.parameters())
+    step = CompiledTrainStep(lambda i, lb: model(i, labels=lb)[1], model,
+                             opt, amp_level="O2")
+    ids, labels = (t.to(PP_DEVICE) for t in _seeded_ids(
+        torch, cfg.vocab_size, (PP_BATCH, 1024), seed=75))
+    layers = cfg.num_layers // PP_RANKS * PP_MICRO
+    per_step = (layers * (2 if remat else 1), layers)
+    losses, secs, slowest = _pp_timed(
+        torch, ck, dist, lambda: step(ids, labels), per_step)
+    ex = sep_transport.stats()
+    bc = spmd_pipeline.stats()
+    plane = cp.get_plane().stats()
+    ticks = spmd_pipeline.pipeline_ticks(PP_MICRO, PP_RANKS, n_chunks)
+    if ex["exchanges"] != 2 * ticks * PP_TIMED:
+        raise AssertionError(f"{ex['exchanges']} exchanges in "
+                             f"{PP_TIMED} steps, not 2 x {ticks} each")
+    seen = []
+    dist.all_gather_object(seen, losses)
+    if seen[0] != seen[1]:
+        raise AssertionError(f"the pp ranks' losses differ {seen}")
+    out = {"phase": f"pipeline_spmd_gpt124m_chunks{n_chunks}"
+                    f"{'_remat' if remat else ''}",
+           "n_chunks": n_chunks, "remat": remat, "ticks": ticks,
+           "batch_global": [PP_BATCH, 1024], "microbatches": PP_MICRO,
+           "step_ms_each": [1e3 * s for s in secs],
+           "step_ms_slowest_rank": slowest,
+           "global_tokens_per_s": PP_BATCH * 1024 / (slowest / 1e3),
+           "losses": losses,
+           "exchanges_per_step": ex["exchanges"] / PP_TIMED,
+           "exchange_bytes_per_step": ex["bytes"] / PP_TIMED,
+           "exchange_ms_per_step": ex["ms"] / PP_TIMED,
+           "broadcast_ms_per_step": bc["ms"] / PP_TIMED,
+           "broadcasts_per_step": bc["collectives"] / PP_TIMED,
+           # the gradient sum over pp of the parameters outside the
+           # pipeline, bucketed through the comm plane
+           "grad_sum_works_per_step":
+               (plane["works"] - ex["exchanges"]) / PP_TIMED,
+           "grad_sum_ms_per_step":
+               (plane["comm_ms"] - ex["ms"]) / PP_TIMED,
+           "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+           "flash_launches_per_step": list(per_step)}
+    del model, opt, step
+    torch.cuda.empty_cache()
+    return out
+
+
+def pipeline_rank(torch, out_dir):
+    """One rank of the pipeline path (started by the launcher): pp 2
+    after ``fleet.init``, the send probe, the fp32 steps (the eager
+    schedules against ``_local_train``, the SPMD pipeline saved for the
+    parent), then GPT-124M's timed steps through each eager schedule and
+    each SPMD configuration. Prints one JSON line per phase and last its
+    launches by route."""
+    import paddle_tpu_torch.distributed as dist
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.ops import cuda_kernels as ck
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    env = dist.init_parallel_env(timeout=DP_RANK_TIMEOUT_S)
+    rank, world = env.rank, env.world_size
+    if dist.get_backend() != "gloo" or world != PP_RANKS:
+        raise AssertionError(f"backend {dist.get_backend()}, world {world}")
+    ck.reset_launch_counts()
+    mesh = _hp_fleet(fleet, pp_degree=PP_RANKS)
+    if mesh.shape["pp"] != PP_RANKS:
+        raise AssertionError(f"mesh {mesh}")
+    _rank_emit(rank, pp_send_probe(torch, mesh))
+    for mode in PP_MODES:
+        _rank_emit(rank, pp_eager_exact_rank(torch, fleet, mode))
+    for n_chunks in (1, 2):
+        _rank_emit(rank, pp_spmd_exact_rank(torch, dist, rank, out_dir,
+                                            n_chunks))
+    for mode in PP_MODES:
+        _rank_emit(rank, pp_eager_gpt124m_rank(torch, ck, dist, fleet,
+                                               mode))
+    for n_chunks, remat in PP_SPMD:
+        _rank_emit(rank, pp_spmd_gpt124m_rank(torch, ck, dist, n_chunks,
+                                              remat))
+    _rank_emit(rank, {"rank_launches": {k.name: dict(k.route_launches)
+                                        for k in ck.KERNELS}})
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def phase_pipeline_exactness(torch, tmp):
+    """The ranks' fp32 SPMD pipeline steps (n_chunks 1 and 2) against one
+    step of the unpipelined ``GPTForPretrainingPipe`` in this process from
+    the same weights, by ``_held_to_one_process``'s bounds."""
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.text.gpt import GPTConfig, GPTForPretrainingPipe
+    cfg = GPTConfig(hidden_size=768, num_layers=PP_EXACT_LAYERS,
+                    num_heads=12)
+    model = GPTForPretrainingPipe(cfg, device=PP_DEVICE, seed=0)
+    opt = AdamW(learning_rate=1e-4, parameters=model.parameters())
+    ids, labels = _pp_exact_batch(torch)
+    loss = model(ids.to(PP_DEVICE), labels=labels.to(PP_DEVICE))[1]
+    loss.backward()
+    grads = {n: p.grad.detach().cpu()
+             for n, p in model.named_parameters() if p.grad is not None}
+    opt.step()
+    rows = []
+    for n_chunks in (1, 2):
+        got = torch.load(f"{tmp}/pp_exact_{n_chunks}.pt")
+        out = _held_to_one_process(torch, got["loss"], got["grads"],
+                                   got["params"], loss.item(), grads, model)
+        out.update(phase=f"pipeline_exactness_fp32_chunks{n_chunks}",
+                   tf32=False,
+                   model=f"GPT-124M widths, {PP_EXACT_LAYERS} layers, fp32, "
+                         f"AdamW lr 1e-4; GPTForPretrainingPipe over pp "
+                         f"{PP_RANKS} (n_chunks {n_chunks}, "
+                         f"{PP_EXACT_MICRO} microbatches) against the "
+                         f"unpipelined model on {PP_EXACT_BATCH} x 1024")
+        emit(out)
+        rows.append(out)
+    del model, opt
+    torch.cuda.empty_cache()
+    bad = [r["phase"] for r in rows if not r["held"]]
+    if bad:
+        raise AssertionError(f"pipeline steps differ from one process: "
+                             f"{bad}")
+
+
+def phase_pipeline(torch, ck, smi):
+    """The pipeline path: two gloo ranks at pp 2 (the send probe, the fp32
+    steps, then GPT-124M through the eager schedules and the SPMD
+    pipeline), then this process's one-process step against their fp32
+    SPMD steps. The ranks' kernel launches are added to this process's
+    counts."""
+    import shutil
+    import tempfile
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_pp_")
+    try:
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        ranks = _run_ranks(PP_RANKS, "--pipeline-rank", tmp,
+                           {"PADDLE_DISTRI_BACKEND": "gloo"})
+        t_ranks = time.perf_counter() - t0
+        for rows in ranks.values():
+            for row in rows[:-1]:
+                emit(row)
+            ck.add_launches(rows[-1]["rank_launches"])
+        phase_pipeline_exactness(torch, tmp)
+        summary = {"phase": "pipeline", "nvidia_smi": smi,
+                   "ranks": PP_RANKS, "backend": "gloo",
+                   "transport": "stage boundaries and pipeline exchanges "
+                                "staged through the host (gloo, CUDA "
+                                "tensors)",
+                   "global_batch": [PP_BATCH, 1024],
+                   "microbatches": PP_MICRO, "ranks_s": t_ranks}
+
+        def both(phase):
+            return [next(r for r in rows if r.get("phase") == phase)
+                    for rows in ranks.values()]
+        for mode in PP_MODES:
+            got = both(f"pipeline_eager_gpt124m_{mode}")
+            summary[f"eager_{mode}"] = {
+                k: [g[k] for g in got] for k in (
+                    "step_ms_slowest_rank", "global_tokens_per_s",
+                    "schedule", "max_inflight", "boundary_sends_per_step",
+                    "boundary_recvs_per_step",
+                    "boundary_bytes_sent_per_step", "peak_memory_bytes",
+                    "flash_launches_per_step")}
+        for n_chunks, remat in PP_SPMD:
+            name = f"pipeline_spmd_gpt124m_chunks{n_chunks}" \
+                   f"{'_remat' if remat else ''}"
+            got = both(name)
+            summary[name[9:]] = {
+                k: [g[k] for g in got] for k in (
+                    "step_ms_slowest_rank", "global_tokens_per_s", "ticks",
+                    "exchanges_per_step", "exchange_bytes_per_step",
+                    "exchange_ms_per_step", "broadcasts_per_step",
+                    "broadcast_ms_per_step", "grad_sum_works_per_step",
+                    "grad_sum_ms_per_step", "peak_memory_bytes",
+                    "flash_launches_per_step")}
+        emit(summary)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def paged_bound(torch, q, kp, bt, cl):
     """Least time for K1 on these inputs: bytes each slot's visible rows
     need (K and V once, the table entries it reads, q, lens, out) versus
@@ -4661,7 +5190,8 @@ def phase_timing(torch, ck, launches, path_launches, routes, smi):
                        (HP_ATTENTION[0], "hybrid_parallel"),
                        (HP_ATTENTION[1], "hybrid_parallel"),
                        *((case, "context_parallel")
-                         for case in CP_ATTENTION)):
+                         for case in CP_ATTENTION),
+                       *((case, "pipeline") for case in PP_ATTENTION)):
         counts = path_launches[path]
         for row in (time_flash(torch, ck, case, bf16, counts["flash_fwd"]),
                     time_flash_bwd(torch, ck, case, bf16,
@@ -4716,6 +5246,8 @@ def main():
         return context_parallel_rank(torch, sys.argv[2])
     if sys.argv[1:2] == ["--gloo-p2p-probe"]:
         return gloo_p2p_probe_rank(torch)
+    if sys.argv[1:2] == ["--pipeline-rank"]:
+        return pipeline_rank(torch, sys.argv[2])
     from paddle_tpu_torch.ops import cuda_kernels as ck
 
     t0 = time.perf_counter()
@@ -4730,7 +5262,8 @@ def main():
     # checkpoint path (K2, K3 on GPT-124M's resumes; none on ResNet-50's),
     # then the data-parallel path (K2, K3 in each GPT rank), then the
     # hybrid-parallel path (K2, K3 in each TP and ZeRO-3 rank), then the
-    # context-parallel path (K2, K3 on every ring block and Ulysses call)
+    # context-parallel path (K2, K3 on every ring block and Ulysses call),
+    # then the pipeline path (K2, K3 per block and microbatch per stage)
     paths = (("serving", ("paged_attention", "flash_fwd"),
               lambda: (phase_serving(torch, ck, smi),
                        phase_exactness_fp32(torch, ck))),
@@ -4771,7 +5304,10 @@ def main():
               lambda: phase_hybrid_parallel(torch, ck, smi)),
              # and for the context-parallel ranks (ring and Ulysses)
              ("context_parallel", ("flash_fwd", "flash_bwd"),
-              lambda: phase_context_parallel(torch, ck, smi)))
+              lambda: phase_context_parallel(torch, ck, smi)),
+             # and for the pipeline's stages (eager schedules, SPMD)
+             ("pipeline", ("flash_fwd", "flash_bwd"),
+              lambda: phase_pipeline(torch, ck, smi)))
     launches = {k.name: 0 for k in ck.KERNELS}
     path_launches, path_routes, path_seconds = {}, {}, {}
     for path, kernels, drive in paths:

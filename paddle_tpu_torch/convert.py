@@ -21,6 +21,12 @@ caller converts):
 Both packages keep Paddle's [in, out] Linear layout, so every array
 carries across as it is: no transpose.
 
+``slice_pipe_gpt_state`` takes a ``GPTForPretrainingPipe``'s whole state
+(``wte.weight``, ``blocks.qkv_w`` [L, H, 3, H], ... in natural layer
+order, as the reference holds it without a pp axis) to the layout of a
+pp rank: the stacked rows chunk-major for the interleaved schedule, and
+one stage's rows.
+
 ``slice_gpt_state`` cuts such a whole state into one rank's piece of a
 tensor-parallel GPT (``GPTConfig(tensor_parallel=True)`` or
 ``sequence_parallel=True``), and of its ZeRO-3 rows, by the rules the
@@ -130,4 +136,26 @@ def slice_gpt_state(np_state, mp_degree=1, mp_rank=0, sharding_degree=1,
             rows = piece.shape[0] // sharding_degree
             piece = piece[sharding_rank * rows:(sharding_rank + 1) * rows]
         out[name] = np.ascontiguousarray(piece)
+    return out
+
+
+def slice_pipe_gpt_state(np_state, pp_degree=1, pp_rank=None, n_chunks=1):
+    """{name: np.ndarray} of a ``GPTForPretrainingPipe`` at ``pp_degree``
+    from its whole natural-order state: with ``n_chunks`` > 1 (and pp > 1)
+    the stacked rows (``blocks.*``) chunk-major, as the model stores them;
+    with ``pp_rank`` given, only that stage's rows (a committed rank's
+    parameters). The rest is whole."""
+    from .distributed.fleet.meta_parallel.spmd_pipeline import \
+        interleave_row_order
+    out = {}
+    for name, arr in np_state.items():
+        arr = np.asarray(arr)
+        if name.startswith("blocks.") and pp_degree > 1:
+            if n_chunks > 1:
+                arr = arr[interleave_row_order(arr.shape[0], pp_degree,
+                                               n_chunks)]
+            if pp_rank is not None:
+                rows = arr.shape[0] // pp_degree
+                arr = arr[pp_rank * rows:(pp_rank + 1) * rows]
+        out[name] = np.ascontiguousarray(arr)
     return out

@@ -40,16 +40,29 @@ thread of the plane's own.
   way. A backend work with no future (gloo's reduce-scatter) lands when
   its first waiter's ``wait`` returns.
 
-The pipeline's stage-boundary transport (``pp_send``, ``pp_recv``) waits
-for the pipeline slice and raises (ROADMAP A7).
+- The pipeline's stage-boundary transport: ``pp_send`` (``pp_send_fwd``,
+  ``pp_send_bwd``) and ``pp_recv``, between adjacent stages' global
+  ranks. A send is a pending work; a receive is pending too, and its
+  result is the tensor. Every message is a fixed header (its (kind,
+  microbatch) tag, dtype code, sender and dims; ``_HEADER_LEN`` int64)
+  and then its payload, so the receiver learns the shape from the
+  header. A receive that pops another tag raises
+  ``PipelineWireMismatch``. On a gloo group a CUDA tensor travels through
+  the host (gloo moves no CUDA tensor point to point; the copy to the
+  host waits for the card's queued work), on NCCL and for CPU tensors as
+  it is: chosen by backend and device, as ``sep_transport`` chooses.
+  Each send and receive is one work of the plane; ``pp_stats()`` counts
+  their messages and bytes.
 """
 from __future__ import annotations
 
 import collections
+import math
 import os
 import threading
 import time
 
+import torch
 import torch.distributed as dist
 
 _PLANE = None
@@ -244,6 +257,12 @@ class CommPlane:
         with self._lock:
             self._exposed_ns += max(ns, 0)
 
+    def _exposed_comm(self, ns):
+        """A blocking transfer a work's ``then`` made: comm and exposed."""
+        with self._lock:
+            self._work_ns += max(ns, 0)
+            self._exposed_ns += max(ns, 0)
+
     def pending_count(self):
         """Works launched and not yet drained (or waited on first)."""
         with self._lock:
@@ -421,13 +440,171 @@ def async_reduce_scatter(out, flat, group, op, label="reduce_scatter",
         then=landed, label=label, span=span, nranks=group.nranks, **attrs)
 
 
-def _pipeline(*args, **kwargs):
-    raise NotImplementedError(
-        "the pipeline's stage-boundary transport waits for the pipeline "
-        "slice (ROADMAP A7)")
+# -- the pipeline's stage-boundary transport ----------------------------------
+#
+# Activations ("fwd"), gradients of a stage's input ("bwd") and the batch
+# loss ("loss") between pipeline stages. Messages between one pair of
+# ranks on one group are matched in the order they were posted, so the
+# schedule's order is the wire's: forward receives are posted at most one
+# microbatch ahead, and a backward receive is posted only when its
+# backward runs (``fleet/meta_parallel/pipeline_parallel.py``). A gloo
+# send returns before its peer posts the receive (the bytes wait in
+# gloo's own buffers), so a send never blocks the schedule.
+
+class PipelineWireMismatch(RuntimeError):
+    """A pp receive popped a message whose (kind, microbatch) tag is not
+    the one the schedule expected: the stages' schedules diverged."""
 
 
-pp_send = pp_send_fwd = pp_send_bwd = pp_recv = _pipeline
+_PP_KINDS = ("fwd", "bwd", "loss")
+_PP_DTYPES = (torch.float32, torch.float16, torch.bfloat16, torch.float64,
+              torch.int64, torch.int32, torch.bool, torch.uint8, torch.int8)
+_MAX_DIMS = 6
+# kind, microbatch, dtype code, sender, ndim, dims
+_HEADER_LEN = 5 + _MAX_DIMS
+_PP_STATS = {"sends": 0, "recvs": 0, "bytes_sent": 0, "bytes_received": 0}
+
+
+def pp_stats():
+    """{'sends', 'recvs', 'bytes_sent', 'bytes_received'} of this rank's
+    stage-boundary messages (header and payload bytes) since the last
+    ``reset_pp_stats``."""
+    return dict(_PP_STATS)
+
+
+def reset_pp_stats():
+    _PP_STATS.update(sends=0, recvs=0, bytes_sent=0, bytes_received=0)
+
+
+class _P2PWorks:
+    """A message's backend works (header, payload) as one: no future, so
+    it lands when its first waiter's ``wait`` returns; a receive's wait
+    honours its deadline (``P2PTimeout``)."""
+
+    def __init__(self, works, peer=None, timeout=None):
+        self._works = works
+        self._peer = peer
+        self._timeout = timeout
+
+    def get_future(self):
+        raise RuntimeError("a pp message has no future")
+
+    def wait(self):
+        """Wait once: a gloo point-to-point work waited on again would
+        wait for the next message."""
+        from .collective import _wait_recv
+        while self._works:
+            w = self._works[0]
+            if self._peer is None:
+                w.wait()
+            else:
+                _wait_recv(w, self._peer, self._timeout)
+            self._works.pop(0)
+        return True
+
+
+def _pp_group(group):
+    from .collective import _get_group
+    return _get_group(group)
+
+
+def _pp_staged(group, device):
+    from .sep_transport import _stages
+    return _stages(group, device)
+
+
+def pp_send(tensor, dst, kind, mb, group=None):
+    """Send ``tensor`` (a stage's activation, the gradient of its input,
+    or the loss) for microbatch ``mb`` to global rank ``dst``, tagged
+    (``kind``, ``mb``); returns the pending work. The tensor is read
+    before this returns when it travels through the host, else when the
+    backend sends it (the caller must not write it meanwhile)."""
+    import torch.distributed as tdist
+    from .collective import _need_world, _raw
+    from .env import get_rank
+    _need_world("pp_send")
+    t = _raw(tensor).detach()
+    if t.dim() > _MAX_DIMS:
+        raise ValueError(f"pp_send: {t.dim()} dims (at most {_MAX_DIMS})")
+    g = _pp_group(group)
+    staged = _pp_staged(g, t.device)
+    payload = t.contiguous().reshape(-1)
+    if staged:
+        payload = payload.cpu()
+    head = [_PP_KINDS.index(kind), int(mb), _PP_DTYPES.index(t.dtype),
+            get_rank(), t.dim()] + list(t.shape) + [0] * (_MAX_DIMS - t.dim())
+    header = torch.tensor(head, dtype=torch.int64,
+                          device=payload.device)
+    nbytes = header.numel() * 8 + payload.numel() * payload.element_size()
+    _PP_STATS["sends"] += 1
+    _PP_STATS["bytes_sent"] += nbytes
+
+    def start():
+        return _P2PWorks([tdist.isend(header, dst, group=g.pg),
+                          tdist.isend(payload, dst, group=g.pg)])
+
+    return get_plane().launch(start, label=f"pp.send_{kind}:{mb}",
+                              span=f"pp.send_{kind}", peer=dst, mb=int(mb),
+                              nbytes=nbytes)
+
+
+def pp_send_fwd(tensor, dst, mb, group=None):
+    """Send microbatch ``mb``'s stage-boundary activation downstream."""
+    return pp_send(tensor, dst, "fwd", mb, group)
+
+
+def pp_send_bwd(tensor, dst, mb, group=None):
+    """Send the gradient of microbatch ``mb``'s stage input upstream."""
+    return pp_send(tensor, dst, "bwd", mb, group)
+
+
+def pp_recv(src, kind, mb, timeout=None, group=None, device=None):
+    """Receive microbatch ``mb``'s (``kind``) tensor from global rank
+    ``src``: the header's receive is posted now, the payload's once the
+    header landed; the pending work's ``result()`` is the tensor, on
+    ``device`` (default: where the wire leaves it). A popped tag other
+    than (``kind``, ``mb``) raises ``PipelineWireMismatch`` on the
+    waiter. ``timeout=None``: the ``PADDLE_P2P_TIMEOUT`` deadline."""
+    import torch.distributed as tdist
+    from .collective import _need_world
+    _need_world("pp_recv")
+    g = _pp_group(group)
+    if timeout is None:
+        timeout = _p2p_timeout()
+    wire = torch.device("cpu")
+    if device is not None and not _pp_staged(g, torch.device(device)):
+        wire = torch.device(device)
+    header = torch.empty(_HEADER_LEN, dtype=torch.int64, device=wire)
+
+    def start():
+        return _P2PWorks([tdist.irecv(header, src, group=g.pg)], src,
+                         timeout)
+
+    plane = get_plane()
+
+    def landed():
+        head = header.tolist()
+        ndim = head[4]
+        shape = tuple(head[5:5 + ndim])
+        dtype = _PP_DTYPES[head[2]]
+        payload = torch.empty(math.prod(shape), dtype=dtype, device=wire)
+        t0 = plane.clock.monotonic_ns()
+        _P2PWorks([tdist.irecv(payload, src, group=g.pg)], src,
+                  timeout).wait()
+        plane._exposed_comm(plane.clock.monotonic_ns() - t0)
+        _PP_STATS["recvs"] += 1
+        _PP_STATS["bytes_received"] += header.numel() * 8 + \
+            payload.numel() * payload.element_size()
+        tag = (_PP_KINDS[head[0]], head[1])
+        if tag != (str(kind), int(mb)):
+            raise PipelineWireMismatch(
+                f"pp.recv expected ({kind!r}, mb={mb}) from rank {src} "
+                f"but popped tag {tag}: stage schedules diverged")
+        out = payload.reshape(shape)
+        return out if device is None else out.to(device)
+
+    return plane.launch(start, then=landed, label=f"pp.recv_{kind}:{mb}",
+                        span="pp.recv", peer=src, kind=str(kind), mb=int(mb))
 
 
 def prefetched(thunks, depth=1):

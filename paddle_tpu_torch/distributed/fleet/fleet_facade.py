@@ -4,11 +4,13 @@ fleet_facade.py``; upstream ``fleet/fleet.py``).
 
 ``init`` joins the world (``init_parallel_env``), reads the degrees of
 ``strategy.hybrid_configs`` (``dp_degree`` -1 takes the rest of the
-world), builds the mesh and its groups and makes it the default, so the
-TP layers, ZeRO, ``CompiledTrainStep``, ``Model.fit`` and the checkpoint
-read one topology. ``distributed_model`` wraps the model in a
-``DataParallel`` over the data axes only (dp x sharding), never over mp
-or sep (the optimizer's step sums gradients over sep).
+world; ``pp_degree`` the pipeline's stages, with ``strategy.
+pipeline_configs``), builds the mesh and its groups and makes it the
+default, so the TP layers, ZeRO, the pipeline, ``CompiledTrainStep``,
+``Model.fit`` and the checkpoint read one topology. ``distributed_model``
+wraps the model in a ``DataParallel`` over the data axes only (dp x
+sharding), never over mp or sep (the optimizer's step sums gradients over
+sep), and a ``PipelineLayer`` in a ``PipelineParallel``.
 ``distributed_optimizer`` wraps the optimizer in a
 ``HybridParallelOptimizer`` (the global-norm clip across the groups);
 with a sharding degree above 1 it first shards the optimizer's state over
@@ -85,13 +87,16 @@ def distributed_model(model):
     """``model`` in a ``DataParallel`` over the data axes (dp x sharding)
     of the fleet's mesh; a ZeRO-2/3 model (``group_sharded_parallel``'s)
     as it is, since its gradients are averaged onto their rows by its own
-    rules; a ``PipelineLayer`` raises (ROADMAP A7)."""
+    rules; a ``PipelineLayer`` in a ``PipelineParallel`` over the pp axis
+    (its ``train_batch`` averages each stage's gradients over the data
+    axes itself)."""
     _ensure_init()
     from .meta_parallel.pp_layers import PipelineLayer
     from .meta_parallel.sharding import GroupShardedStage2, GroupShardedStage3
     if isinstance(model, PipelineLayer):
-        raise NotImplementedError("the pipeline is not ported yet "
-                                  "(ROADMAP A7)")
+        from .meta_parallel.pipeline_parallel import PipelineParallel
+        return PipelineParallel(model, _fleet_state["hcg"],
+                                _fleet_state["strategy"])
     if isinstance(model, (GroupShardedStage2, GroupShardedStage3)):
         return model
     from ..parallel import DataParallel

@@ -1,10 +1,13 @@
 """``fleet.meta_parallel`` of the port: the TP layers, the RNG tracker,
-ZeRO (``sharding``) and the hybrid optimizer. The pipeline's classes are
-importable and raise on use (ROADMAP A7)."""
+ZeRO (``sharding``), the hybrid optimizer, and the pipeline: its layer
+descriptions (``pp_layers``), the eager trainer with its 1F1B,
+zero-bubble and GPipe schedules (``pipeline_parallel``) and the
+explicit-rank SPMD schedule the stacked GPT runs (``spmd_pipeline``)."""
 from .mp_layers import (ColumnParallelLinear, RowParallelLinear,
                         VocabParallelEmbedding, ParallelCrossEntropy)
-from .pp_layers import (LayerDesc, SharedLayerDesc, PipelineLayer,
-                        PipelineParallel)
+from .pp_layers import LayerDesc, SharedLayerDesc, PipelineLayer
+from .pipeline_parallel import (PipelineParallel, MicroBatchSplitError,
+                                PipelineSpecMismatch)
 from .hybrid_optimizer import HybridParallelOptimizer
 from .sharding import (group_sharded_parallel, save_group_sharded_model,
                        GroupShardedStage2, GroupShardedStage3,

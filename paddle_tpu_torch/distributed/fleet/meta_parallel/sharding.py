@@ -500,9 +500,30 @@ def sync_gradients(params, grads, mesh, sync_plain=True, bucket_mb=25):
     gradients are first summed over sep, whether or not a DataParallel
     averaged them over the data axes: each sep rank differentiated the
     global loss through its own chunk of the sequence (``text/gpt.py``
-    under ``context_parallel``). ZeRO with sep raises (ROADMAP A7)."""
+    under ``context_parallel``). ZeRO with sep raises (ROADMAP A7).
+
+    On a mesh with a pp axis, a parameter outside the pipeline
+    (``_pp_replicated``: replicated over pp, each rank holding its 1/pp
+    share of the gradient, ``text/gpt.py`` ``GPTForPretrainingPipe``) is
+    first summed over pp, so every pp rank ends with the whole gradient; a
+    stage's own parameter keeps its stage's. ZeRO with the pipeline raises
+    (ROADMAP A7)."""
     from ...collective import ReduceOp
     from ...parallel import all_reduce_gradients
+    grads = list(grads)
+    pp = mesh.group("pp")
+    if pp.nranks > 1:
+        if any(getattr(p, "_zero", None) is not None for p in params):
+            raise NotImplementedError(
+                "ZeRO sharding with the pipeline (pp_degree > 1) is not "
+                "ported yet (ROADMAP A7)")
+        rep = [i for i, p in enumerate(params)
+               if getattr(p, "_pp_replicated", False)]
+        if rep:
+            summed = all_reduce_gradients([grads[i] for i in rep], pp,
+                                          bucket_mb, op=ReduceOp.SUM)
+            for i, g in zip(rep, summed):
+                grads[i] = g
     sep = mesh.group("sep")
     if sep.nranks > 1:
         if any(getattr(p, "_zero", None) is not None for p in params):
@@ -553,7 +574,10 @@ def hybrid_clip(clip, params, grads, mesh):
     replicated ones counted once, ZeRO rows summed over sharding; the same
     scale as ``ClipGradByGlobalNorm`` in one process on the whole model.
     Every parameter is replicated over sep, with its gradient summed over
-    sep before the clip, so no sum runs over sep: each counts once."""
+    sep before the clip, so no sum runs over sep: each counts once. A
+    pipeline stage's own parameter (``_pp_stage``: an eager stage's layer,
+    a stacked row) has its squares summed over pp; one replicated over pp
+    counts once."""
     from ....nn.clip import ClipGradByGlobalNorm, ClipGradByNorm, \
         ClipGradByValue
     if clip is None:
@@ -571,7 +595,12 @@ def hybrid_clip(clip, params, grads, mesh):
     from ...collective import all_reduce
     dev = grads[0].device
     parts = torch.zeros(4, dtype=torch.float32, device=dev)
+    pp = mesh.group("pp")
+    staged = torch.zeros(1, dtype=torch.float32, device=dev)
     for p, g in zip(params, grads):
+        if pp.nranks > 1 and getattr(p, "_pp_stage", None) is not None:
+            staged += torch.sum(torch.square(g.float()))
+            continue
         z = getattr(p, "_zero", None)
         k = (0 if is_mp_split(p) else 2) + \
             (0 if z is not None and z.grad_sharded else 1)
@@ -585,7 +614,9 @@ def hybrid_clip(clip, params, grads, mesh):
     mp = mesh.group("mp")
     if mp.nranks > 1:
         all_reduce(split, group=mp)
-    total = split[0] + parts[2] + parts[3]
+    if pp.nranks > 1:
+        all_reduce(staged, group=pp)
+    total = split[0] + parts[2] + parts[3] + staged[0]
     scale = torch.clamp(clip.clip_norm / torch.clamp(torch.sqrt(total),
                                                      min=1e-12), max=1.0)
     return [g * scale.to(g.dtype) for g in grads]

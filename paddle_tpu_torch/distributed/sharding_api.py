@@ -22,9 +22,12 @@ multiply to the world give the remainder to dp, and still-wrong degrees
 raise ``ValueError``. The sep axis carries context parallelism
 (``ops/ring_attention.py``, ``nn.functional.sep_parallel_attention``):
 its ranks share a batch's rows and split its sequence
-(``sep_local_batch``). The pipeline (pp > 1) and DCN data parallelism
-(``dcn_dp`` > 1, ``dcn_grad_sync``) raise ``NotImplementedError`` naming
-ROADMAP A7.
+(``sep_local_batch``). The pp axis carries the pipeline
+(``fleet/meta_parallel/{pipeline_parallel,spmd_pipeline}.py``): its ranks
+share a batch's rows, each holding one stage's layers, so
+``data_rank_world`` and ``process_local_batch`` stay over the data axes.
+A mesh with both pp and sep above 1, and DCN data parallelism (``dcn_dp``
+> 1, ``dcn_grad_sync``), raise ``NotImplementedError`` naming ROADMAP A7.
 
 ``process_local_batch`` keeps its contract: each process keeps its own
 rows (a rank already holds them: nothing is assembled), and a ragged
@@ -142,8 +145,9 @@ def build_mesh(dp=1, pp=1, sharding=1, sep=1, mp=1, devices=None, dcn_dp=1):
             raise ValueError(
                 f"mesh degrees {degrees} x dcn_dp={dcn_dp} do not multiply "
                 f"to {n} devices")
-    if degrees["pp"] > 1:
-        raise _a7("the pipeline (pp_degree > 1)")
+    if degrees["pp"] > 1 and degrees["sep"] > 1:
+        raise _a7("the pipeline with context parallelism (pp_degree > 1 "
+                  "and sep_degree > 1)")
     return Mesh([degrees[a] for a in AXES])
 
 

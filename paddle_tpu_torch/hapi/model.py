@@ -50,6 +50,13 @@ def _to_list(x):
 
 class Model:
     def __init__(self, network, inputs=None, labels=None):
+        from ..distributed.fleet.meta_parallel.pipeline_parallel import \
+            PipelineParallel
+        if isinstance(network, PipelineParallel):
+            raise NotImplementedError(
+                "Model over a PipelineParallel (fit, evaluate and predict "
+                "through the pipeline's schedule) is not ported yet "
+                "(ROADMAP A7); call its train_batch and eval_batch")
         self.network = network
         self._inputs = inputs
         self._labels = labels

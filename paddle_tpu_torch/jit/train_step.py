@@ -63,6 +63,13 @@ come from its chunk of the sequence, so ``sync_gradients`` first sums
 them over sep; the loss a context-parallel GPT returns is already the
 global one.
 
+Pipeline parallelism: the step first calls ``commit_param_shardings`` on
+every layer that has it (``GPTForPretrainingPipe``: each pp rank keeps
+its stage's stacked rows), as the reference's does before it builds its
+step. ``sync_gradients`` then sums the parameters outside the pipeline
+over pp (each rank holds its share) and the clip sums the stage rows'
+squares over pp.
+
 Not in this slice: the DGC/LocalSGD meta-optimizers, refused with an
 error.
 """
@@ -137,6 +144,13 @@ class CompiledTrainStep:
         self.optimizer = optimizer
         self.amp_level = amp_level
         self.compute_dtype = _COMPUTE_DTYPES[amp_dtype]
+        # a pipelined model keeps its stage's rows before anything reads
+        # the parameters (the reference commits its placements here)
+        for layer in layers:
+            for m in layer.modules():
+                commit = getattr(m, "commit_param_shardings", None)
+                if commit is not None:
+                    commit()
         self._module = _Bound(layers, fn)
         self._named = list(self._module.named_parameters())
         self.trainable = [p for _, p in self._named if p.requires_grad]

@@ -1,6 +1,6 @@
-"""GPT decoder transformer (counterpart: ``paddle_tpu/text/gpt.py``,
-the ``GPTForPretraining`` family; no stacked or pipelined variant yet,
-ROADMAP A7).
+"""GPT decoder transformer (counterpart: ``paddle_tpu/text/gpt.py``):
+``GPTForPretraining``, and the stacked, pipelined ``StackedGPTBlocks`` and
+``GPTForPretrainingPipe`` (described at their classes).
 
 ``Linear`` (``nn/layer/common.py``) keeps Paddle's [in, out] weight
 layout (``y = x @ W + b``), so the port's parameters are the JAX model's
@@ -57,6 +57,9 @@ plain one. With ``sequence_parallel`` it raises (ROADMAP A7).
 """
 from __future__ import annotations
 
+import math
+
+import numpy as np
 import torch
 from torch import nn
 
@@ -443,3 +446,301 @@ def gpt_large(**kw):
 
 def gpt3_6_7b(**kw):
     return GPTConfig(hidden_size=4096, num_layers=32, num_heads=32, **kw)
+
+
+# -- the stacked blocks and the pipelined GPT ---------------------------------
+
+_STACKED_ORDER = ("ln1_w", "ln1_b", "qkv_w", "qkv_b", "out_w", "out_b",
+                  "ln2_w", "ln2_b", "fc_in_w", "fc_in_b", "fc_out_w",
+                  "fc_out_b")
+
+
+def _pp_group():
+    """The default mesh's pp group when it has more than one rank."""
+    from ..distributed.sharding_api import peek_default_mesh
+    mesh = peek_default_mesh()
+    if mesh is None or mesh.shape["pp"] == 1:
+        return None
+    return mesh.group("pp")
+
+
+def _stacked_init(name, shape, std, gen):
+    """The reference's init of a stacked tensor: norms' weights one,
+    biases zero, the rest normal(0, std)."""
+    if name in ("ln1_w", "ln2_w"):
+        return torch.ones(shape)
+    if name.endswith("_b"):
+        return torch.zeros(shape)
+    return torch.normal(0.0, std, shape, generator=gen)
+
+
+class StackedGPTBlocks(Layer):
+    """All transformer blocks as stacked parameters, the layer on
+    dimension 0: ``qkv_w`` [L, H, 3, H], ``qkv_b`` [L, 3, H], ``out_w``
+    [L, H, H], ``fc_in_w`` [L, H, FF], ``fc_out_w`` [L, FF, H], the norms
+    and the other biases [L, H] or [L, FF] (``_param_order``). The block
+    is the reference's ``_block_fn``: pre-norm (LayerNorm at epsilon
+    1e-5, or RMSNorm at 1e-6), the qkv split by columns, causal attention
+    through K2/K3 (``flash_attention_values``) where their gate admits the
+    shape and the plain attention elsewhere, ``gelu(approximate=True)``,
+    the biases added after the row products. No dropout.
+
+    On a mesh with pp > 1 the layers run as the SPMD pipeline
+    (``fleet/meta_parallel/spmd_pipeline.py``) over the pp group;
+    otherwise in natural layer order. With ``n_chunks`` > 1 on such a mesh
+    the rows are stored chunk-major (``interleave_row_order``), so each
+    stage's rows are contiguous; ``state_dict`` holds that layout.
+    ``commit_param_shardings`` keeps this rank's stage's rows (a pp
+    rank's ``state_dict`` returns its rows, their ``Placement`` the
+    global shape), as ``CompiledTrainStep`` does first. ``tensor_parallel``
+    inside the pipeline (pp and mp above 1) raises naming ROADMAP A7;
+    on a mesh that cannot honour it, it warns once and is ignored, as in
+    the reference."""
+
+    def __init__(self, cfg, n_chunks=1, device=None, dtype=torch.float32,
+                 seed=0, generator=None):
+        super().__init__()
+        if cfg.dropout:
+            raise ValueError(
+                "StackedGPTBlocks does not support dropout; set dropout=0 "
+                "or use GPTForPretraining")
+        device = resolve_device(device)
+        self.tensor_parallel = bool(cfg.tensor_parallel)
+        L, H, FF = cfg.num_layers, cfg.hidden_size, cfg.intermediate_size
+        self.num_layers = L
+        self.num_heads = cfg.num_heads
+        self.head_dim = H // cfg.num_heads
+        self.use_rmsnorm = cfg.use_rmsnorm
+        self._param_order = _STACKED_ORDER
+        shapes = {"ln1_w": [L, H], "ln1_b": [L, H], "qkv_w": [L, H, 3, H],
+                  "qkv_b": [L, 3, H], "out_w": [L, H, H], "out_b": [L, H],
+                  "ln2_w": [L, H], "ln2_b": [L, H], "fc_in_w": [L, H, FF],
+                  "fc_in_b": [L, FF], "fc_out_w": [L, FF, H],
+                  "fc_out_b": [L, H]}
+        gen = generator if generator is not None else \
+            torch.Generator().manual_seed(int(seed))
+        for name in self._param_order:
+            value = _stacked_init(name, shapes[name], cfg.initializer_range,
+                                  gen)
+            setattr(self, name, nn.Parameter(value.to(device=device,
+                                                      dtype=dtype)))
+        self._n_chunks = 1
+        self._inv_order = None
+        self._stage = None
+        group = _pp_group()
+        if n_chunks > 1 and group is not None:
+            from ..distributed.fleet.meta_parallel.spmd_pipeline import \
+                interleave_row_order
+            order = interleave_row_order(L, group.nranks, n_chunks)
+            with torch.no_grad():
+                for name in self._param_order:
+                    p = getattr(self, name)
+                    p.data = p.data[torch.as_tensor(order)].contiguous()
+            self._n_chunks = n_chunks
+            self._inv_order = torch.as_tensor(np.argsort(order))
+
+    def _params(self):
+        return tuple(getattr(self, n) for n in self._param_order)
+
+    def _block(self, p, x):
+        (ln1w, ln1b, qkvw, qkvb, outw, outb,
+         ln2w, ln2b, fiw, fib, fow, fob) = p
+        b, s, _ = x.shape
+        hd = self.head_dim
+        hin, _, hloc = qkvw.shape[-3:]
+        a = self._ln(x, ln1w, ln1b)
+        qkv = a @ qkvw.reshape(hin, 3 * hloc) + qkvb.reshape(3 * hloc)
+        nh = hloc // hd
+        q = qkv[..., :hloc].reshape(b, s, nh, hd)
+        k = qkv[..., hloc:2 * hloc].reshape(b, s, nh, hd)
+        v = qkv[..., 2 * hloc:].reshape(b, s, nh, hd)
+        from ..nn.functional.attention import _sdpa_impl
+        from ..ops import cuda_kernels as ck
+        if ck.flash_attention_available(q, k, v, causal=True):
+            o = ck.flash_attention_values(q, k, v, causal=True)
+        else:
+            o = _sdpa_impl(q, k, v, None, 1.0 / math.sqrt(hd), True)
+        o = o.reshape(b, s, hloc) @ outw
+        x = x + o + outb
+        a = self._ln(x, ln2w, ln2b)
+        a = torch.nn.functional.gelu(a @ fiw + fib, approximate="tanh")
+        return x + a @ fow + fob
+
+    def _ln(self, x, w, b):
+        if self.use_rmsnorm:
+            ms = torch.mean(torch.square(x), dim=-1, keepdim=True)
+            return x * torch.rsqrt(ms + 1e-6) * w
+        m = torch.mean(x, dim=-1, keepdim=True)
+        v = torch.var(x, dim=-1, keepdim=True, unbiased=False)
+        return (x - m) * torch.rsqrt(v + 1e-5) * w + b
+
+    def _stage_rows(self, group):
+        """[lo, hi) of this stage's rows in the (chunk-major) storage."""
+        per = self.num_layers // group.nranks
+        return group.rank * per, (group.rank + 1) * per
+
+    @torch.no_grad()
+    def commit_param_shardings(self):
+        """Keep this pp rank's rows (a no-op without a pp axis, and once
+        done): each parameter holds [L/pp, ...] with its ``Placement``
+        over the pp axis."""
+        group = _pp_group()
+        if group is None or self._stage is not None:
+            return
+        from ..distributed.sharding_api import Placement, place
+        if self.num_layers % group.nranks:
+            raise ValueError(f"{self.num_layers} layers do not split over "
+                             f"pp {group.nranks}")
+        lo, hi = self._stage_rows(group)
+        for p in self._params():
+            shape = tuple(p.shape)
+            p.data = p.data[lo:hi].clone()
+            local = ((0, hi - lo),) + tuple((0, s) for s in shape[1:])
+            glob = ((lo, hi),) + tuple((0, s) for s in shape[1:])
+            place(p, Placement(shape, [(local, glob)], ("pp",)))
+            p._pp_stage = group.rank
+        self._stage = group.rank
+
+    def _check_tensor_parallel(self, pp):
+        from ..distributed.sharding_api import peek_default_mesh
+        mesh = peek_default_mesh()
+        mp = mesh.shape["mp"] if mesh is not None else 1
+        if not self.tensor_parallel:
+            return
+        if pp > 1 and mp > 1:
+            raise NotImplementedError(
+                "StackedGPTBlocks: tensor_parallel inside the pipeline (pp "
+                "and mp above 1: whole heads of q, k and v a rank, the mp "
+                "sums in the block) is not ported yet (ROADMAP A7)")
+        if not getattr(self, "_tp_warned", False):
+            import warnings
+            warnings.warn(
+                "StackedGPTBlocks: tensor_parallel=True has no effect on "
+                f"this mesh (pp={pp}, mp={mp}); "
+                "weights stay replicated. TP-in-pipeline needs pp>1 and "
+                "mp>1; for TP without a pipeline use GPTForPretraining "
+                "(mp_layers).", UserWarning, stacklevel=3)
+            self._tp_warned = True
+
+    def forward(self, x, n_microbatch=None, remat=False):
+        group = _pp_group()
+        self._check_tensor_parallel(group.nranks if group else 1)
+        params = self._params()
+        if group is not None:
+            from ..distributed.fleet.meta_parallel.spmd_pipeline import \
+                spmd_pipeline
+            if params[0].shape[0] == self.num_layers:
+                lo, hi = self._stage_rows(group)      # not committed
+                params = tuple(p[lo:hi] for p in params)
+            return spmd_pipeline(self._block, params, x,
+                                 n_microbatch or group.nranks, group,
+                                 n_chunks=self._n_chunks, remat=remat,
+                                 param_rows=self.num_layers)
+        if self._inv_order is not None:
+            # chunk-major storage; the sequential loop runs natural order
+            params = tuple(p[self._inv_order.to(p.device)] for p in params)
+        for layer in range(params[0].shape[0]):
+            x = self._block(tuple(p[layer] for p in params), x)
+        return x
+
+
+class _LossShare(torch.autograd.Function):
+    """The loss as it is; its gradient divided by the pp degree: every pp
+    rank computes the same loss from the broadcast output, so each
+    differentiates its 1/pp share and the sum over pp
+    (``sharding.sync_gradients``) counts the head once."""
+
+    @staticmethod
+    def forward(ctx, loss, n):
+        ctx.n = n
+        return loss.clone()
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad / ctx.n, None
+
+
+class GPTForPretrainingPipe(Layer):
+    """The pipeline-parallel GPT: the embeddings, ``ln_f`` and the head
+    (tied to ``wte`` or not) run on every pp rank, outside the pipelined
+    ``StackedGPTBlocks``. ``n_chunks`` > 1 picks the interleaved schedule,
+    ``remat`` recomputes each tick's chunk in the backward, ``labels``
+    give ``(logits, loss)`` (the loss in fp32, as ``GPTForPretraining``'s).
+
+    On a pp mesh the output of the blocks is the last stage's, broadcast
+    to every rank, so every rank computes the same loss; each takes 1/pp
+    of its gradient, and ``sharding.sync_gradients`` sums the parameters
+    outside the pipeline (marked ``_pp_replicated``) over pp: a tied
+    ``wte`` gets its head part from every rank's share and its embedding
+    part from stage 0 alone, each counted once. A stacked row's gradient
+    is its own stage's. Weights are drawn from ``seed`` in parameter
+    order on the CPU (normal(0, ``initializer_range``), biases zero,
+    norms one), the same on every rank."""
+
+    def __init__(self, config, n_microbatch=None, n_chunks=1, remat=False,
+                 device=None, dtype=torch.float32, seed=0):
+        super().__init__()
+        device = resolve_device(device)
+        self.config = config
+        self.n_microbatch = n_microbatch
+        self.n_chunks = n_chunks
+        self.remat = remat
+        gen = torch.Generator().manual_seed(int(seed))
+        std = config.initializer_range
+        V, H = config.vocab_size, config.hidden_size
+        self.wte = nn.Embedding(V, H, device=device, dtype=dtype)
+        self.wpe = nn.Embedding(config.max_seq_len, H, device=device,
+                                dtype=dtype)
+        with torch.no_grad():
+            for emb in (self.wte, self.wpe):
+                emb.weight.copy_(torch.normal(0.0, std,
+                                              tuple(emb.weight.shape),
+                                              generator=gen))
+        self.blocks = StackedGPTBlocks(config, n_chunks=n_chunks,
+                                       device=device, dtype=dtype,
+                                       generator=gen)
+        self.ln_f = _norm(config, device, dtype)
+        if not config.tie_word_embeddings:
+            self.lm_head = Linear(H, V, bias=False, device=device,
+                                  dtype=dtype)
+            with torch.no_grad():
+                self.lm_head.weight.copy_(torch.normal(0.0, std, (H, V),
+                                                       generator=gen))
+        for name, p in self.named_parameters():
+            if not name.startswith("blocks."):
+                p._pp_replicated = True
+
+    @property
+    def device(self):
+        return self.wte.weight.device
+
+    def forward(self, input_ids, labels=None, position_ids=None):
+        b, s = input_ids.shape
+        if position_ids is None:
+            position_ids = torch.arange(s, device=input_ids.device)[None]
+        x = add(F.embedding(input_ids, self.wte.weight),
+                F.embedding(position_ids, self.wpe.weight))
+        x = self.blocks(x, n_microbatch=self.n_microbatch, remat=self.remat)
+        x = self.ln_f(x)
+        if self.config.tie_word_embeddings:
+            logits = matmul(x, self.wte.weight, transpose_y=True)
+        else:
+            logits = self.lm_head(x)
+        if labels is None:
+            return logits
+        loss = F.cross_entropy(logits.reshape(-1, logits.shape[-1]).float(),
+                               labels.reshape(-1))
+        group = _pp_group()
+        if group is not None:
+            loss = _LossShare.apply(loss, group.nranks)
+        return logits, loss
+
+    def commit_param_shardings(self):
+        """The stacked rows of this stage (the rest stays whole on every
+        pp rank)."""
+        self.blocks.commit_param_shardings()
+
+    def num_parameters(self):
+        return sum(p.numel() for p in self.parameters())
+
+    flops_per_token = GPTForPretraining.flops_per_token

@@ -69,6 +69,8 @@ FLASH_CASES = {   # b, sq, sk, h, kh, d, causal
     "cp_earlier_owner": (2, 4096, 2048, 12, 12, 64, False),
     "cp_later_owner": (2, 2048, 4096, 12, 12, 64, False),
     "cp_ulysses": (2, 8192, 8192, 6, 6, 64, True),
+    # the pipeline path's microbatch: GPT-124M's 16 x 1024 in 8 pieces
+    "pp_microbatch": (2, 1024, 1024, 12, 12, 64, True),
 }
 # the training path's attention, GPT-124M at batch 16
 TRAIN_CASE = (16, 1024, 1024, 12, 12, 64, True)
@@ -828,3 +830,43 @@ def test_dataloader_workers_leave_cuda_uninitialized(cuda_device):
     assert rows[:, 0].tolist() == list(range(32))
     # no worker initialized CUDA, at its init or after its samples
     assert (rows[:, 4] == 0).all() and (rows[:, 5] == 0).all()
+
+
+_PP_ROUND_TRIP = """
+import torch
+import paddle_tpu_torch.distributed as dist
+from paddle_tpu_torch.distributed import comm_plane as cp
+dist.init_parallel_env()
+r = dist.get_rank()
+assert dist.get_backend() == "gloo"
+g = torch.Generator().manual_seed(0)
+x = torch.randn(2, 1024, 768, generator=g).to("cuda", torch.bfloat16)
+if r == 0:
+    cp.pp_send(x, 1, "fwd", 0).wait()
+    back = cp.pp_recv(1, "bwd", 0, device="cuda").result()
+    assert back.is_cuda and back.dtype == torch.bfloat16
+    assert torch.equal(back, x)
+else:
+    got = cp.pp_recv(0, "fwd", 0, device="cuda").result()
+    assert got.is_cuda and torch.equal(got, x)
+    cp.pp_send(got, 0, "bwd", 0).wait()
+stats = cp.pp_stats()
+assert stats["sends"] == 1 and stats["recvs"] == 1, stats
+assert stats["bytes_sent"] == 2 * 1024 * 768 * 2 + 88, stats
+print(f"rank{r} ok", flush=True)
+dist.destroy_process_group()
+"""
+
+
+def test_pp_boundary_round_trip_through_the_host_on_gloo(cuda_device,
+                                                         tmp_path):
+    """One bf16 stage-boundary tensor ([2, 1024, 768], a microbatch's
+    state) from rank 0 to rank 1 and back over gloo, two ranks sharing
+    the card: gloo moves no CUDA tensor point to point, so the comm
+    plane stages it through the host; the bits arrive unchanged, on the
+    card, with one send and one receive counted a rank."""
+    from _torch_dist_helpers import assert_ranks_ok, launch
+    proc, logs = launch(tmp_path, _PP_ROUND_TRIP, nproc=2, timeout=240,
+                        extra_env={"PADDLE_DISTRI_BACKEND": "gloo",
+                                   "OMP_NUM_THREADS": "4"})
+    assert_ranks_ok(proc, logs)

@@ -10,14 +10,16 @@ eight ranks is a layout whose groups are rank lists.
   query equal to the reference's.
 - ``build_mesh``: the remainder goes to dp, a degree set that cannot
   multiply to the world raises ``ValueError`` in both packages, and the
-  pipeline (also on a mesh with a sep axis) and DCN raise
+  pipeline on a mesh with a sep axis and DCN raise
   ``NotImplementedError`` naming ROADMAP A7. A sep axis alone builds
-  (context parallelism, ``tests/test_torch_context_parallel.py``).
+  (context parallelism, ``tests/test_torch_context_parallel.py``), and so
+  does a pp axis: its groups equal the reference's.
 - ``fleet.init``'s mesh for dp 4 x mp 2 (``tests/test_fleet_e2e.py:68``):
   the reference's axis order and sizes.
-- What is not ported raises, naming ROADMAP A7: the pipeline classes,
-  the meta-optimizers, ``auto_parallel``, the fleet executor, the
-  ``comm_quant`` strategy field and a quantized ZeRO-3 gather.
+- What is not ported raises, naming ROADMAP A7: a ``Model`` over a
+  ``PipelineParallel``, the meta-optimizers, ``auto_parallel``, the
+  fleet executor, the ``comm_quant`` strategy field and a quantized
+  ZeRO-3 gather.
 """
 import pytest
 
@@ -96,6 +98,31 @@ def test_hybrid_group_matches_the_reference(rank):
         for r in check)
 
 
+@pytest.mark.parametrize("dims", [(1, 2, 1, 1, 1), (1, 4, 1, 1, 1),
+                                  (2, 4, 1, 1, 1), (2, 2, 1, 1, 2)])
+def test_pipe_queries_match_the_reference_at_pp_2_and_4(dims):
+    """Stage ids, neighbours and the rank of every stage, in the order
+    data, pipe, sharding, sep, model, for each rank."""
+    world = 1
+    for d in dims:
+        world *= d
+    for rank in range(world):
+        jenv.set_rank_world_size(rank, world)
+        penv.set_rank_world_size(rank, world)
+        got = HybridCommunicateGroup(CommunicateTopology(dims=dims))
+        want = JHCG(JTopology(dims=dims))
+        assert got.get_stage_id() == want.get_stage_id()
+        assert got.is_first_stage() == want.is_first_stage()
+        assert got.is_last_stage() == want.is_last_stage()
+        assert got.get_pipe_prev_rank() == want.get_pipe_prev_rank()
+        assert got.get_pipe_next_rank() == want.get_pipe_next_rank()
+        assert got.get_pipe_parallel_group().ranks == \
+            want.get_pipe_parallel_group().ranks
+        for stage in range(dims[1]):
+            assert got.get_rank_at_stage(stage) == \
+                want.get_rank_at_stage(stage)
+
+
 @pytest.mark.parametrize("degrees,world", [
     (dict(dp=1, mp=2), 8), (dict(dp=1, sharding=2, mp=2), 8),
     (dict(dp=3, mp=2), 8), (dict(dp=8), 8), (dict(mp=2), 2)])
@@ -115,11 +142,21 @@ def test_build_mesh_refuses_degrees_that_do_not_divide(degrees):
         jbuild_mesh(**degrees)
 
 
-@pytest.mark.parametrize("degrees", [dict(pp=2), dict(pp=2, sep=2),
+@pytest.mark.parametrize("degrees", [dict(pp=4, sep=2), dict(pp=2, sep=2),
                                      dict(dcn_dp=2)])
 def test_the_rest_raises_naming_a7(degrees):
     with pytest.raises(NotImplementedError, match="ROADMAP A7"):
         sa.build_mesh(devices=8, **degrees)
+
+
+@pytest.mark.parametrize("degrees", [dict(pp=2), dict(pp=4),
+                                     dict(dp=2, pp=2, mp=2)])
+def test_a_pp_axis_builds_with_the_reference_groups(degrees):
+    mesh = sa.build_mesh(devices=8, **degrees)
+    jmesh = jbuild_mesh(**degrees)
+    assert mesh.shape == {a: jmesh.shape.get(a, 1) for a in sa.AXES}
+    topo = JTopology(dims=list(mesh.dims))
+    assert mesh.comm_lists(("pp",)) == topo.get_comm_list("pipe")
 
 
 def test_fleet_init_axis_order_matches_the_reference(monkeypatch):
@@ -197,10 +234,15 @@ def test_quantized_zero3_gather_raises_naming_a7():
 
 
 def test_pipeline_classes_raise_naming_a7():
+    """The pipeline's classes are ported; what of the pipeline is left
+    raises naming ROADMAP A7: a ``Model`` over a ``PipelineParallel``."""
+    import torch
+
     from paddle_tpu_torch.distributed.fleet import meta_parallel as mpar
-    for cls in (mpar.PipelineLayer, mpar.PipelineParallel, mpar.LayerDesc,
-                mpar.SharedLayerDesc):
-        with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-            cls()
+    from paddle_tpu_torch.hapi.model import Model
+    layer = mpar.PipelineLayer([mpar.LayerDesc(torch.nn.Tanh)],
+                               num_stages=1)
+    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
+        Model(mpar.PipelineParallel(layer, None, None))
     with pytest.raises(NotImplementedError, match="ROADMAP A7"):
         sa.dcn_grad_sync(None)
