@@ -155,7 +155,25 @@ by route) set to 0 just before it and read just after:
   (GPipe, 9 ticks) and 2 (interleaved, 17 ticks), remat off and on, 1 + 3
   steps each (step ms of the slowest rank, global tokens/s, the schedule,
   boundary messages and bytes or the pipeline's exchanges a step, peak
-  memory a rank; K2 and K3 once per block and microbatch in each stage).
+  memory a rank; K2 and K3 once per block and microbatch in each stage);
+- the gradient's way between ranks (``grad_comm``): GPT-124M at bench.py's
+  widths, O2 bf16, through ``GradientMergeOptimizer`` in this process
+  (AdamW with a global-norm clip, k 4, microbatches of [4, 1024]; tokens/s,
+  one inner step and K2/K3 48 times an applied step) and its fp32 2-layer
+  step against one step on [16, 1024]; then this script again as two gloo
+  ranks sharing the card (``--grad-comm-rank``), each on 8 x 1024:
+  ``LocalSGDOptimizer`` (k 4; the parameters bit-equal after each sync,
+  the fp32 master weights' largest difference between the ranks),
+  ``DGCOptimizer`` (sparsity 0.999; the sends and their average counted,
+  the top-k's ms), their fp32 steps (LocalSGD at k 1, DGC dense) against
+  one process, the quantized data-parallel step after ``fleet.init`` with
+  ``comm_quant`` (wire bytes against fp32's, comm ms, the fp32 gradients
+  within two wire crossings of the exact mean), ERNIE-3.0-base's ZeRO-3
+  gather at sharding 2 exact and quantized (ms and bytes; bit-equal to the
+  whole state and to the codec of it), ``dcn_grad_sync`` of GPT-124M's
+  gradients at dcn 2 in fp32 and int8, at once and asynchronously, and TP
+  GPT-124M at mp 2 with ``ClipGradByNorm`` (step ms) with its fp32 step
+  held to one process.
 
 Last, it times each kernel beside its bound, its plain version and,
 where one exists, a PyTorch call that computes the same function (also
@@ -164,8 +182,9 @@ K1 also at a bytes-heavy shape (64 slots of 1024 tokens), K2 and K3
 also at the ERNIE and BERT paths' non-causal shapes, the hybrid
 path's ranks' shapes ([8, 1024, 6, 64] causal, [8, 512, 12, 64]
 non-causal), the context-parallel path's blocks (``CP_ATTENTION``) and
-the pipeline's microbatch ([2, 1024, 12, 64] causal, ``PP_ATTENTION``),
-and each kernel's
+the pipeline's microbatch ([2, 1024, 12, 64] causal, ``PP_ATTENTION``)
+and GradientMerge's ([4, 1024, 12, 64] causal, ``GC_ATTENTION``), and
+each kernel's
 fp16 route (K2 and K3 at the fp16 AMP path's shape). Each
 phase prints one JSON line; any failure raises and the script exits
 non-zero. It needs a CUDA card: without one it exits 2 and prints no
@@ -424,6 +443,11 @@ PP_SPMD = ((1, False), (1, True), (2, False), (2, True))
 PP_EXACT_LAYERS, PP_EXACT_BATCH, PP_EXACT_MICRO = 4, 4, 4
 PP_STATE_BYTES = 2 * 1024 * 768 * 2      # one microbatch's bf16 state
 PP_DEVICE = "cuda"
+# the grad_comm path: GradientMerge at k 4 over microbatches of [4, 1024]
+# (this process), and two gloo ranks of 8 x 1024 each (the [8, 1024] rank
+# shape is DP_ATTENTION's, the mp rank's HP_ATTENTION's)
+GC_RANKS, GC_K, GC_MICRO, GC_RANK_BATCH = 2, 4, 4, 8
+GC_ATTENTION = [("gm_microbatch", GC_MICRO, 1024, 1024, 12, 12, 64, True)]
 FLASH_CASES = [
     ("gpt124m_causal", 1, 1024, 1024, 12, 12, 64, True),
     ("gqa_causal", 2, 256, 256, 12, 4, 64, True),
@@ -442,7 +466,8 @@ FLASH_CASES = [
     ("d256_causal", 1, 512, 512, 8, 8, 256, True),
     ERNIE_ATTENTION,
     BERT_ATTENTION,
-] + DP_ATTENTION + HP_ATTENTION + CP_ATTENTION + PP_ATTENTION
+] + DP_ATTENTION + HP_ATTENTION + CP_ATTENTION + PP_ATTENTION + \
+    GC_ATTENTION
 # K3: the forward's cases and one with an lse cotangent
 FLASH_BWD_CASES = FLASH_CASES + [
     ("dlse_causal", 1, 256, 256, 12, 12, 64, True)]
@@ -4920,6 +4945,825 @@ def phase_pipeline(torch, ck, smi):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# -- the gradient's way between ranks (grad_comm) -----------------------------
+# GPT-124M at bench.py's widths, O2 bf16. GradientMerge runs in this
+# process (AdamW with a global-norm clip, k 4, avg: 4 microbatches of
+# [4, 1024] an applied step); then two gloo ranks share the card, each on
+# its own 8 x 1024 rows: LocalSGD (the same AdamW, k 4), DGC (SGD lr 1e-4,
+# momentum 0.9, sparsity 0.999, ramp-up 1), the quantized data-parallel
+# step (fleet.init with comm_quant, the eager fp16 recipe), ERNIE's
+# quantized ZeRO-3 gather at sharding 2, dcn_grad_sync of GPT-124M's
+# gradients at dcn 2, and TP GPT-124M at mp 2 with ClipGradByNorm. Each
+# has its fp32 gate at 2 layers; this process holds the ranks' ones to
+# one process. (GC_ATTENTION stands beside FLASH_CASES)
+GC_WARMUP, GC_TIMED = 2, 4
+GC_CLIP_EXACT = 0.01        # the fp32 TP step's ClipGradByNorm
+
+
+def _gc_gpt124m(torch, make_opt, seed=0):
+    """GPT-124M (bench.py's widths) decorated O2 bf16 with the optimizer
+    ``make_opt(parameters)``; returns (config, model, optimizer)."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.text.gpt import GPTForPretraining, gpt_small
+    cfg = gpt_small()
+    model = GPTForPretraining(cfg, device="cuda", seed=seed)
+    model, opt = amp.decorate(model, make_opt(model.parameters()),
+                              level="O2", dtype="bfloat16")
+    return cfg, model, opt
+
+
+def _gc_loss(model, ids, labels):
+    from paddle_tpu_torch import amp
+    with amp.auto_cast(level="O2", dtype="bfloat16"):
+        return model(ids, labels=labels)[1]
+
+
+def _bf16_launches(ck):
+    return {k.name: k.route_launches["bf16"] for k in ck.KERNELS}
+
+
+def _check_launches(ck, before, n, what):
+    got = {k: v - before[k] for k, v in _bf16_launches(ck).items()}
+    if got["flash_fwd"] != n or got["flash_bwd"] != n:
+        raise AssertionError(f"{what} launched {got} on bf16, not {n} each")
+
+
+def _gpt2_fp32(torch, make_opt, seed=0, **kw):
+    """GPT-124M's widths at 2 layers, fp32, on the card, with
+    ``make_opt(named parameters)``."""
+    from paddle_tpu_torch.text.gpt import GPTConfig, GPTForPretraining
+    model = GPTForPretraining(GPTConfig(hidden_size=768, num_layers=2,
+                                        num_heads=12, **kw), device="cuda",
+                              seed=seed)
+    return model, make_opt(model.named_parameters())
+
+
+def _deltas_held(torch, got, before, model):
+    """Updated parameters against this process's ``model``, both from the
+    weights ``before``: every entry of each update (p - p0) within 1e-5
+    of that update's largest entry, plus two fp32 ulps of p0 (the
+    rounding of p0 + update on each side: an update far below p0, as a
+    LayerNorm weight's next to its 1.0, keeps only the bits p0 leaves).
+    Returns the worst error over its tolerance."""
+    ratio = {}
+    for n, p in model.named_parameters():
+        p0 = before[n].double()
+        want = p.detach().cpu().double() - p0
+        have = got[n].double() - p0
+        tol = 1e-5 * float(want.abs().max()) + 2 * 2.0 ** -23 * p0.abs()
+        err = (have - want).abs()
+        ratio[n] = float((err / tol.clamp(min=1e-30)).max())
+    worst = max(ratio, key=ratio.get)
+    return {"delta_max_err_over_tol": ratio[worst], "delta_worst": worst,
+            "rule": "|update_got - update_one| <= 1e-5 max|update_one| + "
+                    "2 ulp(p0), every entry",
+            "held": ratio[worst] <= 1.0}
+
+
+def gc_gradient_merge(torch, ck):
+    """GradientMerge at GPT-124M's widths in this process (AdamW lr 1e-4
+    with ClipGradByGlobalNorm(1.0), k 4, avg), 2 warm-up + 4 timed
+    applied steps of 4 microbatches of [4, 1024]: the merge's return
+    values, one inner AdamW step an applied step, K2/K3 once per layer
+    and microbatch."""
+    from paddle_tpu_torch.distributed.fleet.meta_optimizers import (
+        GradientMergeOptimizer)
+    from paddle_tpu_torch.nn.clip import ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer import AdamW
+    cfg, model, inner = _gc_gpt124m(torch, lambda ps: AdamW(
+        learning_rate=1e-4, parameters=ps,
+        grad_clip=ClipGradByGlobalNorm(1.0)))
+    opt = GradientMergeOptimizer(inner, k_steps=GC_K, avg=True)
+    applied = [0]
+    inner_step = inner.step
+
+    def counted():
+        applied[0] += 1
+        return inner_step()
+    inner.step = counted
+    steps = GC_WARMUP + GC_TIMED
+    ids, labels = (t.cuda() for t in _seeded_ids(
+        torch, cfg.vocab_size, (steps, GC_K, GC_MICRO, cfg.max_seq_len),
+        seed=60))
+    secs, losses, flags = [], [], []
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(steps):
+        before = _bf16_launches(ck)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        micro = []
+        for j in range(GC_K):
+            loss = _gc_loss(model, ids[i, j], labels[i, j])
+            loss.backward()
+            flags.append(opt.step())
+            micro.append(loss.detach())
+        opt.clear_grad()
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        _check_launches(ck, before, cfg.num_layers * GC_K,
+                        f"applied step {i}")
+        losses.append([x.item() for x in micro])
+    if flags != ([False] * (GC_K - 1) + [True]) * steps:
+        raise AssertionError(f"GradientMerge returned {flags}")
+    if applied[0] != steps:
+        raise AssertionError(f"{applied[0]} inner steps for {steps}")
+    if not all(math.isfinite(x) for row in losses for x in row):
+        raise AssertionError(f"non-finite losses {losses}")
+    timed = secs[GC_WARMUP:]
+    step_s = sum(timed) / len(timed)
+    out = {"phase": "grad_comm_gradient_merge", "k_steps": GC_K,
+           "microbatch": [GC_MICRO, cfg.max_seq_len],
+           "applied_step_ms": step_s * 1e3,
+           "applied_step_ms_each": [s * 1e3 for s in secs],
+           "tokens_per_s": GC_K * GC_MICRO * cfg.max_seq_len / step_s,
+           "inner_adamw_steps_per_applied_step": applied[0] / steps,
+           "flash_launches_per_applied_step": [cfg.num_layers * GC_K] * 2,
+           "losses": losses,
+           "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+    del model, inner, opt
+    torch.cuda.empty_cache()
+    return out
+
+
+def gc_gradient_merge_exactness(torch):
+    """fp32, 2 layers: GradientMerge (AdamW lr 1e-4, k 4, avg) over four
+    microbatches of [4, 1024] against one AdamW step on the [16, 1024]
+    batch from the same weights, by ``_held_to_one_process``."""
+    from paddle_tpu_torch.distributed.fleet.meta_optimizers import (
+        GradientMergeOptimizer)
+    from paddle_tpu_torch.optimizer import AdamW
+    adamw = lambda ps: AdamW(learning_rate=1e-4, parameters=ps)  # noqa: E731
+    model, opt = _gpt2_fp32(torch, adamw)
+    ids, labels = (t.cuda() for t in _seeded_ids(
+        torch, model.config.vocab_size,
+        (GC_K * GC_MICRO, model.config.max_seq_len), seed=61))
+    loss = model(ids, labels=labels)[1]
+    loss.backward()
+    grads = {n: p.grad.detach().cpu()
+             for n, p in model.named_parameters() if p.grad is not None}
+    opt.step()
+    gm_model, inner = _gpt2_fp32(torch, adamw)
+    gm = GradientMergeOptimizer(inner, k_steps=GC_K, avg=True)
+    micro = []
+    for j in range(GC_K):
+        rows = slice(j * GC_MICRO, (j + 1) * GC_MICRO)
+        part = gm_model(ids[rows], labels=labels[rows])[1]
+        part.backward()
+        gm.step()
+        micro.append(part.item())
+    got_grads = {n: p.grad.detach().cpu()
+                 for n, p in gm_model.named_parameters()
+                 if p.grad is not None}
+    got_params = {n: p.detach().cpu() for n, p in gm_model.named_parameters()}
+    out = _held_to_one_process(torch, sum(micro) / GC_K, got_grads,
+                               got_params, loss.item(), grads, model)
+    out.update(phase="grad_comm_gradient_merge_exactness_fp32", tf32=False,
+               model="GPT-124M widths, 2 layers, fp32, AdamW lr 1e-4; "
+                     "GradientMerge k 4 over [4, 1024] microbatches "
+                     "against one step on [16, 1024]")
+    out["loss_merged"] = out.pop("loss_got")
+    emit(out)
+    del model, opt, gm_model, inner, gm
+    torch.cuda.empty_cache()
+    if not out["held"]:
+        raise AssertionError(f"GradientMerge differs from one step: {out}")
+
+
+def _ranks_max_diff(torch, dist, tensors):
+    """max |a - b| over the ranks' ``tensors`` (two ranks: the elementwise
+    MAX minus MIN of their values, flattened in fp32)."""
+    flat = torch.cat([t.detach().reshape(-1).float() for t in tensors])
+    hi, lo = flat.clone(), flat
+    dist.all_reduce(hi, dist.ReduceOp.MAX)
+    dist.all_reduce(lo, dist.ReduceOp.MIN)
+    return float((hi - lo).max())
+
+
+def gc_local_sgd_rank(torch, ck, dist, rank):
+    """LocalSGD (AdamW lr 1e-4, ClipGradByGlobalNorm(1.0), k 4) on GPT-124M
+    O2 bf16, this rank's 8 x 1024 rows, 8 steps: the parameters must be
+    bit-equal across the ranks right after each sync (steps 4 and 8); the
+    fp32 master weights are not averaged, and their largest difference
+    between the ranks is recorded after each sync."""
+    from paddle_tpu_torch.distributed.fleet.meta_optimizers import (
+        LocalSGDOptimizer)
+    from paddle_tpu_torch.nn.clip import ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer import AdamW
+    cfg, model, inner = _gc_gpt124m(torch, lambda ps: AdamW(
+        learning_rate=1e-4, parameters=ps,
+        grad_clip=ClipGradByGlobalNorm(1.0)))
+    opt = LocalSGDOptimizer(inner, k_steps=GC_K)
+    ids, labels = (t.cuda() for t in _seeded_ids(
+        torch, cfg.vocab_size, (GC_RANKS * GC_RANK_BATCH, cfg.max_seq_len),
+        seed=70))
+    rows = slice(rank * GC_RANK_BATCH, (rank + 1) * GC_RANK_BATCH)
+    params = list(inner._parameter_list())
+    secs, losses, master_diff = [], [], {}
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(2 * GC_K):
+        before = _bf16_launches(ck)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = _gc_loss(model, ids[rows], labels[rows])
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        _check_launches(ck, before, cfg.num_layers, f"LocalSGD step {i}")
+        losses.append(loss.item())
+        if (i + 1) % GC_K == 0:
+            _same_on_ranks(dist, f"parameters after LocalSGD step {i + 1}",
+                           _digest(params))
+            master_diff[i + 1] = _ranks_max_diff(torch, dist, [
+                inner._accumulators[id(p)]["master_weight"]
+                for p in params])
+    sync = [secs[i] for i in range(GC_WARMUP, 2 * GC_K) if (i + 1) % GC_K == 0]
+    local = [secs[i] for i in range(GC_WARMUP, 2 * GC_K) if (i + 1) % GC_K]
+    out = {"phase": "grad_comm_local_sgd", "k_steps": GC_K,
+           "batch_per_rank": [GC_RANK_BATCH, cfg.max_seq_len],
+           "step_ms_each": [s * 1e3 for s in secs],
+           "sync_step_ms": 1e3 * sum(sync) / len(sync),
+           "local_step_ms": 1e3 * sum(local) / len(local),
+           "bytes_per_sync": 4 * sum(p.numel() for p in params),
+           "master_weight_max_diff_between_ranks": master_diff,
+           "losses": losses,
+           "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+    del model, inner, opt, params
+    torch.cuda.empty_cache()
+    return out
+
+
+def gc_dgc_rank(torch, ck, dist, rank):
+    """DGC (SGD lr 1e-4 inside momentum 0.9, sparsity 0.999, ramp-up 1) on
+    GPT-124M O2 bf16, this rank's 8 x 1024 rows, 2 warm-up + 4 timed
+    steps; then one metered step: each rank's sent entries and the
+    averaged gradient's, per parameter against k = max(numel·0.001, 1);
+    the ranks' parameters bit-equal; the masks' time (top-k and compare)
+    over every parameter's v."""
+    from paddle_tpu_torch.distributed.fleet import meta_optimizers as meta
+    from paddle_tpu_torch.optimizer import SGD
+    cfg, model, inner = _gc_gpt124m(torch, lambda ps: SGD(
+        learning_rate=1e-4, parameters=ps))
+    opt = meta.DGCOptimizer(inner, momentum=0.9, sparsity=0.999,
+                            rampup_begin_step=1)
+    ids, labels = (t.cuda() for t in _seeded_ids(
+        torch, cfg.vocab_size, (GC_RANKS * GC_RANK_BATCH, cfg.max_seq_len),
+        seed=71))
+    rows = slice(rank * GC_RANK_BATCH, (rank + 1) * GC_RANK_BATCH)
+    params = list(inner._parameter_list())
+
+    def one_step():
+        loss = _gc_loss(model, ids[rows], labels[rows])
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return loss
+
+    secs, losses = [], []
+    for i in range(GC_WARMUP + GC_TIMED):
+        before = _bf16_launches(ck)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = one_step()
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        _check_launches(ck, before, cfg.num_layers, f"DGC step {i}")
+        losses.append(loss.item())
+    # the masks' time over the current v of every parameter
+    vs = [opt._v[id(p)] for p in params if id(p) in opt._v]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for v in vs:
+        opt.mask(v)
+    torch.cuda.synchronize()
+    mask_s = time.perf_counter() - t0
+    # one metered step: the sends and their average, counted
+    seen = []
+    real = meta._average
+
+    def metered(ts):
+        avg = real(ts)
+        seen.append(([int((t != 0).sum()) for t in ts],
+                     [int((a != 0).sum()) for a in avg]))
+        return avg
+    meta._average = metered
+    try:
+        before = _bf16_launches(ck)
+        one_step()
+        _check_launches(ck, before, cfg.num_layers, "the metered DGC step")
+    finally:
+        meta._average = real
+    _same_on_ranks(dist, "parameters after DGC", _digest(params))
+    sent, averaged = seen[0]
+    ks = [max(int(p.numel() * (1 - 0.999)), 1) for p in params]
+    both = []
+    dist.all_gather_object(both, sent)
+    union = [a + b for a, b in zip(*both)]
+    if any(s < k for s, k in zip(sent, ks)) or \
+            any(a > u for a, u in zip(averaged, union)):
+        raise AssertionError("DGC's sends break their bounds")
+    timed = secs[GC_WARMUP:]
+    out = {"phase": "grad_comm_dgc", "sparsity": 0.999, "momentum": 0.9,
+           "batch_per_rank": [GC_RANK_BATCH, cfg.max_seq_len],
+           "step_ms": 1e3 * sum(timed) / len(timed),
+           "step_ms_each": [s * 1e3 for s in secs],
+           "topk_ms_per_step": mask_s * 1e3, "topk_calls_per_step": len(vs),
+           "bytes_per_step": 4 * sum(p.numel() for p in params),
+           "k_total": sum(ks), "sent_total": sum(sent),
+           "sent_above_k_ties": sum(s - k for s, k in zip(sent, ks)),
+           "averaged_nonzero_total": sum(averaged),
+           "numel_total": sum(p.numel() for p in params),
+           "losses": losses}
+    del model, inner, opt, params, vs
+    torch.cuda.empty_cache()
+    return out
+
+
+def gc_meta_exact_rank(torch, dist, rank, out_dir):
+    """fp32, 2 layers, this rank's 8 of the global 16 x 1024 rows: one
+    LocalSGD step (k 1, SGD lr 1) and one DGC step (ramp-up 0, sparsity 0,
+    momentum 0, SGD lr 1); rank 0 saves both updated parameter sets for
+    the parent's one-process SGD step."""
+    from paddle_tpu_torch.distributed.fleet.meta_optimizers import (
+        DGCOptimizer, LocalSGDOptimizer)
+    from paddle_tpu_torch.optimizer import SGD
+    sgd = lambda ps: SGD(learning_rate=1.0, parameters=ps)  # noqa: E731
+    saved = {}
+    for mode, wrap in (("local_sgd", lambda o: LocalSGDOptimizer(o, 1)),
+                       ("dgc", lambda o: DGCOptimizer(
+                           o, momentum=0.0, sparsity=0.0,
+                           rampup_begin_step=0))):
+        model, opt = _gpt2_fp32(torch, sgd)
+        opt = wrap(opt)
+        ids, labels = _seeded_ids(torch, model.config.vocab_size,
+                                  (GC_RANKS * GC_RANK_BATCH,
+                                   model.config.max_seq_len), seed=80)
+        rows = slice(rank * GC_RANK_BATCH, (rank + 1) * GC_RANK_BATCH)
+        model(ids[rows].cuda(), labels=labels[rows].cuda())[1].backward()
+        opt.step()
+        saved[mode] = {n: p.detach().cpu()
+                       for n, p in model.named_parameters()}
+        _same_on_ranks(dist, f"{mode} fp32 parameters",
+                       _digest(model.parameters()))
+        del model, opt
+    if rank == 0:
+        torch.save(saved, f"{out_dir}/gc_meta_exact.pt")
+    torch.cuda.empty_cache()
+    return {"phase": "grad_comm_meta_exact_rank"}
+
+
+def gc_quant_dp_rank(torch, ck, dist, fleet, rank):
+    """``fleet.init`` with ``strategy.comm_quant`` (int8, blocks of 256,
+    fp32 scales), ``fleet.distributed_model`` over GPT-124M in the eager
+    fp16 recipe (``dp_gpt124m_rank``'s: O2 fp16, ``GradScaler(2**15)``,
+    AdamW under the warm-up/cosine schedule with a global-norm clip), this
+    rank's 8 x 1024 rows, 2 warm-up + 4 timed steps: every bucket synced
+    through the quantized schedule; then the fp32 gate (2 layers, 2 x 1024
+    a rank): the synced gradients against the fp32 all-reduce of the same
+    local gradients, within two wire crossings (max |g| / 127), and
+    bit-equal on both ranks."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch import optimizer as popt
+    from paddle_tpu_torch.distributed import comm_plane
+    from paddle_tpu_torch.distributed import comm_quant as cq
+    from paddle_tpu_torch.nn.clip import ClipGradByGlobalNorm
+    from paddle_tpu_torch.text.gpt import GPTForPretraining, gpt_small
+    strategy = fleet.DistributedStrategy()
+    strategy.hybrid_configs = {"dp_degree": GC_RANKS}
+    strategy.comm_quant = True
+    fleet.init(is_collective=True, strategy=strategy)
+    cfg = gpt_small()
+    model = GPTForPretraining(cfg, device="cuda", seed=0)
+    sched = amp_schedule(popt.lr)
+    opt = popt.AdamW(learning_rate=sched, parameters=model.parameters(),
+                     grad_clip=ClipGradByGlobalNorm(1.0))
+    model, opt = amp.decorate(model, opt, level="O2", dtype="float16")
+    scaler = amp.GradScaler(init_loss_scaling=2.0 ** 15)
+    dp = fleet.distributed_model(model)
+    ids, labels = (t.cuda() for t in _seeded_ids(
+        torch, cfg.vocab_size, (GC_RANKS * GC_RANK_BATCH, cfg.max_seq_len),
+        seed=72))
+    rows = slice(rank * GC_RANK_BATCH, (rank + 1) * GC_RANK_BATCH)
+    plane = comm_plane.get_plane()
+    secs, losses = [], []
+    for i in range(GC_WARMUP + GC_TIMED):
+        if i == GC_WARMUP:
+            plane.reset_stats()
+        before = {k.name: k.route_launches["fp16"] for k in ck.KERNELS}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with amp.auto_cast(level="O2", dtype="float16"):
+            _, loss = dp(ids[rows], labels=labels[rows])
+        scaler.scale(loss).backward()
+        scaler.step(opt)
+        opt.clear_grad()
+        sched.step()
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        got = {k.name: k.route_launches["fp16"] - before[k.name]
+               for k in ck.KERNELS}
+        if got["flash_fwd"] != cfg.num_layers or \
+                got["flash_bwd"] != cfg.num_layers:
+            raise AssertionError(f"quantized DP step {i} launched {got}")
+        losses.append(loss.item())
+    stats = plane.stats()
+    _same_on_ranks(dist, "parameters after the quantized DP steps",
+                   _digest(model.parameters()))
+    if dp._quant_sync_count != GC_WARMUP + GC_TIMED:
+        raise AssertionError(f"{dp._quant_sync_count} quantized syncs")
+    qcfg = cq.get_active_config()
+    wire = sum(cq.wire_nbytes((b.layout(qcfg.block_size)[1],), qcfg)
+               for b in dp._buckets)
+    dense = 4 * sum(b.nelem for b in dp._buckets)
+    timed = secs[GC_WARMUP:]
+    out = {"phase": "grad_comm_quantized_dp",
+           "comm_quant": {"dtype": qcfg.dtype, "block_size": qcfg.block_size,
+                          "scale_dtype": qcfg.scale_dtype},
+           "batch_per_rank": [GC_RANK_BATCH, cfg.max_seq_len],
+           "step_ms": 1e3 * sum(timed) / len(timed),
+           "step_ms_each": [s * 1e3 for s in secs], "losses": losses,
+           "comm_plane_per_step": {k: v / GC_TIMED if k != "overlap_"
+                                   "efficiency" else v
+                                   for k, v in stats.items()},
+           "wire_bytes_per_step": wire, "fp32_bytes_per_step": dense,
+           "wire_over_fp32": wire / dense, "buckets": len(dp._buckets)}
+    del dp, model, opt, scaler
+    torch.cuda.empty_cache()
+    out.update(_gc_quant_dp_exact(torch, dist, fleet, rank, cq))
+    fleet.init(is_collective=True, strategy=fleet.DistributedStrategy())
+    if cq.get_active_config() is not None:
+        raise AssertionError("fleet.init left the comm_quant config active")
+    return out
+
+
+def _gc_quant_dp_exact(torch, dist, fleet, rank, cq):
+    """The quantized sync's fp32 gate: (worst error / bound, held)."""
+    from paddle_tpu_torch.optimizer import AdamW
+    model, _ = _gpt2_fp32(torch, lambda ps: AdamW(parameters=ps))
+    ids, labels = _seeded_ids(torch, model.config.vocab_size,
+                              (GC_RANKS * 2, model.config.max_seq_len),
+                              seed=73)
+    ids, labels = (t[rank * 2:(rank + 1) * 2].cuda() for t in (ids, labels))
+    named = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
+    local = torch.autograd.grad(model(ids, labels=labels)[1],
+                                [p for _, p in named])
+    dp = fleet.distributed_model(model)
+    dp(ids, labels=labels)[1].backward()
+    worst, bad = 0.0, []
+    for (n, p), g in zip(named, local):
+        exact = g.clone()
+        dist.all_reduce(exact, dist.ReduceOp.AVG)
+        top = g.abs().max().reshape(1)
+        dist.all_reduce(top, dist.ReduceOp.MAX)
+        bound = float(top) / 127
+        err = float((p.grad - exact).abs().max())
+        worst = max(worst, err / bound if bound else err)
+        if err > bound:
+            bad.append(n)
+    _same_on_ranks(dist, "the quantized fp32 gradients",
+                   _digest([p.grad for _, p in named]))
+    held = not bad and dp._quant_sync_count == 1
+    if not held:
+        raise AssertionError(f"quantized sync past its bound: {bad}")
+    del model, dp
+    torch.cuda.empty_cache()
+    return {"fp32_gate": "2 layers, 2 x 1024 a rank: synced gradients "
+                         "against the fp32 all-reduce, each element within "
+                         "max |g| / 127 (two wire crossings)",
+            "fp32_worst_err_over_bound": worst, "fp32_held": held}
+
+
+def gc_zero3_gather_rank(torch, dist, fleet, rank):
+    """ERNIE-3.0-base under ``group_sharded_parallel(..., "p_g_os")`` at
+    sharding 2, as ``hp_ernie_zero3_rank`` builds it, in the reference's
+    order: a config active, ``get_all_parameters(quant=False)`` (bit-equal
+    to the whole state), re-shard, ``get_all_parameters()`` through the
+    config (bit-equal to the codec of each whole value, so within half a
+    block's scale of it, and equal on both ranks); ms and bytes of each."""
+    from paddle_tpu_torch.distributed import comm_quant as cq
+    from paddle_tpu_torch.distributed.fleet.meta_parallel.sharding import (
+        group_sharded_parallel)
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.text.ernie import ErnieForPretraining
+    _hp_fleet(fleet, sharding_degree=2)
+    model = ErnieForPretraining(ernie_config(), device="cuda", seed=0)
+    whole = {n: p.detach().clone() for n, p in model.named_parameters()}
+    opt = AdamW(learning_rate=1e-4, parameters=model.parameters())
+    net, _, _ = group_sharded_parallel(model, opt, "p_g_os")
+    rows_bytes = sum(p.numel() * p.element_size()
+                     for p in model.parameters()
+                     if getattr(p, "_zero", None) is not None)
+    cfg = cq.set_active_config(cq.QuantConfig())
+    try:
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        net.get_all_parameters(quant=False)
+        torch.cuda.synchronize()
+        exact_s = time.perf_counter() - t0
+        for n, p in model.named_parameters():
+            if not torch.equal(p.detach(), whole[n]):
+                raise AssertionError(f"the exact gather changed {n}")
+        net._shard_params()
+        cq.reset_stats()
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        net.get_all_parameters()
+        torch.cuda.synchronize()
+        quant_s = time.perf_counter() - t0
+        sent = cq.stats()["bytes"]
+    finally:
+        cq.set_active_config(None)
+    worst = 0.0
+    for n, p in model.named_parameters():
+        want = cq.quantization_roundtrip(whole[n], cfg, traced=True)
+        if not torch.equal(p.detach(), want):
+            raise AssertionError(f"the quantized gather of {n} is not the "
+                                 "codec of the whole value")
+        q, s = cq.quantize_blockwise(whole[n], cfg, traced=True)
+        pad = (0, q.numel() - p.numel())
+        w = torch.nn.functional.pad(whole[n].float().reshape(-1), pad)
+        err = torch.nn.functional.pad(
+            (p.detach().float() - whole[n].float()).abs().reshape(-1), pad)
+        # half a block's scale, and the rounding of x times the scale's
+        # reciprocal and of the decode's product (2^-21 of |x|)
+        bound = (s.float() / 2)[:, None].expand(q.shape).reshape(-1) + \
+            w.abs() * 2.0 ** -21
+        worst = max(worst, float((err - bound).max()))
+    if worst > 0:
+        raise AssertionError(f"an element past half its scale: {worst}")
+    _same_on_ranks(dist, "the quantized ZeRO-3 gather",
+                   _digest(model.parameters()))
+    out = {"phase": "grad_comm_zero3_gather", "sharding": 2,
+           "model": "ERNIE-3.0-base, fp32",
+           "exact_gather_ms": exact_s * 1e3, "quant_gather_ms": quant_s * 1e3,
+           "exact_bytes_sent_per_rank": rows_bytes,
+           "quant_bytes_sent_per_rank": sent,
+           "quant_over_exact": sent / rows_bytes,
+           "params": len(whole)}
+    del model, opt, net, whole
+    torch.cuda.empty_cache()
+    return out
+
+
+def gc_dcn_rank(torch, dist, fleet, rank):
+    """``fleet.init`` at dcn 2 (``dcn_dp_degree``): GPT-124M's fp32
+    gradients of this rank's 2 x 1024 rows as one flat tensor through
+    ``dcn_grad_sync``: fp32 bit-equal to ``all_reduce`` AVG, int8 within
+    max |g| / 127 of it, each also with ``async_op`` (bit-equal to the
+    sync result); ms and bytes of each."""
+    from paddle_tpu_torch.distributed import comm_quant as cq
+    from paddle_tpu_torch.distributed.sharding_api import dcn_grad_sync
+    from paddle_tpu_torch.text.gpt import GPTForPretraining, gpt_small
+    mesh = _hp_fleet(fleet, dcn_dp_degree=2)
+    if mesh.shape.get("dcn") != 2 or mesh.group("dcn").nranks != 2:
+        raise AssertionError(f"no dcn axis of 2 in {mesh}")
+    cfg = gpt_small()
+    model = GPTForPretraining(cfg, device="cuda", seed=0)
+    ids, labels = _seeded_ids(torch, cfg.vocab_size,
+                              (GC_RANKS * 2, cfg.max_seq_len), seed=74)
+    model(ids[rank * 2:(rank + 1) * 2].cuda(),
+          labels=labels[rank * 2:(rank + 1) * 2].cuda())[1].backward()
+    flat = torch.cat([p.grad.reshape(-1) for p in model.parameters()])
+    del model
+    ref = flat.clone()
+    dist.all_reduce(ref, dist.ReduceOp.AVG)
+    top = flat.abs().max().reshape(1)
+    dist.all_reduce(top, dist.ReduceOp.MAX)
+    q8 = cq.QuantConfig()
+    ms, got = {}, {}
+    for name, quant, async_op in (("fp32", None, False), ("int8", q8, False),
+                                  ("fp32_async", None, True),
+                                  ("int8_async", q8, True)):
+        cq.reset_stats()
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = dcn_grad_sync(flat, mesh, quant=quant, async_op=async_op)
+        if async_op:
+            ms[name + "_launch"] = (time.perf_counter() - t0) * 1e3
+            out = out.result()
+        torch.cuda.synchronize()
+        ms[name] = (time.perf_counter() - t0) * 1e3
+        got[name] = out
+        if quant is not None and not async_op:
+            ms["int8_bytes_sent"] = cq.stats()["bytes"]
+    err = float((got["int8"] - ref).abs().max())
+    checks = {"fp32_equals_all_reduce_avg": torch.equal(got["fp32"], ref),
+              "fp32_async_equals_sync": torch.equal(got["fp32_async"],
+                                                    got["fp32"]),
+              "int8_async_equals_sync": torch.equal(got["int8_async"],
+                                                    got["int8"]),
+              "int8_within_bound": err <= float(top) / 127}
+    _same_on_ranks(dist, "dcn_grad_sync's int8 result",
+                   _digest([got["int8"]]))
+    if not all(checks.values()):
+        raise AssertionError(f"dcn_grad_sync: {checks}")
+    out = {"phase": "grad_comm_dcn", "dcn": 2, "elements": flat.numel(),
+           "fp32_bytes": 4 * flat.numel(),
+           "int8_wire_bytes": cq.wire_nbytes((flat.numel(),), q8),
+           "ms": ms, "int8_max_err": err, "int8_bound": float(top) / 127,
+           **checks}
+    del flat, ref, got
+    torch.cuda.empty_cache()
+    return out
+
+
+def gc_tp_clip_rank(torch, ck, dist, fleet, rank, out_dir):
+    """``fleet.init`` at mp 2: TP GPT-124M (O2 bf16, AdamW lr 1e-4 with
+    ClipGradByNorm(1.0), the global 8 x 1024) through
+    ``CompiledTrainStep``, 2 warm-up + 4 timed calls; then the fp32 gate:
+    the 2-layer TP GPT, one SGD step (lr 1, ClipGradByNorm(GC_CLIP_EXACT),
+    a norm most of its gradients pass, so the clip acts) on the global
+    4 x 1024, whose gathered parameters rank 0 saves."""
+    from paddle_tpu_torch.distributed.sharding_api import gather_global
+    from paddle_tpu_torch.jit import CompiledTrainStep
+    from paddle_tpu_torch.nn.clip import ClipGradByNorm
+    from paddle_tpu_torch.optimizer import SGD, AdamW
+    from paddle_tpu_torch.text.gpt import GPTForPretraining, gpt_small
+    _hp_fleet(fleet, mp_degree=2)
+    cfg = gpt_small(tensor_parallel=True)
+    model = GPTForPretraining(cfg, device="cuda", seed=0)
+    opt = AdamW(learning_rate=1e-4, parameters=model.parameters(),
+                grad_clip=ClipGradByNorm(1.0))
+    step = CompiledTrainStep(lambda ids, labels: model(ids, labels=labels)[1],
+                             model, opt, amp_level="O2")
+    ids, labels = (t.cuda() for t in _seeded_ids(
+        torch, cfg.vocab_size, (GC_RANK_BATCH, cfg.max_seq_len), seed=75))
+    losses, secs = _timed_training(torch, ck, step, (ids, labels),
+                                   cfg.num_layers, warmup=GC_WARMUP,
+                                   timed=GC_TIMED)
+    del model, opt, step
+    torch.cuda.empty_cache()
+    clip = ClipGradByNorm(GC_CLIP_EXACT)
+    model, opt = _gpt2_fp32(torch, lambda ps: SGD(
+        learning_rate=1.0, parameters=ps, grad_clip=clip),
+        tensor_parallel=True)
+    ids, labels = _seeded_ids(torch, model.config.vocab_size,
+                              (4, model.config.max_seq_len), seed=76)
+    CompiledTrainStep(lambda a, b: model(a, labels=b)[1], model, opt)(
+        ids.cuda(), labels.cuda())
+    params = {n: gather_global(p) for n, p in model.named_parameters()}
+    if rank == 0:
+        torch.save(params, f"{out_dir}/gc_tp_clip.pt")
+    timed = secs[GC_WARMUP:]
+    del model, opt, params
+    torch.cuda.empty_cache()
+    return {"phase": "grad_comm_tp_clip_by_norm", "mp": 2,
+            "batch_global": [GC_RANK_BATCH, cfg.max_seq_len],
+            "step_ms": 1e3 * sum(timed) / len(timed),
+            "step_ms_each": [1e3 * s for s in secs], "losses": losses,
+            "flash_launches_per_step": [cfg.num_layers] * 2}
+
+
+def grad_comm_rank(torch, out_dir):
+    """One rank of the grad_comm path (started by the launcher): LocalSGD,
+    DGC, their fp32 step, the quantized DP step, the quantized ZeRO-3
+    gather, dcn_grad_sync and TP with ClipGradByNorm. Prints one JSON line
+    per phase and last its launches by route."""
+    import paddle_tpu_torch.distributed as dist
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.ops import cuda_kernels as ck
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    env = dist.init_parallel_env(timeout=DP_RANK_TIMEOUT_S)
+    rank, world = env.rank, env.world_size
+    if dist.get_backend() != "gloo" or world != GC_RANKS:
+        raise AssertionError(f"backend {dist.get_backend()}, world {world}")
+    ck.reset_launch_counts()
+    _hp_fleet(fleet, dp_degree=GC_RANKS)
+    for phase in (lambda: gc_local_sgd_rank(torch, ck, dist, rank),
+                  lambda: gc_dgc_rank(torch, ck, dist, rank),
+                  lambda: gc_meta_exact_rank(torch, dist, rank, out_dir),
+                  lambda: gc_quant_dp_rank(torch, ck, dist, fleet, rank),
+                  lambda: gc_zero3_gather_rank(torch, dist, fleet, rank),
+                  lambda: gc_dcn_rank(torch, dist, fleet, rank),
+                  lambda: gc_tp_clip_rank(torch, ck, dist, fleet, rank,
+                                          out_dir)):
+        t0 = time.perf_counter()
+        row = phase()
+        _rank_emit(rank, dict(row, seconds=time.perf_counter() - t0))
+    _rank_emit(rank, {"rank_launches": {k.name: dict(k.route_launches)
+                                        for k in ck.KERNELS}})
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def phase_grad_comm_exactness(torch, tmp):
+    """The ranks' fp32 LocalSGD (k 1) and DGC (dense) steps against one SGD
+    step (lr 1) on the global 16 x 1024, and their TP step with
+    ClipGradByNorm against one process's on 4 x 1024, each by its update
+    (``_deltas_held``)."""
+    from paddle_tpu_torch.jit import CompiledTrainStep
+    from paddle_tpu_torch.nn.clip import ClipGradByNorm
+    from paddle_tpu_torch.optimizer import SGD
+    rows = []
+    for name, seed, batch, clip in (("meta", 80, GC_RANKS * GC_RANK_BATCH,
+                                     None),
+                                    ("tp_clip", 76, 4,
+                                     ClipGradByNorm(GC_CLIP_EXACT))):
+        model, opt = _gpt2_fp32(torch, lambda ps: SGD(
+            learning_rate=1.0, parameters=ps, grad_clip=clip))
+        before = {n: p.detach().cpu().clone()
+                  for n, p in model.named_parameters()}
+        ids, labels = _seeded_ids(torch, model.config.vocab_size,
+                                  (batch, model.config.max_seq_len),
+                                  seed=seed)
+        norms = None
+        if clip is None:
+            model(ids.cuda(), labels=labels.cuda())[1].backward()
+            opt.step()
+        else:
+            step = CompiledTrainStep(lambda a, b: model(a, labels=b)[1],
+                                     model, opt)
+            real, seen = step._sync, {}
+            step._sync = lambda g: seen.setdefault("grads", real(g))
+            step(ids.cuda(), labels.cuda())
+            norms = [float(g.float().norm()) for g in seen["grads"]]
+        if name == "meta":
+            got = torch.load(f"{tmp}/gc_meta_exact.pt")
+            cases = [("local_sgd", got["local_sgd"]), ("dgc", got["dgc"])]
+        else:
+            cases = [("tp_clip_by_norm", torch.load(f"{tmp}/gc_tp_clip.pt"))]
+        for mode, params in cases:
+            out = _deltas_held(torch, params, before, model)
+            out.update(phase=f"grad_comm_exactness_fp32_{mode}", tf32=False)
+            if norms is not None:
+                out["clip_norm"] = GC_CLIP_EXACT
+                out["params_clipped"] = sum(n > GC_CLIP_EXACT
+                                            for n in norms)
+                out["params"] = len(norms)
+            emit(out)
+            rows.append(out)
+        del model, opt
+        torch.cuda.empty_cache()
+    bad = [r["phase"] for r in rows if not r["held"]]
+    if bad:
+        raise AssertionError(f"grad_comm steps differ from one process: "
+                             f"{bad}")
+
+
+def phase_grad_comm(torch, ck, smi):
+    """The grad_comm path: GradientMerge and its fp32 gate in this process,
+    then two gloo ranks (LocalSGD, DGC, the quantized DP step, the
+    quantized ZeRO-3 gather, dcn_grad_sync, TP with ClipGradByNorm), then
+    this process's one-process steps against the ranks' fp32 steps. The
+    ranks' kernel launches are added to this process's counts."""
+    import shutil
+    import tempfile
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_gc_")
+    try:
+        torch.cuda.empty_cache()
+        gm = gc_gradient_merge(torch, ck)
+        emit(gm)
+        gc_gradient_merge_exactness(torch)
+        t0 = time.perf_counter()
+        ranks = _run_ranks(GC_RANKS, "--grad-comm-rank", tmp,
+                           {"PADDLE_DISTRI_BACKEND": "gloo"})
+        t_ranks = time.perf_counter() - t0
+        for rows in ranks.values():
+            for row in rows[:-1]:
+                emit(row)
+            ck.add_launches(rows[-1]["rank_launches"])
+        phase_grad_comm_exactness(torch, tmp)
+
+        def both(phase, *keys):
+            got = [next(r for r in rows if r.get("phase") == phase)
+                   for rows in ranks.values()]
+            return {k: [g[k] for g in got] for k in keys}
+        emit({"phase": "grad_comm", "nvidia_smi": smi, "ranks": GC_RANKS,
+              "backend": "gloo",
+              "gradient_merge": {k: gm[k] for k in (
+                  "applied_step_ms", "tokens_per_s",
+                  "inner_adamw_steps_per_applied_step",
+                  "flash_launches_per_applied_step")},
+              "local_sgd": both("grad_comm_local_sgd", "sync_step_ms",
+                                "local_step_ms", "bytes_per_sync",
+                                "master_weight_max_diff_between_ranks"),
+              "dgc": both("grad_comm_dgc", "step_ms", "topk_ms_per_step",
+                          "bytes_per_step", "sent_total",
+                          "averaged_nonzero_total"),
+              "quantized_dp": both("grad_comm_quantized_dp", "step_ms",
+                                   "wire_bytes_per_step",
+                                   "fp32_bytes_per_step", "wire_over_fp32",
+                                   "comm_plane_per_step",
+                                   "fp32_worst_err_over_bound"),
+              "zero3_gather": both("grad_comm_zero3_gather",
+                                   "exact_gather_ms", "quant_gather_ms",
+                                   "exact_bytes_sent_per_rank",
+                                   "quant_bytes_sent_per_rank"),
+              "dcn": both("grad_comm_dcn", "ms", "fp32_bytes",
+                          "int8_wire_bytes", "int8_max_err", "int8_bound"),
+              "tp_clip_by_norm": both("grad_comm_tp_clip_by_norm",
+                                      "step_ms"),
+              "ranks_s": t_ranks})
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def paged_bound(torch, q, kp, bt, cl):
     """Least time for K1 on these inputs: bytes each slot's visible rows
     need (K and V once, the table entries it reads, q, lens, out) versus
@@ -5191,7 +6035,8 @@ def phase_timing(torch, ck, launches, path_launches, routes, smi):
                        (HP_ATTENTION[1], "hybrid_parallel"),
                        *((case, "context_parallel")
                          for case in CP_ATTENTION),
-                       *((case, "pipeline") for case in PP_ATTENTION)):
+                       *((case, "pipeline") for case in PP_ATTENTION),
+                       *((case, "grad_comm") for case in GC_ATTENTION)):
         counts = path_launches[path]
         for row in (time_flash(torch, ck, case, bf16, counts["flash_fwd"]),
                     time_flash_bwd(torch, ck, case, bf16,
@@ -5248,6 +6093,8 @@ def main():
         return gloo_p2p_probe_rank(torch)
     if sys.argv[1:2] == ["--pipeline-rank"]:
         return pipeline_rank(torch, sys.argv[2])
+    if sys.argv[1:2] == ["--grad-comm-rank"]:
+        return grad_comm_rank(torch, sys.argv[2])
     from paddle_tpu_torch.ops import cuda_kernels as ck
 
     t0 = time.perf_counter()
@@ -5263,7 +6110,8 @@ def main():
     # then the data-parallel path (K2, K3 in each GPT rank), then the
     # hybrid-parallel path (K2, K3 in each TP and ZeRO-3 rank), then the
     # context-parallel path (K2, K3 on every ring block and Ulysses call),
-    # then the pipeline path (K2, K3 per block and microbatch per stage)
+    # then the pipeline path (K2, K3 per block and microbatch per stage),
+    # then the grad_comm path (K2, K3 per layer and microbatch or step)
     paths = (("serving", ("paged_attention", "flash_fwd"),
               lambda: (phase_serving(torch, ck, smi),
                        phase_exactness_fp32(torch, ck))),
@@ -5307,7 +6155,11 @@ def main():
               lambda: phase_context_parallel(torch, ck, smi)),
              # and for the pipeline's stages (eager schedules, SPMD)
              ("pipeline", ("flash_fwd", "flash_bwd"),
-              lambda: phase_pipeline(torch, ck, smi)))
+              lambda: phase_pipeline(torch, ck, smi)),
+             # GradientMerge here, then the grad_comm ranks' meta-optimizers,
+             # quantized syncs and gathers, DCN and TP with ClipGradByNorm
+             ("grad_comm", ("flash_fwd", "flash_bwd"),
+              lambda: phase_grad_comm(torch, ck, smi)))
     launches = {k.name: 0 for k in ck.KERNELS}
     path_launches, path_routes, path_seconds = {}, {}, {}
     for path, kernels, drive in paths:

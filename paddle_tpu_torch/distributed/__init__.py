@@ -7,19 +7,21 @@
   quantized wire (``comm_quant``), ``DataParallel`` with bucketed
   gradient sync (``parallel``), ``spawn`` and the launcher
   (``python -m paddle_tpu_torch.distributed.launch``).
-- The hybrid plane: the mesh and its groups (``sharding_api``), the
-  fleet facade and topology, the tensor- and sequence-parallel layers,
-  ZeRO stages 1 to 3 (``sharding``, ``fleet.meta_parallel.sharding``),
-  recompute, and ``checkpoint``'s shards of split tensors, resharded on
-  load.
+- The hybrid plane: the mesh and its groups (``sharding_api``, with
+  the multi-slice ``dcn`` axis and ``dcn_grad_sync``), the fleet facade
+  and topology, the tensor- and sequence-parallel layers, ZeRO stages 1
+  to 3 (``sharding``, ``fleet.meta_parallel.sharding``), context
+  parallelism, the pipeline, recompute, the meta-optimizers
+  (``fleet.meta_optimizers``), the in-program quantized collectives
+  (``comm_quant``), and ``checkpoint``'s shards of split tensors,
+  resharded on load.
 - The control plane's pieces ported so far: the membership ``TCPStore``
   over ``native/store/tcp_store.cpp`` (``store``), the clock and
   transport seam (``substrate``), the checkpoint digest gate
   (``elastic.verify_checkpoint``) and ``checkpoint``.
 
-Still to port (ROADMAP A7, A8): context parallelism, the pipeline, the
-meta-optimizers, the in-program quantized collectives and DCN,
-``auto_parallel``, elastic launch and RPC.
+Still to port (ROADMAP A7, A8): ``auto_parallel``, the fleet executor,
+elastic launch and RPC.
 """
 from .env import (ParallelEnv, ParallelMode, init_parallel_env,  # noqa: F401
                   is_available, is_initialized, get_rank, get_world_size,

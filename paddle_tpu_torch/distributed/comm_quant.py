@@ -21,10 +21,32 @@
 - ``ErrorFeedback``: the per-key residual of the local compression error
   across repeated syncs (EF-SGD).
 
-The in-program forms (``quantized_all_reduce`` and
-``quantized_all_gather`` over a mesh axis, ``hierarchical_all_reduce``,
-``quantized_replicate``) are shard_map programs in the reference; they
-wait for the tensor-parallel and ZeRO slice and raise (ROADMAP A7).
+The in-program forms are ``shard_map`` programs over a mesh axis in the
+reference. In the port each rank runs them on its own value, over that
+axis's group of the default mesh (``mesh.group(axis_name)``; a ``Group``
+is taken as it is), with the hops on the group's point-to-point exchange
+(``sep_transport.permute``: CUDA tensors staged through the host on gloo,
+chosen by backend and device):
+
+- ``quantized_all_reduce(x, axis_name, cfg, op)``: the reference's
+  two-phase ring. Chunks padded to a multiple of the block; n − 1
+  reduce-scatter hops each encode the running fp32 partial and pass it to
+  rank + 1, which decodes it and adds its own chunk unquantized; rank r
+  then owns chunk (r + 1) mod n, encodes it once and circulates it n − 1
+  hops, every rank decoding every chunk (its own from its own encoding).
+  The same numbers as the reference at every n.
+- ``quantized_all_gather(x, axis_name, cfg)``: x encoded once and
+  circulated; the stacked [n, ...] decode, the same on every rank.
+- ``hierarchical_all_reduce(x, ici_axis, dcn_axis, cfg, op)``: an fp32 SUM
+  over the ici axis, then the quantized ring over dcn.
+- ``quantized_replicate(value, mesh, cfg)``: a ZeRO-3 parameter's rows to
+  the whole parameter, decoded from codes and scales gathered over its
+  sharding group, equal bit for bit to the reference's encoding of the
+  whole value: a scale block that straddles two ranks' rows takes its
+  amax from both (each rank's partial amax of its edge blocks is
+  all-gathered first).
+
+``stats()``: the in-program forms' calls, hops and bytes this rank sent.
 """
 from __future__ import annotations
 
@@ -102,20 +124,14 @@ def resolve_config(quant):
     raise TypeError(f"bad quant config {quant!r}")
 
 
-def quantize_blockwise(x, cfg=None):
-    """x (any shape, any float dtype) -> (codes [nblocks, block] in the
-    wire dtype, scales [nblocks] in ``cfg.scale_dtype``). An all-zero
-    block has scale 0 and decodes to exact zeros."""
-    cfg = cfg or QuantConfig()
+def _encode_blocks(blocks, amax, cfg, traced):
+    """Codes of fp32 ``blocks`` [nb, block] with per-block ``amax`` [nb,
+    1], and their fp32 scales [nb, 1]. ``traced``: the scale as XLA
+    compiles amax / qmax in the reference's in-program forms (times the
+    fp32 reciprocal of qmax, which can differ from the division in the
+    last bit); else the division, as the reference computes it eagerly."""
     qmax = _QMAX[cfg.dtype]
-    flat = x.reshape(-1).to(torch.float32)
-    n = flat.numel()
-    bs = int(cfg.block_size)
-    nb = max(-(-n // bs), 1)
-    flat = torch.nn.functional.pad(flat, (0, nb * bs - n))
-    blocks = flat.reshape(nb, bs)
-    amax = blocks.abs().amax(dim=1, keepdim=True)
-    scale = amax / qmax
+    scale = amax * amax.new_tensor(1.0 / qmax) if traced else amax / qmax
     pos = scale > 0
     inv = torch.where(pos, 1.0 / torch.where(pos, scale, 1.0),
                       torch.zeros_like(scale))
@@ -124,6 +140,23 @@ def quantize_blockwise(x, cfg=None):
         q = torch.clamp(torch.round(scaled), -qmax, qmax).to(torch.int8)
     else:
         q = scaled.to(_wire_dtype(cfg))
+    return q, scale
+
+
+def quantize_blockwise(x, cfg=None, traced=False):
+    """x (any shape, any float dtype) -> (codes [nblocks, block] in the
+    wire dtype, scales [nblocks] in ``cfg.scale_dtype``). An all-zero
+    block has scale 0 and decodes to exact zeros. ``traced``: the
+    arithmetic of the reference's compiled forms (``_encode_blocks``)."""
+    cfg = cfg or QuantConfig()
+    flat = x.reshape(-1).to(torch.float32)
+    n = flat.numel()
+    bs = int(cfg.block_size)
+    nb = max(-(-n // bs), 1)
+    flat = torch.nn.functional.pad(flat, (0, nb * bs - n))
+    blocks = flat.reshape(nb, bs)
+    amax = blocks.abs().amax(dim=1, keepdim=True)
+    q, scale = _encode_blocks(blocks, amax, cfg, traced)
     return q, scale.reshape(nb).to(_SCALE_DTYPES[cfg.scale_dtype])
 
 
@@ -135,10 +168,10 @@ def dequantize_blockwise(q, scales, shape, dtype=torch.float32, cfg=None):
     return vals.reshape(-1)[:size].reshape(shape).to(dtype)
 
 
-def quantization_roundtrip(x, cfg=None):
+def quantization_roundtrip(x, cfg=None, traced=False):
     """deq(quant(x)): what one crossing of the wire does to ``x``."""
     cfg = cfg or QuantConfig()
-    q, s = quantize_blockwise(x, cfg)
+    q, s = quantize_blockwise(x, cfg, traced)
     return dequantize_blockwise(q, s, tuple(x.shape), x.dtype, cfg)
 
 
@@ -275,19 +308,212 @@ def reduce_quantized(flat, group, cfg):
     return out[:size].reshape(flat.shape)
 
 
-def _in_program(name):
-    def refuse(*args, **kwargs):
+# -- the in-program forms over a mesh axis ------------------------------------
+_STATS = {"calls": 0, "hops": 0, "bytes": 0}
+
+
+def stats():
+    """{'calls', 'hops', 'bytes'} of the in-program forms since the last
+    ``reset_stats``: bytes this rank sent (codes and scales)."""
+    return dict(_STATS)
+
+
+def reset_stats():
+    _STATS.update(calls=0, hops=0, bytes=0)
+
+
+def _axis_group(axis_name):
+    """The group of ``axis_name`` in the default mesh (a ``Group`` as it
+    is)."""
+    if hasattr(axis_name, "ranks"):
+        return axis_name
+    from .sharding_api import get_default_mesh
+    return get_default_mesh().group(axis_name)
+
+
+def _ring_hop(q, s, group, label):
+    """(codes, scales) passed to rank + 1 of ``group``; returns what rank
+    - 1 sent here."""
+    from . import sep_transport
+    n = group.nranks
+    perm = [(i, (i + 1) % n) for i in range(n)]
+    wire = wire_view(q)
+    got_q, got_s = sep_transport.permute([wire, s], group, [perm, perm],
+                                         label=label)
+    _STATS["hops"] += 1
+    _STATS["bytes"] += wire.numel() * wire.element_size() \
+        + s.numel() * s.element_size()
+    if q.dtype != got_q.dtype:
+        got_q = got_q.view(q.dtype)
+    return got_q, got_s
+
+
+def _decode_add(q, s, own, cfg):
+    """deq(q, s) + ``own`` (fp32, the chunk's length) as the reference's
+    compiled ring computes it: XLA contracts the decode's multiply and the
+    add into one fused multiply-add, emulated here in fp64, where the
+    product of a code and an fp32 scale is exact."""
+    if cfg.dtype != "int8":
+        q = q.view(_wire_dtype(cfg))
+    prod = q.to(torch.float64) * s.to(torch.float32).to(torch.float64)[:, None]
+    return (prod.reshape(-1)[:own.numel()] + own.to(torch.float64)).to(
+        torch.float32)
+
+
+def quantized_all_reduce(x, axis_name, cfg=None, op="sum"):
+    """The two-phase quantized all-reduce of this rank's ``x`` over
+    ``axis_name`` ("sum" or "mean"); the same values on every rank."""
+    cfg = cfg or QuantConfig()
+    if op not in ("sum", "mean"):
         raise NotImplementedError(
-            f"comm_quant.{name} is an in-program (shard_map) collective; "
-            "it waits for the tensor-parallel and ZeRO slice (ROADMAP A7)")
-    refuse.__name__ = name
-    return refuse
+            f"quantized all-reduce supports sum/mean, not {op!r} (max/min/"
+            "prod do not commute with block-scaled integer accumulation)")
+    group = _axis_group(axis_name)
+    n = group.nranks
+    if n == 1:
+        return quantization_roundtrip(x, cfg, traced=True).to(x.dtype)
+    _STATS["calls"] += 1
+    me = group.rank
+    shape, dtype = x.shape, x.dtype
+    size = x.numel()
+    chunk = _chunking(size, n, cfg)
+    flat = torch.nn.functional.pad(x.reshape(-1).to(torch.float32),
+                                   (0, n * chunk - size))
+    parts = flat.reshape(n, chunk)
+    part = parts[me]
+    for t in range(n - 1):
+        q, s = quantize_blockwise(part, cfg, traced=True)
+        q, s = _ring_hop(q, s, group, "comm_quant.reduce_scatter")
+        part = _decode_add(q, s, parts[(me - t - 1) % n], cfg)
+    # this rank owns the whole sum of chunk (me + 1) mod n
+    q, s = quantize_blockwise(part, cfg, traced=True)
+    out = torch.zeros(n * chunk, dtype=torch.float32, device=x.device)
+    own = (me + 1) % n
+    out[own * chunk:(own + 1) * chunk] = dequantize_blockwise(
+        q, s, (chunk,), torch.float32, cfg)
+    for hop in range(1, n):
+        q, s = _ring_hop(q, s, group, "comm_quant.all_gather")
+        idx = (me + 1 - hop) % n
+        out[idx * chunk:(idx + 1) * chunk] = dequantize_blockwise(
+            q, s, (chunk,), torch.float32, cfg)
+    res = out[:size].reshape(shape)
+    if op == "mean":
+        res = res * res.new_tensor(1.0 / n)     # XLA's x / n
+    return res.to(dtype)
 
 
-quantized_all_reduce = _in_program("quantized_all_reduce")
-quantized_all_gather = _in_program("quantized_all_gather")
-hierarchical_all_reduce = _in_program("hierarchical_all_reduce")
-quantized_replicate = _in_program("quantized_replicate")
+def quantized_all_gather(x, axis_name, cfg=None):
+    """Every rank's ``x``, encoded once by its owner and circulated, as
+    the stacked [n, ...] decode (the same on every rank)."""
+    cfg = cfg or QuantConfig()
+    group = _axis_group(axis_name)
+    n = group.nranks
+    if n == 1:
+        return quantization_roundtrip(x, cfg, traced=True)[None].to(x.dtype)
+    _STATS["calls"] += 1
+    me = group.rank
+    size = x.numel()
+    q, s = quantize_blockwise(x, cfg, traced=True)
+    out = torch.zeros((n, size), dtype=torch.float32, device=x.device)
+    out[me] = dequantize_blockwise(q, s, (size,), torch.float32, cfg)
+    for hop in range(1, n):
+        q, s = _ring_hop(q, s, group, "comm_quant.all_gather")
+        out[(me - hop) % n] = dequantize_blockwise(q, s, (size,),
+                                                   torch.float32, cfg)
+    return out.reshape((n,) + tuple(x.shape)).to(x.dtype)
+
+
+def hierarchical_all_reduce(x, ici_axis, dcn_axis, cfg=None, op="sum"):
+    """An fp32 all-reduce SUM over ``ici_axis``, then the quantized ring
+    over ``dcn_axis`` (quantization spends its error only on the slow
+    links); "mean" divides by n_ici x n_dcn."""
+    from .collective import ReduceOp, all_reduce
+    if op not in ("sum", "mean"):
+        raise NotImplementedError(f"hierarchical all-reduce op {op!r}")
+    ici, dcn = _axis_group(ici_axis), _axis_group(dcn_axis)
+    part = x.detach().clone()
+    if ici.nranks > 1:
+        all_reduce(part, op=ReduceOp.SUM, group=ici)
+    out = quantized_all_reduce(part, dcn, cfg, op="sum")
+    if op == "mean":
+        out = out * out.new_tensor(1.0 / (ici.nranks * dcn.nranks))
+    return out.to(x.dtype)
+
+
+def _edge_blocks(lo, m, bs):
+    """The first and last scale block a rank holding elements [lo, lo +
+    m) of the flat value touches."""
+    return lo // bs, (lo + m - 1) // bs
+
+
+def _block_starts(lo, m, bs):
+    """The scale blocks whose first element is in [lo, lo + m)."""
+    first, last = _edge_blocks(lo, m, bs)
+    return [b for b in range(first, last + 1) if b * bs >= lo]
+
+
+def quantized_replicate(value, mesh=None, cfg=None):
+    """The whole parameter from ``value``, a ZeRO-3 parameter stored as
+    its rows (``value._zero``): this rank encodes its elements with the
+    scales of the whole value's blocks, the codes and the scales are
+    all-gathered over the sharding group, and every rank decodes the
+    whole value in ``value``'s dtype. A tensor that is not stored as
+    rows is one codec round trip (no traffic)."""
+    from .collective import all_gather
+    cfg = cfg or QuantConfig()
+    z = getattr(value, "_zero", None)
+    t = value.detach()
+    if z is None or tuple(t.shape) == tuple(z.full_shape) or z.n == 1:
+        return quantization_roundtrip(t, cfg, traced=True).to(t.dtype)
+    _STATS["calls"] += 1
+    bs = int(cfg.block_size)
+    n, me = z.n, z.index
+    m = t.numel()
+    total = n * m
+    nb = max(-(-total // bs), 1)
+    lo = me * m
+    first, last = _edge_blocks(lo, m, bs)
+    # this rank's elements laid into the whole value's blocks it touches
+    local = torch.zeros((last - first + 1) * bs, dtype=torch.float32,
+                        device=t.device)
+    off = lo - first * bs
+    local[off:off + m] = t.reshape(-1).to(torch.float32)
+    blocks = local.reshape(-1, bs)
+    amax = blocks.abs().amax(dim=1)
+    # the edge blocks' partial amaxes from every rank, then each block's
+    # amax over every rank that holds part of it
+    edges = []
+    all_gather(edges, torch.stack([amax[0], amax[-1]]), group=z.group)
+    for j, e in enumerate(edges):
+        fj, lj = _edge_blocks(j * m, m, bs)
+        for b, a in ((fj, e[0]), (lj, e[1])):
+            if first <= b <= last:
+                amax[b - first] = torch.maximum(amax[b - first], a)
+    q, scale = _encode_blocks(blocks, amax[:, None], cfg, traced=True)
+    codes = wire_view(q).reshape(-1)[off:off + m].contiguous()
+    # the scales of the blocks that start in this rank's elements
+    own = _block_starts(lo, m, bs)
+    width = -(-m // bs) + 1
+    sc = torch.zeros(width, dtype=_SCALE_DTYPES[cfg.scale_dtype],
+                     device=t.device)
+    if own:
+        sc[:len(own)] = scale.reshape(-1)[own[0] - first:
+                                          own[-1] - first + 1].to(sc.dtype)
+    got_q, got_s = [], []
+    all_gather(got_q, codes, group=z.group)
+    all_gather(got_s, sc, group=z.group)
+    _STATS["bytes"] += codes.numel() + sc.numel() * sc.element_size() + 8
+    q_all = torch.cat(got_q)
+    q_all = torch.nn.functional.pad(q_all, (0, nb * bs - total))
+    if cfg.dtype != "int8":
+        q_all = q_all.view(_wire_dtype(cfg))
+    s_all = torch.zeros(nb, dtype=sc.dtype, device=t.device)
+    for j, s_j in enumerate(got_s):
+        starts = _block_starts(j * m, m, bs)
+        if starts:
+            s_all[starts[0]:starts[-1] + 1] = s_j[:len(starts)]
+    return dequantize_blockwise(q_all.reshape(nb, bs), s_all,
+                                tuple(z.full_shape), t.dtype, cfg)
 
 
 class ErrorFeedback:

@@ -2,8 +2,9 @@
 ``paddle_tpu/distributed/fleet/``): the facade (``init``,
 ``distributed_model``, ``distributed_optimizer``), the strategy, the
 topology and its groups, ``meta_parallel`` (TP layers, the RNG tracker,
-ZeRO, the hybrid optimizer; the pipeline raises, naming ROADMAP A7) and
-``utils`` (recompute, sequence parallelism)."""
+ZeRO, the hybrid optimizer, the pipeline), ``meta_optimizers``
+(GradientMerge, LocalSGD, DGC) and ``utils`` (recompute, sequence
+parallelism)."""
 from .base.distributed_strategy import DistributedStrategy
 from .base.topology import CommunicateTopology, HybridCommunicateGroup
 from .fleet_facade import (init, is_first_worker, worker_index, worker_num,

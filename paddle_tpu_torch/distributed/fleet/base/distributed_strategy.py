@@ -1,9 +1,10 @@
 """DistributedStrategy (counterpart: ``paddle_tpu/distributed/fleet/base/
 distributed_strategy.py``; upstream wraps distributed_strategy.proto): a
 registry with the same field names and defaults, serializable through
-to_dict/from_dict. ``fleet.init`` reads ``hybrid_configs``; a
-``comm_quant`` strategy raises there (the in-program quantized forms wait
-for ROADMAP A7)."""
+to_dict/from_dict. ``fleet.init`` reads ``hybrid_configs`` and publishes
+``comm_quant_configs`` as the active ``comm_quant`` config when
+``comm_quant`` is set. ``gradient_merge``, ``dgc`` and ``localsgd`` stay
+inert, as in the reference: the meta-optimizers are wrapped by hand."""
 from __future__ import annotations
 
 import copy

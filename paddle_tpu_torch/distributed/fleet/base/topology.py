@@ -8,7 +8,9 @@ topology.py``; upstream ``fleet/base/topology.py``).
 ``torch.distributed`` group each, plus the check group (every axis but
 data), every rank creating every group in one order. It makes that mesh
 the default, as the reference's does, so the TP layers, ZeRO, the train
-step and the checkpoint read the same topology.
+step and the checkpoint read the same topology. A multi-slice mesh's dcn
+axis is folded into data: the topology's data degree is dcn x dp and its
+data group the mesh's ``group("dcn", "dp")``.
 """
 from __future__ import annotations
 
@@ -89,10 +91,13 @@ class HybridCommunicateGroup:
         self._sep_degree = topology.get_dim("sep")
         self._mp_degree = topology.get_dim("model")
         dims = [topology.get_dim(n) for n in _NAMES]
-        if mesh is None or list(mesh.dims) != dims:
+        if mesh is None or list(mesh.hybrid_dims) != dims:
             mesh = Mesh(dims, rank=self.global_rank)
         self._mesh = set_default_mesh(mesh)
         self._groups = {n: mesh.group(_AXIS_OF[n]) for n in _NAMES}
+        if "dcn" in mesh.shape:
+            # the topology's data axis is dcn x dp
+            self._groups["data"] = mesh.group("dcn", "dp")
         self._groups["check"] = mesh.group("pp", "sharding", "sep", "mp")
 
     @property

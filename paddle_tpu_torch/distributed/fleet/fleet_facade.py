@@ -5,12 +5,18 @@ fleet_facade.py``; upstream ``fleet/fleet.py``).
 ``init`` joins the world (``init_parallel_env``), reads the degrees of
 ``strategy.hybrid_configs`` (``dp_degree`` -1 takes the rest of the
 world; ``pp_degree`` the pipeline's stages, with ``strategy.
-pipeline_configs``), builds the mesh and its groups and makes it the
-default, so the TP layers, ZeRO, the pipeline, ``CompiledTrainStep``,
-``Model.fit`` and the checkpoint read one topology. ``distributed_model``
-wraps the model in a ``DataParallel`` over the data axes only (dp x
-sharding), never over mp or sep (the optimizer's step sums gradients over
-sep), and a ``PipelineLayer`` in a ``PipelineParallel``.
+pipeline_configs``; ``dcn_dp_degree`` an outermost ``dcn`` axis of
+multi-slice data parallelism, folded into data in the topology), builds
+the mesh and its groups and makes it the default, so the TP layers,
+ZeRO, the pipeline, ``CompiledTrainStep``, ``Model.fit`` and the
+checkpoint read one topology. With ``strategy.comm_quant`` set it
+publishes ``QuantConfig.from_strategy(strategy.comm_quant_configs)`` as
+the active config (``DataParallel(comm_quant=None)`` and
+``GroupShardedStage3.get_all_parameters()`` read it), and clears it
+otherwise. ``distributed_model`` wraps the model in a ``DataParallel``
+over the data axes only (dcn x dp x sharding), never over mp or sep (the
+optimizer's step sums gradients over sep), and a ``PipelineLayer`` in a
+``PipelineParallel``.
 ``distributed_optimizer`` wraps the optimizer in a
 ``HybridParallelOptimizer`` (the global-norm clip across the groups);
 with a sharding degree above 1 it first shards the optimizer's state over
@@ -28,10 +34,6 @@ _fleet_state = {"initialized": False, "strategy": None, "hcg": None}
 def init(role_maker=None, is_collective=True, strategy=None, log_level="INFO"):
     init_parallel_env()
     strategy = strategy or DistributedStrategy()
-    if strategy.comm_quant:
-        raise NotImplementedError(
-            "the comm_quant strategy field (quantized gradient sync and "
-            "ZeRO gathers inside the step) is not ported yet (ROADMAP A7)")
     world = max(get_world_size(), 1)
     hc = dict(strategy.hybrid_configs)
     mp = int(hc.get("mp_degree", 1))
@@ -45,8 +47,17 @@ def init(role_maker=None, is_collective=True, strategy=None, log_level="INFO"):
     from ..sharding_api import build_mesh
     mesh = build_mesh(dp=dp, pp=pp, sharding=sh, sep=sep, mp=mp,
                       dcn_dp=dcn)
-    topo = CommunicateTopology(dims=mesh.dims)
+    # the topology folds dcn into data; the mesh keeps the dcn axis
+    topo = CommunicateTopology(dims=(dp * dcn, pp, sh, sep, mp))
     hcg = HybridCommunicateGroup(topo, mesh=mesh)
+    # the comm_quant field: DataParallel and the ZeRO-3 gather read the
+    # active config when they sync (fp32 when the field is off)
+    from .. import comm_quant as _cq
+    if strategy.comm_quant:
+        _cq.set_active_config(
+            _cq.QuantConfig.from_strategy(strategy.comm_quant_configs))
+    else:
+        _cq.set_active_config(None)
     _fleet_state.update(initialized=True, strategy=strategy, hcg=hcg)
     return None
 
@@ -84,12 +95,12 @@ def barrier_worker():
 
 
 def distributed_model(model):
-    """``model`` in a ``DataParallel`` over the data axes (dp x sharding)
-    of the fleet's mesh; a ZeRO-2/3 model (``group_sharded_parallel``'s)
-    as it is, since its gradients are averaged onto their rows by its own
-    rules; a ``PipelineLayer`` in a ``PipelineParallel`` over the pp axis
-    (its ``train_batch`` averages each stage's gradients over the data
-    axes itself)."""
+    """``model`` in a ``DataParallel`` over the data axes (dcn x dp x
+    sharding) of the fleet's mesh; a ZeRO-2/3 model
+    (``group_sharded_parallel``'s) as it is, since its gradients are
+    averaged onto their rows by its own rules; a ``PipelineLayer`` in a
+    ``PipelineParallel`` over the pp axis (its ``train_batch`` averages
+    each stage's gradients over the data axes itself)."""
     _ensure_init()
     from .meta_parallel.pp_layers import PipelineLayer
     from .meta_parallel.sharding import GroupShardedStage2, GroupShardedStage3
@@ -101,7 +112,7 @@ def distributed_model(model):
         return model
     from ..parallel import DataParallel
     mesh = _fleet_state["hcg"].mesh
-    return DataParallel(model, group=mesh.group("dp", "sharding"))
+    return DataParallel(model, group=mesh.group(*mesh.data_axes))
 
 
 def distributed_optimizer(optimizer, strategy=None):

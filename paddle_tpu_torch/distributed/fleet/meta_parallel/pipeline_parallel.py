@@ -170,15 +170,15 @@ class PipelineParallel(Layer):
         return _like(x, loss)
 
     def _average_over_data_axes(self):
-        """Each stage parameter's gradient averaged over dp x sharding
+        """Each stage parameter's gradient averaged over the data axes
         (this stage's replicas), as one set of buckets."""
         mesh = getattr(self._hcg, "mesh", None)
-        if mesh is None or mesh.degree("dp", "sharding") == 1:
+        if mesh is None or mesh.degree(*mesh.data_axes) == 1:
             return
         from ...parallel import all_reduce_gradients
         params = [p for p in self._layers.parameters() if p.grad is not None]
         synced = all_reduce_gradients([p.grad for p in params],
-                                      mesh.group("dp", "sharding"))
+                                      mesh.group(*mesh.data_axes))
         for p, g in zip(params, synced):
             p.grad = g
 

@@ -33,9 +33,14 @@ travel with its arrays. ``sync_gradients``, ``hybrid_clip`` and
 and the update under a mesh: the train step, the ZeRO optimizer wrapper
 and ``HybridParallelOptimizer`` call them.
 
-A quantized gather (``get_all_parameters(quant=...)`` with a config)
-raises, naming ROADMAP A7; the fp32 gather is the default, as in the
-reference.
+``get_all_parameters(quant=None)`` gathers through
+``comm_quant.quantized_replicate`` when a ``comm_quant`` config is active
+(``fleet.init`` with ``strategy.comm_quant``) or given, so codes and
+scales cross instead of fp32, and every parameter, sharded or not, comes
+back as the decode of the whole value's encoding, as in the reference;
+``quant=False`` forces the exact fp32 gather (a checkpoint must stay
+bit-exact). The forward's gather-on-use stays fp32, as the reference's
+GSPMD forward does.
 """
 from __future__ import annotations
 
@@ -372,19 +377,29 @@ class GroupShardedStage3(Layer):
 
     @torch.no_grad()
     def get_all_parameters(self, convert2cpu=False, quant=None, prefetch=1):
-        """Gather every sharded parameter back whole (fp32, bit-exact);
-        the next forward cuts them again. A quantized gather raises."""
-        if quant not in (None, False):
-            raise NotImplementedError(
-                "a quantized ZeRO-3 gather is not ported yet (ROADMAP A7)")
+        """Gather every sharded parameter back whole; the next forward
+        cuts them again. ``quant=None`` takes the active ``comm_quant``
+        config (fp32 when none is active), ``quant=False`` forces the
+        exact fp32 gather, a config (or True) gathers codes and scales
+        (``comm_quant.quantized_replicate``) and round-trips the
+        parameters that are not sharded through the codec too, as the
+        reference does. ``prefetch`` is accepted for the reference's
+        signature: the gathers run one after the other."""
+        from ...comm_quant import (get_active_config, quantized_replicate,
+                                   resolve_config)
+        cfg = get_active_config() if quant is None else resolve_config(quant)
         for p in self._layer.parameters():
             z = getattr(p, "_zero", None)
-            if z is not None and tuple(p.shape) != z.full_shape:
+            rows = z is not None and tuple(p.shape) != z.full_shape
+            if cfg is not None:
+                p.data = quantized_replicate(p, self._mesh, cfg)
+            elif rows:
                 p.data = _gather_rows(p.data, z)
+            if rows:
                 place(p, z.full_placement) if z.full_placement else \
                     p.__dict__.pop("_placement", None)
-                if convert2cpu:
-                    p.data = p.data.cpu()
+            if convert2cpu:
+                p.data = p.data.cpu()
         return list(self._layer.parameters())
 
 
@@ -492,12 +507,13 @@ def _reduce_scatter_rows(params, grads, group):
 
 
 def sync_gradients(params, grads, mesh, sync_plain=True, bucket_mb=25):
-    """The gradients averaged over the data axes (dp x sharding), never
-    over mp: a whole gradient all-reduced over both (``sync_plain``), a
-    ZeRO-2 one reduce-scattered onto its rows over sharding, a ZeRO-3 one
-    (already averaged over sharding by its gather's backward) and the
-    ZeRO-2 rows averaged over dp. On a mesh with a sep axis the whole
-    gradients are first summed over sep, whether or not a DataParallel
+    """The gradients averaged over the data axes (``mesh.data_axes``: dcn
+    when the mesh has it, dp and sharding), never over mp: a whole
+    gradient all-reduced over all of them (``sync_plain``), a ZeRO-2 one
+    reduce-scattered onto its rows over sharding, a ZeRO-3 one (already
+    averaged over sharding by its gather's backward) and the ZeRO-2 rows
+    averaged over the rest (dcn and dp). On a mesh with a sep axis the
+    whole gradients are first summed over sep, whether or not a DataParallel
     averaged them over the data axes: each sep rank differentiated the
     global loss through its own chunk of the sequence (``text/gpt.py``
     under ``context_parallel``). ZeRO with sep raises (ROADMAP A7).
@@ -544,7 +560,7 @@ def sync_gradients(params, grads, mesh, sync_plain=True, bucket_mb=25):
             rs.append(i)
     if plain and sync_plain:
         synced = all_reduce_gradients([grads[i] for i in plain],
-                                      mesh.group("dp", "sharding"), bucket_mb)
+                                      mesh.group(*mesh.data_axes), bucket_mb)
         for i, g in zip(plain, synced):
             out[i] = g
     if rs:
@@ -556,7 +572,8 @@ def sync_gradients(params, grads, mesh, sync_plain=True, bucket_mb=25):
     rows = rs + z3
     if rows:
         synced = all_reduce_gradients([out[i] for i in rows],
-                                      mesh.group("dp"), bucket_mb)
+                                      mesh.group(*mesh.data_axes[:-1]),
+                                      bucket_mb)
         for i, g in zip(rows, synced):
             out[i] = g
     return out
@@ -573,6 +590,9 @@ def hybrid_clip(clip, params, grads, mesh):
     squares of mp-split gradients (``is_distributed``) summed over mp,
     replicated ones counted once, ZeRO rows summed over sharding; the same
     scale as ``ClipGradByGlobalNorm`` in one process on the whole model.
+    ``ClipGradByNorm`` scales each gradient by the norm of its whole
+    logical gradient, its squares summed the same way
+    (``_clip_by_norm``).
     Every parameter is replicated over sep, with its gradient summed over
     sep before the clip, so no sum runs over sep: each counts once. A
     pipeline stage's own parameter (``_pp_stage``: an eager stage's layer,
@@ -584,14 +604,10 @@ def hybrid_clip(clip, params, grads, mesh):
         return grads
     if isinstance(clip, ClipGradByValue):
         return [torch.clamp(g, clip.min, clip.max) for g in grads]
+    if isinstance(clip, ClipGradByNorm):
+        return _clip_by_norm(clip, params, grads, mesh)
     if not isinstance(clip, ClipGradByGlobalNorm):
-        split = any(is_mp_split(p) or getattr(p, "_zero", None) is not None
-                    for p in params)
-        if isinstance(clip, ClipGradByNorm) and not split:
-            return [clip([(None, g)])[0][1] for g in grads]
-        raise NotImplementedError(
-            f"{type(clip).__name__} of split parameters is not ported yet "
-            "(ROADMAP A7); use ClipGradByGlobalNorm or ClipGradByValue")
+        raise TypeError(f"unsupported grad clip in the train step: {clip!r}")
     from ...collective import all_reduce
     dev = grads[0].device
     parts = torch.zeros(4, dtype=torch.float32, device=dev)
@@ -620,6 +636,42 @@ def hybrid_clip(clip, params, grads, mesh):
     scale = torch.clamp(clip.clip_norm / torch.clamp(torch.sqrt(total),
                                                      min=1e-12), max=1.0)
     return [g * scale.to(g.dtype) for g in grads]
+
+
+def _split_over(p):
+    """(split over mp, ZeRO rows over sharding) of ``p``'s gradient."""
+    z = getattr(p, "_zero", None)
+    return is_mp_split(p), z is not None and z.grad_sharded
+
+
+def _clip_by_norm(clip, params, grads, mesh):
+    """``ClipGradByNorm`` over split parameters: each gradient scaled by
+    the L2 norm of its whole logical gradient (the reference clips the
+    whole gradient of each parameter). A whole gradient takes the plain
+    clip; a split one sums its fp32 squares over mp and over sharding
+    (one all-reduce of every split parameter's squares per group)."""
+    from ...collective import all_reduce
+    split = [_split_over(p) for p in params]
+    if not any(a or b for a, b in split):
+        return [clip([(None, g)])[0][1] for g in grads]
+    dev = grads[0].device
+    sq = torch.stack([torch.sum(torch.square(g.float())) for g in grads])
+    for axis, k in (("mp", 0), ("sharding", 1)):
+        group = mesh.group(axis)
+        mask = torch.tensor([s[k] for s in split], device=dev)
+        if group.nranks > 1 and bool(mask.any()):
+            part = torch.where(mask, sq, torch.zeros_like(sq))
+            all_reduce(part, group=group)
+            sq = torch.where(mask, part, sq)
+    out = []
+    for (a, b), g, s in zip(split, grads, sq):
+        if not (a or b):
+            out.append(clip([(None, g)])[0][1])
+            continue
+        scale = torch.clamp(clip.clip_norm / torch.clamp(torch.sqrt(s),
+                                                         min=1e-12), max=1.0)
+        out.append(g * scale.to(g.dtype))
+    return out
 
 
 def _all_gather_rows(params):

@@ -26,8 +26,20 @@ its ranks share a batch's rows and split its sequence
 (``fleet/meta_parallel/{pipeline_parallel,spmd_pipeline}.py``): its ranks
 share a batch's rows, each holding one stage's layers, so
 ``data_rank_world`` and ``process_local_batch`` stay over the data axes.
-A mesh with both pp and sep above 1, and DCN data parallelism (``dcn_dp``
-> 1, ``dcn_grad_sync``), raise ``NotImplementedError`` naming ROADMAP A7.
+A mesh with both pp and sep above 1 raises ``NotImplementedError`` naming
+ROADMAP A7.
+
+Multi-slice data parallelism: ``build_mesh(dcn_dp=n)`` with n > 1 adds an
+outermost ``dcn`` axis (``mesh.axis_names`` is then ``("dcn",) + AXES``)
+with its own group. It is a data axis: ``mesh.data_axes`` (dcn x dp x
+sharding) is what the train step, ``fleet.distributed_model`` and
+``data_rank_world`` average and shard the batch over, as the reference's
+TP layers and SPMD pipeline shard the batch over (dcn, dp, sharding).
+``mesh_batch_axes`` keeps the reference's dp and sharding.
+``dcn_grad_sync`` averages a gradient this rank holds over the dcn group
+alone, in fp32 or through the quantized two-phase ring
+(``comm_quant.quantized_all_reduce``), at once or as a pending comm-plane
+work.
 
 ``process_local_batch`` keeps its contract: each process keeps its own
 rows (a rank already holds them: nothing is assembled), and a ragged
@@ -61,29 +73,43 @@ def _prod(xs):
 class Mesh:
     """Axis sizes, this rank's coordinate and the groups over the axes.
 
-    ``dims``: sizes in ``AXES`` order. ``rank``: this process's global
+    ``dims``: sizes in ``axis_names`` order (default ``AXES``; a
+    multi-slice mesh puts ``dcn`` first). ``rank``: this process's global
     rank (default: the world's). Groups are made when a process group of
     ``size`` ranks is up; otherwise (a layout, or a world of one process)
     every group is a list of ranks with no process group."""
 
-    def __init__(self, dims, rank=None, build_groups=True):
+    def __init__(self, dims, rank=None, build_groups=True, axis_names=AXES):
         from .env import get_rank
-        self.axis_names = AXES
+        self.axis_names = tuple(axis_names)
         self.dims = tuple(int(d) for d in dims)
-        self.shape = dict(zip(AXES, self.dims))
+        self.shape = dict(zip(self.axis_names, self.dims))
         self.size = _prod(self.dims)
         self._coords = list(itertools.product(*[range(d)
                                                 for d in self.dims]))
         self.rank = (get_rank() if rank is None else int(rank)) % self.size
-        self.coord = dict(zip(AXES, self._coords[self.rank]))
+        self.coord = dict(zip(self.axis_names, self._coords[self.rank]))
         self._groups = {}
         if build_groups:
             self._build_groups()
 
+    @property
+    def data_axes(self):
+        """The axes a batch's rows are split over and gradients averaged
+        over: dcn (when the mesh has it), dp and sharding."""
+        return (("dcn",) if "dcn" in self.shape else ()) + DATA_AXES
+
+    @property
+    def hybrid_dims(self):
+        """The topology's dims (data, pipe, sharding, sep, model): dcn
+        folded into data."""
+        return (self.shape.get("dcn", 1) * self.shape["dp"],) + tuple(
+            self.shape[a] for a in AXES[1:])
+
     def comm_lists(self, axes):
         """The rank lists that vary only along ``axes`` (every other
         coordinate fixed), sorted by that fixed coordinate."""
-        idx = [AXES.index(a) for a in axes]
+        idx = [self.axis_names.index(a) for a in axes]
         groups = {}
         for r, c in enumerate(self._coords):
             key = tuple(v for i, v in enumerate(c) if i not in idx)
@@ -95,7 +121,9 @@ class Mesh:
 
         from .collective import Group, new_group
         live = dist.is_initialized() and dist.get_world_size() == self.size
-        keys = [(a,) for a in AXES] + [DATA_AXES, _CHECK_AXES]
+        keys = [(a,) for a in self.axis_names] + [DATA_AXES, _CHECK_AXES]
+        if "dcn" in self.shape:
+            keys += [("dcn", "dp"), self.data_axes]
         for axes in keys:
             for ranks in self.comm_lists(axes):
                 # every rank makes every group, in this order
@@ -112,11 +140,11 @@ class Mesh:
         ``group("dp", "sharding")``)."""
         key = tuple(axes)
         if key not in self._groups:
-            key = tuple(a for a in AXES if a in axes)
+            key = tuple(a for a in self.axis_names if a in axes)
         return self._groups[key]
 
     def degree(self, *axes):
-        return _prod(self.shape[a] for a in axes)
+        return _prod(self.shape.get(a, 1) for a in axes)
 
     def axis_rank(self, *axes):
         """This rank's index in ``group(*axes)``."""
@@ -130,17 +158,16 @@ def build_mesh(dp=1, pp=1, sharding=1, sep=1, mp=1, devices=None, dcn_dp=1):
     """A mesh over ``devices`` ranks (a count or a list; default: the
     world), its groups made when that is the live world."""
     from .env import get_world_size
-    if int(dcn_dp) > 1:
-        raise _a7("multi-slice data parallelism (dcn_dp > 1)")
     n = get_world_size() if devices is None else (
         int(devices) if isinstance(devices, int) else len(list(devices)))
     degrees = {"dp": dp, "pp": pp, "sharding": sharding, "sep": sep, "mp": mp}
-    total = _prod(degrees.values())
+    dcn_dp = int(dcn_dp)
+    total = _prod(degrees.values()) * dcn_dp
     if total != n:
         # absorb the remainder into dp (reference: leftover becomes dp)
         rem = n // max(total // max(dp, 1), 1)
         degrees["dp"] = max(rem, 1)
-        total = _prod(degrees.values())
+        total = _prod(degrees.values()) * dcn_dp
         if total != n:
             raise ValueError(
                 f"mesh degrees {degrees} x dcn_dp={dcn_dp} do not multiply "
@@ -148,6 +175,9 @@ def build_mesh(dp=1, pp=1, sharding=1, sep=1, mp=1, devices=None, dcn_dp=1):
     if degrees["pp"] > 1 and degrees["sep"] > 1:
         raise _a7("the pipeline with context parallelism (pp_degree > 1 "
                   "and sep_degree > 1)")
+    if dcn_dp > 1:
+        return Mesh([dcn_dp] + [degrees[a] for a in AXES],
+                    axis_names=("dcn",) + AXES)
     return Mesh([degrees[a] for a in AXES])
 
 
@@ -184,7 +214,7 @@ def data_rank_world(mesh=None):
     mesh = mesh if mesh is not None else peek_default_mesh()
     if mesh is None:
         return get_rank(), get_world_size()
-    return mesh.axis_rank(*DATA_AXES), mesh.degree(*DATA_AXES)
+    return mesh.axis_rank(*mesh.data_axes), mesh.degree(*mesh.data_axes)
 
 
 def process_local_batch(value, mesh=None, spec=None, global_batch=None,
@@ -276,7 +306,40 @@ def replicated_batch(value, mesh=None):
 
 
 def dcn_grad_sync(value, mesh=None, quant=None, op="mean", async_op=False):
-    raise _a7("dcn_grad_sync (the DCN axis)")
+    """This rank's gradient ``value`` reduced over the mesh's dcn group:
+    "mean" (the default) or "sum". With a ``comm_quant`` config (a
+    ``QuantConfig``, a dict, or True for the active one) it runs
+    ``comm_quant.quantized_all_reduce`` over "dcn", so only codes and
+    scales cross; otherwise an fp32 all-reduce (SUM, then / n for
+    "mean"). A mesh without a dcn axis, or with dcn 1, returns ``value``.
+    ``async_op=True`` returns a comm-plane work whose ``result()`` is the
+    synced tensor (completed at once without a dcn axis; the quantized
+    ring runs on the caller's thread and returns completed)."""
+    from . import comm_plane
+    from . import comm_quant as cq
+    from .collective import ReduceOp
+    from ..ops.dispatch import unwrap
+    t = unwrap(value)
+    mesh = mesh if mesh is not None else get_default_mesh()
+    n = mesh.shape.get("dcn", 1)
+    if n <= 1:
+        if async_op:
+            return comm_plane.CollectiveWork("dcn_grad_sync:no-dcn-axis",
+                                             result=t)
+        return t
+    cfg = cq.resolve_config(quant)
+    group = mesh.group("dcn")
+    if cfg is None:
+        work = comm_plane.async_all_reduce(
+            t.detach().clone(), group,
+            ReduceOp.AVG if op == "mean" else ReduceOp.SUM,
+            label="dcn_grad_sync", span="comm_plane.dcn_sync", quant="fp32")
+        return work if async_op else work.result()
+    if async_op:
+        return comm_plane.get_plane().run_inline(
+            lambda: cq.quantized_all_reduce(t, group, cfg, op=op),
+            "dcn_grad_sync")
+    return cq.quantized_all_reduce(t, group, cfg, op=op)
 
 
 # -- placements: which piece of the global tensor a rank holds ---------------
@@ -307,7 +370,8 @@ class Placement:
         axis the tensor is replicated over."""
         if mesh is None:
             return True
-        return all(mesh.coord[a] == 0 for a in AXES if a not in self.axes)
+        return all(mesh.coord[a] == 0 for a in mesh.axis_names
+                   if a not in self.axes)
 
     def rows(self, lo, hi, axis):
         """The placement of rows [lo, hi) of dimension 0 of this tensor

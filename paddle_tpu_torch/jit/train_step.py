@@ -70,8 +70,12 @@ step. ``sync_gradients`` then sums the parameters outside the pipeline
 over pp (each rank holds its share) and the clip sums the stage rows'
 squares over pp.
 
-Not in this slice: the DGC/LocalSGD meta-optimizers, refused with an
-error.
+The meta-optimizers: a ``DGCOptimizer`` or ``LocalSGDOptimizer`` is
+unwrapped with a ``UserWarning`` naming it, and the step runs its inner
+optimizer. A ``GradientMergeOptimizer`` is not unwrapped, as in the
+reference: the step updates through it (its attributes reach the inner
+optimizer), so every call applies the inner optimizer and its merge
+never runs; the step's ``_step_count`` increments land on the wrapper.
 """
 from __future__ import annotations
 
@@ -132,11 +136,22 @@ class CompiledTrainStep:
                  amp_dtype="bfloat16", donate=True):
         if not isinstance(layers, (list, tuple)):
             layers = [layers]
+        # DGC and LocalSGD decide per step what crosses the ranks (top-k
+        # masks, a k-step parameter sync), which the step's fixed
+        # gradient average does not do: the step runs the inner
+        # optimizer, with a warning, as the reference's does
         if type(optimizer).__name__ in ("DGCOptimizer",
                                         "LocalSGDOptimizer"):
-            raise NotImplementedError(
-                f"{type(optimizer).__name__} is not ported; the port's "
-                "train step runs the plain optimizers")
+            import warnings
+            warnings.warn(
+                f"{type(optimizer).__name__} is an eager-path "
+                "meta-optimizer: CompiledTrainStep runs the inner "
+                "optimizer only, and the wrapper's gradient "
+                "compression/local-step semantics do NOT apply. Use the "
+                "eager multi-process path for DGC/LocalSGD, or "
+                "GradientMerge (compiled-step aware) instead.",
+                UserWarning, stacklevel=2)
+            optimizer = optimizer._inner
         # the wrappers of fleet and ZeRO: their rules are the step's own
         optimizer = getattr(optimizer, "_inner_opt", None) or \
             getattr(optimizer, "_optim", optimizer)

@@ -71,6 +71,9 @@ FLASH_CASES = {   # b, sq, sk, h, kh, d, causal
     "cp_ulysses": (2, 8192, 8192, 6, 6, 64, True),
     # the pipeline path's microbatch: GPT-124M's 16 x 1024 in 8 pieces
     "pp_microbatch": (2, 1024, 1024, 12, 12, 64, True),
+    # the grad_comm path's GradientMerge microbatch: GPT-124M at k 4 over
+    # [4, 1024]
+    "gm_microbatch": (4, 1024, 1024, 12, 12, 64, True),
 }
 # the training path's attention, GPT-124M at batch 16
 TRAIN_CASE = (16, 1024, 1024, 12, 12, 64, True)

@@ -596,13 +596,6 @@ def test_error_feedback_keeps_the_residual():
     assert torch.equal(ef.compensate("w", g), g + resid)
 
 
-def test_in_program_forms_wait_for_a7():
-    for fn in (cq.quantized_all_reduce, cq.quantized_all_gather,
-               cq.hierarchical_all_reduce, cq.quantized_replicate):
-        with pytest.raises(NotImplementedError, match="A7"):
-            fn(torch.zeros(2), "dp")
-
-
 # -- DistributedBatchSampler -------------------------------------------------
 class _Sized:
     def __init__(self, n):

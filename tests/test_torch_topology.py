@@ -10,16 +10,14 @@ eight ranks is a layout whose groups are rank lists.
   query equal to the reference's.
 - ``build_mesh``: the remainder goes to dp, a degree set that cannot
   multiply to the world raises ``ValueError`` in both packages, and the
-  pipeline on a mesh with a sep axis and DCN raise
-  ``NotImplementedError`` naming ROADMAP A7. A sep axis alone builds
+  pipeline on a mesh with a sep axis raises ``NotImplementedError``
+  naming ROADMAP A7 (the DCN axis builds: ``tests/test_torch_dcn.py``). A sep axis alone builds
   (context parallelism, ``tests/test_torch_context_parallel.py``), and so
   does a pp axis: its groups equal the reference's.
 - ``fleet.init``'s mesh for dp 4 x mp 2 (``tests/test_fleet_e2e.py:68``):
   the reference's axis order and sizes.
 - What is not ported raises, naming ROADMAP A7: a ``Model`` over a
-  ``PipelineParallel``, the meta-optimizers, ``auto_parallel``, the
-  fleet executor, the ``comm_quant`` strategy field and a quantized
-  ZeRO-3 gather.
+  ``PipelineParallel``, ``auto_parallel`` and the fleet executor.
 """
 import pytest
 
@@ -142,8 +140,7 @@ def test_build_mesh_refuses_degrees_that_do_not_divide(degrees):
         jbuild_mesh(**degrees)
 
 
-@pytest.mark.parametrize("degrees", [dict(pp=4, sep=2), dict(pp=2, sep=2),
-                                     dict(dcn_dp=2)])
+@pytest.mark.parametrize("degrees", [dict(pp=4, sep=2), dict(pp=2, sep=2)])
 def test_the_rest_raises_naming_a7(degrees):
     with pytest.raises(NotImplementedError, match="ROADMAP A7"):
         sa.build_mesh(devices=8, **degrees)
@@ -199,18 +196,7 @@ def test_distributed_model_leaves_a_zero_model_as_it_is(monkeypatch):
     assert isinstance(fleet.distributed_model(net), DataParallel)
 
 
-def test_fleet_init_refuses_comm_quant(monkeypatch):
-    monkeypatch.setattr(fleet_facade, "init_parallel_env", lambda: None)
-    strategy = fleet.DistributedStrategy()
-    strategy.comm_quant = True
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        fleet.init(strategy=strategy)
-
-
 @pytest.mark.parametrize("module,name", [
-    ("fleet.meta_optimizers", "GradientMergeOptimizer"),
-    ("fleet.meta_optimizers", "LocalSGDOptimizer"),
-    ("fleet.meta_optimizers", "DGCOptimizer"),
     ("auto_parallel", "shard_tensor"), ("auto_parallel", "ProcessMesh"),
     ("fleet_executor", "FleetExecutor")])
 def test_unported_entry_points_raise_naming_a7(module, name):
@@ -218,19 +204,6 @@ def test_unported_entry_points_raise_naming_a7(module, name):
     mod = importlib.import_module(f"paddle_tpu_torch.distributed.{module}")
     with pytest.raises(NotImplementedError, match="ROADMAP A7"):
         getattr(mod, name)()
-
-
-def test_quantized_zero3_gather_raises_naming_a7():
-    from paddle_tpu_torch import nn
-    from paddle_tpu_torch.distributed.comm_quant import QuantConfig
-    from paddle_tpu_torch.distributed.sharding import group_sharded_parallel
-    from paddle_tpu_torch.optimizer import AdamW
-    net = nn.Linear(4, 4, device="cpu")
-    model, _, _ = group_sharded_parallel(
-        net, AdamW(parameters=net.parameters()), "p_g_os")
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        model.get_all_parameters(quant=QuantConfig())
-    assert len(model.get_all_parameters()) == 2
 
 
 def test_pipeline_classes_raise_naming_a7():
@@ -244,5 +217,3 @@ def test_pipeline_classes_raise_naming_a7():
                                num_stages=1)
     with pytest.raises(NotImplementedError, match="ROADMAP A7"):
         Model(mpar.PipelineParallel(layer, None, None))
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        sa.dcn_grad_sync(None)
