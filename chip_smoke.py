@@ -113,7 +113,7 @@ by route) set to 0 just before it and read just after:
 - the hybrid plane: this script again as two gloo ranks sharing the card
   (``--hybrid-parallel-rank``), first at mp 2 after ``fleet.init``:
   GPT-124M at bench.py's widths under ``tensor_parallel`` (6 heads a
-  rank, the global 8 x 1024, O2, AdamW, ``CompiledTrainStep``, 3 + 5
+  rank, the global 8 x 1024, O2, AdamW, ``CompiledTrainStep``, 2 + 3
   calls and one with the mp collectives metered), the fp32 2-layer TP and
   SP steps, and ``distributed.checkpoint`` both ways (this process's
   whole checkpoint into the TP ranks, each slice bit-equal; the ranks'
@@ -131,7 +131,7 @@ by route) set to 0 just before it and read just after:
   (``benchmarks/matrix.py:306``'s seq 8192, sep 2), each rank [2, 4096],
   O2, AdamW, ``CompiledTrainStep``, with ``context_parallel`` "ring" (the
   zigzag schedule: K2 and K3 twice a layer and call) and "ulysses" (once),
-  2 + 3 calls each (global tokens/s, step ms of the slowest rank, the sep
+  1 + 2 calls each (global tokens/s, step ms of the slowest rank, the sep
   transport's exchanges, bytes and ms a step, peak memory a rank); the
   fp32 2-layer ring and Ulysses steps on 1 x 4096 (uneven ignored
   labels), each rerun bit-identical and held by this process to one
@@ -152,7 +152,7 @@ by route) set to 0 just before it and read just after:
   eager pipeline (a ``PipelineLayer`` of the embeddings, 12 blocks, ``ln_f``
   and an untied head, 6 blocks a stage) in each schedule, and
   ``GPTForPretrainingPipe`` through ``CompiledTrainStep`` at n_chunks 1
-  (GPipe, 9 ticks) and 2 (interleaved, 17 ticks), remat off and on, 1 + 3
+  (GPipe, 9 ticks) and 2 (interleaved, 17 ticks), remat off and on, 1 + 2
   steps each (step ms of the slowest rank, global tokens/s, the schedule,
   boundary messages and bytes or the pipeline's exchanges a step, peak
   memory a rank; K2 and K3 once per block and microbatch in each stage);
@@ -173,7 +173,28 @@ by route) set to 0 just before it and read just after:
   whole state and to the codec of it), ``dcn_grad_sync`` of GPT-124M's
   gradients at dcn 2 in fp32 and int8, at once and asynchronously, and TP
   GPT-124M at mp 2 with ``ClipGradByNorm`` (step ms) with its fp32 step
-  held to one process.
+  held to one process;
+- the semi-auto API and the fleet executor (``auto_parallel``): this
+  script again as two gloo ranks sharing the card
+  (``--auto-parallel-rank``) on ``ProcessMesh([0, 1], ["mp"])``: GPT-124M
+  at bench.py's widths in fp32 (the reference's ``Engine`` runs at O0),
+  each block placed as ``tests/test_auto_parallel.py:142-148`` places its
+  block and ``wte`` ``Shard(0)``, AdamW with ``ClipGradByGlobalNorm``, the
+  global 8 x 1024 through ``shard_dataloader`` and ``Engine.fit`` (split
+  over mp: [4, 1024] a rank), 1 + 3 steps (step ms, global tokens/s, the
+  collectives and bytes a step, parameter bytes a rank against the
+  model's, peak memory; K2 and K3 12 a step on fp32); the fp32 2-layer
+  gate (3 steps; the ranks' histories bit-equal; held by this process to
+  ``Engine`` with no mesh: losses, the first step's gradients and
+  parameters within 1e-5), ``Engine.save`` (the file bit-equal to the
+  gathered state) and ``load`` (the next step bit-identical), and
+  ``reshard`` of a [768, 2304] fp32 weight Shard(1) -> Replicate ->
+  Shard(0) -> Shard(1) (ms and bytes a move, bit-equal); then, in this
+  process, GPT-124M's bf16 forward cut by ``FleetExecutor.from_stages``
+  into four stages over 8 microbatches of [2, 1024] (each output
+  bit-identical to the straight forward, K2 12 a microbatch; ms both
+  ways), and a stage raising on microbatch 3 reaching the caller as a
+  ``RuntimeError`` naming it.
 
 Last, it times each kernel beside its bound, its plain version and,
 where one exists, a PyTorch call that computes the same function (also
@@ -183,9 +204,10 @@ also at the ERNIE and BERT paths' non-causal shapes, the hybrid
 path's ranks' shapes ([8, 1024, 6, 64] causal, [8, 512, 12, 64]
 non-causal), the context-parallel path's blocks (``CP_ATTENTION``) and
 the pipeline's microbatch ([2, 1024, 12, 64] causal, ``PP_ATTENTION``)
-and GradientMerge's ([4, 1024, 12, 64] causal, ``GC_ATTENTION``), and
-each kernel's
-fp16 route (K2 and K3 at the fp16 AMP path's shape). Each
+and GradientMerge's ([4, 1024, 12, 64] causal, ``GC_ATTENTION``), K2
+and K3 on their fp32 route at the Engine ranks' [4, 1024, 12, 64] causal
+(``AP_ATTENTION``) and K2 at the fleet executor's microbatch, and each
+kernel's fp16 route (K2 and K3 at the fp16 AMP path's shape). Each
 phase prints one JSON line; any failure raises and the script exits
 non-zero. It needs a CUDA card: without one it exits 2 and prints no
 result.
@@ -204,6 +226,7 @@ from __future__ import annotations
 import itertools
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -437,7 +460,7 @@ CP_ATTENTION = [
 PP_RANKS, PP_BATCH, PP_MICRO = 2, 16, 8
 PP_ATTENTION = [("pp_microbatch", PP_BATCH // PP_MICRO, 1024, 1024, 12, 12,
                  64, True)]
-PP_WARMUP, PP_TIMED = 1, 3
+PP_WARMUP, PP_TIMED = 1, 2
 PP_MODES = ("1f1b", "zero_bubble", "gpipe")
 PP_SPMD = ((1, False), (1, True), (2, False), (2, True))
 PP_EXACT_LAYERS, PP_EXACT_BATCH, PP_EXACT_MICRO = 4, 4, 4
@@ -3025,7 +3048,7 @@ def phase_checkpoint_resume(torch, ck, smi):
 # device); a separate rank of one proves the NCCL backend on the card. The
 # ranks are this script started by the port's launcher with a rank flag.
 # (DP_RANKS, DP_BATCH and DP_EXACT_BATCH stand beside FLASH_CASES)
-DP_WARMUP, DP_TIMED = 3, 5
+DP_WARMUP, DP_TIMED = 2, 3
 DP_RESNET_BATCH, DP_RESNET_STEPS, DP_RESNET_EVAL = 64, 4, 128
 DP_BN_SHAPE = (2 * DP_RESNET_BATCH, 64, 112, 112)   # ResNet-50's first bn
 DP_RANK_TIMEOUT_S = 600
@@ -3655,7 +3678,7 @@ def phase_data_parallel(torch, ck, smi):
 # resharding checkpoint), then, after a second fleet.init, as sharding 2
 # (ERNIE-3.0-base under ZeRO-3 as benchmarks/matrix.py:125-166 runs it,
 # the fp32 ZeRO steps). (HP_RANKS and the batches stand beside FLASH_CASES)
-HP_WARMUP, HP_TIMED = 3, 5
+HP_WARMUP, HP_TIMED = 2, 3
 HP_ZERO_LEVELS = ("os", "os_g", "p_g_os")
 
 
@@ -4151,7 +4174,7 @@ def phase_hybrid_parallel(torch, ck, smi):
 # with the ring (zigzag schedule) and with Ulysses; then the fp32 steps at
 # 2 layers on 1 x 4096, held to one process by this one. (CP_RANKS and the
 # shapes stand beside FLASH_CASES)
-CP_WARMUP, CP_TIMED = 2, 3
+CP_WARMUP, CP_TIMED = 1, 2
 CP_MODES = ("ring", "ulysses")
 # K2 and K3 launches a layer and call on a rank at sep 2: the zigzag's own
 # pair and one half-shard block; Ulysses' one whole-sequence call
@@ -4956,7 +4979,7 @@ def phase_pipeline(torch, ck, smi):
 # gradients at dcn 2, and TP GPT-124M at mp 2 with ClipGradByNorm. Each
 # has its fp32 gate at 2 layers; this process holds the ranks' ones to
 # one process. (GC_ATTENTION stands beside FLASH_CASES)
-GC_WARMUP, GC_TIMED = 2, 4
+GC_WARMUP, GC_TIMED = 2, 2
 GC_CLIP_EXACT = 0.01        # the fp32 TP step's ClipGradByNorm
 
 
@@ -5764,6 +5787,445 @@ def phase_grad_comm(torch, ck, smi):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# the auto_parallel path: GPT-124M at bench.py's widths trained by the
+# semi-auto Engine at O0 (fp32, as the reference's Engine runs) on
+# ProcessMesh([0, 1], ["mp"]), two gloo ranks sharing the card; each block
+# placed as tests/test_auto_parallel.py:142-148 places its one block, wte
+# Shard(0); the global 8 x 1024 through shard_dataloader, split over mp
+# (the mesh's first dim): each rank [4, 1024], K2/K3 on their fp32 route at
+# DP_ATTENTION's dp_exact_one_process shape (held to the plain versions
+# there); the fp32 gate at 2 layers, 3 steps; the fleet executor's
+# GPT-124M bf16 forward in 4 stages over 8 microbatches of [2, 1024]
+# (PP_ATTENTION's shape)
+AP_RANKS, AP_BATCH, AP_WARMUP, AP_TIMED = 2, 8, 1, 3
+AP_EXACT_LAYERS, AP_EXACT_STEPS = 2, 3
+AP_MICRO, AP_MICRO_ROWS = 8, 2
+AP_ATTENTION = ("ap_engine_rank", AP_BATCH // AP_RANKS, 1024, 1024, 12, 12,
+                64, True)
+AP_RESHARD_SHAPE = (768, 2304)
+AP_DEVICE = "cuda"
+AP_BLOCK_PLACEMENTS = (("attn.qkv_proj.weight", 1), ("attn.qkv_proj.bias", 0),
+                       ("attn.out_proj.weight", 0), ("mlp.fc_in.weight", 1),
+                       ("mlp.fc_in.bias", 0), ("mlp.fc_out.weight", 0))
+assert AP_ATTENTION[1:] in [c[1:] for c in FLASH_CASES]
+assert (AP_MICRO_ROWS, 1024, 1024, 12, 12, 64, True) in [
+    c[1:] for c in FLASH_CASES]
+
+
+def _ap_gpt(torch, layers, mesh, seed=0):
+    """GPT-124M's widths at ``layers`` blocks, fp32 on the card, placed on
+    ``mesh`` (None: whole) as the reference test places its block, wte
+    Shard(0); AdamW lr 1e-4 with ClipGradByGlobalNorm(1.0); (model, its
+    Engine)."""
+    import paddle_tpu_torch.distributed as dist
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.nn.clip import ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.text.gpt import GPTConfig, GPTForPretraining
+    cfg = GPTConfig(hidden_size=768, num_layers=layers, num_heads=12)
+    model = GPTForPretraining(cfg, device=AP_DEVICE, seed=seed)
+    if mesh is not None:
+        params = dict(model.named_parameters())
+        dist.shard_tensor(params["gpt.wte.weight"], mesh, [dist.Shard(0)])
+        for i in range(layers):
+            for name, d in AP_BLOCK_PLACEMENTS:
+                dist.shard_tensor(params[f"gpt.blocks.{i}.{name}"], mesh,
+                                  [dist.Shard(d)])
+    opt = AdamW(learning_rate=1e-4, parameters=model.parameters(),
+                grad_clip=ClipGradByGlobalNorm(1.0))
+    vocab = cfg.vocab_size
+
+    def loss(logits, labels):
+        return F.cross_entropy(logits.reshape(-1, vocab), labels.reshape(-1))
+
+    return model, dist.Engine(model, loss=loss, optimizer=opt, mesh=mesh)
+
+
+def _ap_batches(torch, vocab, n, seed):
+    ids, labels = _seeded_ids(torch, vocab, (n * AP_BATCH, 1024), seed=seed)
+    return [(ids[i * AP_BATCH:(i + 1) * AP_BATCH],
+             labels[i * AP_BATCH:(i + 1) * AP_BATCH]) for i in range(n)]
+
+
+def ap_engine_gpt124m_rank(torch, ck, dist, rank, mesh):
+    """GPT-124M through ``shard_dataloader`` and ``Engine.fit``: AP_WARMUP
+    steps, then AP_TIMED timed (one ``fit`` each); step ms, global
+    tokens/s, collectives and bytes a step, parameter bytes against the
+    whole model's, peak memory, K2/K3 launches (12 a step on fp32)."""
+    import paddle_tpu_torch.distributed.auto_parallel as ap
+    from paddle_tpu_torch import io
+    from paddle_tpu_torch.distributed import comm_plane
+    model, eng = _ap_gpt(torch, 12, mesh)
+    ids, labels = _seeded_ids(torch, model.config.vocab_size,
+                              ((AP_WARMUP + AP_TIMED) * AP_BATCH, 1024),
+                              seed=50)
+
+    def loader(lo, hi):
+        ds = io.TensorDataset([ids[lo * AP_BATCH:hi * AP_BATCH],
+                               labels[lo * AP_BATCH:hi * AP_BATCH]])
+        return dist.shard_dataloader(io.DataLoader(ds, batch_size=AP_BATCH),
+                                     [mesh])
+
+    warm = eng.fit(loader(0, AP_WARMUP))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ap.reset_stats()
+    plane = comm_plane.get_plane()
+    plane.reset_stats()
+    before = {k.name: k.route_launches["fp32"] for k in ck.KERNELS}
+    t0 = time.perf_counter()
+    hist = eng.fit(loader(AP_WARMUP, AP_WARMUP + AP_TIMED))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    got = {k.name: k.route_launches["fp32"] - before[k.name]
+           for k in ck.KERNELS}
+    if AP_DEVICE == "cuda" and (got["flash_fwd"] != 12 * AP_TIMED or
+                                got["flash_bwd"] != 12 * AP_TIMED):
+        raise AssertionError(f"Engine launched {got} on fp32, not "
+                             f"{12 * AP_TIMED} each")
+    stats = ap.stats()
+    # the gather, the reduce-scatter, the replicated gradients' all-reduce
+    # and the loss run through the comm plane (each waited on at once)
+    comm = plane.stats()
+    mine = sum(p.numel() * p.element_size() for p in model.parameters())
+    whole = sum(math.prod(getattr(p, "_layout").shape if hasattr(
+        p, "_layout") else p.shape) * p.element_size()
+        for p in model.parameters())
+    return {"phase": "auto_parallel_engine_gpt124m", "mesh": "mp 2",
+            "batch": [AP_BATCH, 1024], "rank_rows": AP_BATCH // AP_RANKS,
+            "steps": AP_TIMED, "step_ms": secs / AP_TIMED * 1e3,
+            "tokens_per_s_global": AP_BATCH * 1024 * AP_TIMED / secs,
+            # the epoch's one loss all-reduce is in the totals
+            "collectives_total": stats["collectives"],
+            "collectives_per_step": (stats["collectives"] - 1) / AP_TIMED,
+            "bytes_per_step": stats["bytes"] / AP_TIMED,
+            "comm_plane_ms_per_step": comm["comm_ms"] / AP_TIMED,
+            "comm_plane_exposed_ms_per_step": comm["exposed_ms"] / AP_TIMED,
+            "param_bytes_rank": mine, "param_bytes_model": whole,
+            "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+            "fp32_launches_per_step": {k: v / AP_TIMED
+                                       for k, v in got.items()},
+            "warmup_loss": warm["loss"], "loss": hist["loss"]}
+
+
+def ap_exact_rank(torch, dist, rank, out_dir, mesh):
+    """The fp32 gate's two-rank side: 2 layers at GPT-124M's widths, the
+    first batch's synced gradients, AP_EXACT_STEPS steps (one ``fit`` of
+    one global 8 x 1024 batch each, split by the Engine), the parameters
+    after step 1, all gathered whole; the histories of the two ranks must
+    be bit-equal. Then ``save``: the file must hold the gathered state
+    bit for bit, and a model built from another seed that ``load``s it
+    must take the next step bit-identically. Rank 0 saves what the parent
+    holds to one process."""
+    from paddle_tpu_torch.framework.io import load
+    model, eng = _ap_gpt(torch, AP_EXACT_LAYERS, mesh)
+    vocab = model.config.vocab_size
+    batches = _ap_batches(torch, vocab, AP_EXACT_STEPS + 1, seed=51)
+    eng.prepare()
+    fields, split = eng._fields(list(batches[0]))
+    _, grads = eng._forward_backward(fields, split)
+    named = list(model.named_parameters())
+    whole_g = {n: dist.unshard_dtensor(g).cpu()
+               for (n, _), g in zip(named, grads)}
+    hist, params1 = [], None
+    for b in batches[:AP_EXACT_STEPS]:
+        hist += eng.fit([list(b)])["loss"]
+        if params1 is None:
+            # a copy: .cpu() of a host tensor is the tensor itself
+            params1 = {n: dist.unshard_dtensor(p).detach().cpu().clone()
+                       for n, p in named}
+    seen = []
+    dist.all_gather_object(seen, hist)
+    if seen[0] != seen[1]:
+        raise AssertionError(f"the ranks' histories differ: {seen}")
+    path = f"{out_dir}/ap_ckpt"
+    t0 = time.perf_counter()
+    eng.save(path)
+    save_s = time.perf_counter() - t0
+    state = {n: dist.unshard_dtensor(p).detach().cpu() for n, p in named}
+    saved = load(path + ".pdparams", return_numpy=True)
+    file_equal = all(torch.equal(v, torch.from_numpy(saved[n]))
+                     for n, v in state.items())
+    model2, eng2 = _ap_gpt(torch, AP_EXACT_LAYERS, mesh, seed=1)
+    t0 = time.perf_counter()
+    eng2.load(path)
+    load_s = time.perf_counter() - t0
+    nxt = [list(batches[AP_EXACT_STEPS])]
+    resumed = eng.fit(nxt)["loss"] == eng2.fit(nxt)["loss"] and all(
+        torch.equal(a, b) for a, b in zip(model.parameters(),
+                                          model2.parameters()))
+    if not (file_equal and resumed):
+        raise AssertionError(f"Engine.save/load: file equal {file_equal}, "
+                             f"resume bit-identical {resumed}")
+    if rank == 0:
+        torch.save({"hist": hist, "grads": whole_g, "params1": params1},
+                   f"{out_dir}/ap_exact.pt")
+    return {"phase": "auto_parallel_exact_rank", "hist": hist,
+            "save_s": save_s, "load_s": load_s,
+            "pdparams_bytes": os.path.getsize(path + ".pdparams"),
+            "pdopt_bytes": os.path.getsize(path + ".pdopt"),
+            "file_equal_to_gathered_state": file_equal,
+            "resume_bit_identical": resumed}
+
+
+def ap_reshard_rank(torch, dist, rank, mesh):
+    """A [768, 2304] fp32 weight through Shard(1) -> Replicate -> Shard(0)
+    -> Shard(1) on the card (one untimed round first): each move's ms and
+    bytes, each piece bit-equal to the slice of the whole value, and the
+    last bit-equal to the first."""
+    import paddle_tpu_torch.distributed.auto_parallel as ap
+    S, R = dist.Shard, dist.Replicate
+    gen = torch.Generator().manual_seed(60)
+    whole = torch.randn(AP_RESHARD_SHAPE, generator=gen).to(AP_DEVICE)
+    start = dist.shard_tensor(whole, mesh, [S(1)])
+    plan = ([R()], [S(0)], [S(1)])
+    t = start
+    for pls in plan:
+        t = dist.reshard(t, mesh, pls)
+    moves, t = [], start
+    for pls in plan:
+        ap.reset_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        t = dist.reshard(t, mesh, pls)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        want = whole[:, :] if pls == [R()] else \
+            dist.shard_tensor(whole, mesh, pls)
+        moves.append({"to": repr(pls), "ms": ms,
+                      "collectives": ap.stats()["collectives"],
+                      "bytes": ap.stats()["bytes"],
+                      "bit_equal": bool(torch.equal(t, want))})
+    back = bool(torch.equal(t, start))
+    if not (back and all(m["bit_equal"] for m in moves)):
+        raise AssertionError(f"reshard on the card: {moves}, round trip "
+                             f"bit-equal {back}")
+    return {"phase": "auto_parallel_reshard", "shape": AP_RESHARD_SHAPE,
+            "moves": moves, "round_trip_bit_equal": back}
+
+
+def auto_parallel_rank(torch, out_dir):
+    """One rank of the auto_parallel path (started by the launcher): the
+    Engine over GPT-124M, the fp32 gate with save/load, reshard. Prints
+    one JSON line per phase and last its launches by route."""
+    import paddle_tpu_torch.distributed as dist
+    from paddle_tpu_torch.ops import cuda_kernels as ck
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    env = dist.init_parallel_env(timeout=DP_RANK_TIMEOUT_S)
+    rank, world = env.rank, env.world_size
+    if dist.get_backend() != "gloo" or world != AP_RANKS:
+        raise AssertionError(f"backend {dist.get_backend()}, world {world}")
+    ck.reset_launch_counts()
+    mesh = dist.ProcessMesh(list(range(AP_RANKS)), ["mp"])
+    for phase in (lambda: ap_engine_gpt124m_rank(torch, ck, dist, rank,
+                                                 mesh),
+                  lambda: ap_exact_rank(torch, dist, rank, out_dir, mesh),
+                  lambda: ap_reshard_rank(torch, dist, rank, mesh)):
+        t0 = time.perf_counter()
+        row = phase()
+        _rank_emit(rank, dict(row, seconds=time.perf_counter() - t0))
+        torch.cuda.empty_cache()
+    _rank_emit(rank, {"rank_launches": {k.name: dict(k.route_launches)
+                                        for k in ck.KERNELS}})
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def phase_auto_parallel_exactness(torch, tmp):
+    """The one-process side of the fp32 gate: ``Engine`` with no mesh in
+    this process from the same weights and batches; the first step's loss,
+    synced gradients and updated parameters (``_held_to_one_process``, on
+    the gradients after the global-norm clip, which the update read) and
+    every step's loss within 1e-5."""
+    got = torch.load(f"{tmp}/ap_exact.pt")
+    model, eng = _ap_gpt(torch, AP_EXACT_LAYERS, None)
+    batches = _ap_batches(torch, model.config.vocab_size,
+                          AP_EXACT_STEPS + 1, seed=51)
+    eng.prepare()
+    fields, split = eng._fields(list(batches[0]))
+    _, grads = eng._forward_backward(fields, split)
+    grads = {n: g.detach().cpu()
+             for (n, _), g in zip(model.named_parameters(), grads)}
+    norm = math.sqrt(sum(float(torch.sum(g.double() ** 2))
+                         for g in grads.values()))
+    clip = min(1.0, 1.0 / norm)
+    hist = eng.fit([list(batches[0])])["loss"]
+    out = _held_to_one_process(
+        torch, got["hist"][0], {n: g * clip for n, g in got["grads"].items()},
+        got["params1"], hist[0], {n: g * clip for n, g in grads.items()},
+        model)
+    for b in batches[1:AP_EXACT_STEPS]:
+        hist += eng.fit([list(b)])["loss"]
+    rel = [abs(a - b) / abs(b) for a, b in zip(got["hist"], hist)]
+    out.update(phase="auto_parallel_exactness_fp32", losses_ranks=got["hist"],
+               losses_one_process=hist, loss_rel_errs=rel,
+               clip_scale=clip, global_grad_norm=norm)
+    out["held"] = out["held"] and max(rel) <= 1e-5
+    emit(out)
+    if not out["held"]:
+        raise AssertionError("the two-rank Engine differs from one process")
+    return out
+
+
+def phase_fleet_executor(torch, ck):
+    """GPT-124M bf16 (eval) cut by ``FleetExecutor.from_stages`` into
+    embeddings + blocks 0-3, blocks 4-7, blocks 8-11, norm + head, over
+    AP_MICRO microbatches of [AP_MICRO_ROWS, 1024]: each output
+    bit-identical to the model run straight on its microbatch, K2 once per
+    block and microbatch, ms through the executor (twice, and once with
+    a 0.1 ms thread switch interval) against straight; then
+    a stage that raises on microbatch 3 must reach the caller as a
+    RuntimeError naming it."""
+    import threading
+
+    from paddle_tpu_torch.distributed.fleet_executor import FleetExecutor
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.ops.math import add
+    from paddle_tpu_torch.text.gpt import GPTConfig, GPTForPretraining
+    cfg = GPTConfig(hidden_size=768, num_layers=12, num_heads=12)
+    model = GPTForPretraining(cfg, device=AP_DEVICE, dtype=torch.bfloat16,
+                              seed=0).eval()
+    gpt = model.gpt
+
+    def blocks(lo, hi):
+        @torch.no_grad()
+        def run(x):
+            for block in gpt.blocks[lo:hi]:
+                x = block(x)
+            return x
+        return run
+
+    @torch.no_grad()
+    def embed(ids):
+        # GPTModel.forward's embedding, then blocks 0-3
+        pos = torch.arange(ids.shape[1], device=ids.device)[None]
+        x = gpt.drop(add(F.embedding(ids, gpt.wte.weight),
+                         F.embedding(pos, gpt.wpe.weight)))
+        return blocks(0, 4)(x)
+
+    @torch.no_grad()
+    def head(x):
+        return model._logits(gpt.ln_f(x))
+
+    ids, _ = _seeded_ids(torch, cfg.vocab_size,
+                         (AP_MICRO * AP_MICRO_ROWS, 1024), seed=70)
+    micro = [m.to(AP_DEVICE) for m in ids.split(AP_MICRO_ROWS)]
+    ex = FleetExecutor.from_stages([embed, blocks(4, 8), blocks(8, 12),
+                                    head])
+    ex.run(micro[:1])
+    with torch.no_grad():
+        model(micro[0])
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    before = ck.FLASH_FWD.launches
+    got, ex_ms = timed(lambda: ex.run(micro))
+    launches = ck.FLASH_FWD.launches - before
+    _, ex_ms_again = timed(lambda: ex.run(micro))
+    # the same with the interpreter's thread switch interval at 0.1 ms
+    # (5 ms by default: a stage woken by its message may wait that long
+    # for the GIL), a record of where the executor's time goes
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-4)
+    try:
+        _, ex_ms_switch = timed(lambda: ex.run(micro))
+    finally:
+        sys.setswitchinterval(interval)
+    with torch.no_grad():
+        want, straight_ms = timed(lambda: [model(m) for m in micro])
+    same = [bool(torch.equal(a, b)) for a, b in zip(got, want)]
+    calls = [0]
+
+    def fails_on_3(x):
+        i = calls[0]
+        calls[0] += 1
+        if i == 3:
+            raise ValueError("microbatch 3")
+        return blocks(4, 8)(x)
+
+    named = None
+    try:
+        FleetExecutor.from_stages([embed, fails_on_3, blocks(8, 12),
+                                   head]).run(micro)
+    except RuntimeError as e:
+        named = str(e) if "stage1" in str(e) and isinstance(
+            e.__cause__, ValueError) else None
+    for th in threading.enumerate():
+        if th.name.startswith("interceptor:"):
+            th.join(timeout=60)
+    torch.cuda.synchronize()
+    row = {"phase": "auto_parallel_fleet_executor", "stages": 4,
+           "microbatches": AP_MICRO, "micro_shape": [AP_MICRO_ROWS, 1024],
+           "dtype": "bfloat16", "executor_ms": [ex_ms, ex_ms_again],
+           "executor_ms_switch_interval_0.1ms": ex_ms_switch,
+           "straight_ms": straight_ms, "k2_launches": launches,
+           "bit_identical": same, "failure_reported": named}
+    emit(row)
+    if not all(same) or named is None or (
+            AP_DEVICE == "cuda" and launches != 12 * AP_MICRO):
+        raise AssertionError(f"fleet executor: {row}")
+    return row
+
+
+def phase_auto_parallel(torch, ck, smi):
+    """The auto_parallel path: two gloo ranks (the Engine over GPT-124M,
+    the fp32 gate with save/load, reshard), this process's one-process
+    gate, then the fleet executor here. The ranks' kernel launches are
+    added to this process's counts."""
+    import shutil
+    import tempfile
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ap_")
+    try:
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        ranks = _run_ranks(AP_RANKS, "--auto-parallel-rank", tmp,
+                           {"PADDLE_DISTRI_BACKEND": "gloo"})
+        t_ranks = time.perf_counter() - t0
+        for rows in ranks.values():
+            for row in rows[:-1]:
+                emit(row)
+            ck.add_launches(rows[-1]["rank_launches"])
+        exact = phase_auto_parallel_exactness(torch, tmp)
+        ex = phase_fleet_executor(torch, ck)
+
+        def both(phase, *keys):
+            got = [next(r for r in rows if r.get("phase") == phase)
+                   for rows in ranks.values()]
+            return {k: [g[k] for g in got] for k in keys}
+        engine = both("auto_parallel_engine_gpt124m", "step_ms",
+                      "tokens_per_s_global", "collectives_per_step",
+                      "bytes_per_step", "comm_plane_ms_per_step",
+                      "comm_plane_exposed_ms_per_step", "param_bytes_rank",
+                      "param_bytes_model", "peak_memory_bytes")
+        slowest = max(engine["step_ms"])
+        emit({"phase": "auto_parallel", "nvidia_smi": smi,
+              "ranks": AP_RANKS, "backend": "gloo",
+              "engine": dict(engine, step_ms_slowest=slowest,
+                             tokens_per_s_global_slowest=AP_BATCH * 1024
+                             / slowest * 1e3),
+              "exact": {k: exact[k] for k in (
+                  "loss_rel_err", "grad_max_rel_err", "param_max_rel_err",
+                  "loss_rel_errs")},
+              "save_load": both("auto_parallel_exact_rank", "save_s",
+                                "load_s", "pdparams_bytes",
+                                "file_equal_to_gathered_state",
+                                "resume_bit_identical"),
+              "reshard": both("auto_parallel_reshard", "moves"),
+              "executor": {k: ex[k] for k in (
+                  "executor_ms", "executor_ms_switch_interval_0.1ms",
+                  "straight_ms")},
+              "ranks_s": t_ranks})
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def paged_bound(torch, q, kp, bt, cl):
     """Least time for K1 on these inputs: bytes each slot's visible rows
     need (K and V once, the table entries it reads, q, lens, out) versus
@@ -6043,6 +6505,21 @@ def phase_timing(torch, ck, launches, path_launches, routes, smi):
                                    counts["flash_bwd"])):
             row.update(case=case[0], launches_path=path)
             main.append(row)
+    # the auto_parallel path: the Engine ranks' fp32 K2/K3, the fleet
+    # executor's bf16 K2, each with that route's launches on the path
+    ap = routes["auto_parallel"]
+    executor = ("ap_executor_microbatch",) + PP_ATTENTION[0][1:]
+    for row in (time_flash(torch, ck, AP_ATTENTION, f32,
+                           ap["flash_fwd"]["fp32"]),
+                time_flash_bwd(torch, ck, AP_ATTENTION, f32,
+                               ap["flash_bwd"]["fp32"])):
+        row.update(case=AP_ATTENTION[0], launches_path="auto_parallel",
+                   route_dtype="fp32", launches_route="fp32")
+        main.append(row)
+    row = time_flash(torch, ck, executor, bf16, ap["flash_fwd"]["bf16"])
+    row.update(case=executor[0], launches_path="auto_parallel",
+               launches_route="bf16")
+    main.append(row)
     fp16 = {name: sum(r[name]["fp16"] for r in routes.values())
             for name in launches}
     for row in (time_paged(torch, ck, PAGED_CTXS[1], 1, f16,
@@ -6095,6 +6572,8 @@ def main():
         return pipeline_rank(torch, sys.argv[2])
     if sys.argv[1:2] == ["--grad-comm-rank"]:
         return grad_comm_rank(torch, sys.argv[2])
+    if sys.argv[1:2] == ["--auto-parallel-rank"]:
+        return auto_parallel_rank(torch, sys.argv[2])
     from paddle_tpu_torch.ops import cuda_kernels as ck
 
     t0 = time.perf_counter()
@@ -6111,7 +6590,9 @@ def main():
     # hybrid-parallel path (K2, K3 in each TP and ZeRO-3 rank), then the
     # context-parallel path (K2, K3 on every ring block and Ulysses call),
     # then the pipeline path (K2, K3 per block and microbatch per stage),
-    # then the grad_comm path (K2, K3 per layer and microbatch or step)
+    # then the grad_comm path (K2, K3 per layer and microbatch or step),
+    # then the auto_parallel path (K2, K3 fp32 per layer and step in each
+    # Engine rank; K2 per block and microbatch through the fleet executor)
     paths = (("serving", ("paged_attention", "flash_fwd"),
               lambda: (phase_serving(torch, ck, smi),
                        phase_exactness_fp32(torch, ck))),
@@ -6159,7 +6640,11 @@ def main():
              # GradientMerge here, then the grad_comm ranks' meta-optimizers,
              # quantized syncs and gathers, DCN and TP with ClipGradByNorm
              ("grad_comm", ("flash_fwd", "flash_bwd"),
-              lambda: phase_grad_comm(torch, ck, smi)))
+              lambda: phase_grad_comm(torch, ck, smi)),
+             # the Engine's ranks (fp32) over placed parameters, then the
+             # fleet executor's stages here (K2 only)
+             ("auto_parallel", ("flash_fwd", "flash_bwd"),
+              lambda: phase_auto_parallel(torch, ck, smi)))
     launches = {k.name: 0 for k in ck.KERNELS}
     path_launches, path_routes, path_seconds = {}, {}, {}
     for path, kernels, drive in paths:

@@ -15,13 +15,17 @@
   (``fleet.meta_optimizers``), the in-program quantized collectives
   (``comm_quant``), and ``checkpoint``'s shards of split tensors,
   resharded on load.
+- The semi-auto API above the hybrid plane (``auto_parallel``:
+  ``ProcessMesh``, the placements, ``shard_tensor``/``reshard``/
+  ``shard_layer``/``unshard_dtensor``, ``Engine``, ``shard_dataloader``)
+  and the fleet executor (``fleet_executor``: a DAG of stage callables
+  over microbatches).
 - The control plane's pieces ported so far: the membership ``TCPStore``
   over ``native/store/tcp_store.cpp`` (``store``), the clock and
   transport seam (``substrate``), the checkpoint digest gate
   (``elastic.verify_checkpoint``) and ``checkpoint``.
 
-Still to port (ROADMAP A7, A8): ``auto_parallel``, the fleet executor,
-elastic launch and RPC.
+Still to port (ROADMAP A8): elastic launch and RPC.
 """
 from .env import (ParallelEnv, ParallelMode, init_parallel_env,  # noqa: F401
                   is_available, is_initialized, get_rank, get_world_size,
@@ -41,6 +45,15 @@ from .parallel import DataParallel, sync_params_buffers  # noqa: F401
 from .spawn import spawn  # noqa: F401
 from .launch.main import launch  # noqa: F401
 from . import sharding_api, sharding, fleet  # noqa: F401
+from . import auto_parallel  # noqa: F401
+from .auto_parallel import (ProcessMesh, Placement, Shard,  # noqa: F401
+                            Replicate, Partial, ReduceType, DistAttr,
+                            DistModel, Strategy, shard_tensor,
+                            dtensor_from_fn, reshard, shard_layer,
+                            shard_dataloader, unshard_dtensor, Engine,
+                            to_static)
+from . import fleet_executor  # noqa: F401
+from .fleet_executor import FleetExecutor, TaskNode, Carrier  # noqa: F401
 
 
 def get_device():

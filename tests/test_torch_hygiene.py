@@ -1,6 +1,7 @@
 """Import hygiene of the port: ``paddle_tpu_torch``, ``chip_smoke.py``,
 ``scripts/profile_torch_train_step.py``, ``scripts/ab_eager_amp.py``,
-``scripts/ab_data_parallel.py`` and ``scripts/chip_grad_comm.py`` import
+``scripts/ab_data_parallel.py``, ``scripts/chip_grad_comm.py`` and
+``scripts/chip_auto_parallel.py`` import
 neither ``jax`` nor anything of ``paddle_tpu`` — not even its modules that
 do not import JAX. Later slices that reach into the JAX package fail
 here."""
@@ -22,7 +23,8 @@ def _port_files():
                     ROOT / "scripts" / "profile_torch_train_step.py",
                     ROOT / "scripts" / "ab_eager_amp.py",
                     ROOT / "scripts" / "ab_data_parallel.py",
-                    ROOT / "scripts" / "chip_grad_comm.py"]
+                    ROOT / "scripts" / "chip_grad_comm.py",
+                    ROOT / "scripts" / "chip_auto_parallel.py"]
 
 
 def _imported_roots(path):
@@ -107,6 +109,8 @@ def test_importing_the_port_loads_neither_package():
         "import paddle_tpu_torch.distributed.comm_quant\n"
         "import paddle_tpu_torch.distributed.fleet.meta_optimizers\n"
         "import paddle_tpu_torch.distributed.sharding_api\n"
+        "import paddle_tpu_torch.distributed.auto_parallel\n"
+        "import paddle_tpu_torch.distributed.fleet_executor\n"
         "import paddle_tpu_torch.distributed.parallel\n"
         "import paddle_tpu_torch.distributed.spawn\n"
         "import paddle_tpu_torch.distributed.launch.main\n"

@@ -17,7 +17,9 @@ eight ranks is a layout whose groups are rank lists.
 - ``fleet.init``'s mesh for dp 4 x mp 2 (``tests/test_fleet_e2e.py:68``):
   the reference's axis order and sizes.
 - What is not ported raises, naming ROADMAP A7: a ``Model`` over a
-  ``PipelineParallel``, ``auto_parallel`` and the fleet executor.
+  ``PipelineParallel``. Every name the reference exports from
+  ``auto_parallel`` and the fleet executor resolves on
+  ``paddle_tpu_torch.distributed``.
 """
 import pytest
 
@@ -196,14 +198,27 @@ def test_distributed_model_leaves_a_zero_model_as_it_is(monkeypatch):
     assert isinstance(fleet.distributed_model(net), DataParallel)
 
 
-@pytest.mark.parametrize("module,name", [
-    ("auto_parallel", "shard_tensor"), ("auto_parallel", "ProcessMesh"),
-    ("fleet_executor", "FleetExecutor")])
-def test_unported_entry_points_raise_naming_a7(module, name):
+# what the reference's paddle_tpu/distributed/__init__.py exports from
+# auto_parallel and fleet_executor
+_SEMI_AUTO_NAMES = [
+    ("auto_parallel", n) for n in (
+        "ProcessMesh", "Placement", "Shard", "Replicate", "Partial",
+        "ReduceType", "DistAttr", "DistModel", "Strategy", "shard_tensor",
+        "dtensor_from_fn", "reshard", "shard_layer", "shard_dataloader",
+        "unshard_dtensor", "Engine", "to_static")] + [
+    ("fleet_executor", n) for n in ("FleetExecutor", "TaskNode", "Carrier")]
+
+
+@pytest.mark.parametrize("module,name", _SEMI_AUTO_NAMES)
+def test_semi_auto_and_executor_names_resolve(module, name):
+    """Each name resolves on ``paddle_tpu_torch.distributed`` to the port's
+    own object in its module, as the reference exports it."""
     import importlib
+
+    import paddle_tpu_torch.distributed as dist
     mod = importlib.import_module(f"paddle_tpu_torch.distributed.{module}")
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        getattr(mod, name)()
+    assert getattr(dist, name) is getattr(mod, name)
+    assert callable(getattr(dist, name))
 
 
 def test_pipeline_classes_raise_naming_a7():
