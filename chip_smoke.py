@@ -121,8 +121,9 @@ by route) set to 0 just before it and read just after:
   byte); then at sharding 2: ERNIE-3.0-base under
   ``group_sharded_parallel(..., "p_g_os")`` as ``benchmarks/matrix.py:
   125-166`` runs it (16 x 512 global) and the fp32 ``os``, ``os_g`` and
-  ``p_g_os`` steps. This process holds the five fp32 steps to one
-  process on the same global batch (step ms of the slowest rank, global
+  ``p_g_os`` steps. The ranks hold the five fp32 steps, piece by piece,
+  to this process's one step on the same global batch (step ms of the
+  slowest rank, global
   tokens/s, comm ms, peak memory and parameter + optimizer bytes a rank
   against one process's; K2/K3 once per layer and call in each rank);
 - context parallelism: this script again as two gloo ranks sharing the
@@ -135,9 +136,8 @@ by route) set to 0 just before it and read just after:
   transport's exchanges, bytes and ms a step, peak memory a rank); the
   fp32 2-layer ring and Ulysses steps on 1 x 4096 (uneven ignored
   labels), each rerun bit-identical and held by this process to one
-  process; then two more ranks (``--gloo-p2p-probe``) record which
-  point-to-point ops gloo takes on CUDA tensors (a record: the sep
-  transport stages them through the host on gloo);
+  process (the sep transport stages point to point through the host on
+  gloo, which refuses it on CUDA tensors);
 - the pipeline: this script again as two gloo ranks sharing the card
   (``--pipeline-rank``) at pp 2 after ``fleet.init``: a send to a stage
   that has not posted its receive (64 B and a 3 MB boundary tensor) must
@@ -194,7 +194,28 @@ by route) set to 0 just before it and read just after:
   into four stages over 8 microbatches of [2, 1024] (each output
   bit-identical to the straight forward, K2 12 a microbatch; ms both
   ways), and a stage raising on microbatch 3 reaching the caller as a
-  ``RuntimeError`` naming it.
+  ``RuntimeError`` naming it;
+- tensor parallelism and ZeRO inside the SPMD pipeline (``pipeline_3d``):
+  this script again as eight gloo ranks sharing the card
+  (``--pipeline3d-rank``) at pp 2 x sharding 2 x mp 2 after
+  ``fleet.init`` (rank = 4 pp + 2 sharding + mp): ``GPTForPretrainingPipe``
+  with ``tensor_parallel`` at GPT-124M's widths and 4 layers in fp32
+  under ``group_sharded_parallel`` (``p_g_os`` at n_chunks 1 and at 2 with
+  remat, ``os`` and ``os_g`` at 1), each step held piece by piece to this
+  process's unpipelined step on the same 4 x 1024 (a data rank's 2 rows in
+  2 microbatches), the pp and mp ranks of a data rank on bit-equal losses
+  and an mp pair's replicated leaves bit-equal; the ``p_g_os`` model
+  saved through ``distributed.checkpoint`` from the mesh, loaded back into
+  the mesh and whole into this process, bit-equal; then GPT-124M
+  (``gpt_small``, 12 layers) at O2 bf16, AdamW lr 1e-4 with
+  ``ClipGradByGlobalNorm(1.0)``, ``p_g_os``, through ``CompiledTrainStep``
+  on the global 8 x 1024 (4 x 1024 a data rank in 2 microbatches of [2,
+  1024], 6 heads a rank) at n_chunks 1 and 2 with remat, 1 + 2 steps and
+  one with the mp collectives metered (step ms of the slowest rank,
+  global tokens/s, mp collectives, bytes and ms, the pipeline's exchanges
+  and bytes, the comm plane's works and ms a step, peak memory, parameter
+  + AdamW bytes a rank against one process's; K2 and K3 12 a step in each
+  rank, K2 24 with remat).
 
 Last, it times each kernel beside its bound, its plain version and,
 where one exists, a PyTorch call that computes the same function (also
@@ -204,9 +225,11 @@ also at the ERNIE and BERT paths' non-causal shapes, the hybrid
 path's ranks' shapes ([8, 1024, 6, 64] causal, [8, 512, 12, 64]
 non-causal), the context-parallel path's blocks (``CP_ATTENTION``) and
 the pipeline's microbatch ([2, 1024, 12, 64] causal, ``PP_ATTENTION``)
-and GradientMerge's ([4, 1024, 12, 64] causal, ``GC_ATTENTION``), K2
-and K3 on their fp32 route at the Engine ranks' [4, 1024, 12, 64] causal
-(``AP_ATTENTION``) and K2 at the fleet executor's microbatch, and each
+and GradientMerge's ([4, 1024, 12, 64] causal, ``GC_ATTENTION``), the
+3D pipeline's microbatch on an mp rank's heads ([2, 1024, 6, 64] causal,
+``P3_ATTENTION``), K2 and K3 on their fp32 route at the Engine ranks'
+[4, 1024, 12, 64] causal (``AP_ATTENTION``) and K2 at the fleet
+executor's microbatch, and each
 kernel's fp16 route (K2 and K3 at the fp16 AMP path's shape). Each
 phase prints one JSON line; any failure raises and the script exits
 non-zero. It needs a CUDA card: without one it exits 2 and prints no
@@ -471,6 +494,19 @@ PP_DEVICE = "cuda"
 # shape is DP_ATTENTION's, the mp rank's HP_ATTENTION's)
 GC_RANKS, GC_K, GC_MICRO, GC_RANK_BATCH = 2, 4, 4, 8
 GC_ATTENTION = [("gm_microbatch", GC_MICRO, 1024, 1024, 12, 12, 64, True)]
+# the pipeline_3d path: GPT-124M over build_mesh(pp=2, sharding=2, mp=2),
+# eight gloo ranks sharing the card; the global 8 x 1024, 4 x 1024 a data
+# rank in 2 microbatches of [2, 1024], 6 of the 12 heads an mp rank (bf16;
+# at 16 x 1024 the eight ranks' fp32 losses over [8192, 50304] logits ran
+# the card out of memory); the fp32 gate at PP_EXACT_LAYERS layers on 4 x
+# 1024, a data rank's 2 rows in 2 microbatches of [1, 1024] (fp32)
+P3_RANKS, P3_BATCH, P3_MICRO = 8, 8, 2
+P3_EXACT_BATCH, P3_EXACT_MICRO = 4, 2
+P3_ATTENTION = [
+    ("p3d_microbatch", P3_BATCH // 2 // P3_MICRO, 1024, 1024, 6, 6, 64, True),
+    ("p3d_exact_microbatch", P3_EXACT_BATCH // 2 // P3_EXACT_MICRO, 1024,
+     1024, 6, 6, 64, True)]
+P3_DEVICE = "cuda"
 FLASH_CASES = [
     ("gpt124m_causal", 1, 1024, 1024, 12, 12, 64, True),
     ("gqa_causal", 2, 256, 256, 12, 4, 64, True),
@@ -490,7 +526,7 @@ FLASH_CASES = [
     ERNIE_ATTENTION,
     BERT_ATTENTION,
 ] + DP_ATTENTION + HP_ATTENTION + CP_ATTENTION + PP_ATTENTION + \
-    GC_ATTENTION
+    GC_ATTENTION + P3_ATTENTION
 # K3: the forward's cases and one with an lse cotangent
 FLASH_BWD_CASES = FLASH_CASES + [
     ("dlse_causal", 1, 256, 256, 12, 12, 64, True)]
@@ -3624,6 +3660,86 @@ def _held_to_one_process(torch, got_loss, got_grads, got_params, loss,
             "held": held}
 
 
+def _one_process_step(torch, model, opt, ids, labels, path):
+    """One fp32 step of ``model`` in this process on ``ids``/``labels``,
+    saved to ``path`` for ranks to hold their pieces to
+    (``_held_pieces``): the loss, the gradients and the updated
+    parameters, whole on the host."""
+    dev = next(model.parameters()).device
+    loss = model(ids.to(dev), labels=labels.to(dev))[1]
+    loss.backward()
+    grads = {n: p.grad.detach().cpu()
+             for n, p in model.named_parameters() if p.grad is not None}
+    opt.step()
+    torch.save({"loss": loss.item(), "grads": grads,
+                "params": {n: p.detach().cpu()
+                           for n, p in model.named_parameters()}}, path)
+
+
+def _held_pieces(torch, dist, got_loss, named, grads, one):
+    """``_held_to_one_process``'s bounds without gathering the step: each
+    rank holds the pieces it has (each synced gradient by its placement,
+    the updated parameter on the same elements) to the same pieces of
+    ``one`` (``_one_process_step``'s, whole, rows in this rank's stored
+    order), each error over the largest entry of the whole tensor; the
+    worst of each tensor is taken over the ranks, whose pieces cover
+    every element. ``got_loss``: the step's loss over the data ranks.
+    Every rank returns the same row."""
+    from paddle_tpu_torch.distributed.fleet.meta_parallel.sharding import \
+        state_placement
+    from paddle_tpu_torch.optimizer import AdamW
+    loss = one["loss"]
+    top = max(float(g.abs().max()) for g in one["grads"].values())
+    zero = sorted(n for n, g in one["grads"].items()
+                  if float(g.abs().max()) <= 1e-6 * top)
+
+    def first_step_from_zero(g, device):
+        z = torch.nn.Parameter(torch.zeros_like(g, device=device))
+        z.grad = g.to(device)
+        AdamW(learning_rate=1e-4, parameters=[z]).step()
+        return z.detach().cpu().double()
+
+    grad_rel, param_rel, zero_ok = {}, {}, True
+    for (n, p), g in zip(named, grads):
+        pl = state_placement(p, g)
+        piece = (lambda full: full) if pl is None else pl.take
+        g_got, g_one = g.detach().cpu(), piece(one["grads"][n])
+        p_got = p.detach()
+        if tuple(g.shape) != tuple(p.shape):     # ZeRO-1/2: its rows
+            p_got = p_got[p._zero.lo:p._zero.hi]
+        if n in zero:
+            zero_ok &= float(g_got.abs().max()) <= 1e-6 * top
+        else:
+            grad_rel[n] = max_err(g_got, g_one) / float(
+                one["grads"][n].abs().max())
+        diff = p_got.cpu().double() - piece(one["params"][n]).double()
+        diff -= first_step_from_zero(g_got, p.device) - \
+            first_step_from_zero(g_one, p.device)
+        param_rel[n] = float(diff.abs().max()) / float(
+            one["params"][n].abs().max())
+    seen = []
+    dist.all_gather_object(seen, (grad_rel, param_rel, zero_ok))
+    grad_rel = {n: max(s[0][n] for s in seen) for n in grad_rel}
+    param_rel = {n: max(s[1][n] for s in seen) for n in param_rel}
+    zero_ok = all(s[2] for s in seen)
+    loss_rel = abs(got_loss - loss) / abs(loss)
+    worst_g = max(grad_rel, key=grad_rel.get)
+    worst_p = max(param_rel, key=param_rel.get)
+    held = loss_rel <= 1e-5 and grad_rel[worst_g] <= 1e-5 and zero_ok and \
+        param_rel[worst_p] <= 1e-5
+    return {"loss_got": got_loss, "loss_one": loss,
+            "loss_rel_err": loss_rel, "loss_rel_tol": 1e-5,
+            "grad_max_rel_err": grad_rel[worst_g], "grad_worst": worst_g,
+            "grads_zero_up_to_rounding": zero,
+            "param_max_rel_err": param_rel[worst_p], "param_worst": worst_p,
+            "param_rule": "every entry of p_got - p_one - (z(g_got) - "
+                          "z(g_one)), z(g) AdamW's first step from zero, "
+                          "on each rank's pieces",
+            "entries_grad_below_1e-6": sum(
+                int((g.abs() < 1e-6).sum()) for g in one["grads"].values()),
+            "rel_tol": 1e-5, "held": held}
+
+
 def phase_data_parallel(torch, ck, smi):
     """The data-parallel path: NCCL at world 1, then two gloo ranks on the
     card (GPT-124M's DataParallel steps, its fp32 step and no_sync,
@@ -3857,12 +3973,14 @@ def hp_ernie_zero3_rank(torch, ck, dist, rank, mesh):
 def hp_exact_rank(torch, dist, rank, out_dir, mode):
     """One fp32 AdamW step (lr 1e-4) of GPT-124M's widths at 2 layers
     under ``mode`` (``tp``, ``sp`` at mp 2; a ZeRO level at sharding 2,
-    each rank on half the global 4 x 1024), through ``CompiledTrainStep``;
-    rank 0 saves the losses, the synced gradients and the updated
-    parameters, gathered whole, for the parent's one-process step. Returns
-    (the JSON row, the model, its optimizer)."""
-    from paddle_tpu_torch.distributed.fleet.meta_parallel.sharding import (
-        group_sharded_parallel, state_placement)
+    each rank on half the global 4 x 1024), through ``CompiledTrainStep``,
+    held piece by piece (``_held_pieces``) to the parent's one-process
+    step on the global batch from the same weights (``hp_one.pt``); in
+    ``tp`` mode rank 0 also saves the updated parameters, gathered whole,
+    for the parent's checkpoint check. Returns (the JSON row, the model,
+    its optimizer)."""
+    from paddle_tpu_torch.distributed.fleet.meta_parallel.sharding import \
+        group_sharded_parallel
     from paddle_tpu_torch.distributed.sharding_api import gather_global
     from paddle_tpu_torch.jit import CompiledTrainStep
     from paddle_tpu_torch.optimizer import AdamW
@@ -3888,20 +4006,19 @@ def hp_exact_rank(torch, dist, rank, out_dir, mode):
     dist.all_gather_object(losses, step(ids.cuda(), labels.cuda()).item())
     if mode in ("tp", "sp") and losses[0] != losses[1]:
         raise AssertionError(f"{mode}: the mp ranks' losses differ {losses}")
-
-    def placed(p, t):
-        split = hasattr(p, "_placement") or hasattr(p, "_zero")
-        return state_placement(p, t) if split else None
-
     named = list(model.named_parameters())
-    grads = {n: gather_global(g, placed(p, g))
-             for (n, p), g in zip(named, seen["grads"])}
-    params = {n: gather_global(p) for n, p in named}
-    if rank == 0:
-        torch.save({"losses": losses, "grads": grads, "params": params},
-                   f"{out_dir}/hp_exact_{mode}.pt")
-    return {"phase": f"hybrid_parallel_exact_rank_{mode}",
-            "losses": losses}, model, opt
+    out = _held_pieces(torch, dist, sum(losses) / len(losses), named,
+                       seen["grads"], torch.load(f"{out_dir}/hp_one.pt"))
+    if mode == "tp":
+        params = {n: gather_global(p) for n, p in named}
+        if rank == 0:
+            torch.save({"params": params}, f"{out_dir}/hp_exact_tp.pt")
+    out.update(phase=f"hybrid_parallel_exactness_fp32_{mode}", tf32=False,
+               losses=losses,
+               model=f"GPT-124M widths, 2 layers, fp32, AdamW lr 1e-4; "
+                     f"{mode} on 2 ranks against one process on "
+                     f"{HP_EXACT_BATCH} x 1024")
+    return out, model, opt
 
 
 def hp_reshard_rank(torch, dist, rank, out_dir, model, opt):
@@ -4018,37 +4135,28 @@ def _hp_whole_checkpoint(torch, tmp):
     del model, opt
 
 
-def phase_hybrid_parallel_exactness(torch, ck, tmp):
-    """The ranks' fp32 TP, SP and ZeRO steps against one step in this
-    process on the global 4 x 1024 from the same weights, each held by
-    ``_held_to_one_process`` (PR 14's bounds)."""
+def _hp_one_process(torch, tmp):
+    """The one-process step the ranks' fp32 TP, SP and ZeRO steps are held
+    to (``_held_to_one_process``'s bounds, ``_held_pieces``): GPT-124M's
+    widths at 2 layers from the same weights on the global 4 x 1024, saved
+    as ``hp_one.pt``."""
     model, opt = _one_process_gpt2(torch, 0)
     ids, labels = _seeded_ids(torch, model.config.vocab_size,
                               (HP_EXACT_BATCH, model.config.max_seq_len),
                               seed=40)
-    loss = model(ids.cuda(), labels=labels.cuda())[1]
-    loss.backward()
-    grads = {n: p.grad.detach().cpu()
-             for n, p in model.named_parameters() if p.grad is not None}
-    opt.step()
-    rows = []
-    for mode in ("tp", "sp") + HP_ZERO_LEVELS:
-        got = torch.load(f"{tmp}/hp_exact_{mode}.pt")
-        got_loss = sum(got["losses"]) / len(got["losses"])
-        out = _held_to_one_process(torch, got_loss, got["grads"],
-                                   got["params"], loss.item(), grads, model)
-        out.update(phase=f"hybrid_parallel_exactness_fp32_{mode}",
-                   tf32=False,
-                   model=f"GPT-124M widths, 2 layers, fp32, AdamW lr 1e-4; "
-                         f"{mode} on 2 ranks against one process on "
-                         f"{HP_EXACT_BATCH} x 1024")
-        emit(out)
-        rows.append(out)
+    _one_process_step(torch, model, opt, ids, labels, f"{tmp}/hp_one.pt")
     del model, opt
     torch.cuda.empty_cache()
+
+
+def _exactness_held(ranks, prefix, count):
+    """Rank 0's ``count`` rows whose phase starts with ``prefix``; raises
+    unless each was held."""
+    rows = [r for r in ranks[0] if r.get("phase", "").startswith(prefix)]
     bad = [r["phase"] for r in rows if not r["held"]]
-    if bad:
-        raise AssertionError(f"hybrid steps differ from one process: {bad}")
+    if len(rows) != count or bad:
+        raise AssertionError(f"{prefix}: {len(rows)} of {count} steps, "
+                             f"differing from one process: {bad}")
 
 
 def phase_hybrid_parallel_reshard(torch, tmp):
@@ -4095,16 +4203,18 @@ def phase_hybrid_parallel_reshard(torch, tmp):
 
 def phase_hybrid_parallel(torch, ck, smi):
     """The hybrid-parallel path: this process writes a one-process
-    checkpoint, two gloo ranks run TP GPT-124M, the fp32 TP/SP/ZeRO steps,
-    the resharding and ERNIE under ZeRO-3, then this process holds their
-    steps to one process and loads their TP checkpoint. The ranks' kernel
-    launches are added to this process's counts."""
+    checkpoint and a one-process fp32 step, two gloo ranks run TP
+    GPT-124M, the fp32 TP/SP/ZeRO steps (each held to that step on the
+    ranks), the resharding and ERNIE under ZeRO-3, then this process loads
+    their TP checkpoint. The ranks' kernel launches are added to this
+    process's counts."""
     import shutil
     import tempfile
     tmp = tempfile.mkdtemp(prefix="chip_smoke_hp_")
     try:
         torch.cuda.empty_cache()
         _hp_whole_checkpoint(torch, tmp)
+        _hp_one_process(torch, tmp)
         t0 = time.perf_counter()
         ranks = _run_ranks(HP_RANKS, "--hybrid-parallel-rank", tmp,
                            {"PADDLE_DISTRI_BACKEND": "gloo"})
@@ -4113,7 +4223,8 @@ def phase_hybrid_parallel(torch, ck, smi):
             for row in rows[:-1]:
                 emit(row)
             ck.add_launches(rows[-1]["rank_launches"])
-        phase_hybrid_parallel_exactness(torch, ck, tmp)
+        _exactness_held(ranks, "hybrid_parallel_exactness_fp32_",
+                        2 + len(HP_ZERO_LEVELS))
         phase_hybrid_parallel_reshard(torch, tmp)
 
         def rows_of(phase):
@@ -4179,7 +4290,6 @@ CP_MODES = ("ring", "ulysses")
 # K2 and K3 launches a layer and call on a rank at sep 2: the zigzag's own
 # pair and one half-shard block; Ulysses' one whole-sequence call
 CP_BLOCKS_PER_LAYER = {"ring": 2, "ulysses": 1}
-CP_P2P_PROBE_TIMEOUT_S = 120
 
 
 def cp_gpt124m_rank(torch, ck, dist, rank, mode):
@@ -4309,77 +4419,6 @@ def context_parallel_rank(torch, out_dir):
     return 0
 
 
-def gloo_p2p_probe_rank(torch):
-    """Which point-to-point ops this torch's gloo takes on CUDA tensors,
-    on two ranks: send/recv, isend/irecv and batch_isend_irecv, each on a
-    group of its own (a refusal that breaks its pair breaks no other),
-    receives bounded at 20 s. Prints ``{"trying": op}`` before each and
-    the outcome after (ok, wrong values, or the error's first line), so a
-    rank that dies names the op. The sep transport stages gloo's CUDA
-    point-to-point through the host whatever this finds."""
-    import os
-
-    import paddle_tpu_torch.distributed as dist
-    env = dist.init_parallel_env(timeout=60)
-    rank, peer = env.rank, 1 - env.rank
-    names = ("send_recv", "isend_irecv", "batch_isend_irecv")
-    groups = {name: dist.new_group([0, 1]) for name in names}
-    out = {}
-    for name in names:
-        g = groups[name]
-        x = torch.full((4,), float(rank + 1), device="cuda")
-        y = torch.zeros(4, device="cuda")
-        print(json.dumps({"trying": name}), flush=True)
-        try:
-            if name == "send_recv":
-                for turn in (0, 1):
-                    if rank == turn:
-                        dist.send(x, peer, group=g)
-                    else:
-                        dist.recv(y, peer, group=g, timeout=20)
-            elif name == "isend_irecv":
-                for req in (dist.isend(x, peer, group=g),
-                            dist.irecv(y, peer, group=g)):
-                    req.wait(timeout=20)
-            else:
-                for req in dist.batch_isend_irecv(
-                        [dist.P2POp(dist.isend, x, peer, g),
-                         dist.P2POp(dist.irecv, y, peer, g)]):
-                    req.wait(timeout=20)
-            torch.cuda.synchronize()
-            got = y.tolist()
-            out[name] = "ok" if got == [float(peer + 1)] * 4 else \
-                f"wrong values {got}"
-        except (RuntimeError, TimeoutError) as e:
-            out[name] = str(e).splitlines()[0][:200]
-        print(json.dumps({"tried": name, "result": out[name]}), flush=True)
-    print(json.dumps({"phase": "gloo_cuda_p2p", "ops": out, "rank": rank}),
-          flush=True)
-    print(json.dumps({"rank_launches": {}}), flush=True)
-    # no teardown: a pair a refusal broke can hang it
-    os._exit(0)
-
-
-def _gloo_p2p_probe(tmp):
-    """``gloo_p2p_probe_rank`` on two ranks; {rank: {op: outcome}}. It is
-    a record, not a gate: a rank that died or hung reports the op it was
-    trying."""
-    rc, _, logs = _start_ranks(2, "--gloo-p2p-probe", tmp,
-                               {"PADDLE_DISTRI_BACKEND": "gloo"},
-                               timeout=CP_P2P_PROBE_TIMEOUT_S)
-    found = {}
-    for r, text in logs.items():
-        rows = [json.loads(line) for line in text.splitlines()
-                if line.startswith("{")]
-        ops = {row["tried"]: row["result"] for row in rows
-               if "tried" in row}
-        trying = [row["trying"] for row in rows if "trying" in row]
-        if trying and trying[-1] not in ops:
-            ops[trying[-1]] = f"rank died or hung (launcher rc {rc})"
-        found[r] = ops
-    return found
-
-
 def phase_context_parallel_exactness(torch, ck, tmp):
     """The ranks' fp32 ring and Ulysses steps against one step in this
     process on the whole 1 x 4096 from the same weights, by
@@ -4420,10 +4459,9 @@ def phase_context_parallel_exactness(torch, ck, tmp):
 
 def phase_context_parallel(torch, ck, smi):
     """The context-parallel path: two gloo ranks at sep 2 (the fp32 ring
-    and Ulysses steps, then GPT-124M at 2 x 8192 each way), this process's
-    one-process step against their fp32 steps, then the record of gloo's
-    point-to-point ops on CUDA tensors. The ranks' kernel launches are
-    added to this process's counts."""
+    and Ulysses steps, then GPT-124M at 2 x 8192 each way), then this
+    process's one-process step against their fp32 steps. The ranks' kernel
+    launches are added to this process's counts."""
     import shutil
     import tempfile
     tmp = tempfile.mkdtemp(prefix="chip_smoke_cp_")
@@ -4438,9 +4476,6 @@ def phase_context_parallel(torch, ck, smi):
                 emit(row)
             ck.add_launches(rows[-1]["rank_launches"])
         phase_context_parallel_exactness(torch, ck, tmp)
-        t0 = time.perf_counter()
-        probe = _gloo_p2p_probe(tmp)
-        t_probe = time.perf_counter() - t0
         summary = {"phase": "context_parallel", "nvidia_smi": smi,
                    "ranks": CP_RANKS, "backend": "gloo",
                    "sep_transport": "point to point staged through the "
@@ -4465,8 +4500,7 @@ def phase_context_parallel(torch, ck, smi):
                 "flash_launches_per_step_per_rank":
                     [g["flash_launches_per_step"] for g in got],
                 "losses": got[0]["losses"]}
-        summary.update(gloo_cuda_p2p=probe, ranks_s=t_ranks,
-                       p2p_probe_s=t_probe)
+        summary.update(ranks_s=t_ranks)
         emit(summary)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -6226,6 +6260,379 @@ def phase_auto_parallel(torch, ck, smi):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# -- tensor parallelism and ZeRO inside the SPMD pipeline (pipeline_3d) -------
+# Eight gloo ranks share the card at pp 2 x sharding 2 x mp 2 after
+# fleet.init (rank = 4 pp + 2 sharding + mp): GPTForPretrainingPipe with
+# tensor_parallel, placed by group_sharded_parallel. The fp32 gates at
+# PP_EXACT_LAYERS layers are held on the ranks to this process's
+# unpipelined step; the timed steps run GPT-124M at O2 bf16.
+# (P3_RANKS and the shapes stand beside FLASH_CASES)
+P3_EXACT = ((1, False, "p_g_os"), (2, True, "p_g_os"), (1, False, "os"),
+            (1, False, "os_g"))
+P3_SPMD = ((1, False), (2, True))
+
+
+def _p3_exact_batch(torch):
+    return _seeded_ids(torch, 50304, (P3_EXACT_BATCH, 1024), seed=77)
+
+
+def _p3_model(torch, layers, n_micro, n_chunks, remat, level, seed=0,
+              clip=None):
+    """``GPTForPretrainingPipe`` with ``tensor_parallel`` at GPT-124M's
+    widths and ``layers`` layers on ``P3_DEVICE``, AdamW lr 1e-4 (with
+    ``clip``), placed by ``group_sharded_parallel`` at ``level``: (the
+    model, its ZeRO wrapper, the inner optimizer)."""
+    from paddle_tpu_torch.distributed.fleet.meta_parallel.sharding import \
+        group_sharded_parallel
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.text.gpt import GPTConfig, GPTForPretrainingPipe
+    cfg = GPTConfig(hidden_size=768, num_layers=layers, num_heads=12,
+                    tensor_parallel=True)
+    model = GPTForPretrainingPipe(cfg, n_microbatch=n_micro,
+                                  n_chunks=n_chunks, remat=remat,
+                                  device=P3_DEVICE, seed=seed)
+    opt = AdamW(learning_rate=1e-4, parameters=model.parameters(),
+                grad_clip=clip)
+    net, zopt, _ = group_sharded_parallel(model, opt, level)
+    return model, net, getattr(zopt, "_optim", zopt)
+
+
+def _p3_rows(mesh, batch):
+    """This data rank's rows of a global batch (the sharding axis is the
+    data axis: the pp and mp ranks of a data rank share them)."""
+    half = batch // mesh.shape["sharding"]
+    return slice(mesh.coord["sharding"] * half,
+                 (mesh.coord["sharding"] + 1) * half)
+
+
+def _p3_losses(dist, losses):
+    """Every rank's ``losses``; the pp and mp ranks of a data rank (rank ^
+    1, ^ 4) must report bit-equal ones. Returns (all, the data ranks'
+    mean of each)."""
+    seen = []
+    dist.all_gather_object(seen, losses)
+    for r in range(P3_RANKS):
+        if not seen[r] == seen[r ^ 1] == seen[r ^ 4]:
+            raise AssertionError(f"the pp and mp ranks of a data rank "
+                                 f"differ: {seen}")
+    return seen, [(a + b) / 2 for a, b in zip(seen[0], seen[2])]
+
+
+def _p3_stored(torch, one, n_chunks):
+    """``one``'s stacked leaves in the row order a pp-2 model with
+    ``n_chunks`` stores them (chunk-major)."""
+    from paddle_tpu_torch.distributed.fleet.meta_parallel.spmd_pipeline \
+        import interleave_row_order
+    if n_chunks == 1:
+        return one
+    order = torch.as_tensor(interleave_row_order(PP_EXACT_LAYERS, 2,
+                                                 n_chunks))
+    return dict(one, **{k: {n: t[order] if n.startswith("blocks.") else t
+                            for n, t in one[k].items()}
+                        for k in ("grads", "params")})
+
+
+def _p3_checkpoint(torch, rank, out_dir, net, named):
+    """The fp32 ``p_g_os`` model saved from the mesh through
+    ``distributed.checkpoint`` (and this rank's pieces, for the parent's
+    whole load), then loaded into a model of another seed placed the same:
+    every piece bit-equal."""
+    from paddle_tpu_torch.distributed import checkpoint as dck
+    from paddle_tpu_torch.distributed.sharding_api import placement_of
+    t0 = time.perf_counter()
+    dck.save_state_dict(net.state_dict(), f"{out_dir}/p3_ckpt")
+    save_s = time.perf_counter() - t0
+    torch.save({n: (placement_of(p).pieces if placement_of(p) else None,
+                    p.detach().cpu()) for n, p in named},
+               f"{out_dir}/p3_pieces_{rank}.pt")
+    model2, net2, _ = _p3_model(torch, PP_EXACT_LAYERS, P3_EXACT_MICRO, 1,
+                                False, "p_g_os", seed=1)
+    t0 = time.perf_counter()
+    dck.load_state_dict(net2.state_dict(), f"{out_dir}/p3_ckpt")
+    load_s = time.perf_counter() - t0
+    bad = [n for (n, a), (_, b) in zip(named, model2.named_parameters())
+           if not torch.equal(a.detach(), b.detach())]
+    if bad:
+        raise AssertionError(f"the mesh checkpoint loaded back differs: "
+                             f"{bad}")
+    return {"checkpoint_mesh_round_trip_bit_equal": True,
+            "checkpoint_save_s": save_s, "checkpoint_load_s": load_s}
+
+
+def p3_exact_rank(torch, ck, dist, rank, mesh, out_dir, n_chunks, remat,
+                  level):
+    """One fp32 AdamW step (lr 1e-4) of ``_p3_model`` at
+    ``PP_EXACT_LAYERS`` layers under ``level`` through
+    ``CompiledTrainStep``, each data rank on its 2 of the 4 x 1024 rows in
+    ``P3_EXACT_MICRO`` microbatches, held piece by piece to the parent's
+    unpipelined step (``p3_one.pt``, ``_held_pieces``); an mp pair's
+    leaves whole over mp must be bit-equal. The GPipe ``p_g_os`` model then
+    makes the checkpoint round trip (``_p3_checkpoint``)."""
+    from paddle_tpu_torch.distributed.sharding_api import placement_of
+    from paddle_tpu_torch.jit import CompiledTrainStep
+    model, net, opt = _p3_model(torch, PP_EXACT_LAYERS, P3_EXACT_MICRO,
+                                n_chunks, remat, level)
+    step = CompiledTrainStep(lambda a, b: net(a, labels=b)[1], net, opt)
+    real, seen = step._sync, {}
+    step._sync = lambda g: seen.setdefault("grads", real(g))
+    rows = _p3_rows(mesh, P3_EXACT_BATCH)
+    ids, labels = (t[rows].to(P3_DEVICE) for t in _p3_exact_batch(torch))
+    before = {k.name: k.route_launches["fp32"] for k in ck.KERNELS}
+    loss = step(ids, labels).item()
+    launches = [ck.FLASH_FWD.route_launches["fp32"] - before["flash_fwd"],
+                ck.FLASH_BWD.route_launches["fp32"] - before["flash_bwd"]]
+    losses, mean = _p3_losses(dist, [loss])
+    named = list(model.named_parameters())
+    whole_over_mp = {n: _digest([p]) for n, p in named
+                     if "mp" not in getattr(placement_of(p), "axes", ())}
+    pairs = []
+    dist.all_gather_object(pairs, whole_over_mp)
+    if pairs[rank ^ 1] != whole_over_mp:
+        raise AssertionError("an mp pair's replicated leaves differ")
+    one = _p3_stored(torch, torch.load(f"{out_dir}/p3_one.pt"), n_chunks)
+    out = _held_pieces(torch, dist, mean[0], named, seen["grads"], one)
+    out.update(phase=f"pipeline_3d_exactness_fp32_{level}_chunks{n_chunks}"
+                     f"{'_remat' if remat else ''}",
+               tf32=False, losses=[x[0] for x in losses],
+               mp_pair_replicated_bit_equal=len(whole_over_mp),
+               flash_launches_fp32=launches,
+               model=f"GPTForPretrainingPipe(tensor_parallel) at GPT-124M "
+                     f"widths, {PP_EXACT_LAYERS} layers, fp32, AdamW lr "
+                     f"1e-4, {level}, n_chunks {n_chunks}, remat {remat}; "
+                     f"pp 2 x sharding 2 x mp 2 against the unpipelined "
+                     f"model in one process on {P3_EXACT_BATCH} x 1024")
+    if level == "p_g_os" and n_chunks == 1:
+        out.update(_p3_checkpoint(torch, rank, out_dir, net, named))
+    del model, net, opt, step, seen
+    if P3_DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def p3_gpt124m_rank(torch, ck, dist, mesh, n_chunks, remat):
+    """GPT-124M (12 layers) as ``_p3_model`` under ``p_g_os``, AdamW lr 1e-4
+    with ``ClipGradByGlobalNorm(1.0)``, O2 bf16 through
+    ``CompiledTrainStep``, the global 8 x 1024 (4 x 1024 a data rank in
+    ``P3_MICRO`` microbatches), ``n_chunks`` 1 (GPipe, 3 ticks) or 2 with
+    remat (5 ticks): ``PP_WARMUP`` + ``PP_TIMED`` steps (K2 12 a step, 24
+    with remat, K3 12), then one with the mp collectives metered. The
+    pipeline's exchanges, bytes and ms, the comm plane's other works
+    (ZeRO's gathers and reduce-scatters, the sum over pp) and ms a step,
+    peak memory, parameter + AdamW bytes against one process's."""
+    from paddle_tpu_torch.distributed import comm_plane as cp
+    from paddle_tpu_torch.distributed import sep_transport
+    from paddle_tpu_torch.distributed.fleet.meta_parallel import (
+        mp_layers, spmd_pipeline)
+    from paddle_tpu_torch.jit import CompiledTrainStep
+    from paddle_tpu_torch.nn.clip import ClipGradByGlobalNorm
+    layers = 12
+    model, net, opt = _p3_model(torch, layers, P3_MICRO, n_chunks, remat,
+                                "p_g_os", clip=ClipGradByGlobalNorm(1.0))
+    step = CompiledTrainStep(lambda i, lb: net(i, labels=lb)[1], net, opt,
+                             amp_level="O2")
+    rows = _p3_rows(mesh, P3_BATCH)
+    ids, labels = (t[rows].to(P3_DEVICE) for t in _seeded_ids(
+        torch, 50304, (P3_BATCH, 1024), seed=78))
+    per = layers // 2 * P3_MICRO
+    per_step = (per * (2 if remat else 1), per)
+    losses, secs, slowest = _pp_timed(
+        torch, ck, dist, lambda: step(ids, labels), per_step)
+    peak = torch.cuda.max_memory_allocated()
+    ex, bc = sep_transport.stats(), spmd_pipeline.stats()
+    plane = cp.get_plane().stats()
+    ticks = spmd_pipeline.pipeline_ticks(P3_MICRO, 2, n_chunks)
+    if ex["exchanges"] != 2 * ticks * PP_TIMED:
+        raise AssertionError(f"{ex['exchanges']} exchanges in {PP_TIMED} "
+                             f"steps, not 2 x {ticks} each")
+    mp_layers.comm_meter(on=True, reset=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step(ids, labels)
+    torch.cuda.synchronize()
+    metered_s = time.perf_counter() - t0
+    comm = mp_layers.comm_meter(on=False)
+    _, data_losses = _p3_losses(dist, losses)
+    params = list(model.parameters())
+    states = _state_tensors_of(opt, params)
+    pb = sum(p.numel() * p.element_size() for p in params)
+    ob = sum(v.numel() * v.element_size() for v, _ in states)
+    one_pb, one_ob = _whole_bytes(params), _whole_bytes(states)
+    out = {"phase": f"pipeline_3d_gpt124m_chunks{n_chunks}"
+                    f"{'_remat' if remat else ''}",
+           "n_chunks": n_chunks, "remat": remat, "ticks": ticks,
+           "batch_global": [P3_BATCH, 1024], "microbatches": P3_MICRO,
+           "heads_per_rank": 12 // mesh.shape["mp"],
+           "step_ms_each": [1e3 * s for s in secs],
+           "step_ms_slowest_rank": slowest,
+           "global_tokens_per_s": P3_BATCH * 1024 / (slowest / 1e3),
+           "losses_data_ranks": data_losses,
+           "mp_calls_per_step": comm["calls"],
+           "mp_bytes_per_step": comm["bytes"],
+           "mp_ms_per_step": comm["ms"], "metered_step_ms": 1e3 * metered_s,
+           "exchanges_per_step": ex["exchanges"] / PP_TIMED,
+           "exchange_bytes_per_step": ex["bytes"] / PP_TIMED,
+           "exchange_ms_per_step": ex["ms"] / PP_TIMED,
+           "broadcasts_per_step": bc["collectives"] / PP_TIMED,
+           "broadcast_ms_per_step": bc["ms"] / PP_TIMED,
+           "comm_plane_works_per_step":
+               (plane["works"] - ex["exchanges"]) / PP_TIMED,
+           "comm_plane_ms_per_step":
+               (plane["comm_ms"] - ex["ms"]) / PP_TIMED,
+           "peak_memory_bytes": peak,
+           "param_elements": sum(p.numel() for p in params),
+           "param_elements_one_process": one_pb // 4,
+           "param_bytes": pb, "optimizer_bytes": ob,
+           "one_process_param_bytes": one_pb,
+           "one_process_optimizer_bytes": one_ob,
+           "param_plus_adamw_ratio": (pb + ob) / (one_pb + one_ob),
+           "flash_launches_per_step": list(per_step)}
+    del model, net, opt, step
+    torch.cuda.empty_cache()
+    return out
+
+
+def pipeline3d_rank(torch, out_dir):
+    """One rank of the pipeline_3d path (started by the launcher): pp 2 x
+    sharding 2 x mp 2 after ``fleet.init``, the fp32 gates (rank 0 prints
+    their rows: every rank holds the same), then GPT-124M's timed steps in
+    each configuration. Prints one JSON line per phase and last its
+    launches by route."""
+    import paddle_tpu_torch.distributed as dist
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.ops import cuda_kernels as ck
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    env = dist.init_parallel_env(timeout=DP_RANK_TIMEOUT_S)
+    rank, world = env.rank, env.world_size
+    if dist.get_backend() != "gloo" or world != P3_RANKS:
+        raise AssertionError(f"backend {dist.get_backend()}, world {world}")
+    ck.reset_launch_counts()
+    mesh = _hp_fleet(fleet, pp_degree=2, sharding_degree=2, mp_degree=2)
+    coord = [mesh.coord[a] for a in ("pp", "sharding", "mp")]
+    if [mesh.shape[a] for a in ("pp", "sharding", "mp")] != [2, 2, 2] or \
+            rank != 4 * coord[0] + 2 * coord[1] + coord[2]:
+        raise AssertionError(f"mesh {mesh}")
+    for n_chunks, remat, level in P3_EXACT:
+        row = p3_exact_rank(torch, ck, dist, rank, mesh, out_dir, n_chunks,
+                            remat, level)
+        if rank == 0:
+            _rank_emit(rank, row)
+    for n_chunks, remat in P3_SPMD:
+        _rank_emit(rank, p3_gpt124m_rank(torch, ck, dist, mesh, n_chunks,
+                                         remat))
+    _rank_emit(rank, {"rank_launches": {k.name: dict(k.route_launches)
+                                        for k in ck.KERNELS}})
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def _p3_one_process(torch, tmp):
+    """The unpipelined fp32 step the ranks' gates are held to:
+    ``GPTForPretrainingPipe`` at GPT-124M's widths and ``PP_EXACT_LAYERS``
+    layers from the same weights, on the whole 4 x 1024, as ``p3_one.pt``."""
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.text.gpt import GPTConfig, GPTForPretrainingPipe
+    model = GPTForPretrainingPipe(
+        GPTConfig(hidden_size=768, num_layers=PP_EXACT_LAYERS, num_heads=12),
+        device=P3_DEVICE, seed=0)
+    opt = AdamW(learning_rate=1e-4, parameters=model.parameters())
+    ids, labels = _p3_exact_batch(torch)
+    _one_process_step(torch, model, opt, ids, labels, f"{tmp}/p3_one.pt")
+    del model, opt
+
+
+def phase_pipeline_3d_checkpoint(torch, tmp):
+    """The ranks' checkpoint loaded whole into one process (a model of
+    another seed, no mesh): every rank's piece of every parameter
+    bit-equal to the loaded whole."""
+    from paddle_tpu_torch.distributed import checkpoint as dck
+    from paddle_tpu_torch.distributed.sharding_api import Placement
+    from paddle_tpu_torch.text.gpt import GPTConfig, GPTForPretrainingPipe
+    model = GPTForPretrainingPipe(
+        GPTConfig(hidden_size=768, num_layers=PP_EXACT_LAYERS, num_heads=12),
+        device=P3_DEVICE, seed=1)
+    t0 = time.perf_counter()
+    dck.load_state_dict(model.state_dict(), f"{tmp}/p3_ckpt")
+    load_s = time.perf_counter() - t0
+    whole = {n: p.detach().cpu() for n, p in model.named_parameters()}
+    bad, pieces = [], 0
+    for r in range(P3_RANKS):
+        for n, (pl, local) in torch.load(f"{tmp}/p3_pieces_{r}.pt").items():
+            want = Placement(whole[n].shape, pl).take(whole[n]) \
+                if pl is not None else whole[n]
+            pieces += 1
+            if not torch.equal(local, want):
+                bad.append((r, n))
+    out = {"phase": "pipeline_3d_checkpoint_whole",
+           "mesh_to_one_process_bit_equal": not bad, "mismatched": bad,
+           "rank_tensors": pieces, "load_s": load_s}
+    emit(out)
+    del model
+    if bad:
+        raise AssertionError(f"the mesh checkpoint loaded whole: {out}")
+    return out
+
+
+def phase_pipeline_3d(torch, ck, smi):
+    """The pipeline_3d path: this process's unpipelined fp32 step, eight
+    gloo ranks at pp 2 x sharding 2 x mp 2 (the fp32 gates held to it, the
+    checkpoint round trip, GPT-124M's timed steps), then the ranks'
+    checkpoint loaded whole here. The ranks' kernel launches are added to
+    this process's counts."""
+    import shutil
+    import tempfile
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_p3_")
+    try:
+        torch.cuda.empty_cache()
+        _p3_one_process(torch, tmp)
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        ranks = _run_ranks(P3_RANKS, "--pipeline3d-rank", tmp,
+                           {"PADDLE_DISTRI_BACKEND": "gloo",
+                            "OMP_NUM_THREADS": "1"})
+        t_ranks = time.perf_counter() - t0
+        for rows in ranks.values():
+            for row in rows[:-1]:
+                emit(row)
+            ck.add_launches(rows[-1]["rank_launches"])
+        _exactness_held(ranks, "pipeline_3d_exactness_fp32_", len(P3_EXACT))
+        ckpt = phase_pipeline_3d_checkpoint(torch, tmp)
+        summary = {"phase": "pipeline_3d", "nvidia_smi": smi,
+                   "ranks": P3_RANKS, "backend": "gloo",
+                   "mesh": {"pp": 2, "sharding": 2, "mp": 2},
+                   "transport": "mp sums, pipeline exchanges and ZeRO's "
+                                "collectives staged through the host "
+                                "(gloo, CUDA tensors)",
+                   "global_batch": [P3_BATCH, 1024],
+                   "microbatches": P3_MICRO, "ranks_s": t_ranks,
+                   "checkpoint_whole_load_s": ckpt["load_s"]}
+        for n_chunks, remat in P3_SPMD:
+            name = f"pipeline_3d_gpt124m_chunks{n_chunks}" \
+                   f"{'_remat' if remat else ''}"
+            got = [next(r for r in rows if r.get("phase") == name)
+                   for rows in ranks.values()]
+            slowest = max(g["step_ms_slowest_rank"] for g in got)
+            summary[name[12:]] = dict(
+                {k: [g[k] for g in got] for k in (
+                    "mp_calls_per_step", "mp_bytes_per_step",
+                    "mp_ms_per_step", "exchanges_per_step",
+                    "exchange_bytes_per_step", "exchange_ms_per_step",
+                    "comm_plane_works_per_step", "comm_plane_ms_per_step",
+                    "peak_memory_bytes", "param_elements", "param_bytes",
+                    "optimizer_bytes", "param_plus_adamw_ratio")},
+                step_ms_slowest_rank=slowest,
+                global_tokens_per_s=P3_BATCH * 1024 / (slowest / 1e3),
+                ticks=got[0]["ticks"],
+                param_elements_one_process=got[0][
+                    "param_elements_one_process"],
+                losses_data_ranks=got[0]["losses_data_ranks"],
+                flash_launches_per_step=got[0]["flash_launches_per_step"])
+        emit(summary)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def paged_bound(torch, q, kp, bt, cl):
     """Least time for K1 on these inputs: bytes each slot's visible rows
     need (K and V once, the table entries it reads, q, lens, out) versus
@@ -6498,7 +6905,8 @@ def phase_timing(torch, ck, launches, path_launches, routes, smi):
                        *((case, "context_parallel")
                          for case in CP_ATTENTION),
                        *((case, "pipeline") for case in PP_ATTENTION),
-                       *((case, "grad_comm") for case in GC_ATTENTION)):
+                       *((case, "grad_comm") for case in GC_ATTENTION),
+                       (P3_ATTENTION[0], "pipeline_3d")):
         counts = path_launches[path]
         for row in (time_flash(torch, ck, case, bf16, counts["flash_fwd"]),
                     time_flash_bwd(torch, ck, case, bf16,
@@ -6566,14 +6974,14 @@ def main():
         return hybrid_parallel_rank(torch, sys.argv[2])
     if sys.argv[1:2] == ["--context-parallel-rank"]:
         return context_parallel_rank(torch, sys.argv[2])
-    if sys.argv[1:2] == ["--gloo-p2p-probe"]:
-        return gloo_p2p_probe_rank(torch)
     if sys.argv[1:2] == ["--pipeline-rank"]:
         return pipeline_rank(torch, sys.argv[2])
     if sys.argv[1:2] == ["--grad-comm-rank"]:
         return grad_comm_rank(torch, sys.argv[2])
     if sys.argv[1:2] == ["--auto-parallel-rank"]:
         return auto_parallel_rank(torch, sys.argv[2])
+    if sys.argv[1:2] == ["--pipeline3d-rank"]:
+        return pipeline3d_rank(torch, sys.argv[2])
     from paddle_tpu_torch.ops import cuda_kernels as ck
 
     t0 = time.perf_counter()
@@ -6592,7 +7000,9 @@ def main():
     # then the pipeline path (K2, K3 per block and microbatch per stage),
     # then the grad_comm path (K2, K3 per layer and microbatch or step),
     # then the auto_parallel path (K2, K3 fp32 per layer and step in each
-    # Engine rank; K2 per block and microbatch through the fleet executor)
+    # Engine rank; K2 per block and microbatch through the fleet executor),
+    # then the pipeline_3d path (K2, K3 per layer of a stage and microbatch
+    # in each of its eight ranks, on an mp rank's heads)
     paths = (("serving", ("paged_attention", "flash_fwd"),
               lambda: (phase_serving(torch, ck, smi),
                        phase_exactness_fp32(torch, ck))),
@@ -6644,7 +7054,11 @@ def main():
              # the Engine's ranks (fp32) over placed parameters, then the
              # fleet executor's stages here (K2 only)
              ("auto_parallel", ("flash_fwd", "flash_bwd"),
-              lambda: phase_auto_parallel(torch, ck, smi)))
+              lambda: phase_auto_parallel(torch, ck, smi)),
+             # the eight ranks of pp 2 x sharding 2 x mp 2
+             # (GPTForPretrainingPipe with tensor_parallel under ZeRO)
+             ("pipeline_3d", ("flash_fwd", "flash_bwd"),
+              lambda: phase_pipeline_3d(torch, ck, smi)))
     launches = {k.name: 0 for k in ck.KERNELS}
     path_launches, path_routes, path_seconds = {}, {}, {}
     for path, kernels, drive in paths:

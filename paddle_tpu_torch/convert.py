@@ -21,20 +21,22 @@ caller converts):
 Both packages keep Paddle's [in, out] Linear layout, so every array
 carries across as it is: no transpose.
 
-``slice_pipe_gpt_state`` takes a ``GPTForPretrainingPipe``'s whole state
-(``wte.weight``, ``blocks.qkv_w`` [L, H, 3, H], ... in natural layer
-order, as the reference holds it without a pp axis) to the layout of a
-pp rank: the stacked rows chunk-major for the interleaved schedule, and
-one stage's rows.
-
-``slice_gpt_state`` cuts such a whole state into one rank's piece of a
-tensor-parallel GPT (``GPTConfig(tensor_parallel=True)`` or
-``sequence_parallel=True``), and of its ZeRO-3 rows, by the rules the
-model's layers follow: the packed qkv split per head within each of q,
-k and v (its columns and bias), ``fc_in`` by columns, ``out_proj`` and
-``fc_out`` by rows (their biases whole), ``wte`` by vocabulary rows,
-the norms, ``wpe`` and an untied ``lm_head`` whole; ZeRO-3 then keeps
-rows [i*n0/s, (i+1)*n0/s) of each piece whose dimension 0 divides.
+``slice_gpt_state`` cuts such a whole state into one rank's pieces at
+(pp, sharding, mp) and ``n_chunks``, by the rules the model's layers
+follow. A tensor-parallel GPT (``GPTConfig(tensor_parallel=True)`` or
+``sequence_parallel=True``): the packed qkv split per head within each
+of q, k and v (its columns and bias), ``fc_in`` by columns,
+``out_proj`` and ``fc_out`` by rows (their biases whole), ``wte`` by
+vocabulary rows, the norms, ``wpe`` and an untied ``lm_head`` whole. A
+``GPTForPretrainingPipe``'s whole state (``wte.weight``,
+``blocks.qkv_w`` [L, H, 3, H], ... in natural layer order, as the
+reference holds it without a pp axis): the stacked rows chunk-major for
+the interleaved schedule, one stage's rows, and under tensor parallelism
+inside the pipeline each stacked leaf's mp range (``text.gpt.
+stacked_placement``), the embeddings, ``ln_f`` and the head whole.
+ZeRO-3 then keeps rows [i*n0/s, (i+1)*n0/s) of each piece whose
+dimension 0 divides. ``slice_pipe_gpt_state`` is the same function with
+the pipeline's arguments first.
 """
 from __future__ import annotations
 
@@ -118,18 +120,45 @@ def _tp_rule(name):
 
 
 def slice_gpt_state(np_state, mp_degree=1, mp_rank=0, sharding_degree=1,
-                    sharding_rank=0):
-    """{name: np.ndarray} of one rank of a TP (and ZeRO-3) GPT, from the
-    whole state in either input form (``gpt_state_from_jax``)."""
+                    sharding_rank=0, pp_degree=1, pp_rank=None, n_chunks=1):
+    """{name: np.ndarray} of one rank's pieces, from the whole state in
+    either input form (``gpt_state_from_jax``) of a ``GPTForPretraining``
+    or, by its ``blocks.*`` names, a ``GPTForPretrainingPipe`` (in natural
+    layer order, as the reference holds it without a pp axis).
+
+    A stacked leaf at ``pp_degree`` > 1: its rows chunk-major when
+    ``n_chunks`` > 1, as the model stores them; with ``pp_rank`` given,
+    that stage's rows and, with ``mp_degree`` > 1 (tensor parallelism
+    inside the pipeline), its mp range by ``text.gpt.stacked_placement``
+    (the reference's ``_tp_param_specs``). A TP GPT's leaf: its piece by
+    the rules of its layers (``_tp_rule``). Then, with ``sharding_degree``
+    > 1, ZeRO-3's rows of each piece whose dimension 0 divides."""
     from .distributed.sharding_api import Placement, split_placement
+    from .distributed.fleet.meta_parallel.spmd_pipeline import \
+        interleave_row_order
+    from .text.gpt import stacked_placement
     out = {}
     for name, arr in gpt_state_from_jax(np_state).items():
-        rule = _tp_rule(name)
-        if rule is None or mp_degree == 1:
-            pl = Placement.whole(arr.shape)
+        if name.startswith("blocks."):
+            if pp_degree > 1 and n_chunks > 1:
+                arr = arr[interleave_row_order(arr.shape[0], pp_degree,
+                                               n_chunks)]
+            if pp_degree > 1 and pp_rank is not None:
+                pl = stacked_placement(name[len("blocks."):], arr.shape,
+                                       pp_degree, pp_rank, mp_degree,
+                                       mp_rank)
+            elif mp_degree > 1:
+                raise ValueError("tensor parallelism inside the pipeline "
+                                 "needs pp_degree > 1 and pp_rank")
+            else:
+                pl = Placement.whole(arr.shape)
         else:
-            pl = split_placement(arr.shape, rule[0], mp_degree, mp_rank,
-                                 rule[1])
+            rule = _tp_rule(name)
+            if rule is None or mp_degree == 1:
+                pl = Placement.whole(arr.shape)
+            else:
+                pl = split_placement(arr.shape, rule[0], mp_degree, mp_rank,
+                                     rule[1])
         piece = pl.take(arr)
         if sharding_degree > 1 and piece.ndim and \
                 piece.shape[0] % sharding_degree == 0:
@@ -139,23 +168,13 @@ def slice_gpt_state(np_state, mp_degree=1, mp_rank=0, sharding_degree=1,
     return out
 
 
-def slice_pipe_gpt_state(np_state, pp_degree=1, pp_rank=None, n_chunks=1):
-    """{name: np.ndarray} of a ``GPTForPretrainingPipe`` at ``pp_degree``
-    from its whole natural-order state: with ``n_chunks`` > 1 (and pp > 1)
-    the stacked rows (``blocks.*``) chunk-major, as the model stores them;
-    with ``pp_rank`` given, only that stage's rows (a committed rank's
-    parameters). The rest is whole."""
-    from .distributed.fleet.meta_parallel.spmd_pipeline import \
-        interleave_row_order
-    out = {}
-    for name, arr in np_state.items():
-        arr = np.asarray(arr)
-        if name.startswith("blocks.") and pp_degree > 1:
-            if n_chunks > 1:
-                arr = arr[interleave_row_order(arr.shape[0], pp_degree,
-                                               n_chunks)]
-            if pp_rank is not None:
-                rows = arr.shape[0] // pp_degree
-                arr = arr[pp_rank * rows:(pp_rank + 1) * rows]
-        out[name] = np.ascontiguousarray(arr)
-    return out
+def slice_pipe_gpt_state(np_state, pp_degree=1, pp_rank=None, n_chunks=1,
+                         mp_degree=1, mp_rank=0, sharding_degree=1,
+                         sharding_rank=0):
+    """``slice_gpt_state`` of a ``GPTForPretrainingPipe``'s whole
+    natural-order state, the pipeline's arguments first: the stacked rows
+    chunk-major for ``n_chunks`` > 1 (pp > 1), one stage's rows and mp
+    pieces with ``pp_rank`` given, the ZeRO-3 rows at ``sharding_degree``;
+    the rest whole, or its ZeRO-3 rows."""
+    return slice_gpt_state(np_state, mp_degree, mp_rank, sharding_degree,
+                           sharding_rank, pp_degree, pp_rank, n_chunks)

@@ -22,8 +22,10 @@ traffic), as ``DataParallel`` builds its own buckets:
 
 The partition rule is the reference's ``zero_partition_spec``: dimension
 0 is split over the sharding axis, a tensor whose dimension 0 does not
-divide is left whole (replicated), and the rule composes with TP: the
-ZeRO rows are taken of the rank's TP piece. A parameter's partition
+divide is left whole (replicated), and the rule composes with TP and
+the pipeline: the ZeRO rows are taken of the rank's TP piece, or of a
+stacked leaf's stage rows and mp piece (``group_sharded_parallel``
+commits the model's own placement first). A parameter's partition
 (``p._zero``) and its optimizer state (the inner optimizer's
 accumulators, rows-shaped) travel with the parameter and the inner
 optimizer, so ``CompiledTrainStep`` given the unwrapped net and
@@ -98,19 +100,15 @@ def zero_partition_spec(value, mesh, axis="sharding"):
     n = mesh.shape.get(axis, 1)
     if n <= 1 or getattr(value, "ndim", 0) < 1:
         return None
-    pl = placement_of(value)
     z = getattr(value, "_zero", None)
+    pl = z.full_placement if z is not None else placement_of(value)
     shape = z.full_shape if z is not None else tuple(value.shape)
-    spec = [None] * len(shape)
-    if pl is not None:
-        for d in range(len(shape)):
-            if pl.global_shape[d] != shape[d]:
-                spec[d] = "mp"
     if shape[0] % n:
         return None
-    d0 = spec[0]
-    spec[0] = (d0, axis) if d0 else axis
-    return tuple(spec)
+    names = list(pl.dim_axes) if pl is not None else [()] * len(shape)
+    names[0] += (axis,)
+    return tuple(None if not a else a[0] if len(a) == 1 else a
+                 for a in names)
 
 
 def _state_placement(p, z):
@@ -410,9 +408,16 @@ def group_sharded_parallel(model, optimizer, level, scaler=None, group=None,
                            exclude_layer=None):
     """upstream ``paddle.distributed.sharding.group_sharded_parallel``:
     (model, optimizer, scaler) with ZeRO at ``level`` over the default
-    mesh's sharding group (a degree of 1 changes nothing)."""
+    mesh's sharding group (a degree of 1 changes nothing). A layer that
+    places its own parameters (``commit_param_shardings``: a pipelined
+    GPT's stage rows and mp pieces) commits them first, as in the
+    reference, so ZeRO shards what pp and mp left the rank."""
     if level not in LEVELS:
         raise ValueError(f"bad level {level}")
+    for m in model.modules():
+        commit = getattr(m, "commit_param_shardings", None)
+        if commit is not None:
+            commit()
     params = [p for p in model.parameters() if p.requires_grad]
     if level == "p_g_os":
         model = GroupShardedStage3(model, optimizer=optimizer, group=group,
@@ -521,18 +526,18 @@ def sync_gradients(params, grads, mesh, sync_plain=True, bucket_mb=25):
     On a mesh with a pp axis, a parameter outside the pipeline
     (``_pp_replicated``: replicated over pp, each rank holding its 1/pp
     share of the gradient, ``text/gpt.py`` ``GPTForPretrainingPipe``) is
-    first summed over pp, so every pp rank ends with the whole gradient; a
-    stage's own parameter keeps its stage's. ZeRO with the pipeline raises
-    (ROADMAP A7)."""
+    first summed over pp (its ZeRO-3 rows, already reduce-scattered, the
+    same way), so every pp rank ends with the whole gradient, then
+    averaged or reduce-scattered over sharding like any other; a stage's
+    own rows keep their stage's gradient and are averaged or
+    reduce-scattered over sharding only. A leaf replicated over mp (a
+    norm, a row-parallel bias, the embeddings) takes no sum over mp: every
+    mp rank computed its whole gradient."""
     from ...collective import ReduceOp
     from ...parallel import all_reduce_gradients
     grads = list(grads)
     pp = mesh.group("pp")
     if pp.nranks > 1:
-        if any(getattr(p, "_zero", None) is not None for p in params):
-            raise NotImplementedError(
-                "ZeRO sharding with the pipeline (pp_degree > 1) is not "
-                "ported yet (ROADMAP A7)")
         rep = [i for i, p in enumerate(params)
                if getattr(p, "_pp_replicated", False)]
         if rep:
@@ -586,18 +591,18 @@ def is_mp_split(p):
 
 
 def hybrid_clip(clip, params, grads, mesh):
-    """The optimizer's clip with a global norm across the groups: the
-    squares of mp-split gradients (``is_distributed``) summed over mp,
-    replicated ones counted once, ZeRO rows summed over sharding; the same
-    scale as ``ClipGradByGlobalNorm`` in one process on the whole model.
+    """The optimizer's clip with a global norm across the groups, each
+    element of the global model counted once: the squares of a gradient
+    summed over sharding when it is ZeRO rows, over mp when it is split
+    over mp (``is_distributed``), over pp when it is a pipeline stage's
+    own (``_pp_stage``: an eager stage's layer, a stacked row), and over
+    no axis it is replicated on; the same scale as
+    ``ClipGradByGlobalNorm`` in one process on the whole model.
     ``ClipGradByNorm`` scales each gradient by the norm of its whole
     logical gradient, its squares summed the same way
     (``_clip_by_norm``).
     Every parameter is replicated over sep, with its gradient summed over
-    sep before the clip, so no sum runs over sep: each counts once. A
-    pipeline stage's own parameter (``_pp_stage``: an eager stage's layer,
-    a stacked row) has its squares summed over pp; one replicated over pp
-    counts once."""
+    sep before the clip, so no sum runs over sep: each counts once."""
     from ....nn.clip import ClipGradByGlobalNorm, ClipGradByNorm, \
         ClipGradByValue
     if clip is None:
@@ -610,53 +615,52 @@ def hybrid_clip(clip, params, grads, mesh):
         raise TypeError(f"unsupported grad clip in the train step: {clip!r}")
     from ...collective import all_reduce
     dev = grads[0].device
-    parts = torch.zeros(4, dtype=torch.float32, device=dev)
-    pp = mesh.group("pp")
-    staged = torch.zeros(1, dtype=torch.float32, device=dev)
+    # the squares by the axes they are summed over: bit 0 sharding, bit 1
+    # mp, bit 2 pp
+    parts = torch.zeros(8, dtype=torch.float32, device=dev)
+    staged = mesh.group("pp").nranks > 1
     for p, g in zip(params, grads):
-        if pp.nranks > 1 and getattr(p, "_pp_stage", None) is not None:
-            staged += torch.sum(torch.square(g.float()))
-            continue
         z = getattr(p, "_zero", None)
-        k = (0 if is_mp_split(p) else 2) + \
-            (0 if z is not None and z.grad_sharded else 1)
+        k = (z is not None and z.grad_sharded) + 2 * is_mp_split(p) + \
+            4 * (staged and getattr(p, "_pp_stage", None) is not None)
         parts[k] += torch.sum(torch.square(g.float()))
-    sh = mesh.group("sharding")
-    if sh.nranks > 1:
-        rows = parts[[0, 2]].contiguous()
-        all_reduce(rows, group=sh)
-        parts[0], parts[2] = rows[0], rows[1]
-    split = (parts[0] + parts[1]).reshape(1)
-    mp = mesh.group("mp")
-    if mp.nranks > 1:
-        all_reduce(split, group=mp)
-    if pp.nranks > 1:
-        all_reduce(staged, group=pp)
-    total = split[0] + parts[2] + parts[3] + staged[0]
+    bits = torch.arange(8, device=dev)
+    for axis, bit in (("sharding", 1), ("mp", 2), ("pp", 4)):
+        group = mesh.group(axis)
+        if group.nranks > 1:
+            mask = (bits & bit) > 0
+            summed = torch.where(mask, parts, torch.zeros_like(parts))
+            all_reduce(summed, group=group)
+            parts = torch.where(mask, summed, parts)
+    total = parts.sum()
     scale = torch.clamp(clip.clip_norm / torch.clamp(torch.sqrt(total),
                                                      min=1e-12), max=1.0)
     return [g * scale.to(g.dtype) for g in grads]
 
 
 def _split_over(p):
-    """(split over mp, ZeRO rows over sharding) of ``p``'s gradient."""
+    """(split over mp, ZeRO rows over sharding, rows of a tensor split
+    over pp) of ``p``'s gradient."""
     z = getattr(p, "_zero", None)
-    return is_mp_split(p), z is not None and z.grad_sharded
+    pl = z.full_placement if z is not None else placement_of(p)
+    return (is_mp_split(p), z is not None and z.grad_sharded,
+            pl is not None and "pp" in pl.axes)
 
 
 def _clip_by_norm(clip, params, grads, mesh):
     """``ClipGradByNorm`` over split parameters: each gradient scaled by
     the L2 norm of its whole logical gradient (the reference clips the
     whole gradient of each parameter). A whole gradient takes the plain
-    clip; a split one sums its fp32 squares over mp and over sharding
-    (one all-reduce of every split parameter's squares per group)."""
+    clip; a split one sums its fp32 squares over mp, over sharding and,
+    for a stacked leaf's stage rows, over pp (one all-reduce of every
+    split parameter's squares per group)."""
     from ...collective import all_reduce
     split = [_split_over(p) for p in params]
-    if not any(a or b for a, b in split):
+    if not any(any(s) for s in split):
         return [clip([(None, g)])[0][1] for g in grads]
     dev = grads[0].device
     sq = torch.stack([torch.sum(torch.square(g.float())) for g in grads])
-    for axis, k in (("mp", 0), ("sharding", 1)):
+    for axis, k in (("mp", 0), ("sharding", 1), ("pp", 2)):
         group = mesh.group(axis)
         mask = torch.tensor([s[k] for s in split], device=dev)
         if group.nranks > 1 and bool(mask.any()):
@@ -664,8 +668,8 @@ def _clip_by_norm(clip, params, grads, mesh):
             all_reduce(part, group=group)
             sq = torch.where(mask, part, sq)
     out = []
-    for (a, b), g, s in zip(split, grads, sq):
-        if not (a or b):
+    for s_over, g, s in zip(split, grads, sq):
+        if not any(s_over):
             out.append(clip([(None, g)])[0][1])
             continue
         scale = torch.clamp(clip.clip_norm / torch.clamp(torch.sqrt(s),

@@ -31,6 +31,20 @@ state's gradient to the previous stage), taking each tick's gradients
 with ``torch.autograd.grad``. Each rank's forward and backward make
 m·v + pp - 1 exchanges of one microbatch's state.
 
+Tensor parallelism inside the pipeline (``spmd_pipeline(param_specs=)``,
+the reference's): each leaf's ``Placement`` leads with its stage's rows
+over pp and may cut a trailing column or row range over mp, so a rank's
+leaves are its stage's rows and mp piece; ``block_fn`` then issues the
+mp sums (``text/gpt.py`` ``StackedGPTBlocks``). Those collectives run
+inside the tick loop, in its forward, its recompute (``remat``) and its
+backward, on every mp rank of a (pp, sharding) coordinate in one order:
+the ranks of an mp group share a stage, so they share the schedule. The
+exchanges stay over the rank's pp group, the ranks of its (sharding, mp)
+coordinate. The tick loop's graphs keep what they save as it is: a
+ZeRO-3 leaf gathered for the step stays whole until the backward (the
+loop holds it for its chunks anyway), where ``GroupShardedStage3``'s
+hooks would gather it again for every saved product.
+
 ``stats()``: the broadcasts of the last stage's output and their
 backward all-reduces since ``reset_stats()``, and the ms they took on
 the host's clock (each starts after the card finished the work queued
@@ -146,7 +160,9 @@ class _TickLoop(torch.autograd.Function):
             else:
                 x_in = micro[mb] if stage == 0 and chunk == 0 else state
                 x_in = x_in.detach().requires_grad_()
-                with torch.enable_grad():
+                with torch.enable_grad(), \
+                        torch.autograd.graph.saved_tensors_hooks(_keep,
+                                                                 _keep):
                     y = _apply_chunk(block_fn, leaves[chunk], x_in)
                 kept.append((x_in, None if remat else y))
                 if stage == pp - 1 and chunk == v - 1:
@@ -194,6 +210,10 @@ class _TickLoop(torch.autograd.Function):
         d_p = [torch.cat([d_params[c][i] for c in range(v)])
                for i in range(len(d_params[0]))]
         return (None, None, None, None, None, d_x, *d_p)
+
+
+def _keep(t):
+    return t
 
 
 def _apply_chunk(block_fn, chunk_params, x):
@@ -250,14 +270,32 @@ def broadcast_from_last_stage(y, group):
     return _LastStage.apply(y, group)
 
 
+def _local_piece(p, spec):
+    """This rank's piece of ``p`` by its placement ``spec``: ``p`` as it
+    is when it already has the piece's shape, else cut out of the global
+    value."""
+    if tuple(p.shape) != spec.global_shape:
+        return p
+    if len(spec.pieces) == 1:
+        return p[tuple(slice(*g) for g in spec.pieces[0][1])]
+    return spec.take(p)
+
+
 def spmd_pipeline(block_fn, stage_params, x, n_microbatch, group,
-                  n_chunks=1, remat=False, param_rows=None):
+                  n_chunks=1, remat=False, param_rows=None,
+                  param_specs=None):
     """The pipeline over ``group`` (the mesh's pp group): every rank gets
     the last stage's output. ``stage_params``: this stage's rows,
     chunk-major when ``n_chunks > 1`` (``interleave_row_order`` arranges
     the stored rows once). ``param_rows``: the total layer count, checked
     to divide by ``pp * n_chunks``. The interleaved schedule needs
-    ``n_microbatch % pp == 0``."""
+    ``n_microbatch % pp == 0``.
+
+    ``param_specs``: one ``sharding_api.Placement`` per leaf, each leading
+    with "pp" on dimension 0 (the reference's ``PartitionSpec``s leading
+    with its pp axis); a leaf given whole (its placement's global shape)
+    is cut to this rank's piece, its stage's rows and, under tensor
+    parallelism, its mp range, and ``block_fn`` then owns the mp sums."""
     pp = group.nranks
     if n_chunks > 1 and n_microbatch % pp:
         raise ValueError(
@@ -267,6 +305,13 @@ def spmd_pipeline(block_fn, stage_params, x, n_microbatch, group,
         raise ValueError(
             f"total layers ({param_rows}) must divide by pp * n_chunks "
             f"({pp} * {n_chunks})")
+    if param_specs is not None:
+        for spec in param_specs:
+            if spec.dim_axes[0][:1] != ("pp",):
+                raise ValueError(f"param_specs must lead with 'pp' on dim "
+                                 f"0 (got {spec})")
+        stage_params = tuple(_local_piece(p, spec) for p, spec in
+                             zip(stage_params, param_specs))
     y = spmd_pipeline_local(block_fn, stage_params, x, n_microbatch, group,
                             n_chunks=n_chunks, remat=remat)
     return broadcast_from_last_stage(y, group)

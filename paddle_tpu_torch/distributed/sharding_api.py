@@ -24,10 +24,18 @@ raise ``ValueError``. The sep axis carries context parallelism
 its ranks share a batch's rows and split its sequence
 (``sep_local_batch``). The pp axis carries the pipeline
 (``fleet/meta_parallel/{pipeline_parallel,spmd_pipeline}.py``): its ranks
-share a batch's rows, each holding one stage's layers, so
-``data_rank_world`` and ``process_local_batch`` stay over the data axes.
-A mesh with both pp and sep above 1 raises ``NotImplementedError`` naming
-ROADMAP A7.
+share a batch's rows, each holding one stage's layers, and so do the mp
+ranks of a data rank (the reference's ``P(("sharding",), None)`` batch),
+so ``data_rank_world`` and ``process_local_batch`` stay over the data
+axes. A mesh with both pp and sep above 1 raises ``NotImplementedError``
+naming ROADMAP A7.
+
+A ``Placement`` names the piece of a global tensor a rank holds and the
+axes it is split over, by dimension: a stacked pipeline leaf under tensor
+parallelism and ZeRO is its stage's rows over pp, then its column or row
+range over mp, then its ZeRO rows over sharding (``narrow`` composes
+each cut), so ``distributed.checkpoint`` and ``convert`` rebuild the
+global value from the pieces.
 
 Multi-slice data parallelism: ``build_mesh(dcn_dp=n)`` with n > 1 adds an
 outermost ``dcn`` axis (``mesh.axis_names`` is then ``("dcn",) + AXES``)
@@ -347,18 +355,23 @@ class Placement:
     """Where a rank's tensor sits in the global one: ``global_shape``,
     ``pieces`` [(local index, global index)], each index one (start, stop)
     per dimension (a TP qkv weight is three pieces: one column range of
-    each of q, k and v), and ``axes``, the mesh axes it is split over; on
+    each of q, k and v), ``axes``, the mesh axes it is split over, and
+    ``dim_axes``, those axes by the dimension they split, in the order
+    they were applied (a stacked pipeline leaf under ZeRO: dimension 0
+    over ``("pp", "sharding")``, its trailing one over ``("mp",)``). On
     every other axis the tensor is replicated, and the rank at coordinate
     0 of each such axis is the one that writes it to a checkpoint."""
 
-    __slots__ = ("global_shape", "pieces", "axes")
+    __slots__ = ("global_shape", "pieces", "axes", "dim_axes")
 
-    def __init__(self, global_shape, pieces, axes=()):
+    def __init__(self, global_shape, pieces, axes=(), dim_axes=None):
         self.global_shape = tuple(int(s) for s in global_shape)
         self.pieces = [(tuple(tuple(p) for p in lo), tuple(tuple(p)
                                                            for p in gl))
                        for lo, gl in pieces]
         self.axes = tuple(axes)
+        self.dim_axes = tuple(tuple(a) for a in dim_axes) \
+            if dim_axes is not None else ((),) * len(self.global_shape)
 
     @classmethod
     def whole(cls, shape):
@@ -373,18 +386,26 @@ class Placement:
         return all(mesh.coord[a] == 0 for a in mesh.axis_names
                    if a not in self.axes)
 
+    def narrow(self, dim, lo, hi, axis):
+        """The placement of [lo, hi) of dimension ``dim`` of this rank's
+        tensor, that dimension split over ``axis`` as well."""
+        pieces = []
+        for li, gi in self.pieces:
+            a, b = max(li[dim][0], lo), min(li[dim][1], hi)
+            if a >= b:
+                continue
+            off = gi[dim][0] - li[dim][0]
+            pieces.append((li[:dim] + ((a - lo, b - lo),) + li[dim + 1:],
+                           gi[:dim] + ((a + off, b + off),) + gi[dim + 1:]))
+        dim_axes = list(self.dim_axes)
+        dim_axes[dim] += (axis,)
+        return Placement(self.global_shape, pieces, self.axes + (axis,),
+                         dim_axes)
+
     def rows(self, lo, hi, axis):
         """The placement of rows [lo, hi) of dimension 0 of this tensor
         (a ZeRO shard), split over ``axis`` as well."""
-        pieces = []
-        for li, gi in self.pieces:
-            a, b = max(li[0][0], lo), min(li[0][1], hi)
-            if a >= b:
-                continue
-            off = gi[0][0] - li[0][0]
-            pieces.append((((a - lo, b - lo),) + li[1:],
-                           ((a + off, b + off),) + gi[1:]))
-        return Placement(self.global_shape, pieces, self.axes + (axis,))
+        return self.narrow(0, lo, hi, axis)
 
     def take(self, full):
         """This rank's tensor cut out of the global ``full`` (a numpy array
@@ -426,7 +447,9 @@ def split_placement(shape, dim, parts, index, packed=1, axis="mp"):
         g0 = b * block + index * w
         pieces.append((lo + ((b * w, (b + 1) * w),) + hi,
                        lo + ((g0, g0 + w),) + hi))
-    return Placement(shape, pieces, (axis,))
+    dim_axes = [()] * len(shape)
+    dim_axes[dim] = (axis,)
+    return Placement(shape, pieces, (axis,), dim_axes)
 
 
 def placement_of(t):

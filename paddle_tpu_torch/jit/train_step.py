@@ -65,10 +65,13 @@ global one.
 
 Pipeline parallelism: the step first calls ``commit_param_shardings`` on
 every layer that has it (``GPTForPretrainingPipe``: each pp rank keeps
-its stage's stacked rows), as the reference's does before it builds its
-step. ``sync_gradients`` then sums the parameters outside the pipeline
-over pp (each rank holds its share) and the clip sums the stage rows'
-squares over pp.
+its stage's stacked rows, and under ``tensor_parallel`` their mp pieces),
+as the reference's does before it builds its step (a no-op when
+``group_sharded_parallel`` committed them first). ``sync_gradients`` then
+sums the parameters outside the pipeline over pp (each rank holds its
+share) before ZeRO's average over sharding, and the clip sums each
+gradient's squares over the axes it is split on (pp, mp, sharding), per
+call and in ``run_steps``, at O0 and O2.
 
 The meta-optimizers: a ``DGCOptimizer`` or ``LocalSGDOptimizer`` is
 unwrapped with a ``UserWarning`` naming it, and the step runs its inner

@@ -57,6 +57,7 @@ plain one. With ``sequence_parallel`` it raises (ROADMAP A7).
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
@@ -455,6 +456,16 @@ _STACKED_ORDER = ("ln1_w", "ln1_b", "qkv_w", "qkv_b", "out_w", "out_b",
                   "fc_out_b")
 
 
+# the reference's ``_tp_param_specs``: the dimension of each stacked leaf
+# split over mp under tensor parallelism inside the pipeline (qkv and
+# fc_in column-parallel on their trailing axis, out and fc_out
+# row-parallel), None for a leaf replicated over mp (the norms and the
+# row-parallel biases, which add after the mp sum)
+_TP_DIM = {"ln1_w": None, "ln1_b": None, "qkv_w": 3, "qkv_b": 2,
+           "out_w": 1, "out_b": None, "ln2_w": None, "ln2_b": None,
+           "fc_in_w": 2, "fc_in_b": 1, "fc_out_w": 1, "fc_out_b": None}
+
+
 def _pp_group():
     """The default mesh's pp group when it has more than one rank."""
     from ..distributed.sharding_api import peek_default_mesh
@@ -462,6 +473,24 @@ def _pp_group():
     if mesh is None or mesh.shape["pp"] == 1:
         return None
     return mesh.group("pp")
+
+
+def stacked_placement(name, shape, pp=1, stage=0, mp=1, mp_rank=0):
+    """The ``Placement`` of a rank's piece of the stacked leaf ``name``
+    (``qkv_w``, ...; global ``shape``, rows as stored): rows
+    [stage·L/pp, (stage+1)·L/pp) over pp and, with ``mp`` > 1, range
+    ``mp_rank`` of ``mp`` of the leaf's ``_TP_DIM`` over mp. qkv's
+    trailing range takes whole heads of each of q, k and v."""
+    from ..distributed.sharding_api import Placement
+    pl = Placement.whole(shape)
+    if pp > 1:
+        rows = shape[0] // pp
+        pl = pl.narrow(0, stage * rows, (stage + 1) * rows, "pp")
+    d = _TP_DIM[name]
+    if mp > 1 and d is not None:
+        w = shape[d] // mp
+        pl = pl.narrow(d, mp_rank * w, (mp_rank + 1) * w, "mp")
+    return pl
 
 
 def _stacked_init(name, shape, std, gen):
@@ -490,12 +519,22 @@ class StackedGPTBlocks(Layer):
     otherwise in natural layer order. With ``n_chunks`` > 1 on such a mesh
     the rows are stored chunk-major (``interleave_row_order``), so each
     stage's rows are contiguous; ``state_dict`` holds that layout.
-    ``commit_param_shardings`` keeps this rank's stage's rows (a pp
-    rank's ``state_dict`` returns its rows, their ``Placement`` the
-    global shape), as ``CompiledTrainStep`` does first. ``tensor_parallel``
-    inside the pipeline (pp and mp above 1) raises naming ROADMAP A7;
-    on a mesh that cannot honour it, it warns once and is ignored, as in
-    the reference."""
+    ``commit_param_shardings`` keeps this rank's piece of each leaf
+    (``stacked_placement``: a pp rank's ``state_dict`` returns its rows,
+    their ``Placement`` the global shape), as ``CompiledTrainStep`` and
+    ``group_sharded_parallel`` do first.
+
+    ``tensor_parallel`` inside the pipeline (pp and mp above 1, the
+    reference's ``_tp_param_specs``): qkv and fc_in are split over mp on
+    their trailing axis (whole heads of each of q, k and v a rank), out
+    and fc_out on their rows, and the norms and the row-parallel biases
+    stay whole on every mp rank; a committed rank holds only its rows and
+    its columns or rows. The block sums the attention and MLP outputs over
+    mp (``mp_layers.mp_allreduce``, the biases added after the sum) and
+    the gradients of the column-parallel inputs (``c_identity``), inside
+    the tick loop, metered by ``mp_layers.comm_meter``. On a mesh that
+    cannot honour it (no pp or no mp axis), ``tensor_parallel`` warns once
+    and is ignored, as in the reference."""
 
     def __init__(self, cfg, n_chunks=1, device=None, dtype=torch.float32,
                  seed=0, generator=None):
@@ -517,6 +556,7 @@ class StackedGPTBlocks(Layer):
                   "ln2_w": [L, H], "ln2_b": [L, H], "fc_in_w": [L, H, FF],
                   "fc_in_b": [L, FF], "fc_out_w": [L, FF, H],
                   "fc_out_b": [L, H]}
+        self._shapes = {k: tuple(v) for k, v in shapes.items()}
         gen = generator if generator is not None else \
             torch.Generator().manual_seed(int(seed))
         for name in self._param_order:
@@ -542,13 +582,20 @@ class StackedGPTBlocks(Layer):
     def _params(self):
         return tuple(getattr(self, n) for n in self._param_order)
 
-    def _block(self, p, x):
+    def _block(self, p, x, tp=None):
+        """One layer on this rank's leaves; ``tp``, the mp group under
+        tensor parallelism (the leaves its pieces: ``hloc`` = H/mp columns
+        of each of q, k and v)."""
+        from ..distributed.fleet.meta_parallel.mp_layers import (
+            c_identity, mp_allreduce)
         (ln1w, ln1b, qkvw, qkvb, outw, outb,
          ln2w, ln2b, fiw, fib, fow, fob) = p
         b, s, _ = x.shape
         hd = self.head_dim
         hin, _, hloc = qkvw.shape[-3:]
         a = self._ln(x, ln1w, ln1b)
+        if tp is not None:
+            a = c_identity(a, tp)
         qkv = a @ qkvw.reshape(hin, 3 * hloc) + qkvb.reshape(3 * hloc)
         nh = hloc // hd
         q = qkv[..., :hloc].reshape(b, s, nh, hd)
@@ -561,10 +608,17 @@ class StackedGPTBlocks(Layer):
         else:
             o = _sdpa_impl(q, k, v, None, 1.0 / math.sqrt(hd), True)
         o = o.reshape(b, s, hloc) @ outw
+        if tp is not None:
+            o = mp_allreduce(o, tp)
         x = x + o + outb
         a = self._ln(x, ln2w, ln2b)
+        if tp is not None:
+            a = c_identity(a, tp)
         a = torch.nn.functional.gelu(a @ fiw + fib, approximate="tanh")
-        return x + a @ fow + fob
+        m = a @ fow
+        if tp is not None:
+            m = mp_allreduce(m, tp)
+        return x + m + fob
 
     def _ln(self, x, w, b):
         if self.use_rmsnorm:
@@ -574,44 +628,22 @@ class StackedGPTBlocks(Layer):
         v = torch.var(x, dim=-1, keepdim=True, unbiased=False)
         return (x - m) * torch.rsqrt(v + 1e-5) * w + b
 
-    def _stage_rows(self, group):
-        """[lo, hi) of this stage's rows in the (chunk-major) storage."""
-        per = self.num_layers // group.nranks
-        return group.rank * per, (group.rank + 1) * per
-
-    @torch.no_grad()
-    def commit_param_shardings(self):
-        """Keep this pp rank's rows (a no-op without a pp axis, and once
-        done): each parameter holds [L/pp, ...] with its ``Placement``
-        over the pp axis."""
-        group = _pp_group()
-        if group is None or self._stage is not None:
-            return
-        from ..distributed.sharding_api import Placement, place
-        if self.num_layers % group.nranks:
-            raise ValueError(f"{self.num_layers} layers do not split over "
-                             f"pp {group.nranks}")
-        lo, hi = self._stage_rows(group)
-        for p in self._params():
-            shape = tuple(p.shape)
-            p.data = p.data[lo:hi].clone()
-            local = ((0, hi - lo),) + tuple((0, s) for s in shape[1:])
-            glob = ((lo, hi),) + tuple((0, s) for s in shape[1:])
-            place(p, Placement(shape, [(local, glob)], ("pp",)))
-            p._pp_stage = group.rank
-        self._stage = group.rank
-
-    def _check_tensor_parallel(self, pp):
+    def _tp(self):
+        """(mp degree, this rank's mp index) of the blocks' split: the
+        default mesh's under ``tensor_parallel`` inside the pipeline (pp
+        and mp above 1), else (1, 0); warns once when ``tensor_parallel``
+        is set and the mesh cannot honour it."""
         from ..distributed.sharding_api import peek_default_mesh
         mesh = peek_default_mesh()
-        mp = mesh.shape["mp"] if mesh is not None else 1
+        pp, mp = (mesh.shape["pp"], mesh.shape["mp"]) if mesh is not None \
+            else (1, 1)
         if not self.tensor_parallel:
-            return
+            return 1, 0
         if pp > 1 and mp > 1:
-            raise NotImplementedError(
-                "StackedGPTBlocks: tensor_parallel inside the pipeline (pp "
-                "and mp above 1: whole heads of q, k and v a rank, the mp "
-                "sums in the block) is not ported yet (ROADMAP A7)")
+            if self.num_heads % mp:
+                raise ValueError(f"{self.num_heads} heads do not split "
+                                 f"over mp {mp}")
+            return mp, mesh.coord["mp"]
         if not getattr(self, "_tp_warned", False):
             import warnings
             warnings.warn(
@@ -621,21 +653,56 @@ class StackedGPTBlocks(Layer):
                 "mp>1; for TP without a pipeline use GPTForPretraining "
                 "(mp_layers).", UserWarning, stacklevel=3)
             self._tp_warned = True
+        return 1, 0
+
+    def _placements(self):
+        """Each leaf's ``stacked_placement`` on this rank of the default
+        mesh (its pp coordinate is its stage)."""
+        from ..distributed.sharding_api import peek_default_mesh
+        mesh = peek_default_mesh()
+        mp, mp_rank = self._tp()
+        return tuple(stacked_placement(name, self._shapes[name],
+                                       mesh.shape["pp"], mesh.coord["pp"],
+                                       mp, mp_rank)
+                     for name in self._param_order)
+
+    @torch.no_grad()
+    def commit_param_shardings(self):
+        """Keep this rank's piece of each leaf (a no-op without a pp axis,
+        and once done): its stage's rows, and under tensor parallelism its
+        mp range, with their ``Placement`` (over pp, and mp for a split
+        leaf, which is marked ``is_distributed``)."""
+        from ..distributed.sharding_api import peek_default_mesh, place
+        group = _pp_group()
+        if group is None or self._stage is not None:
+            return
+        stage = peek_default_mesh().coord["pp"]
+        if self.num_layers % group.nranks:
+            raise ValueError(f"{self.num_layers} layers do not split over "
+                             f"pp {group.nranks}")
+        for p, pl in zip(self._params(), self._placements()):
+            p.data = pl.take(p.data)
+            place(p, pl)
+            p._pp_stage = stage
+            if "mp" in pl.axes:
+                p.is_distributed = True
+        self._stage = stage
 
     def forward(self, x, n_microbatch=None, remat=False):
         group = _pp_group()
-        self._check_tensor_parallel(group.nranks if group else 1)
+        mp, _ = self._tp()
         params = self._params()
         if group is not None:
             from ..distributed.fleet.meta_parallel.spmd_pipeline import \
                 spmd_pipeline
-            if params[0].shape[0] == self.num_layers:
-                lo, hi = self._stage_rows(group)      # not committed
-                params = tuple(p[lo:hi] for p in params)
-            return spmd_pipeline(self._block, params, x,
+            from ..distributed.sharding_api import peek_default_mesh
+            block = self._block if mp == 1 else functools.partial(
+                self._block, tp=peek_default_mesh().group("mp"))
+            return spmd_pipeline(block, params, x,
                                  n_microbatch or group.nranks, group,
                                  n_chunks=self._n_chunks, remat=remat,
-                                 param_rows=self.num_layers)
+                                 param_rows=self.num_layers,
+                                 param_specs=self._placements())
         if self._inv_order is not None:
             # chunk-major storage; the sequential loop runs natural order
             params = tuple(p[self._inv_order.to(p.device)] for p in params)
@@ -673,9 +740,14 @@ class GPTForPretrainingPipe(Layer):
     outside the pipeline (marked ``_pp_replicated``) over pp: a tied
     ``wte`` gets its head part from every rank's share and its embedding
     part from stage 0 alone, each counted once. A stacked row's gradient
-    is its own stage's. Weights are drawn from ``seed`` in parameter
-    order on the CPU (normal(0, ``initializer_range``), biases zero,
-    norms one), the same on every rank."""
+    is its own stage's. Under ``tensor_parallel`` on a mesh with pp and mp
+    the blocks are split over mp (``StackedGPTBlocks``) while the
+    embeddings, ``ln_f`` and the head stay whole on every pp and mp rank:
+    every mp rank computes the same loss, so their gradients take no sum
+    over mp, and ZeRO (``group_sharded_parallel``) shards them over
+    sharding. Weights are drawn from ``seed`` in parameter order on the
+    CPU (normal(0, ``initializer_range``), biases zero, norms one), the
+    same on every rank."""
 
     def __init__(self, config, n_microbatch=None, n_chunks=1, remat=False,
                  device=None, dtype=torch.float32, seed=0):
@@ -736,8 +808,9 @@ class GPTForPretrainingPipe(Layer):
         return logits, loss
 
     def commit_param_shardings(self):
-        """The stacked rows of this stage (the rest stays whole on every
-        pp rank)."""
+        """The blocks' pieces of this rank (its stage's rows, and its mp
+        ranges under tensor parallelism); the rest stays whole on every pp
+        and mp rank."""
         self.blocks.commit_param_shardings()
 
     def num_parameters(self):

@@ -13,9 +13,11 @@ In one process:
   of the largest entry (fp32); the sequential loop of a model stored
   chunk-major equals the natural one; dropout and the pipeline's shape
   checks raise; ``tensor_parallel`` warns once where the mesh cannot
-  honour it and raises naming ROADMAP A7 inside the pipeline; ZeRO with
-  the pipeline, the pipeline with sep, and ``Model`` over a
-  ``PipelineParallel`` raise naming A7.
+  honour it, and inside the pipeline (a pp 2 x mp 2 layout) commits each
+  stacked leaf to the reference's ``_tp_param_specs`` axes; the pipeline
+  with sep, ZeRO with sep and ``Model`` over a ``PipelineParallel`` raise
+  naming A7 (ZeRO with the pipeline runs: ``tests/
+  test_torch_pipeline_3d.py``).
 
 Across four gloo ranks on the CPU (launched once for the file,
 ``fleet.init`` at dp 2 x pp 2, each data rank on half of an 8 x 32
@@ -187,10 +189,16 @@ def test_refusals_match_reference(recwarn):
     blocks(x)
     assert sum("tensor_parallel=True has no effect" in str(w.message)
                for w in recwarn) == 1
+    # inside the pipeline each leaf keeps the reference's placement
+    from jax.sharding import PartitionSpec
+    specs = JS(JC(tensor_parallel=True, **KW))._tp_param_specs()
     set_default_mesh(Mesh([1, 2, 1, 1, 2], rank=0))
     try:
-        with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-            blocks(x)
+        blocks.commit_param_shardings()
+        for name, spec in zip(blocks._param_order, specs):
+            assert isinstance(spec, PartitionSpec)
+            want = tuple(() if a is None else (a,) for a in spec)
+            assert getattr(blocks, name)._placement.dim_axes == want, name
     finally:
         set_default_mesh(None)
 
@@ -201,7 +209,7 @@ def test_pipeline_compositions_left_raise_naming_a7():
     from paddle_tpu_torch.hapi.model import Model
     with pytest.raises(NotImplementedError, match="ROADMAP A7"):
         build_mesh(pp=2, sep=2, devices=4)
-    mesh = Mesh([1, 2, 1, 1, 1], rank=0)
+    mesh = Mesh([1, 1, 1, 2, 1], rank=0)
     p = torch.nn.Parameter(torch.zeros(2))
     p._zero = object()
     with pytest.raises(NotImplementedError, match="ROADMAP A7"):
