@@ -215,7 +215,22 @@ by route) set to 0 just before it and read just after:
   global tokens/s, mp collectives, bytes and ms, the pipeline's exchanges
   and bytes, the comm plane's works and ms a step, peak memory, parameter
   + AdamW bytes a rank against one process's; K2 and K3 12 a step in each
-  rank, K2 24 with remat).
+  rank, K2 24 with remat);
+- the graph and deployment path (``jit_inference``): GPT-124M in fp32
+  through ``jit.to_static`` at 2 x 1024 against the eager port (logits,
+  one AdamW step's gradients, the logits after the step: 1e-5 of each
+  one's largest entry; K2 and K3 once per layer in the step); in bf16
+  through ``jit.save`` at ``InputSpec([8, 1024], "int64")`` and
+  ``paddle.inference.create_predictor`` (one CUDA graph, held bit-equal
+  to the uncaptured program), 20 requests of random ids through the
+  handles against the eager forward within one bf16 ulp of the logits'
+  largest magnitude, with the eager, ``to_static`` and predictor ``run()``
+  ms (p50, p90), ``copy_to_cpu`` ms, capture, save and load seconds,
+  tokens/s and K2 launches per request (12); the same weights built and
+  saved on the CPU, loaded onto the card, against the predictor's
+  outputs; ``Model.save(training=False)`` loaded back, likewise; GPT-124M
+  fp32 on ``static.data("ids", [2, 1024], "int64")`` through
+  ``static.Executor`` against the eager logits (1e-5, K2 per layer).
 
 Last, it times each kernel beside its bound, its plain version and,
 where one exists, a PyTorch call that computes the same function (also
@@ -229,8 +244,12 @@ and GradientMerge's ([4, 1024, 12, 64] causal, ``GC_ATTENTION``), the
 3D pipeline's microbatch on an mp rank's heads ([2, 1024, 6, 64] causal,
 ``P3_ATTENTION``), K2 and K3 on their fp32 route at the Engine ranks'
 [4, 1024, 12, 64] causal (``AP_ATTENTION``) and K2 at the fleet
-executor's microbatch, and each
-kernel's fp16 route (K2 and K3 at the fp16 AMP path's shape). Each
+executor's microbatch, K2 at a predictor request ([8, 1024, 12, 64]
+causal bf16) and K2 and K3 on their fp32 route at the jit gates' [2, 1024,
+12, 64] (``JIT_ATTENTION``), and each
+kernel's fp16 route (K2 and K3 at the fp16 AMP path's shape); then K2
+and K3 in bf16 called straight (K2's ctypes entry, the K3 wrapper) and
+through their ``torch.library`` ops, in turns (``custom_op_cost``). Each
 phase prints one JSON line; any failure raises and the script exits
 non-zero. It needs a CUDA card: without one it exits 2 and prints no
 result.
@@ -507,6 +526,13 @@ P3_ATTENTION = [
     ("p3d_exact_microbatch", P3_EXACT_BATCH // 2 // P3_EXACT_MICRO, 1024,
      1024, 6, 6, 64, True)]
 P3_DEVICE = "cuda"
+# the graph and deployment path (jit_inference): GPT-124M through
+# jit.to_static, jit.save and paddle.inference's predictor at 8 x 1024 a
+# request (bf16 weights); the fp32 gates at 2 x 1024
+JIT_BATCH, JIT_EXACT_BATCH, JIT_REQUESTS = 8, 2, 20
+JIT_ATTENTION = [("jit_request", JIT_BATCH, 1024, 1024, 12, 12, 64, True),
+                 ("jit_exact_fp32", JIT_EXACT_BATCH, 1024, 1024, 12, 12, 64,
+                  True)]
 FLASH_CASES = [
     ("gpt124m_causal", 1, 1024, 1024, 12, 12, 64, True),
     ("gqa_causal", 2, 256, 256, 12, 4, 64, True),
@@ -526,7 +552,7 @@ FLASH_CASES = [
     ERNIE_ATTENTION,
     BERT_ATTENTION,
 ] + DP_ATTENTION + HP_ATTENTION + CP_ATTENTION + PP_ATTENTION + \
-    GC_ATTENTION + P3_ATTENTION
+    GC_ATTENTION + P3_ATTENTION + JIT_ATTENTION
 # K3: the forward's cases and one with an lse cotangent
 FLASH_BWD_CASES = FLASH_CASES + [
     ("dlse_causal", 1, 256, 256, 12, 12, 64, True)]
@@ -6884,6 +6910,333 @@ def time_packed(torch, ck, launches, dtype=None):
     return rows
 
 
+# -- the graph and deployment path (jit_inference) ----------------------------
+def _pcts(ms):
+    s = sorted(ms)
+    return {"p50": s[len(s) // 2], "p90": s[int(0.9 * (len(s) - 1))],
+            "mean": sum(s) / len(s)}
+
+
+def _timed_ms(torch, fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def _jit_gate_fp32(torch, ck, gpt, cfg):
+    """Gate 1: GPT-124M fp32 through ``to_static`` against the eager port
+    at 2 x 1024: the logits, then one AdamW step's gradients, then the
+    logits after the step (the captured program reads the live weights).
+    Each within 1e-5 of its own largest entry."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.optimizer import AdamW
+    ids, labels = (t.cuda() for t in _seeded_ids(
+        torch, cfg.vocab_size, (JIT_EXACT_BATCH, 1024), seed=3))
+    eager = type(gpt).forward
+    with torch.no_grad():
+        logits_eager = eager(gpt, ids)
+    t0 = time.perf_counter()
+    paddle.jit.to_static(gpt)
+    with torch.no_grad():
+        logits = gpt(ids)
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    rel = lambda a, b: max_err(a, b) / float(b.float().abs().max())  # noqa
+    logits_rel = rel(logits, logits_eager)
+    opt = AdamW(learning_rate=1e-4, parameters=gpt.parameters())
+    eager(gpt, ids, labels=labels)[1].backward()
+    want = {n: p.grad.clone() for n, p in gpt.named_parameters()}
+    opt.clear_grad()
+    before = {k.name: k.launches for k in ck.KERNELS}
+    loss = gpt(ids, labels=labels)[1]
+    loss.backward()
+    torch.cuda.synchronize()
+    launches = {k.name: k.launches - before[k.name] for k in ck.KERNELS}
+    grad_rel = {n: rel(p.grad, want[n]) for n, p in gpt.named_parameters()
+                if float(want[n].abs().max()) > 0}
+    worst = max(grad_rel, key=grad_rel.get)
+    opt.step()
+    opt.clear_grad()
+    with torch.no_grad():
+        after_rel = rel(gpt(ids), eager(gpt, ids))
+    out = {"gate": "to_static_fp32", "batch": [JIT_EXACT_BATCH, 1024],
+           "capture_s": capture_s, "logits_rel_err": logits_rel,
+           "grad_max_rel_err": grad_rel[worst], "grad_worst": worst,
+           "after_step_logits_rel_err": after_rel, "rel_tol": 1e-5,
+           "loss": float(loss), "backward_launches": launches,
+           "programs": len(gpt._static_forward.programs)}
+    if max(logits_rel, grad_rel[worst], after_rel) > 1e-5:
+        raise AssertionError(f"to_static differs from the eager port: {out}")
+    if launches["flash_fwd"] != cfg.num_layers or \
+            launches["flash_bwd"] != cfg.num_layers:
+        raise AssertionError(f"to_static step launched {launches}")
+    return out, logits_eager
+
+
+def _jit_requests(torch, cfg, n):
+    import numpy as np
+    rng = np.random.default_rng(11)
+    return [rng.integers(0, cfg.vocab_size, (JIT_BATCH, 1024))
+            for _ in range(n)]
+
+
+def _jit_gate_predictor(torch, ck, gpt, cfg, tmp):
+    """Gate 2: the bf16 GPT saved by ``jit.save`` at [8, 1024] int64 and
+    served by ``create_predictor`` through its handles: 1 request that
+    captures the CUDA graph, then ``JIT_REQUESTS`` timed ones, each held
+    to the eager bf16 forward within one bf16 ulp of the logits' largest
+    magnitude, the last replay bit-equal to the uncaptured program. The
+    eager and ``to_static`` forwards are timed on the same requests."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import inference
+    spec = [paddle.static.InputSpec([JIT_BATCH, 1024], "int64")]
+    path = os.path.join(tmp, "gpt124m")
+    t0 = time.perf_counter()
+    paddle.jit.save(gpt, path, input_spec=spec)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pred = inference.create_predictor(inference.Config(
+        path + ".pdmodel", path + ".pdiparams"))
+    load_s = time.perf_counter() - t0
+    reqs = _jit_requests(torch, cfg, JIT_REQUESTS + 1)
+    h = pred.get_input_handle(pred.get_input_names()[0])
+    h.copy_from_cpu(reqs[0])
+    _, first_ms = _timed_ms(torch, pred.run)
+    out_h = pred.get_output_handle(pred.get_output_names()[0])
+    run_ms, copy_ms, eager_ms, static_ms, errs, tols = [], [], [], [], [], []
+    launches, outs = [], []
+    eager = type(gpt).forward
+    with torch.no_grad():
+        gpt_static = paddle.jit.to_static(gpt)
+        t0 = time.perf_counter()
+        gpt_static(torch.from_numpy(reqs[0]).cuda())
+        static_capture_s = time.perf_counter() - t0
+        for r in reqs[1:]:
+            ids = torch.from_numpy(r).cuda()
+            h.copy_from_cpu(r)
+            before = ck.FLASH_FWD.launches
+            _, ms = _timed_ms(torch, pred.run)
+            launches.append(ck.FLASH_FWD.launches - before)
+            run_ms.append(ms)
+            copied, ms = _timed_ms(torch, out_h.copy_to_cpu)
+            copy_ms.append(ms)
+            want, ms = _timed_ms(torch, lambda: eager(gpt, ids))
+            eager_ms.append(ms)
+            _, ms = _timed_ms(torch, lambda: gpt_static(ids))
+            static_ms.append(ms)
+            # held on the card: the replayed graph's output against the
+            # eager forward's
+            got = pred._outputs[pred.get_output_names()[0]]
+            errs.append(max_err(got, want))
+            tols.append(ulp16(torch, float(want.float().abs().max()),
+                              torch.bfloat16))
+            if len(outs) < 2:
+                outs.append(got.clone())
+        copy_equal = bool((copied == got.float().cpu().numpy()).all())
+        replay = got.clone()
+        direct = pred._layer.run(torch.from_numpy(reqs[-1]).cuda())
+        replay_equal = bool(torch.equal(replay, direct))
+    p50 = _pcts(run_ms)["p50"]
+    out = {"gate": "predictor_bf16", "batch": [JIT_BATCH, 1024],
+           "requests": JIT_REQUESTS, "jit_save_s": save_s,
+           "create_predictor_s": load_s,
+           "first_run_ms_with_graph_capture": first_ms,
+           "to_static_capture_s": static_capture_s,
+           "eager_ms": _pcts(eager_ms), "to_static_ms": _pcts(static_ms),
+           "predictor_run_ms": _pcts(run_ms),
+           "copy_to_cpu_ms": _pcts(copy_ms),
+           "tokens_per_s_predictor_p50": JIT_BATCH * 1024 / p50 * 1e3,
+           "tokens_per_s_eager_p50":
+               JIT_BATCH * 1024 / _pcts(eager_ms)["p50"] * 1e3,
+           "k2_launches_per_request": sorted(set(launches)),
+           "max_abs_err_vs_eager": max(errs),
+           "tol_one_bf16_ulp_of_max": min(tols),
+           "replay_bit_equal_uncaptured": replay_equal,
+           "copy_to_cpu_equals_output": copy_equal,
+           "pdmodel_bytes": os.path.getsize(path + ".pdmodel"),
+           "pdiparams_bytes": os.path.getsize(path + ".pdiparams")}
+    if any(e > t for e, t in zip(errs, tols)) or not replay_equal or \
+            not copy_equal:
+        raise AssertionError(f"the predictor differs: {out}")
+    if set(launches) != {cfg.num_layers}:
+        raise AssertionError(f"a request launched K2 {launches} times")
+    return out, reqs[1:1 + len(outs)], outs
+
+
+def _jit_gate_cpu_saved(torch, ck, cfg, tmp, reqs, outs):
+    """Gate 3: the same bf16 weights built and saved on the CPU, loaded
+    onto the card (``move_to_device_pass`` and the node devices); its
+    outputs against gate 2's within gate 2's bound (expected bit-equal),
+    with K2 launched per layer."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.text.gpt import GPTForPretraining
+    cpu = GPTForPretraining(cfg, device="cpu", dtype=torch.bfloat16,
+                            seed=0).eval()
+    path = os.path.join(tmp, "gpt124m_cpu")
+    t0 = time.perf_counter()
+    paddle.jit.save(cpu, path, input_spec=[
+        paddle.static.InputSpec([JIT_BATCH, 1024], "int64")])
+    save_s = time.perf_counter() - t0
+    del cpu
+    t0 = time.perf_counter()
+    layer = paddle.jit.load(path)
+    load_s = time.perf_counter() - t0
+    before = ck.FLASH_FWD.launches
+    with torch.no_grad():
+        errs = [max_err(layer(torch.from_numpy(r).cuda()), o)
+                for r, o in zip(reqs, outs)]
+    launches = ck.FLASH_FWD.launches - before
+    tol = min(ulp16(torch, float(o.float().abs().max()), torch.bfloat16)
+              for o in outs)
+    out = {"gate": "cpu_saved_on_card", "jit_save_cpu_s": save_s,
+           "load_to_card_s": load_s, "max_abs_err_vs_predictor": max(errs),
+           "tol_one_bf16_ulp_of_max": tol, "requests": len(errs),
+           "k2_launches": launches}
+    if max(errs) > tol or launches != cfg.num_layers * len(errs):
+        raise AssertionError(f"the CPU-saved program differs: {out}")
+    return out
+
+
+def _jit_gate_model_save(torch, gpt, tmp, reqs, outs):
+    """Gate 4: ``hapi.Model(gpt, inputs=[InputSpec([8, 1024], "int64")])
+    .save(path, training=False)``, loaded back: against gate 2 within its
+    bound (expected bit-equal)."""
+    import paddle_tpu_torch as paddle
+    path = os.path.join(tmp, "model_infer")
+    paddle.Model(gpt, inputs=[paddle.static.InputSpec(
+        [JIT_BATCH, 1024], "int64")]).save(path, training=False)
+    layer = paddle.jit.load(path)
+    with torch.no_grad():
+        errs = [max_err(layer(torch.from_numpy(r).cuda()), o)
+                for r, o in zip(reqs, outs)]
+    tol = min(ulp16(torch, float(o.float().abs().max()), torch.bfloat16)
+              for o in outs)
+    out = {"gate": "model_save_inference", "max_abs_err_vs_predictor":
+           max(errs), "tol_one_bf16_ulp_of_max": tol}
+    if max(errs) > tol:
+        raise AssertionError(f"Model.save(training=False) differs: {out}")
+    return out
+
+
+def _jit_gate_static(torch, ck, cfg, logits_eager):
+    """Gate 5: GPT-124M fp32 (the same seed as gate 1) built on
+    ``static.data("ids", [2, 1024], "int64")`` and run by
+    ``static.Executor``: against gate 1's eager logits within 1e-5 of
+    their largest entry, K2 launched once per layer."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.text.gpt import GPTForPretraining
+    gpt = GPTForPretraining(cfg, device="cuda", seed=0).eval()
+    paddle.set_device("gpu")
+    t0 = time.perf_counter()
+    x = paddle.static.data("ids", [JIT_EXACT_BATCH, 1024], "int64")
+    with torch.no_grad():
+        logits = gpt(x)
+    build_s = time.perf_counter() - t0
+    ids, _ = _seeded_ids(torch, cfg.vocab_size, (JIT_EXACT_BATCH, 1024),
+                         seed=3)
+    exe = paddle.static.Executor()
+    before = ck.FLASH_FWD.launches
+    got, ms = _timed_ms(torch, lambda: exe.run(feed={"ids": ids},
+                                               fetch_list=[logits])[0])
+    launches = ck.FLASH_FWD.launches - before
+    want = logits_eager.cpu().numpy()
+    rel = float(abs(got - want).max()) / float(abs(want).max())
+    out = {"gate": "static_executor_fp32", "batch": [JIT_EXACT_BATCH, 1024],
+           "build_s": build_s, "run_ms": ms, "logits_rel_err": rel,
+           "rel_tol": 1e-5, "k2_launches": launches}
+    if rel > 1e-5 or launches != cfg.num_layers:
+        raise AssertionError(f"the static Executor differs: {out}")
+    return out
+
+
+def _custom_op_cost(torch, ck):
+    """K2 and K3 called straight (K2's ctypes entry, the K3 wrapper) and
+    through their ops (``paddle_tpu_torch::flash_fwd``/``flash_bwd``), in
+    bf16 at a request's shape, the kernels line's K2 shape ([1, 1024, 12,
+    64], launch-bound) and K3's ([16, 1024, 12, 64]): ms per call by CUDA
+    events and the profiler's device ms, each pair timed in turns
+    (straight, op, straight, op) and the mean of the two kept."""
+    bf16 = torch.bfloat16
+    rows = []
+    for case in (JIT_ATTENTION[0], FLASH_CASES[0]):
+        label, b, sq, sk, h, kh, d, causal = case
+        qkv = flash_case(torch, b, sq, sk, h, kh, d, bf16)
+        fa = (*qkv, causal, 1.0 / math.sqrt(d))
+        rows.append(("flash_fwd", label,
+                     lambda fa=fa: ck._flash_fwd(*fa),
+                     lambda fa=fa: ck.flash_fwd_op(*fa)))
+    label, b, sq, sk, h, kh, d, causal = TRAIN_ATTENTION
+    ba = (*flash_bwd_inputs(torch, ck, b, sq, sk, h, kh, d, causal, bf16,
+                            dlse=False), causal, 1.0 / math.sqrt(d))
+    rows.append(("flash_bwd", label,
+                 lambda: ck.flash_attention_bwd(*ba),
+                 lambda: ck.flash_bwd_op(*ba)))
+    out = []
+    for name, label, direct, op in rows:
+        ms = {"straight": [], "op": []}
+        dev = {"straight": [], "op": []}
+        for _ in range(2):
+            for key, fn in (("straight", direct), ("op", op)):
+                ms[key].append(cuda_time_ms(fn, 50))
+                dev[key].append(device_time_ms(fn))
+        out.append({"kernel": name, "case": label,
+                    **{f"{key}_ms": sum(v) / 2 for key, v in ms.items()},
+                    **{f"{key}_device_ms": sum(v) / 2
+                       for key, v in dev.items()}})
+    return out
+
+
+def phase_jit_inference(torch, ck, smi):
+    """The graph and deployment path on GPT-124M (module doc): gates 1 to
+    5, each raising on failure."""
+    import gc
+    import shutil
+    import tempfile
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.text.gpt import GPTForPretraining, gpt_small
+    cfg = gpt_small()
+    tmp = tempfile.mkdtemp()
+    prev_place = paddle.get_device()
+    try:
+        seconds, t0 = [], time.perf_counter()
+
+        def lap():
+            nonlocal t0
+            seconds.append(time.perf_counter() - t0)
+            t0 = time.perf_counter()
+
+        gpt = GPTForPretraining(cfg, device="cuda", seed=0)
+        g1, logits_eager = _jit_gate_fp32(torch, ck, gpt, cfg)
+        del gpt
+        lap()
+        gpt = GPTForPretraining(cfg, device="cuda", dtype=torch.bfloat16,
+                                seed=0).eval()
+        g2, reqs, outs = _jit_gate_predictor(torch, ck, gpt, cfg, tmp)
+        lap()
+        g3 = _jit_gate_cpu_saved(torch, ck, cfg, tmp, reqs, outs)
+        lap()
+        g4 = _jit_gate_model_save(torch, gpt, tmp, reqs, outs)
+        del gpt, outs
+        lap()
+        g5 = _jit_gate_static(torch, ck, cfg, logits_eager)
+        lap()
+        for g, sec in zip((g1, g2, g3, g4, g5), seconds):
+            g["seconds"] = sec
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        paddle.set_device(prev_place)
+        # a to_static layer and its program refer to each other: the
+        # GPT-124M copies go with the cycle collector, and their cached
+        # blocks with it, before the kernels are timed
+        gc.collect()
+        torch.cuda.empty_cache()
+    emit({"phase": "jit_inference", "nvidia_smi": smi,
+          "model": "GPT-124M (gpt_small, 12 layers)",
+          "gates": [g1, g2, g3, g4, g5]})
+
+
 def phase_timing(torch, ck, launches, path_launches, routes, smi):
     """The kernels line: each kernel at its main path's shape with its
     launches over every path, then K2 and K3 at the encoder paths'
@@ -6928,6 +7281,21 @@ def phase_timing(torch, ck, launches, path_launches, routes, smi):
     row.update(case=executor[0], launches_path="auto_parallel",
                launches_route="bf16")
     main.append(row)
+    # the jit_inference path: K2 at a request's shape with the path's bf16
+    # launches, K2 and K3 at the fp32 gates' shape with its fp32 ones
+    jit = routes["jit_inference"]
+    row = time_flash(torch, ck, JIT_ATTENTION[0], bf16,
+                     jit["flash_fwd"]["bf16"])
+    row.update(case=JIT_ATTENTION[0][0], launches_path="jit_inference",
+               launches_route="bf16")
+    main.append(row)
+    for row in (time_flash(torch, ck, JIT_ATTENTION[1], f32,
+                           jit["flash_fwd"]["fp32"]),
+                time_flash_bwd(torch, ck, JIT_ATTENTION[1], f32,
+                               jit["flash_bwd"]["fp32"])):
+        row.update(case=JIT_ATTENTION[1][0], launches_path="jit_inference",
+                   route_dtype="fp32", launches_route="fp32")
+        main.append(row)
     fp16 = {name: sum(r[name]["fp16"] for r in routes.values())
             for name in launches}
     for row in (time_paged(torch, ck, PAGED_CTXS[1], 1, f16,
@@ -6952,6 +7320,8 @@ def phase_timing(torch, ck, launches, path_launches, routes, smi):
                 time_flash(torch, ck, TRAIN_ATTENTION, bf16, None)]
     emit({"phase": "kernel_variants", "nvidia_smi": smi,
           "kernels": variants})
+    emit({"phase": "custom_op_cost", "nvidia_smi": smi,
+          "cases": _custom_op_cost(torch, ck)})
     return main
 
 
@@ -7002,7 +7372,9 @@ def main():
     # then the auto_parallel path (K2, K3 fp32 per layer and step in each
     # Engine rank; K2 per block and microbatch through the fleet executor),
     # then the pipeline_3d path (K2, K3 per layer of a stage and microbatch
-    # in each of its eight ranks, on an mp rank's heads)
+    # in each of its eight ranks, on an mp rank's heads), then the
+    # jit_inference path (K2 per layer of every captured or served forward,
+    # K3 per layer of the to_static step)
     paths = (("serving", ("paged_attention", "flash_fwd"),
               lambda: (phase_serving(torch, ck, smi),
                        phase_exactness_fp32(torch, ck))),
@@ -7058,7 +7430,11 @@ def main():
              # the eight ranks of pp 2 x sharding 2 x mp 2
              # (GPTForPretrainingPipe with tensor_parallel under ZeRO)
              ("pipeline_3d", ("flash_fwd", "flash_bwd"),
-              lambda: phase_pipeline_3d(torch, ck, smi)))
+              lambda: phase_pipeline_3d(torch, ck, smi)),
+             # to_static (K2, and K3 in its step), jit.save, the predictor's
+             # CUDA graphs, the CPU-saved program and the static Executor
+             ("jit_inference", ("flash_fwd", "flash_bwd"),
+              lambda: phase_jit_inference(torch, ck, smi)))
     launches = {k.name: 0 for k in ck.KERNELS}
     path_launches, path_routes, path_seconds = {}, {}, {}
     for path, kernels, drive in paths:

@@ -82,3 +82,8 @@ from .hapi import Model, summary, flops, callbacks  # noqa: E402
 # the data-parallel plane
 from . import distributed  # noqa: E402
 from .distributed import DataParallel  # noqa: E402
+# the graph and deployment path: dy2static, jit.to_static/save/load,
+# paddle.static's lazy graph and Executor, paddle.inference's predictor
+from . import jit, static, inference  # noqa: E402
+from .jit.api import (enable_static, disable_static,  # noqa: E402
+                      in_dynamic_mode)

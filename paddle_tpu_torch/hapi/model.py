@@ -386,12 +386,13 @@ class Model:
     def save(self, path, training=True):
         """``path.pdparams`` (the network's ``state_dict``) and, with an
         optimizer, ``path.pdopt`` (its ``state_dict``), through
-        ``paddle.save``. ``training=False`` asks for an inference export
-        through ``jit.save``, which is not ported (ROADMAP A10)."""
+        ``paddle.save``. ``training=False`` exports the network for
+        inference through ``jit.save`` at the ``inputs`` given to
+        ``Model`` (without them ``jit.save`` raises ValueError)."""
         if not training:
-            raise NotImplementedError(
-                "Model.save(training=False) exports through jit.save, "
-                "which waits for the jit surface (ROADMAP A10)")
+            from ..jit.api import save as jit_save
+            jit_save(self.network, path, input_spec=self._inputs)
+            return
         from ..framework.io import save as psave
         psave(self.network.state_dict(), path + ".pdparams")
         if self._optimizer is not None:

@@ -3,8 +3,9 @@ of one training step (counterpart: ``paddle_tpu/jit/train_step.py``).
 
 The JAX package compiles the step into one donated XLA program; the port
 runs the same step eagerly. Attention goes through the hand-written
-kernels on the card (forward K2, backward K3, through
-``ops.cuda_kernels.FlashAttention``), matrix products through cuBLAS.
+kernels on the card (forward K2, backward K3, through the op
+``paddle_tpu_torch::flash_fwd`` of ``ops/cuda_kernels.py``), matrix
+products through cuBLAS.
 Parameters and optimizer state are updated in place, which is what the
 reference's buffer donation achieves. Capturing the step in a CUDA graph
 is later work.

@@ -12,8 +12,12 @@ kernels are ported here:
 - K3 ``_bwd_fused_kernel`` -> ``csrc/flash_bwd.cu``
   (``flash_attention_bwd``): the flash-attention backward, dq and dk/dv
   from the saved q, k, v, o and lse. K2 and K3 are the forward and
-  backward of one ``torch.autograd.Function``, the counterpart of the
-  JAX package's custom-vjp ``_flash_core_lse``;
+  backward of one differentiable ``torch.library`` op
+  (``paddle_tpu_torch::flash_fwd``, its backward
+  ``paddle_tpu_torch::flash_bwd``), the counterpart of the JAX package's
+  custom-vjp ``_flash_core_lse``; each has a fake from shapes alone, so a
+  ``torch.export`` capture (``jit``) and a static placeholder
+  (``static``) record it as one node;
 - K4 ``_vl_fwd_kernel`` -> ``csrc/flash_varlen_fwd.cu`` and K5
   ``_vl_bwd_kernel`` -> ``csrc/flash_varlen_bwd.cu``
   (``flash_attention_varlen*``): packed varlen attention over
@@ -28,6 +32,9 @@ falls back. Each launch adds one to the kernel's ``launches`` count;
 a launch that a CUDA-graph capture records on this thread goes to the
 capture's tally instead (``recording_launches``), and each replay of
 the graph adds the tally to the counts.
+
+K1, K4 and K5 stay ctypes calls on data pointers: a capture that reaches
+one of them raises (``_refuse_capture``), naming ROADMAP A10.
 
 The gates (``*_available``) keep the JAX package's shape contract, minus
 its TPU-only backend check and its 512-token floor; they decide by shape
@@ -171,6 +178,24 @@ def _on_cpu(*tensors):
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     return False
+
+
+def _captured(t):
+    """True for a tensor that a graph capture holds in place of data: a
+    fake tensor (``torch.export``), a meta tensor, a static placeholder."""
+    from torch._subclasses.fake_tensor import is_fake
+    return getattr(t, "_is_static_var", False) or t.device.type == "meta" \
+        or is_fake(t)
+
+
+def _refuse_capture(kernel, *tensors):
+    """Raise when a graph capture reaches ``kernel``, a ctypes call that a
+    capture cannot record (it would quietly trace the plain version)."""
+    if any(_captured(t) for t in tensors):
+        raise RuntimeError(
+            f"{kernel} cannot be captured into a graph (jit.to_static, "
+            "jit.save, paddle.static): it is a ctypes call on data pointers, "
+            "not yet a torch.library op (ROADMAP A10); run it eagerly")
 
 
 def _kernel_dtype(*tensors):
@@ -376,6 +401,8 @@ def paged_attention_verify_decode(q, k_pages, v_pages, block_tables,
     in place where its layout allows (``_paged_q``), else copied; 16-bit
     pools must start on a 16-byte boundary. On CPU tensors it runs the
     plain version."""
+    _refuse_capture("K1 (paged attention)", q, k_pages, v_pages,
+                    block_tables, context_lens)
     b, kq, h, d = q.shape
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(d)
@@ -627,49 +654,91 @@ def flash_attention_bwd(q, k, v, o, lse, do, dlse=None, causal=False,
     return dq, _sum_head_groups(dk_h, kh), _sum_head_groups(dv_h, kh)
 
 
-class FlashAttention(torch.autograd.Function):
-    """Flash attention with both outputs differentiable: the counterpart
-    of the JAX package's custom-vjp ``_flash_core_lse``. Forward: K2 on
-    CUDA tensors, the plain version on CPU ones; it saves q, k, v, o and
-    lse. Backward: K3 likewise, with the lse cotangent folded into delta
-    (a missing cotangent counts as zero). K3 has no double backward: a
-    backward asked to build a graph (``create_graph=True``) raises, on
-    either device."""
+# K2 and K3 as ``torch.library`` ops: a fake or meta tensor has no data
+# pointer, so ``torch.export`` and a static placeholder pass through the op
+# (its fake from shapes alone) where a ctypes call could not. The ops are
+# defined through ``torch.library.Library``: ``custom_op`` would wrap each
+# kernel in a dynamo guard whose first call imports ``torch._dynamo`` (~2 s
+# alone, ~10 s in each of several processes starting at once).
 
-    @staticmethod
-    def forward(ctx, q, k, v, causal, sm_scale):
-        # q, k, v arrive as column slices of the packed qkv: one copy each
-        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-        o, lse = flash_attention_fwd(q, k, v, causal, sm_scale)
-        ctx.save_for_backward(q, k, v, o, lse)
-        ctx.causal, ctx.sm_scale = causal, sm_scale
-        ctx.set_materialize_grads(False)
-        return o, lse
+def _flash_bwd_impl(q, k, v, o, lse, do, dlse, causal, sm_scale):
+    # the module's name, looked up at each call (tests wrap it to count K3)
+    return flash_attention_bwd(q, k, v, o, lse, do, dlse, causal, sm_scale)
 
-    @staticmethod
-    def backward(ctx, do, dlse):
-        if torch.is_grad_enabled():
-            raise RuntimeError(
-                "flash attention has no double backward (K3 computes its "
-                "gradients without a graph): create_graph=True cannot "
-                "pass through it")
-        q, k, v, o, lse = ctx.saved_tensors
-        if do is None:
-            do = torch.zeros_like(o)
-        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do, dlse,
-                                         ctx.causal, ctx.sm_scale)
-        return dq, dk, dv, None, None
+
+_LIB = torch.library.Library("paddle_tpu_torch", "DEF")
+_LIB.define("flash_fwd(Tensor q, Tensor k, Tensor v, bool causal, "
+            "float sm_scale) -> (Tensor, Tensor)")
+_LIB.define("flash_bwd(Tensor q, Tensor k, Tensor v, Tensor o, Tensor lse, "
+            "Tensor do, Tensor? dlse, bool causal, float sm_scale) "
+            "-> (Tensor, Tensor, Tensor)")
+for _key in ("CPU", "CUDA"):   # each wrapper splits by device itself
+    _LIB.impl("flash_fwd", flash_attention_fwd, _key)
+    _LIB.impl("flash_bwd", _flash_bwd_impl, _key)
+flash_fwd_op = torch.ops.paddle_tpu_torch.flash_fwd.default
+flash_bwd_op = torch.ops.paddle_tpu_torch.flash_bwd.default
+
+
+def _need_gate(q, k, v, causal, what):
+    if not flash_attention_available(q, k, v, causal):
+        raise ValueError(f"flash attention {what} kernel does not take these "
+                         f"shapes (q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                         f"causal={causal})")
+
+
+@torch.library.register_fake("paddle_tpu_torch::flash_fwd")
+def _flash_fwd_fake(q, k, v, causal, sm_scale):
+    _need_gate(q, k, v, causal, "forward")
+    b, sq, h, _ = q.shape
+    return q.new_empty(q.shape), q.new_empty((b, h, sq), dtype=torch.float32)
+
+
+@torch.library.register_fake("paddle_tpu_torch::flash_bwd")
+def _flash_bwd_fake(q, k, v, o, lse, do, dlse, causal, sm_scale):
+    _need_gate(q, k, v, causal, "backward")
+    return q.new_empty(q.shape), k.new_empty(k.shape), v.new_empty(v.shape)
+
+
+def _flash_setup(ctx, inputs, output):
+    q, k, v, causal, sm_scale = inputs
+    ctx.save_for_backward(q, k, v, *output)
+    ctx.causal, ctx.sm_scale = causal, sm_scale
+
+
+def _flash_backward(ctx, do, dlse):
+    """K3 from the saved q, k, v, o, lse; a missing cotangent counts as
+    zero. K3 has no double backward."""
+    if torch.is_grad_enabled():
+        raise RuntimeError(
+            "flash attention has no double backward (K3 computes its "
+            "gradients without a graph): create_graph=True cannot "
+            "pass through it")
+    q, k, v, o, lse = ctx.saved_tensors
+    if do is None:
+        do = torch.zeros_like(o)
+    dq, dk, dv = flash_bwd_op(q, k, v, o, lse, do, dlse, ctx.causal,
+                              ctx.sm_scale)
+    return dq, dk, dv, None, None
+
+
+torch.library.register_autograd(
+    "paddle_tpu_torch::flash_fwd", _flash_backward, setup_context=_flash_setup)
 
 
 def flash_attention_with_lse(q, k, v, causal=False, sm_scale=None):
-    """(o [b, sq, h, d], lse [b, h, sq] fp32), both differentiable. On
-    CUDA tensors the forward launches K2 (``csrc/flash_fwd.cu``) and the
-    backward K3 (``csrc/flash_bwd.cu``); strided q, k, v (column slices of
-    the packed qkv) are made contiguous once. On CPU tensors both run
-    their plain versions."""
+    """(o [b, sq, h, d], lse [b, h, sq] fp32), both differentiable: the
+    counterpart of the JAX package's custom-vjp ``_flash_core_lse``,
+    through the op ``paddle_tpu_torch::flash_fwd`` and its backward
+    ``paddle_tpu_torch::flash_bwd``. On CUDA tensors the forward launches
+    K2 (``csrc/flash_fwd.cu``) and the backward K3 (``csrc/flash_bwd.cu``);
+    on CPU tensors both run their plain versions. Strided q, k, v (column
+    slices of the packed qkv) are made contiguous once, here, and saved so
+    for the backward. K3 has no double backward: a backward asked to
+    build a graph (``create_graph=True``) raises, on either device."""
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
-    return FlashAttention.apply(q, k, v, bool(causal), float(sm_scale))
+    return flash_fwd_op(q.contiguous(), k.contiguous(), v.contiguous(),
+                        bool(causal), float(sm_scale))
 
 
 def flash_attention_values(q, k, v, causal=False, sm_scale=None):
@@ -920,6 +989,7 @@ def flash_attention_varlen_fwd(q, k, v, cu_q, cu_k, causal=False,
     route, fp32 on its scalar route; q, k and v are made contiguous, and
     16-bit ones must start on a 16-byte boundary. On CPU tensors it runs
     the plain version."""
+    _refuse_capture("K4 (varlen flash forward)", q, k, v, cu_q, cu_k)
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
     if _on_cpu(q, k, v, cu_q, cu_k):
@@ -960,6 +1030,8 @@ def flash_attention_varlen_bwd(q, k, v, o, lse, do, cu_q, cu_k,
     then the dk/dv and the dq pass); a plan at another tile size than the
     route's (``_vl_bwd_block``) is made anew, and 16-bit operands must
     start on a 16-byte boundary. On CPU tensors it runs the plain version."""
+    _refuse_capture("K5 (varlen flash backward)", q, k, v, o, lse, do, cu_q,
+                    cu_k)
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
     if _on_cpu(q, k, v, o, lse, do, cu_q, cu_k):
@@ -1013,6 +1085,7 @@ class FlashAttentionVarlen(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, cu_q, cu_k, causal, sm_scale):
+        _refuse_capture("K4 (varlen flash forward)", q, k, v, cu_q, cu_k)
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
         plan = None
         if not _on_cpu(q, k, v, cu_q, cu_k):

@@ -290,8 +290,18 @@ def test_model_save_load_and_model_checkpoint(tmp_path):
     reset.load(str(d / "final"), reset_optimizer=True)
     assert reset._optimizer._step_count == 0
     assert not reset._optimizer._accumulators
-    with pytest.raises(NotImplementedError, match="A10"):
+    # the inference export: jit.save at the Model's inputs, which it needs
+    with pytest.raises(ValueError, match="jit.save needs input_spec"):
         model.save(str(tmp_path / "infer"), training=False)
+    spec = [paddle.static.InputSpec([2, 1, 28, 28], "float32")]
+    exported = Model(model.network, inputs=spec)
+    exported.save(str(tmp_path / "infer"), training=False)
+    x = torch.from_numpy(np.random.default_rng(5).uniform(
+        0, 1, (2, 1, 28, 28)).astype(np.float32))
+    loaded = paddle.jit.load(str(tmp_path / "infer"), device="cpu")
+    model.network.eval()
+    with torch.no_grad():
+        assert torch.equal(loaded(x), model.network(x))
 
 
 def test_model_load_skip_mismatch(tmp_path):

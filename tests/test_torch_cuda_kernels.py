@@ -873,3 +873,55 @@ def test_pp_boundary_round_trip_through_the_host_on_gloo(cuda_device,
                         extra_env={"PADDLE_DISTRI_BACKEND": "gloo",
                                    "OMP_NUM_THREADS": "4"})
     assert_ranks_ok(proc, logs)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", ["gqa", "noncausal"])
+def test_flash_library_ops_match_plain_versions(cuda_device, case, dtype):
+    """K2 and K3 through their ``torch.library`` ops
+    (``paddle_tpu_torch::flash_fwd`` and ``flash_bwd``), forward and the
+    registered backward, against the plain versions at the bounds above;
+    the fake of each answers on meta tensors without a launch."""
+    b, sq, sk, h, kh, d, causal = FLASH_CASES[case]
+    tdt = getattr(torch, dtype)
+    q, k, v = (torch.from_numpy(x).to(cuda_device, tdt).requires_grad_(True)
+               for x in flash_inputs(b, sq, sk, h, kh, d))
+    scale = 1.0 / np.sqrt(d)
+    ops = torch.ops.paddle_tpu_torch
+    fwd, bwd = ck.FLASH_FWD.launches, ck.FLASH_BWD.launches
+    o, lse = ops.flash_fwd(q, k, v, causal, scale)
+    torch.cuda.synchronize()
+    assert ck.FLASH_FWD.launches == fwd + 1
+    with torch.no_grad():
+        ro, rlse = ck.flash_attention_reference(q, k, v, causal, scale)
+    tol = 2e-5 if dtype == "float32" else \
+        _ulp(float(ro.float().abs().max()), dtype)
+    torch.testing.assert_close(o.float(), ro.float(), atol=tol, rtol=0)
+    torch.testing.assert_close(lse, rlse, atol=1e-4, rtol=0)
+    rng = np.random.default_rng(2)
+    do = torch.from_numpy(rng.standard_normal(o.shape).astype(np.float32)) \
+        .to(cuda_device, tdt)
+    dl = torch.from_numpy(rng.standard_normal(lse.shape).astype(
+        np.float32)).to(cuda_device)
+    got = torch.autograd.grad((o.float() * do.float()).sum()
+                              + (lse * dl).sum(), (q, k, v))
+    torch.cuda.synchronize()
+    assert ck.FLASH_BWD.launches == bwd + 1
+    direct = ops.flash_bwd(q.detach(), k.detach(), v.detach(), o.detach(),
+                           lse.detach(), do, dl, causal, scale)
+    with torch.no_grad():
+        ref = ck.flash_attention_bwd_reference(q, k, v, o, lse, do, dl,
+                                               causal, scale)
+    if dtype == "float32":
+        tol = 2e-4 if kh != h else 5e-5
+    else:
+        tol = _ulp(max(float(r.float().abs().max()) for r in ref), dtype)
+    for g, dg, r in zip(got, direct, ref):
+        assert torch.equal(g, dg)
+        torch.testing.assert_close(g.float(), r.float(), atol=tol, rtol=0)
+    meta = [t.detach().to("meta") for t in (q, k, v)]
+    mo, mlse = ops.flash_fwd(*meta, causal, scale)
+    assert mo.shape == o.shape and mlse.shape == lse.shape \
+        and mlse.dtype == torch.float32
+    assert ck.FLASH_FWD.launches == fwd + 1 and \
+        ck.FLASH_BWD.launches == bwd + 2

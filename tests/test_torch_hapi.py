@@ -282,14 +282,25 @@ def test_eager_train_batch_and_early_stopping():
     assert model.stop_training and stopper.wait == 1
 
 
-def test_refusals():
+def test_refusals(tmp_path):
     net = models.LeNet(device="cpu", seed=14)
     model = Model(net).prepare(port_opt.SGD(parameters=net.parameters()),
                                pnn.CrossEntropyLoss())
-    # what is left after checkpoints and workers were ported: the
-    # inference export and the VisualDL callback
-    with pytest.raises(NotImplementedError, match="A10"):
+    # what is left after checkpoints, workers and the inference export
+    # were ported: the VisualDL callback. The export refuses a Model
+    # without inputs, as the reference's jit.save does, and exports one
+    # with them
+    with pytest.raises(ValueError, match="jit.save needs input_spec"):
         model.save("x", training=False)
+    from paddle_tpu_torch import jit
+    exported = Model(net, inputs=[jit.InputSpec([3, 1, 28, 28])])
+    exported.save(str(tmp_path / "lenet"), training=False)
+    x = torch.from_numpy(np.random.default_rng(3).uniform(
+        0, 1, (3, 1, 28, 28)).astype(np.float32))
+    net.eval()
+    with torch.no_grad():
+        assert torch.equal(jit.load(str(tmp_path / "lenet"),
+                                    device="cpu")(x), net(x))
     with pytest.raises(NotImplementedError, match="A9"):
         VisualDL()
     assert isinstance(ModelCheckpoint(), Callback)
