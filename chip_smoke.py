@@ -103,7 +103,8 @@ by route) set to 0 just before it and read just after:
   ``DistributedBatchSampler`` (rank 1 starts from other weights; the
   parameters must be bit-equal after the wrap and after every step, K2
   and K3 once per layer and step in each rank), run a 2-layer fp32 step
-  that this process holds to one step on the concatenated batch, check
+  that they hold, piece by piece, to this process's one step on the
+  concatenated batch (saved before they start), check
   ``no_sync``, fit ResNet-50 with ``SyncBatchNorm`` through ``Model.fit``
   (bit-equal parameters and statistics, equal metrics) and hold the sync
   batch norm at ResNet-50's first batch norm to fp64; each rank's
@@ -113,7 +114,7 @@ by route) set to 0 just before it and read just after:
 - the hybrid plane: this script again as two gloo ranks sharing the card
   (``--hybrid-parallel-rank``), first at mp 2 after ``fleet.init``:
   GPT-124M at bench.py's widths under ``tensor_parallel`` (6 heads a
-  rank, the global 8 x 1024, O2, AdamW, ``CompiledTrainStep``, 2 + 3
+  rank, the global 8 x 1024, O2, AdamW, ``CompiledTrainStep``, 1 + 2
   calls and one with the mp collectives metered), the fp32 2-layer TP and
   SP steps, and ``distributed.checkpoint`` both ways (this process's
   whole checkpoint into the TP ranks, each slice bit-equal; the ranks'
@@ -132,11 +133,12 @@ by route) set to 0 just before it and read just after:
   (``benchmarks/matrix.py:306``'s seq 8192, sep 2), each rank [2, 4096],
   O2, AdamW, ``CompiledTrainStep``, with ``context_parallel`` "ring" (the
   zigzag schedule: K2 and K3 twice a layer and call) and "ulysses" (once),
-  1 + 2 calls each (global tokens/s, step ms of the slowest rank, the sep
+  1 + 1 calls each (global tokens/s, step ms of the slowest rank, the sep
   transport's exchanges, bytes and ms a step, peak memory a rank); the
   fp32 2-layer ring and Ulysses steps on 1 x 4096 (uneven ignored
-  labels), each rerun bit-identical and held by this process to one
-  process (the sep transport stages point to point through the host on
+  labels), each rerun bit-identical and held on the ranks to this
+  process's one-process step (the sep transport stages point to point
+  through the host on
   gloo, which refuses it on CUDA tensors);
 - the pipeline: this script again as two gloo ranks sharing the card
   (``--pipeline-rank``) at pp 2 after ``fleet.init``: a send to a stage
@@ -146,13 +148,14 @@ by route) set to 0 just before it and read just after:
   ``zero_bubble``, ``gpipe``) through ``fleet.distributed_model``'s
   ``PipelineParallel`` bit-identical to ``_local_train`` in the same
   process, and ``GPTForPretrainingPipe`` at n_chunks 1 and 2 rerun
-  bit-identical and held by this process to the unpipelined model (loss,
+  bit-identical and held on the ranks to this process's unpipelined
+  step (loss,
   gradients, parameters); then GPT-124M at bench.py's widths on the global
   16 x 1024 in 8 microbatches of [2, 1024], O2 bf16, AdamW lr 1e-4: the
   eager pipeline (a ``PipelineLayer`` of the embeddings, 12 blocks, ``ln_f``
   and an untied head, 6 blocks a stage) in each schedule, and
   ``GPTForPretrainingPipe`` through ``CompiledTrainStep`` at n_chunks 1
-  (GPipe, 9 ticks) and 2 (interleaved, 17 ticks), remat off and on, 1 + 2
+  (GPipe, 9 ticks) and 2 (interleaved, 17 ticks), remat off and on, 1 + 1
   steps each (step ms of the slowest rank, global tokens/s, the schedule,
   boundary messages and bytes or the pipeline's exchanges a step, peak
   memory a rank; K2 and K3 once per block and microbatch in each stage);
@@ -181,11 +184,12 @@ by route) set to 0 just before it and read just after:
   each block placed as ``tests/test_auto_parallel.py:142-148`` places its
   block and ``wte`` ``Shard(0)``, AdamW with ``ClipGradByGlobalNorm``, the
   global 8 x 1024 through ``shard_dataloader`` and ``Engine.fit`` (split
-  over mp: [4, 1024] a rank), 1 + 3 steps (step ms, global tokens/s, the
+  over mp: [4, 1024] a rank), 1 + 2 steps (step ms, global tokens/s, the
   collectives and bytes a step, parameter bytes a rank against the
   model's, peak memory; K2 and K3 12 a step on fp32); the fp32 2-layer
-  gate (3 steps; the ranks' histories bit-equal; held by this process to
-  ``Engine`` with no mesh: losses, the first step's gradients and
+  gate (3 steps; the ranks' histories bit-equal; held on the ranks to
+  this process's ``Engine`` with no mesh: losses, the first step's
+  gradients and
   parameters within 1e-5), ``Engine.save`` (the file bit-equal to the
   gathered state) and ``load`` (the next step bit-identical), and
   ``reshard`` of a [768, 2304] fp32 weight Shard(1) -> Replicate ->
@@ -210,8 +214,8 @@ by route) set to 0 just before it and read just after:
   (``gpt_small``, 12 layers) at O2 bf16, AdamW lr 1e-4 with
   ``ClipGradByGlobalNorm(1.0)``, ``p_g_os``, through ``CompiledTrainStep``
   on the global 8 x 1024 (4 x 1024 a data rank in 2 microbatches of [2,
-  1024], 6 heads a rank) at n_chunks 1 and 2 with remat, 1 + 2 steps and
-  one with the mp collectives metered (step ms of the slowest rank,
+  1024], 6 heads a rank) at n_chunks 1 and 2 with remat, 1 + 1 steps, the
+  mp collectives metered over the warm-up (step ms of the slowest rank,
   global tokens/s, mp collectives, bytes and ms, the pipeline's exchanges
   and bytes, the comm plane's works and ms a step, peak memory, parameter
   + AdamW bytes a rank against one process's; K2 and K3 12 a step in each
@@ -222,7 +226,7 @@ by route) set to 0 just before it and read just after:
   one's largest entry; K2 and K3 once per layer in the step); in bf16
   through ``jit.save`` at ``InputSpec([8, 1024], "int64")`` and
   ``paddle.inference.create_predictor`` (one CUDA graph, held bit-equal
-  to the uncaptured program), 20 requests of random ids through the
+  to the uncaptured program), 10 requests of random ids through the
   handles against the eager forward within one bf16 ulp of the logits'
   largest magnitude, with the eager, ``to_static`` and predictor ``run()``
   ms (p50, p90), ``copy_to_cpu`` ms, capture, save and load seconds,
@@ -230,7 +234,32 @@ by route) set to 0 just before it and read just after:
   saved on the CPU, loaded onto the card, against the predictor's
   outputs; ``Model.save(training=False)`` loaded back, likewise; GPT-124M
   fp32 on ``static.data("ids", [2, 1024], "int64")`` through
-  ``static.Executor`` against the eager logits (1e-5, K2 per layer).
+  ``static.Executor`` against the eager logits (1e-5, K2 per layer);
+- context parallelism across the hybrid mesh (``context_hybrid``): this
+  script again as eight gloo ranks sharing the card
+  (``--context-hybrid-rank``) at sharding 2 x sep 2 x mp 2 after
+  ``fleet.init`` (rank = 4 sharding + 2 sep + mp): GPT-124M's widths at 2
+  layers in fp32 with ``tensor_parallel``, ``sequence_parallel`` and
+  ``context_parallel`` under ``group_sharded_parallel`` (the ring and
+  Ulysses at ``p_g_os``, the ring at ``os_g``) on 2 x 4096 (a row a data
+  rank, uneven ignored labels over sep), each run twice bit-identical
+  and held piece by piece to this process's one-process step, the sep
+  and mp ranks of a data rank on bit-equal losses; the ring ``p_g_os``
+  model saved through ``distributed.checkpoint`` from the mesh, loaded
+  back into the mesh and whole into this process, bit-equal; GPT-124M
+  (``gpt_small(max_seq_len=8192)``) at O2 bf16 with SP and the ring
+  under ``p_g_os``, AdamW lr 1e-4, through ``CompiledTrainStep`` on the
+  global 2 x 8192 (a row a data rank, 4096 tokens a sep rank, 6 heads a
+  rank), 1 + 2 steps, the mp collectives metered over the warm-up (step
+  ms of the slowest rank, global tokens/s, the sep exchanges, mp sums and
+  the
+  comm plane's works with their bytes and ms a step, peak memory,
+  parameter + AdamW bytes a rank against one process's, the same global
+  losses on every rank; K2 and K3 24 a step a rank); then ``fleet.init``
+  again at pp 2 x sharding 2 x sep 2: ``GPTForPretrainingPipe`` at 2
+  layers in fp32 under ``p_g_os``, every sep rank on the whole sequence,
+  run twice bit-identical, the sep pair's gradients bit-equal and held
+  to this process's unpipelined step.
 
 Last, it times each kernel beside its bound, its plain version and,
 where one exists, a PyTorch call that computes the same function (also
@@ -246,7 +275,8 @@ and GradientMerge's ([4, 1024, 12, 64] causal, ``GC_ATTENTION``), the
 [4, 1024, 12, 64] causal (``AP_ATTENTION``) and K2 at the fleet
 executor's microbatch, K2 at a predictor request ([8, 1024, 12, 64]
 causal bf16) and K2 and K3 on their fp32 route at the jit gates' [2, 1024,
-12, 64] (``JIT_ATTENTION``), and each
+12, 64] (``JIT_ATTENTION``), K2 and K3 at a context_hybrid rank's ring
+blocks and Ulysses' whole sequence (``CH_ATTENTION``), and each
 kernel's fp16 route (K2 and K3 at the fp16 AMP path's shape); then K2
 and K3 in bf16 called straight (K2's ctypes entry, the K3 wrapper) and
 through their ``torch.library`` ops, in turns (``custom_op_cost``). Each
@@ -502,7 +532,7 @@ CP_ATTENTION = [
 PP_RANKS, PP_BATCH, PP_MICRO = 2, 16, 8
 PP_ATTENTION = [("pp_microbatch", PP_BATCH // PP_MICRO, 1024, 1024, 12, 12,
                  64, True)]
-PP_WARMUP, PP_TIMED = 1, 2
+PP_WARMUP, PP_TIMED = 1, 1
 PP_MODES = ("1f1b", "zero_bubble", "gpipe")
 PP_SPMD = ((1, False), (1, True), (2, False), (2, True))
 PP_EXACT_LAYERS, PP_EXACT_BATCH, PP_EXACT_MICRO = 4, 4, 4
@@ -526,10 +556,25 @@ P3_ATTENTION = [
     ("p3d_exact_microbatch", P3_EXACT_BATCH // 2 // P3_EXACT_MICRO, 1024,
      1024, 6, 6, 64, True)]
 P3_DEVICE = "cuda"
+# the context_hybrid path: GPT-124M over build_mesh(sharding=2, sep=2,
+# mp=2) with SP and CP, eight gloo ranks sharing the card; the global 2 x
+# 8192, a row a data rank, 4096 of its tokens a sep rank on 6 of the 12
+# heads: the zigzag ring's own pair (causal), the earlier owner's head-half
+# kv against all of q and all of the later owner's kv against the tail half
+# of q (non-causal), and Ulysses' whole sequence on 6 / 2 heads (causal);
+# the fp32 gates at 2 layers on 2 x 4096, a row a data rank
+CH_RANKS, CH_BATCH, CH_EXACT_BATCH = 8, 2, 2
+CH_ATTENTION = [
+    ("ch_own_pair", CH_BATCH // 2, 4096, 4096, 6, 6, 64, True),
+    ("ch_earlier_owner", CH_BATCH // 2, 4096, 2048, 6, 6, 64, False),
+    ("ch_later_owner", CH_BATCH // 2, 2048, 4096, 6, 6, 64, False),
+    ("ch_ulysses", CH_BATCH // 2, 8192, 8192, 3, 3, 64, True),
+]
+CH_DEVICE = "cuda"
 # the graph and deployment path (jit_inference): GPT-124M through
 # jit.to_static, jit.save and paddle.inference's predictor at 8 x 1024 a
 # request (bf16 weights); the fp32 gates at 2 x 1024
-JIT_BATCH, JIT_EXACT_BATCH, JIT_REQUESTS = 8, 2, 20
+JIT_BATCH, JIT_EXACT_BATCH, JIT_REQUESTS = 8, 2, 10
 JIT_ATTENTION = [("jit_request", JIT_BATCH, 1024, 1024, 12, 12, 64, True),
                  ("jit_exact_fp32", JIT_EXACT_BATCH, 1024, 1024, 12, 12, 64,
                   True)]
@@ -552,7 +597,7 @@ FLASH_CASES = [
     ERNIE_ATTENTION,
     BERT_ATTENTION,
 ] + DP_ATTENTION + HP_ATTENTION + CP_ATTENTION + PP_ATTENTION + \
-    GC_ATTENTION + P3_ATTENTION + JIT_ATTENTION
+    GC_ATTENTION + P3_ATTENTION + JIT_ATTENTION + CH_ATTENTION
 # K3: the forward's cases and one with an lse cotangent
 FLASH_BWD_CASES = FLASH_CASES + [
     ("dlse_causal", 1, 256, 256, 12, 12, 64, True)]
@@ -658,9 +703,9 @@ def phase_kernels_vs_plain(torch, ck):
                                              dtype, spare))
     for dtype in dtypes:
         rows = [flash_fwd_case(torch, ck, *case, dtype)
-                for case in FLASH_CASES]
+                for case in _distinct_shapes(FLASH_CASES)]
         rows += [flash_bwd_case(torch, ck, *case, dtype)
-                 for case in FLASH_BWD_CASES]
+                 for case in _distinct_shapes(FLASH_BWD_CASES)]
         if dtype != torch.float32:
             hold_bf16_to_library(rows)
         results.extend(rows)
@@ -676,6 +721,15 @@ def phase_kernels_vs_plain(torch, ck):
         raise AssertionError(f"kernel disagrees with its plain version: "
                              f"{bad}")
     return results
+
+
+def _distinct_shapes(cases):
+    """``cases`` with each shape held once, under its labels joined by
+    "/" (several paths' attention shares a shape)."""
+    labels = {}
+    for label, *shape in cases:
+        labels.setdefault(tuple(shape), []).append(label)
+    return [("/".join(names),) + shape for shape, names in labels.items()]
 
 
 def flash_bwd_inputs(torch, ck, b, sq, sk, h, kh, d, causal, dtype, dlse,
@@ -3110,7 +3164,7 @@ def phase_checkpoint_resume(torch, ck, smi):
 # device); a separate rank of one proves the NCCL backend on the card. The
 # ranks are this script started by the port's launcher with a rank flag.
 # (DP_RANKS, DP_BATCH and DP_EXACT_BATCH stand beside FLASH_CASES)
-DP_WARMUP, DP_TIMED = 2, 3
+DP_WARMUP, DP_TIMED = 1, 2
 DP_RESNET_BATCH, DP_RESNET_STEPS, DP_RESNET_EVAL = 64, 4, 128
 DP_BN_SHAPE = (2 * DP_RESNET_BATCH, 64, 112, 112)   # ResNet-50's first bn
 DP_RANK_TIMEOUT_S = 600
@@ -3354,10 +3408,11 @@ def dp_gpt124m_rank(torch, ck, dist, rank, world):
 
 def dp_exactness_rank(torch, dist, rank, out_dir):
     """GPT-124M's widths, 2 layers, fp32: one AdamW step under
-    DataParallel on this rank's 2 x 1024 tokens (rank 0 saves the loss
-    of both ranks, the synced gradients and the updated parameters for the
-    parent's one-process step); then ``no_sync``: two micro-steps under
-    it and one outside, each bucket launched once."""
+    DataParallel on this rank's 2 x 1024 tokens, held piece by piece
+    (``_held_pieces``; rank 0 prints the row) to the parent's one-process
+    step on the two ranks' batches concatenated (``dp_one.pt``); then
+    ``no_sync``: two micro-steps under it and one outside, each bucket
+    launched once."""
     import paddle_tpu_torch as paddle
     from paddle_tpu_torch.optimizer import AdamW
     from paddle_tpu_torch.text.gpt import GPTConfig, GPTForPretraining
@@ -3370,18 +3425,24 @@ def dp_exactness_rank(torch, dist, rank, out_dir):
     opt = AdamW(learning_rate=1e-4, parameters=model.parameters())
     loss = dp(ids.cuda(), labels=labels.cuda())[1]
     loss.backward()
-    grads = {n: p.grad.detach().cpu().clone()
-             for n, p in model.named_parameters() if p.grad is not None}
+    named = list(model.named_parameters())
+    grads = [p.grad.detach().clone() for _, p in named]
     opt.step()
     losses = []
     dist.all_gather_object(losses, loss.item())
     _same_on_ranks(dist, "fp32 parameters after the step",
                    _digest(model.parameters()))
+    held = _held_pieces(torch, dist, sum(losses) / len(losses), named,
+                        grads, torch.load(f"{out_dir}/dp_one.pt",
+                                          mmap=True))
+    held.update(phase="data_parallel_exactness_fp32", tf32=False,
+                losses=losses,
+                model="GPT-124M widths, 2 layers, fp32, AdamW lr 1e-4; "
+                      "2 ranks x 2 x 1024 under DataParallel against one "
+                      "process on 4 x 1024")
     if rank == 0:
-        torch.save({"losses": losses, "grads": grads,
-                    "params": {n: p.detach().cpu()
-                               for n, p in model.named_parameters()}},
-                   f"{out_dir}/exact.pt")
+        _rank_emit(rank, held)
+    del grads
     opt.clear_grad()
     launches, syncs = dp._bucket_launch_count, dp._sync_count
     with dp.no_sync():
@@ -3522,6 +3583,7 @@ def data_parallel_rank(torch, out_dir):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     env = dist.init_parallel_env(timeout=DP_RANK_TIMEOUT_S)
+    _wait_ready(out_dir)
     rank, world = env.rank, env.world_size
     if dist.get_backend() != "gloo" or world != DP_RANKS:
         raise AssertionError(f"backend {dist.get_backend()}, world {world}")
@@ -3540,11 +3602,23 @@ def data_parallel_rank(torch, out_dir):
     return 0
 
 
-def _run_ranks(n, flag, out_dir, extra_env=None):
+def _wait_ready(out_dir, timeout=DP_RANK_TIMEOUT_S):
+    """Block a rank until the parent's ``ready`` marker is in ``out_dir``
+    (``_start_ranks``: what ``prepare`` writes is there)."""
+    t0 = time.monotonic()
+    while not os.path.exists(os.path.join(out_dir, "ready")):
+        if time.monotonic() - t0 > timeout:
+            raise TimeoutError(f"no ready marker in {out_dir}")
+        time.sleep(0.05)
+
+
+def _run_ranks(n, flag, out_dir, extra_env=None, prepare=None):
     """This script's ``flag`` mode on ``n`` ranks through the port's
-    launcher; returns each rank's JSON lines. A rank that fails, times out
-    or prints no launch record fails the path."""
-    rc, stderr, logs = _start_ranks(n, flag, out_dir, extra_env)
+    launcher (``prepare()`` runs here while they start); returns each
+    rank's JSON lines. A rank that fails, times out or prints no launch
+    record fails the path."""
+    rc, stderr, logs = _start_ranks(n, flag, out_dir, extra_env,
+                                    prepare=prepare)
     if rc != 0:
         tails = {r: text[-4000:] for r, text in logs.items()}
         raise AssertionError(f"{flag} ranks failed (rc {rc}): "
@@ -3558,19 +3632,24 @@ def _run_ranks(n, flag, out_dir, extra_env=None):
 
 
 def _start_ranks(n, flag, out_dir, extra_env=None,
-                 timeout=DP_RANK_TIMEOUT_S):
+                 timeout=DP_RANK_TIMEOUT_S, prepare=None):
     """Run this script's ``flag`` mode on ``n`` ranks through the port's
     launcher: (return code, the launcher's stderr, {rank: its log}); a
     launcher still running after ``timeout`` seconds is killed (return
-    code None). The launcher and its ranks run in a session of their own,
-    killed whole if they outlive the timeout or this process fails while
-    waiting."""
+    code None). ``prepare()`` (the one-process steps the ranks' gates are
+    held to) runs in this process while the ranks start; then the
+    ``ready`` marker in ``out_dir`` lets them past ``_wait_ready``. The
+    launcher and its ranks run in a session of their own, killed whole if
+    they outlive the timeout or this process fails while waiting."""
     import os
     import signal
     root = os.path.dirname(os.path.abspath(__file__))
     log_dir = os.path.join(out_dir, f"logs{flag}")
     env = dict(os.environ, PYTHONPATH=root, **(extra_env or {}))
     env.pop("PADDLE_MASTER", None)
+    ready = os.path.join(out_dir, "ready")
+    if os.path.exists(ready):
+        os.remove(ready)
     proc = subprocess.Popen(
         [sys.executable, "-m", "paddle_tpu_torch.distributed.launch",
          "--nproc_per_node", str(n), "--log_dir", log_dir,
@@ -3579,6 +3658,9 @@ def _start_ranks(n, flag, out_dir, extra_env=None,
         text=True, start_new_session=True)
     rc, stderr = None, ""
     try:
+        if prepare is not None:
+            prepare()
+        open(ready, "w").close()
         _, stderr = proc.communicate(timeout=timeout)
         rc = proc.returncode
     except subprocess.TimeoutExpired:
@@ -3597,10 +3679,10 @@ def _start_ranks(n, flag, out_dir, extra_env=None,
     return rc, stderr, logs
 
 
-def phase_data_parallel_exactness(torch, ck, out_dir):
-    """The fp32 DataParallel step against one step in this process on the
-    two ranks' batches concatenated (4 x 1024), from the same weights, by
-    ``_held_to_one_process``'s bounds."""
+def _dp_one_process(torch, tmp):
+    """The one-process step the ranks' fp32 DataParallel step is held to
+    (``_held_pieces``): GPT-124M's widths at 2 layers, AdamW lr 1e-4, on
+    the two ranks' batches concatenated (4 x 1024), as ``dp_one.pt``."""
     from paddle_tpu_torch.optimizer import AdamW
     from paddle_tpu_torch.text.gpt import GPTConfig, GPTForPretraining
     cfg = GPTConfig(hidden_size=768, num_layers=2, num_heads=12)
@@ -3610,25 +3692,9 @@ def phase_data_parallel_exactness(torch, ck, out_dir):
     ids, labels = (torch.cat(col) for col in zip(*pairs))
     model = GPTForPretraining(cfg, device="cuda", seed=0)
     opt = AdamW(learning_rate=1e-4, parameters=model.parameters())
-    loss = model(ids.cuda(), labels=labels.cuda())[1]
-    loss.backward()
-    grads = {n: p.grad.detach().cpu()
-             for n, p in model.named_parameters() if p.grad is not None}
-    opt.step()
-    dp = torch.load(f"{out_dir}/exact.pt")
-    dp_loss = sum(dp["losses"]) / len(dp["losses"])
-    out = _held_to_one_process(torch, dp_loss, dp["grads"], dp["params"],
-                               loss.item(), grads, model)
-    out = {"phase": "data_parallel_exactness_fp32", "tf32": False,
-           "model": "GPT-124M widths, 2 layers, fp32, AdamW lr 1e-4; "
-                    "2 ranks x 2 x 1024 under DataParallel against one "
-                    "process on 4 x 1024",
-           "loss_dp": dp_loss, "loss_one_process": out.pop("loss_one"),
-           **{k: v for k, v in out.items() if k != "loss_got"}}
-    emit(out)
-    if not out["held"]:
-        raise AssertionError(f"the DataParallel step differs from one "
-                             f"process: {out}")
+    _one_process_step(torch, model, opt, ids, labels, f"{tmp}/dp_one.pt")
+    del model, opt
+    torch.cuda.empty_cache()
 
 
 def _held_to_one_process(torch, got_loss, got_grads, got_params, loss,
@@ -3766,11 +3832,41 @@ def _held_pieces(torch, dist, got_loss, named, grads, one):
             "rel_tol": 1e-5, "held": held}
 
 
+def _spied_step(torch, net, opt, batch):
+    """One ``CompiledTrainStep`` call of ``net`` with ``opt`` on
+    ``batch``: (its loss, the gradients its sync returned)."""
+    from paddle_tpu_torch.jit import CompiledTrainStep
+    step = CompiledTrainStep(lambda a, b: net(a, labels=b)[1], net, opt)
+    real, seen = step._sync, {}
+    step._sync = lambda g: seen.setdefault("grads", real(g))
+    loss = step(*batch).item()
+    return loss, seen["grads"]
+
+
+def _twice_bit_identical(torch, build, batch, what):
+    """``build()`` -> (model, net, optimizer) twice, one fp32 step of each
+    (``_spied_step``): the reruns' loss, synced gradients and updated
+    parameters must be bit-identical. Returns the first run's (model,
+    loss, gradients)."""
+    runs = []
+    for _ in range(2):
+        model, net, opt = build()
+        runs.append((model,) + _spied_step(torch, net, opt, batch))
+    (m1, l1, g1), (m2, l2, g2) = runs
+    same = l1 == l2 and all(torch.equal(a, b) for a, b in zip(g1, g2)) \
+        and all(torch.equal(a, b) for a, b in zip(m1.parameters(),
+                                                  m2.parameters()))
+    if not same:
+        raise AssertionError(f"{what}: the fp32 step's rerun differs")
+    del runs, m2, g2
+    return m1, l1, g1
+
+
 def phase_data_parallel(torch, ck, smi):
-    """The data-parallel path: NCCL at world 1, then two gloo ranks on the
-    card (GPT-124M's DataParallel steps, its fp32 step and no_sync,
-    ResNet-50's fit with SyncBatchNorm, the sync batch norm's exactness),
-    then this process's one-process step against the ranks' fp32 step.
+    """The data-parallel path: this process's one-process fp32 step, NCCL
+    at world 1, then two gloo ranks on the card (GPT-124M's DataParallel
+    steps, its fp32 step held to the one-process step and no_sync,
+    ResNet-50's fit with SyncBatchNorm, the sync batch norm's exactness).
     The ranks' kernel launches are added to this process's counts."""
     import shutil
     import tempfile
@@ -3782,13 +3878,14 @@ def phase_data_parallel(torch, ck, smi):
         t_nccl = time.perf_counter() - t0
         t0 = time.perf_counter()
         ranks = _run_ranks(DP_RANKS, "--data-parallel-rank", tmp,
-                           {"PADDLE_DISTRI_BACKEND": "gloo"})
+                           {"PADDLE_DISTRI_BACKEND": "gloo"},
+                           prepare=lambda: _dp_one_process(torch, tmp))
         t_ranks = time.perf_counter() - t0
         for rows in list(nccl.values()) + list(ranks.values()):
             for row in rows[:-1]:
                 emit(row)
             ck.add_launches(rows[-1]["rank_launches"])
-        phase_data_parallel_exactness(torch, ck, tmp)
+        _exactness_held(ranks, "data_parallel_exactness_fp32", 1)
         gpt = [next(r for r in rows if r.get("phase") ==
                     "data_parallel_gpt124m") for rows in ranks.values()]
         step_s = max(g["step_ms"] for g in gpt) / 1e3
@@ -3820,7 +3917,7 @@ def phase_data_parallel(torch, ck, smi):
 # resharding checkpoint), then, after a second fleet.init, as sharding 2
 # (ERNIE-3.0-base under ZeRO-3 as benchmarks/matrix.py:125-166 runs it,
 # the fp32 ZeRO steps). (HP_RANKS and the batches stand beside FLASH_CASES)
-HP_WARMUP, HP_TIMED = 2, 3
+HP_WARMUP, HP_TIMED = 1, 1
 HP_ZERO_LEVELS = ("os", "os_g", "p_g_os")
 
 
@@ -4034,7 +4131,8 @@ def hp_exact_rank(torch, dist, rank, out_dir, mode):
         raise AssertionError(f"{mode}: the mp ranks' losses differ {losses}")
     named = list(model.named_parameters())
     out = _held_pieces(torch, dist, sum(losses) / len(losses), named,
-                       seen["grads"], torch.load(f"{out_dir}/hp_one.pt"))
+                       seen["grads"],
+                       torch.load(f"{out_dir}/hp_one.pt", mmap=True))
     if mode == "tp":
         params = {n: gather_global(p) for n, p in named}
         if rank == 0:
@@ -4105,6 +4203,7 @@ def hybrid_parallel_rank(torch, out_dir):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     env = dist.init_parallel_env(timeout=DP_RANK_TIMEOUT_S)
+    _wait_ready(out_dir)
     rank, world = env.rank, env.world_size
     if dist.get_backend() != "gloo" or world != HP_RANKS:
         raise AssertionError(f"backend {dist.get_backend()}, world {world}")
@@ -4239,11 +4338,11 @@ def phase_hybrid_parallel(torch, ck, smi):
     tmp = tempfile.mkdtemp(prefix="chip_smoke_hp_")
     try:
         torch.cuda.empty_cache()
-        _hp_whole_checkpoint(torch, tmp)
-        _hp_one_process(torch, tmp)
         t0 = time.perf_counter()
         ranks = _run_ranks(HP_RANKS, "--hybrid-parallel-rank", tmp,
-                           {"PADDLE_DISTRI_BACKEND": "gloo"})
+                           {"PADDLE_DISTRI_BACKEND": "gloo"},
+                           prepare=lambda: (_hp_whole_checkpoint(torch, tmp),
+                                            _hp_one_process(torch, tmp)))
         t_ranks = time.perf_counter() - t0
         for rows in ranks.values():
             for row in rows[:-1]:
@@ -4311,7 +4410,7 @@ def phase_hybrid_parallel(torch, ck, smi):
 # with the ring (zigzag schedule) and with Ulysses; then the fp32 steps at
 # 2 layers on 1 x 4096, held to one process by this one. (CP_RANKS and the
 # shapes stand beside FLASH_CASES)
-CP_WARMUP, CP_TIMED = 1, 2
+CP_WARMUP, CP_TIMED = 1, 1
 CP_MODES = ("ring", "ulysses")
 # K2 and K3 launches a layer and call on a rank at sep 2: the zigzag's own
 # pair and one half-shard block; Ulysses' one whole-sequence call
@@ -4377,43 +4476,36 @@ def _cp_exact_batch(torch):
 def cp_exact_rank(torch, dist, rank, out_dir, mode):
     """One fp32 AdamW step (lr 1e-4) of GPT-124M's widths at 2 layers with
     ``context_parallel=mode`` on this rank's half of ``_cp_exact_batch``,
-    twice from the same build: the reruns must be bit-identical (loss,
-    synced gradients, updated parameters). Rank 0 saves them for the
-    parent's one-process step."""
+    twice from the same build (``_twice_bit_identical``), held piece by
+    piece to the parent's one-process step on the whole 1 x 4096
+    (``cp_one.pt``, ``_held_pieces``)."""
     from paddle_tpu_torch.distributed.sharding_api import sep_local_batch
-    from paddle_tpu_torch.jit import CompiledTrainStep
     from paddle_tpu_torch.optimizer import AdamW
     from paddle_tpu_torch.text.gpt import GPTConfig, GPTForPretraining
     cfg = GPTConfig(hidden_size=768, num_layers=2, num_heads=12,
                     max_seq_len=CP_EXACT_SEQ, context_parallel=mode)
     ids, labels = (sep_local_batch(t).contiguous().cuda()
                    for t in _cp_exact_batch(torch))
-    runs = []
-    for _ in range(2):
+
+    def build():
         model = GPTForPretraining(cfg, device="cuda", seed=0)
-        opt = AdamW(learning_rate=1e-4, parameters=model.named_parameters())
-        step = CompiledTrainStep(
-            lambda a, b, m=model: m(a, labels=b)[1], model, opt)
-        real, seen = step._sync, {}
-        step._sync = lambda g, real=real, seen=seen: \
-            seen.setdefault("grads", real(g))
-        loss = step(ids, labels).item()
-        named = list(model.named_parameters())
-        runs.append({"loss": loss,
-                     "grads": {n: g.detach().cpu() for (n, _), g in
-                               zip(named, seen["grads"])},
-                     "params": {n: p.detach().cpu() for n, p in named}})
-        del model, opt, step
-    a, b = runs
-    same = a["loss"] == b["loss"] and all(
-        torch.equal(a[k][n], b[k][n]) for k in ("grads", "params")
-        for n in a[k])
-    if not same:
-        raise AssertionError(f"{mode}: the fp32 CP step's rerun differs")
-    if rank == 0:
-        torch.save(a, f"{out_dir}/cp_exact_{mode}.pt")
-    return {"phase": f"context_parallel_exact_rank_{mode}",
-            "loss": a["loss"], "rerun_bit_identical": same}
+        return model, model, AdamW(learning_rate=1e-4,
+                                   parameters=model.named_parameters())
+
+    model, loss, grads = _twice_bit_identical(torch, build, (ids, labels),
+                                              mode)
+    out = _held_pieces(torch, dist, loss, list(model.named_parameters()),
+                       grads, torch.load(f"{out_dir}/cp_one.pt",
+                                         mmap=True))
+    out.update(phase=f"context_parallel_exactness_fp32_{mode}", tf32=False,
+               rerun_bit_identical=True,
+               model=f"GPT-124M widths, 2 layers, fp32, AdamW lr 1e-4; "
+                     f"{mode} on {CP_RANKS} sep ranks against one process "
+                     f"on 1 x {CP_EXACT_SEQ}, labels of the first 1536 "
+                     "tokens ignored")
+    del model, grads
+    torch.cuda.empty_cache()
+    return out
 
 
 def context_parallel_rank(torch, out_dir):
@@ -4427,6 +4519,7 @@ def context_parallel_rank(torch, out_dir):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     env = dist.init_parallel_env(timeout=DP_RANK_TIMEOUT_S)
+    _wait_ready(out_dir)
     rank, world = env.rank, env.world_size
     if dist.get_backend() != "gloo" or world != CP_RANKS:
         raise AssertionError(f"backend {dist.get_backend()}, world {world}")
@@ -4445,10 +4538,10 @@ def context_parallel_rank(torch, out_dir):
     return 0
 
 
-def phase_context_parallel_exactness(torch, ck, tmp):
-    """The ranks' fp32 ring and Ulysses steps against one step in this
-    process on the whole 1 x 4096 from the same weights, by
-    ``_held_to_one_process``'s bounds."""
+def _cp_one_process(torch, tmp):
+    """The one-process step the ranks' fp32 ring and Ulysses steps are held
+    to: GPT-124M's widths at 2 layers from the same weights on the whole
+    ``_cp_exact_batch``, as ``cp_one.pt``."""
     from paddle_tpu_torch.optimizer import AdamW
     from paddle_tpu_torch.text.gpt import GPTConfig, GPTForPretraining
     model = GPTForPretraining(GPTConfig(hidden_size=768, num_layers=2,
@@ -4456,38 +4549,17 @@ def phase_context_parallel_exactness(torch, ck, tmp):
                                         max_seq_len=CP_EXACT_SEQ),
                               device="cuda", seed=0)
     opt = AdamW(learning_rate=1e-4, parameters=model.named_parameters())
-    ids, labels = _cp_exact_batch(torch)
-    loss = model(ids.cuda(), labels=labels.cuda())[1]
-    loss.backward()
-    grads = {n: p.grad.detach().cpu()
-             for n, p in model.named_parameters() if p.grad is not None}
-    opt.step()
-    rows = []
-    for mode in CP_MODES:
-        got = torch.load(f"{tmp}/cp_exact_{mode}.pt")
-        out = _held_to_one_process(torch, got["loss"], got["grads"],
-                                   got["params"], loss.item(), grads, model)
-        out.update(phase=f"context_parallel_exactness_fp32_{mode}",
-                   tf32=False,
-                   model=f"GPT-124M widths, 2 layers, fp32, AdamW lr 1e-4; "
-                         f"{mode} on {CP_RANKS} sep ranks against one "
-                         f"process on 1 x {CP_EXACT_SEQ}, labels of the "
-                         "first 1536 tokens ignored")
-        emit(out)
-        rows.append(out)
+    _one_process_step(torch, model, opt, *_cp_exact_batch(torch),
+                      f"{tmp}/cp_one.pt")
     del model, opt
     torch.cuda.empty_cache()
-    bad = [r["phase"] for r in rows if not r["held"]]
-    if bad:
-        raise AssertionError(f"context-parallel steps differ from one "
-                             f"process: {bad}")
 
 
 def phase_context_parallel(torch, ck, smi):
-    """The context-parallel path: two gloo ranks at sep 2 (the fp32 ring
-    and Ulysses steps, then GPT-124M at 2 x 8192 each way), then this
-    process's one-process step against their fp32 steps. The ranks' kernel
-    launches are added to this process's counts."""
+    """The context-parallel path: this process's one-process fp32 step,
+    then two gloo ranks at sep 2 (the fp32 ring and Ulysses steps held to
+    it, then GPT-124M at 2 x 8192 each way). The ranks' kernel launches
+    are added to this process's counts."""
     import shutil
     import tempfile
     tmp = tempfile.mkdtemp(prefix="chip_smoke_cp_")
@@ -4495,13 +4567,15 @@ def phase_context_parallel(torch, ck, smi):
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
         ranks = _run_ranks(CP_RANKS, "--context-parallel-rank", tmp,
-                           {"PADDLE_DISTRI_BACKEND": "gloo"})
+                           {"PADDLE_DISTRI_BACKEND": "gloo"},
+                           prepare=lambda: _cp_one_process(torch, tmp))
         t_ranks = time.perf_counter() - t0
         for rows in ranks.values():
             for row in rows[:-1]:
                 emit(row)
             ck.add_launches(rows[-1]["rank_launches"])
-        phase_context_parallel_exactness(torch, ck, tmp)
+        _exactness_held(ranks, "context_parallel_exactness_fp32_",
+                        len(CP_MODES))
         summary = {"phase": "context_parallel", "nvidia_smi": smi,
                    "ranks": CP_RANKS, "backend": "gloo",
                    "sep_transport": "point to point staged through the "
@@ -4687,17 +4761,6 @@ def pp_eager_exact_rank(torch, fleet, mode):
     return out
 
 
-def _pp_natural(torch, name, t, n_chunks):
-    """A gathered stacked tensor back in natural layer order."""
-    from paddle_tpu_torch.distributed.fleet.meta_parallel.spmd_pipeline \
-        import interleave_row_order
-    import numpy as np
-    if not name.startswith("blocks.") or n_chunks == 1:
-        return t
-    order = interleave_row_order(t.shape[0], PP_RANKS, n_chunks)
-    return t[torch.as_tensor(np.argsort(order))]
-
-
 def _pp_exact_batch(torch):
     return _seeded_ids(torch, 50304, (PP_EXACT_BATCH, 1024), seed=72)
 
@@ -4705,60 +4768,60 @@ def _pp_exact_batch(torch):
 def pp_spmd_exact_rank(torch, dist, rank, out_dir, n_chunks):
     """One fp32 AdamW step (lr 1e-4) of ``GPTForPretrainingPipe`` at
     GPT-124M's widths and PP_EXACT_LAYERS layers over pp 2 through
-    ``CompiledTrainStep``, twice from the same build: the reruns must be
-    bit-identical. Rank 0 saves the loss, the synced gradients and the
-    updated parameters (whole, natural layer order) for the parent's
-    one-process step."""
-    from paddle_tpu_torch.distributed.sharding_api import (gather_global,
-                                                           placement_of)
-    from paddle_tpu_torch.jit import CompiledTrainStep
+    ``CompiledTrainStep``, twice from the same build
+    (``_twice_bit_identical``), held piece by piece to the parent's
+    unpipelined step (``pp_one.pt``, in this model's row order,
+    ``_held_pieces``)."""
     from paddle_tpu_torch.optimizer import AdamW
     from paddle_tpu_torch.text.gpt import GPTConfig, GPTForPretrainingPipe
     cfg = GPTConfig(hidden_size=768, num_layers=PP_EXACT_LAYERS,
                     num_heads=12)
     ids, labels = (t.to(PP_DEVICE) for t in _pp_exact_batch(torch))
-    runs = []
-    for _ in range(2):
+
+    def build():
         model = GPTForPretrainingPipe(cfg, n_microbatch=PP_EXACT_MICRO,
                                       n_chunks=n_chunks, device=PP_DEVICE,
                                       seed=0)
-        opt = AdamW(learning_rate=1e-4, parameters=model.parameters())
-        step = CompiledTrainStep(
-            lambda a, b, m=model: m(a, labels=b)[1], model, opt)
-        real, seen = step._sync, {}
-        step._sync = lambda g, real=real, seen=seen: \
-            seen.setdefault("grads", real(g))
-        loss = step(ids, labels).item()
-        named = list(model.named_parameters())
-        runs.append({
-            "loss": loss,
-            "grads": {n: _pp_natural(torch, n, gather_global(
-                g, placement_of(p)), n_chunks)
-                for (n, p), g in zip(named, seen["grads"])},
-            "params": {n: _pp_natural(torch, n, gather_global(p), n_chunks)
-                       for n, p in named}})
-        del model, opt, step
-    a, b = runs
-    same = a["loss"] == b["loss"] and all(
-        torch.equal(a[k][n], b[k][n]) for k in ("grads", "params")
-        for n in a[k])
-    if not same:
-        raise AssertionError(f"n_chunks {n_chunks}: the fp32 pipeline "
-                             "step's rerun differs")
-    if rank == 0:
-        torch.save(a, f"{out_dir}/pp_exact_{n_chunks}.pt")
-    torch.cuda.empty_cache()
-    return {"phase": f"pipeline_spmd_exact_rank_chunks{n_chunks}",
-            "loss": a["loss"], "rerun_bit_identical": same}
+        return model, model, AdamW(learning_rate=1e-4,
+                                   parameters=model.parameters())
+
+    model, loss, grads = _twice_bit_identical(
+        torch, build, (ids, labels), f"n_chunks {n_chunks}")
+    one = _p3_stored(torch, torch.load(f"{out_dir}/pp_one.pt", mmap=True),
+                     n_chunks)
+    out = _held_pieces(torch, dist, loss, list(model.named_parameters()),
+                       grads, one)
+    out.update(phase=f"pipeline_exactness_fp32_chunks{n_chunks}",
+               tf32=False, rerun_bit_identical=True,
+               model=f"GPT-124M widths, {PP_EXACT_LAYERS} layers, fp32, "
+                     f"AdamW lr 1e-4; GPTForPretrainingPipe over pp "
+                     f"{PP_RANKS} (n_chunks {n_chunks}, {PP_EXACT_MICRO} "
+                     f"microbatches) against the unpipelined model on "
+                     f"{PP_EXACT_BATCH} x 1024")
+    del model, grads
+    if PP_DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    return out
 
 
-def _pp_timed(torch, ck, dist, run, per_step):
-    """PP_WARMUP + PP_TIMED synchronized calls of ``run()``; K2 and K3
-    must launch ``per_step`` = (fwd, bwd) times a call on bf16. Returns
-    (losses, seconds of the timed calls, the slowest rank's mean ms)."""
+def _pp_timed(torch, ck, dist, run, per_step, warmup=None, timed=None,
+              meter_warmup=False):
+    """``warmup`` + ``timed`` (PP_WARMUP + PP_TIMED) synchronized calls of
+    ``run()``; K2 and K3 must launch ``per_step`` = (fwd, bwd) times a call
+    on bf16. With ``meter_warmup`` the mp collectives' meter
+    (``mp_layers.comm_meter``, which synchronizes around each collective)
+    runs over the warm-up calls alone. Returns (losses, seconds of the
+    timed calls, the slowest rank's mean ms, the warm-up's seconds)."""
+    from paddle_tpu_torch.distributed.fleet.meta_parallel import mp_layers
+    warmup = PP_WARMUP if warmup is None else warmup
+    timed = PP_TIMED if timed is None else timed
     losses, secs = [], []
-    for i in range(PP_WARMUP + PP_TIMED):
-        if i == PP_WARMUP:
+    for i in range(warmup + timed):
+        if i == 0 and meter_warmup:
+            mp_layers.comm_meter(on=True, reset=True)
+        if i == warmup:
+            if meter_warmup:
+                mp_layers.comm_meter(on=False)
             from paddle_tpu_torch.distributed import comm_plane as cp
             from paddle_tpu_torch.distributed import sep_transport
             from paddle_tpu_torch.distributed.fleet.meta_parallel import \
@@ -4782,11 +4845,11 @@ def _pp_timed(torch, ck, dist, run, per_step):
         losses.append(float(loss))
     if not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"non-finite losses {losses}")
-    timed = secs[PP_WARMUP:]
+    timed = secs[warmup:]
     mean_ms = 1e3 * sum(timed) / len(timed)
     seen = []
     dist.all_gather_object(seen, mean_ms)
-    return losses, timed, max(seen)
+    return losses, timed, max(seen), secs[:warmup]
 
 
 def pp_eager_gpt124m_rank(torch, ck, dist, fleet, mode):
@@ -4809,7 +4872,7 @@ def pp_eager_gpt124m_rank(torch, ck, dist, fleet, mode):
         torch, cfg.vocab_size, (PP_BATCH, 1024), seed=74))
     blocks = cfg.num_layers // PP_RANKS
     per_step = (blocks * PP_MICRO, blocks * PP_MICRO)
-    losses, secs, slowest = _pp_timed(
+    losses, secs, slowest, _ = _pp_timed(
         torch, ck, dist, lambda: pipe.train_batch(batch, opt), per_step)
     stats = cp.pp_stats()
     out = {"phase": f"pipeline_eager_gpt124m_{mode}", "stage": pipe._stage,
@@ -4855,7 +4918,7 @@ def pp_spmd_gpt124m_rank(torch, ck, dist, n_chunks, remat):
         torch, cfg.vocab_size, (PP_BATCH, 1024), seed=75))
     layers = cfg.num_layers // PP_RANKS * PP_MICRO
     per_step = (layers * (2 if remat else 1), layers)
-    losses, secs, slowest = _pp_timed(
+    losses, secs, slowest, _ = _pp_timed(
         torch, ck, dist, lambda: step(ids, labels), per_step)
     ex = sep_transport.stats()
     bc = spmd_pipeline.stats()
@@ -4907,6 +4970,7 @@ def pipeline_rank(torch, out_dir):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     env = dist.init_parallel_env(timeout=DP_RANK_TIMEOUT_S)
+    _wait_ready(out_dir)
     rank, world = env.rank, env.world_size
     if dist.get_backend() != "gloo" or world != PP_RANKS:
         raise AssertionError(f"backend {dist.get_backend()}, world {world}")
@@ -4933,49 +4997,29 @@ def pipeline_rank(torch, out_dir):
     return 0
 
 
-def phase_pipeline_exactness(torch, tmp):
-    """The ranks' fp32 SPMD pipeline steps (n_chunks 1 and 2) against one
-    step of the unpipelined ``GPTForPretrainingPipe`` in this process from
-    the same weights, by ``_held_to_one_process``'s bounds."""
+def _pp_one_process(torch, tmp):
+    """The unpipelined fp32 step the ranks' SPMD pipeline steps are held
+    to: ``GPTForPretrainingPipe`` at GPT-124M's widths and
+    ``PP_EXACT_LAYERS`` layers from the same weights on the whole
+    ``_pp_exact_batch``, as ``pp_one.pt``."""
     from paddle_tpu_torch.optimizer import AdamW
     from paddle_tpu_torch.text.gpt import GPTConfig, GPTForPretrainingPipe
-    cfg = GPTConfig(hidden_size=768, num_layers=PP_EXACT_LAYERS,
-                    num_heads=12)
-    model = GPTForPretrainingPipe(cfg, device=PP_DEVICE, seed=0)
+    model = GPTForPretrainingPipe(
+        GPTConfig(hidden_size=768, num_layers=PP_EXACT_LAYERS, num_heads=12),
+        device=PP_DEVICE, seed=0)
     opt = AdamW(learning_rate=1e-4, parameters=model.parameters())
-    ids, labels = _pp_exact_batch(torch)
-    loss = model(ids.to(PP_DEVICE), labels=labels.to(PP_DEVICE))[1]
-    loss.backward()
-    grads = {n: p.grad.detach().cpu()
-             for n, p in model.named_parameters() if p.grad is not None}
-    opt.step()
-    rows = []
-    for n_chunks in (1, 2):
-        got = torch.load(f"{tmp}/pp_exact_{n_chunks}.pt")
-        out = _held_to_one_process(torch, got["loss"], got["grads"],
-                                   got["params"], loss.item(), grads, model)
-        out.update(phase=f"pipeline_exactness_fp32_chunks{n_chunks}",
-                   tf32=False,
-                   model=f"GPT-124M widths, {PP_EXACT_LAYERS} layers, fp32, "
-                         f"AdamW lr 1e-4; GPTForPretrainingPipe over pp "
-                         f"{PP_RANKS} (n_chunks {n_chunks}, "
-                         f"{PP_EXACT_MICRO} microbatches) against the "
-                         f"unpipelined model on {PP_EXACT_BATCH} x 1024")
-        emit(out)
-        rows.append(out)
+    _one_process_step(torch, model, opt, *_pp_exact_batch(torch),
+                      f"{tmp}/pp_one.pt")
     del model, opt
-    torch.cuda.empty_cache()
-    bad = [r["phase"] for r in rows if not r["held"]]
-    if bad:
-        raise AssertionError(f"pipeline steps differ from one process: "
-                             f"{bad}")
+    if PP_DEVICE == "cuda":
+        torch.cuda.empty_cache()
 
 
 def phase_pipeline(torch, ck, smi):
-    """The pipeline path: two gloo ranks at pp 2 (the send probe, the fp32
-    steps, then GPT-124M through the eager schedules and the SPMD
-    pipeline), then this process's one-process step against their fp32
-    SPMD steps. The ranks' kernel launches are added to this process's
+    """The pipeline path: this process's unpipelined fp32 step, then two
+    gloo ranks at pp 2 (the send probe, the fp32 steps, the SPMD ones held
+    to that step, then GPT-124M through the eager schedules and the SPMD
+    pipeline). The ranks' kernel launches are added to this process's
     counts."""
     import shutil
     import tempfile
@@ -4984,13 +5028,14 @@ def phase_pipeline(torch, ck, smi):
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
         ranks = _run_ranks(PP_RANKS, "--pipeline-rank", tmp,
-                           {"PADDLE_DISTRI_BACKEND": "gloo"})
+                           {"PADDLE_DISTRI_BACKEND": "gloo"},
+                           prepare=lambda: _pp_one_process(torch, tmp))
         t_ranks = time.perf_counter() - t0
         for rows in ranks.values():
             for row in rows[:-1]:
                 emit(row)
             ck.add_launches(rows[-1]["rank_launches"])
-        phase_pipeline_exactness(torch, tmp)
+        _exactness_held(ranks, "pipeline_exactness_fp32_", 2)
         summary = {"phase": "pipeline", "nvidia_smi": smi,
                    "ranks": PP_RANKS, "backend": "gloo",
                    "transport": "stage boundaries and pipeline exchanges "
@@ -5039,7 +5084,7 @@ def phase_pipeline(torch, ck, smi):
 # gradients at dcn 2, and TP GPT-124M at mp 2 with ClipGradByNorm. Each
 # has its fp32 gate at 2 layers; this process holds the ranks' ones to
 # one process. (GC_ATTENTION stands beside FLASH_CASES)
-GC_WARMUP, GC_TIMED = 2, 2
+GC_WARMUP, GC_TIMED = 1, 1
 GC_CLIP_EXACT = 0.01        # the fp32 TP step's ClipGradByNorm
 
 
@@ -5712,6 +5757,7 @@ def grad_comm_rank(torch, out_dir):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     env = dist.init_parallel_env(timeout=DP_RANK_TIMEOUT_S)
+    _wait_ready(out_dir)
     rank, world = env.rank, env.world_size
     if dist.get_backend() != "gloo" or world != GC_RANKS:
         raise AssertionError(f"backend {dist.get_backend()}, world {world}")
@@ -5857,7 +5903,7 @@ def phase_grad_comm(torch, ck, smi):
 # there); the fp32 gate at 2 layers, 3 steps; the fleet executor's
 # GPT-124M bf16 forward in 4 stages over 8 microbatches of [2, 1024]
 # (PP_ATTENTION's shape)
-AP_RANKS, AP_BATCH, AP_WARMUP, AP_TIMED = 2, 8, 1, 3
+AP_RANKS, AP_BATCH, AP_WARMUP, AP_TIMED = 2, 8, 1, 2
 AP_EXACT_LAYERS, AP_EXACT_STEPS = 2, 3
 AP_MICRO, AP_MICRO_ROWS = 8, 2
 AP_ATTENTION = ("ap_engine_rank", AP_BATCH // AP_RANKS, 1024, 1024, 12, 12,
@@ -5975,8 +6021,11 @@ def ap_exact_rank(torch, dist, rank, out_dir, mesh):
     after step 1, all gathered whole; the histories of the two ranks must
     be bit-equal. Then ``save``: the file must hold the gathered state
     bit for bit, and a model built from another seed that ``load``s it
-    must take the next step bit-identically. Rank 0 saves what the parent
-    holds to one process."""
+    must take the next step bit-identically. The first step (its loss,
+    the synced gradients scaled by the one-process clip, which the update
+    read, and the parameters after it) is held to the parent's ``Engine``
+    with no mesh (``ap_one.pt``) by ``_held_pieces`` on the gathered
+    values, and every step's loss within 1e-5; rank 0 prints the row."""
     from paddle_tpu_torch.framework.io import load
     model, eng = _ap_gpt(torch, AP_EXACT_LAYERS, mesh)
     vocab = model.config.vocab_size
@@ -6017,9 +6066,18 @@ def ap_exact_rank(torch, dist, rank, out_dir, mesh):
     if not (file_equal and resumed):
         raise AssertionError(f"Engine.save/load: file equal {file_equal}, "
                              f"resume bit-identical {resumed}")
+    one = torch.load(f"{out_dir}/ap_one.pt", mmap=True)
+    held = _held_pieces(torch, dist, hist[0], list(params1.items()),
+                        [whole_g[n] * one["clip_scale"] for n in params1],
+                        one)
+    rel = [abs(a - b) / abs(b) for a, b in zip(hist, one["hist"])]
+    held.update(phase="auto_parallel_exactness_fp32", losses_ranks=hist,
+                losses_one_process=one["hist"], loss_rel_errs=rel,
+                clip_scale=one["clip_scale"],
+                global_grad_norm=one["global_grad_norm"])
+    held["held"] = held["held"] and max(rel) <= 1e-5
     if rank == 0:
-        torch.save({"hist": hist, "grads": whole_g, "params1": params1},
-                   f"{out_dir}/ap_exact.pt")
+        _rank_emit(rank, held)
     return {"phase": "auto_parallel_exact_rank", "hist": hist,
             "save_s": save_s, "load_s": load_s,
             "pdparams_bytes": os.path.getsize(path + ".pdparams"),
@@ -6073,6 +6131,7 @@ def auto_parallel_rank(torch, out_dir):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     env = dist.init_parallel_env(timeout=DP_RANK_TIMEOUT_S)
+    _wait_ready(out_dir)
     rank, world = env.rank, env.world_size
     if dist.get_backend() != "gloo" or world != AP_RANKS:
         raise AssertionError(f"backend {dist.get_backend()}, world {world}")
@@ -6093,13 +6152,12 @@ def auto_parallel_rank(torch, out_dir):
     return 0
 
 
-def phase_auto_parallel_exactness(torch, tmp):
+def _ap_one_process(torch, tmp):
     """The one-process side of the fp32 gate: ``Engine`` with no mesh in
-    this process from the same weights and batches; the first step's loss,
-    synced gradients and updated parameters (``_held_to_one_process``, on
-    the gradients after the global-norm clip, which the update read) and
-    every step's loss within 1e-5."""
-    got = torch.load(f"{tmp}/ap_exact.pt")
+    this process from the same weights and batches, as ``ap_one.pt``: the
+    first step's loss, its gradients scaled by the global-norm clip (which
+    the update read) and the parameters after it, every step's loss, the
+    clip's scale and the norm."""
     model, eng = _ap_gpt(torch, AP_EXACT_LAYERS, None)
     batches = _ap_batches(torch, model.config.vocab_size,
                           AP_EXACT_STEPS + 1, seed=51)
@@ -6112,21 +6170,17 @@ def phase_auto_parallel_exactness(torch, tmp):
                          for g in grads.values()))
     clip = min(1.0, 1.0 / norm)
     hist = eng.fit([list(batches[0])])["loss"]
-    out = _held_to_one_process(
-        torch, got["hist"][0], {n: g * clip for n, g in got["grads"].items()},
-        got["params1"], hist[0], {n: g * clip for n, g in grads.items()},
-        model)
+    params = {n: p.detach().cpu().clone()
+              for n, p in model.named_parameters()}
     for b in batches[1:AP_EXACT_STEPS]:
         hist += eng.fit([list(b)])["loss"]
-    rel = [abs(a - b) / abs(b) for a, b in zip(got["hist"], hist)]
-    out.update(phase="auto_parallel_exactness_fp32", losses_ranks=got["hist"],
-               losses_one_process=hist, loss_rel_errs=rel,
-               clip_scale=clip, global_grad_norm=norm)
-    out["held"] = out["held"] and max(rel) <= 1e-5
-    emit(out)
-    if not out["held"]:
-        raise AssertionError("the two-rank Engine differs from one process")
-    return out
+    torch.save({"loss": hist[0], "hist": hist, "params": params,
+                "grads": {n: g * clip for n, g in grads.items()},
+                "clip_scale": clip, "global_grad_norm": norm},
+               f"{tmp}/ap_one.pt")
+    del model, eng
+    if AP_DEVICE == "cuda":
+        torch.cuda.empty_cache()
 
 
 def phase_fleet_executor(torch, ck):
@@ -6235,10 +6289,10 @@ def phase_fleet_executor(torch, ck):
 
 
 def phase_auto_parallel(torch, ck, smi):
-    """The auto_parallel path: two gloo ranks (the Engine over GPT-124M,
-    the fp32 gate with save/load, reshard), this process's one-process
-    gate, then the fleet executor here. The ranks' kernel launches are
-    added to this process's counts."""
+    """The auto_parallel path: this process's one-process ``Engine`` step,
+    two gloo ranks (the Engine over GPT-124M, the fp32 gate held to that
+    step with save/load, reshard), then the fleet executor here. The
+    ranks' kernel launches are added to this process's counts."""
     import shutil
     import tempfile
     tmp = tempfile.mkdtemp(prefix="chip_smoke_ap_")
@@ -6246,13 +6300,16 @@ def phase_auto_parallel(torch, ck, smi):
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
         ranks = _run_ranks(AP_RANKS, "--auto-parallel-rank", tmp,
-                           {"PADDLE_DISTRI_BACKEND": "gloo"})
+                           {"PADDLE_DISTRI_BACKEND": "gloo"},
+                           prepare=lambda: _ap_one_process(torch, tmp))
         t_ranks = time.perf_counter() - t0
         for rows in ranks.values():
             for row in rows[:-1]:
                 emit(row)
             ck.add_launches(rows[-1]["rank_launches"])
-        exact = phase_auto_parallel_exactness(torch, tmp)
+        _exactness_held(ranks, "auto_parallel_exactness_fp32", 1)
+        exact = next(r for r in ranks[0]
+                     if r.get("phase") == "auto_parallel_exactness_fp32")
         ex = phase_fleet_executor(torch, ck)
 
         def both(phase, *keys):
@@ -6323,25 +6380,26 @@ def _p3_model(torch, layers, n_micro, n_chunks, remat, level, seed=0,
     return model, net, getattr(zopt, "_optim", zopt)
 
 
-def _p3_rows(mesh, batch):
+def _data_rows(mesh, batch):
     """This data rank's rows of a global batch (the sharding axis is the
-    data axis: the pp and mp ranks of a data rank share them)."""
-    half = batch // mesh.shape["sharding"]
-    return slice(mesh.coord["sharding"] * half,
-                 (mesh.coord["sharding"] + 1) * half)
+    data axis: the pp, sep and mp ranks of a data rank share them)."""
+    n = batch // mesh.shape["sharding"]
+    return slice(mesh.coord["sharding"] * n, (mesh.coord["sharding"] + 1) * n)
 
 
-def _p3_losses(dist, losses):
-    """Every rank's ``losses``; the pp and mp ranks of a data rank (rank ^
-    1, ^ 4) must report bit-equal ones. Returns (all, the data ranks'
-    mean of each)."""
+def _data_rank_losses(dist, losses, partners=(1, 4), data_ranks=(0, 2)):
+    """Every rank's ``losses``; rank r and r ^ p for each p of ``partners``
+    (the other ranks of its data rank: pp and mp at pp 2 x sharding 2 x mp
+    2) must report bit-equal ones. Returns (all, the mean of each over
+    ``data_ranks``, one rank of each data rank)."""
     seen = []
     dist.all_gather_object(seen, losses)
-    for r in range(P3_RANKS):
-        if not seen[r] == seen[r ^ 1] == seen[r ^ 4]:
-            raise AssertionError(f"the pp and mp ranks of a data rank "
-                                 f"differ: {seen}")
-    return seen, [(a + b) / 2 for a, b in zip(seen[0], seen[2])]
+    for r in range(len(seen)):
+        if any(seen[r] != seen[r ^ p] for p in partners):
+            raise AssertionError(f"the ranks of a data rank differ: "
+                                 f"{seen}")
+    return seen, [sum(seen[r][i] for r in data_ranks) / len(data_ranks)
+                  for i in range(len(losses))]
 
 
 def _p3_stored(torch, one, n_chunks):
@@ -6358,23 +6416,23 @@ def _p3_stored(torch, one, n_chunks):
                         for k in ("grads", "params")})
 
 
-def _p3_checkpoint(torch, rank, out_dir, net, named):
-    """The fp32 ``p_g_os`` model saved from the mesh through
-    ``distributed.checkpoint`` (and this rank's pieces, for the parent's
-    whole load), then loaded into a model of another seed placed the same:
-    every piece bit-equal."""
+def _mesh_checkpoint(torch, rank, out_dir, name, model, other):
+    """``model`` saved from the mesh through ``distributed.checkpoint``
+    under ``{out_dir}/{name}`` (and this rank's pieces, for the parent's
+    whole load), then loaded into ``other()``, a model of another seed
+    placed the same: every piece bit-equal."""
     from paddle_tpu_torch.distributed import checkpoint as dck
     from paddle_tpu_torch.distributed.sharding_api import placement_of
+    named = list(model.named_parameters())
     t0 = time.perf_counter()
-    dck.save_state_dict(net.state_dict(), f"{out_dir}/p3_ckpt")
+    dck.save_state_dict(model.state_dict(), f"{out_dir}/{name}")
     save_s = time.perf_counter() - t0
     torch.save({n: (placement_of(p).pieces if placement_of(p) else None,
                     p.detach().cpu()) for n, p in named},
-               f"{out_dir}/p3_pieces_{rank}.pt")
-    model2, net2, _ = _p3_model(torch, PP_EXACT_LAYERS, P3_EXACT_MICRO, 1,
-                                False, "p_g_os", seed=1)
+               f"{out_dir}/{name}_pieces_{rank}.pt")
+    model2 = other()
     t0 = time.perf_counter()
-    dck.load_state_dict(net2.state_dict(), f"{out_dir}/p3_ckpt")
+    dck.load_state_dict(model2.state_dict(), f"{out_dir}/{name}")
     load_s = time.perf_counter() - t0
     bad = [n for (n, a), (_, b) in zip(named, model2.named_parameters())
            if not torch.equal(a.detach(), b.detach())]
@@ -6393,7 +6451,7 @@ def p3_exact_rank(torch, ck, dist, rank, mesh, out_dir, n_chunks, remat,
     ``P3_EXACT_MICRO`` microbatches, held piece by piece to the parent's
     unpipelined step (``p3_one.pt``, ``_held_pieces``); an mp pair's
     leaves whole over mp must be bit-equal. The GPipe ``p_g_os`` model then
-    makes the checkpoint round trip (``_p3_checkpoint``)."""
+    makes the checkpoint round trip (``_mesh_checkpoint``)."""
     from paddle_tpu_torch.distributed.sharding_api import placement_of
     from paddle_tpu_torch.jit import CompiledTrainStep
     model, net, opt = _p3_model(torch, PP_EXACT_LAYERS, P3_EXACT_MICRO,
@@ -6401,13 +6459,13 @@ def p3_exact_rank(torch, ck, dist, rank, mesh, out_dir, n_chunks, remat,
     step = CompiledTrainStep(lambda a, b: net(a, labels=b)[1], net, opt)
     real, seen = step._sync, {}
     step._sync = lambda g: seen.setdefault("grads", real(g))
-    rows = _p3_rows(mesh, P3_EXACT_BATCH)
+    rows = _data_rows(mesh, P3_EXACT_BATCH)
     ids, labels = (t[rows].to(P3_DEVICE) for t in _p3_exact_batch(torch))
     before = {k.name: k.route_launches["fp32"] for k in ck.KERNELS}
     loss = step(ids, labels).item()
     launches = [ck.FLASH_FWD.route_launches["fp32"] - before["flash_fwd"],
                 ck.FLASH_BWD.route_launches["fp32"] - before["flash_bwd"]]
-    losses, mean = _p3_losses(dist, [loss])
+    losses, mean = _data_rank_losses(dist, [loss])
     named = list(model.named_parameters())
     whole_over_mp = {n: _digest([p]) for n, p in named
                      if "mp" not in getattr(placement_of(p), "axes", ())}
@@ -6415,7 +6473,8 @@ def p3_exact_rank(torch, ck, dist, rank, mesh, out_dir, n_chunks, remat,
     dist.all_gather_object(pairs, whole_over_mp)
     if pairs[rank ^ 1] != whole_over_mp:
         raise AssertionError("an mp pair's replicated leaves differ")
-    one = _p3_stored(torch, torch.load(f"{out_dir}/p3_one.pt"), n_chunks)
+    one = _p3_stored(torch, torch.load(f"{out_dir}/p3_one.pt", mmap=True),
+                     n_chunks)
     out = _held_pieces(torch, dist, mean[0], named, seen["grads"], one)
     out.update(phase=f"pipeline_3d_exactness_fp32_{level}_chunks{n_chunks}"
                      f"{'_remat' if remat else ''}",
@@ -6428,7 +6487,10 @@ def p3_exact_rank(torch, ck, dist, rank, mesh, out_dir, n_chunks, remat,
                      f"pp 2 x sharding 2 x mp 2 against the unpipelined "
                      f"model in one process on {P3_EXACT_BATCH} x 1024")
     if level == "p_g_os" and n_chunks == 1:
-        out.update(_p3_checkpoint(torch, rank, out_dir, net, named))
+        out.update(_mesh_checkpoint(
+            torch, rank, out_dir, "p3_ckpt", model,
+            lambda: _p3_model(torch, PP_EXACT_LAYERS, P3_EXACT_MICRO, 1,
+                              False, "p_g_os", seed=1)[0]))
     del model, net, opt, step, seen
     if P3_DEVICE == "cuda":
         torch.cuda.empty_cache()
@@ -6441,7 +6503,7 @@ def p3_gpt124m_rank(torch, ck, dist, mesh, n_chunks, remat):
     ``CompiledTrainStep``, the global 8 x 1024 (4 x 1024 a data rank in
     ``P3_MICRO`` microbatches), ``n_chunks`` 1 (GPipe, 3 ticks) or 2 with
     remat (5 ticks): ``PP_WARMUP`` + ``PP_TIMED`` steps (K2 12 a step, 24
-    with remat, K3 12), then one with the mp collectives metered. The
+    with remat, K3 12), the mp collectives metered over the warm-up. The
     pipeline's exchanges, bytes and ms, the comm plane's other works
     (ZeRO's gathers and reduce-scatters, the sum over pp) and ms a step,
     peak memory, parameter + AdamW bytes against one process's."""
@@ -6456,13 +6518,15 @@ def p3_gpt124m_rank(torch, ck, dist, mesh, n_chunks, remat):
                                 "p_g_os", clip=ClipGradByGlobalNorm(1.0))
     step = CompiledTrainStep(lambda i, lb: net(i, labels=lb)[1], net, opt,
                              amp_level="O2")
-    rows = _p3_rows(mesh, P3_BATCH)
+    rows = _data_rows(mesh, P3_BATCH)
     ids, labels = (t[rows].to(P3_DEVICE) for t in _seeded_ids(
         torch, 50304, (P3_BATCH, 1024), seed=78))
     per = layers // 2 * P3_MICRO
     per_step = (per * (2 if remat else 1), per)
-    losses, secs, slowest = _pp_timed(
-        torch, ck, dist, lambda: step(ids, labels), per_step)
+    losses, secs, slowest, (metered_s,) = _pp_timed(
+        torch, ck, dist, lambda: step(ids, labels), per_step,
+        meter_warmup=True)
+    comm = mp_layers.comm_meter()
     peak = torch.cuda.max_memory_allocated()
     ex, bc = sep_transport.stats(), spmd_pipeline.stats()
     plane = cp.get_plane().stats()
@@ -6470,14 +6534,7 @@ def p3_gpt124m_rank(torch, ck, dist, mesh, n_chunks, remat):
     if ex["exchanges"] != 2 * ticks * PP_TIMED:
         raise AssertionError(f"{ex['exchanges']} exchanges in {PP_TIMED} "
                              f"steps, not 2 x {ticks} each")
-    mp_layers.comm_meter(on=True, reset=True)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    step(ids, labels)
-    torch.cuda.synchronize()
-    metered_s = time.perf_counter() - t0
-    comm = mp_layers.comm_meter(on=False)
-    _, data_losses = _p3_losses(dist, losses)
+    _, data_losses = _data_rank_losses(dist, losses)
     params = list(model.parameters())
     states = _state_tensors_of(opt, params)
     pb = sum(p.numel() * p.element_size() for p in params)
@@ -6529,6 +6586,7 @@ def pipeline3d_rank(torch, out_dir):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     env = dist.init_parallel_env(timeout=DP_RANK_TIMEOUT_S)
+    _wait_ready(out_dir)
     rank, world = env.rank, env.world_size
     if dist.get_backend() != "gloo" or world != P3_RANKS:
         raise AssertionError(f"backend {dist.get_backend()}, world {world}")
@@ -6566,35 +6624,32 @@ def _p3_one_process(torch, tmp):
     ids, labels = _p3_exact_batch(torch)
     _one_process_step(torch, model, opt, ids, labels, f"{tmp}/p3_one.pt")
     del model, opt
+    if P3_DEVICE == "cuda":
+        torch.cuda.empty_cache()
 
 
-def phase_pipeline_3d_checkpoint(torch, tmp):
-    """The ranks' checkpoint loaded whole into one process (a model of
-    another seed, no mesh): every rank's piece of every parameter
-    bit-equal to the loaded whole."""
+def _checkpoint_loaded_whole(torch, tmp, name, model, nranks, phase):
+    """The ranks' checkpoint ``name`` (``_mesh_checkpoint``) loaded whole
+    into ``model`` (another seed, no mesh) in this process: every rank's
+    piece of every parameter bit-equal to the loaded whole."""
     from paddle_tpu_torch.distributed import checkpoint as dck
     from paddle_tpu_torch.distributed.sharding_api import Placement
-    from paddle_tpu_torch.text.gpt import GPTConfig, GPTForPretrainingPipe
-    model = GPTForPretrainingPipe(
-        GPTConfig(hidden_size=768, num_layers=PP_EXACT_LAYERS, num_heads=12),
-        device=P3_DEVICE, seed=1)
     t0 = time.perf_counter()
-    dck.load_state_dict(model.state_dict(), f"{tmp}/p3_ckpt")
+    dck.load_state_dict(model.state_dict(), f"{tmp}/{name}")
     load_s = time.perf_counter() - t0
     whole = {n: p.detach().cpu() for n, p in model.named_parameters()}
     bad, pieces = [], 0
-    for r in range(P3_RANKS):
-        for n, (pl, local) in torch.load(f"{tmp}/p3_pieces_{r}.pt").items():
+    for r in range(nranks):
+        for n, (pl, local) in torch.load(
+                f"{tmp}/{name}_pieces_{r}.pt").items():
             want = Placement(whole[n].shape, pl).take(whole[n]) \
                 if pl is not None else whole[n]
             pieces += 1
             if not torch.equal(local, want):
                 bad.append((r, n))
-    out = {"phase": "pipeline_3d_checkpoint_whole",
-           "mesh_to_one_process_bit_equal": not bad, "mismatched": bad,
-           "rank_tensors": pieces, "load_s": load_s}
+    out = {"phase": phase, "mesh_to_one_process_bit_equal": not bad,
+           "mismatched": bad, "rank_tensors": pieces, "load_s": load_s}
     emit(out)
-    del model
     if bad:
         raise AssertionError(f"the mesh checkpoint loaded whole: {out}")
     return out
@@ -6611,19 +6666,24 @@ def phase_pipeline_3d(torch, ck, smi):
     tmp = tempfile.mkdtemp(prefix="chip_smoke_p3_")
     try:
         torch.cuda.empty_cache()
-        _p3_one_process(torch, tmp)
-        torch.cuda.empty_cache()
         t0 = time.perf_counter()
         ranks = _run_ranks(P3_RANKS, "--pipeline3d-rank", tmp,
                            {"PADDLE_DISTRI_BACKEND": "gloo",
-                            "OMP_NUM_THREADS": "1"})
+                            "OMP_NUM_THREADS": "1"},
+                           prepare=lambda: _p3_one_process(torch, tmp))
         t_ranks = time.perf_counter() - t0
         for rows in ranks.values():
             for row in rows[:-1]:
                 emit(row)
             ck.add_launches(rows[-1]["rank_launches"])
         _exactness_held(ranks, "pipeline_3d_exactness_fp32_", len(P3_EXACT))
-        ckpt = phase_pipeline_3d_checkpoint(torch, tmp)
+        from paddle_tpu_torch.text.gpt import (GPTConfig,
+                                               GPTForPretrainingPipe)
+        ckpt = _checkpoint_loaded_whole(
+            torch, tmp, "p3_ckpt", GPTForPretrainingPipe(
+                GPTConfig(hidden_size=768, num_layers=PP_EXACT_LAYERS,
+                          num_heads=12), device=P3_DEVICE, seed=1),
+            P3_RANKS, "pipeline_3d_checkpoint_whole")
         summary = {"phase": "pipeline_3d", "nvidia_smi": smi,
                    "ranks": P3_RANKS, "backend": "gloo",
                    "mesh": {"pp": 2, "sharding": 2, "mp": 2},
@@ -6655,6 +6715,338 @@ def phase_pipeline_3d(torch, ck, smi):
                 losses_data_ranks=got[0]["losses_data_ranks"],
                 flash_launches_per_step=got[0]["flash_launches_per_step"])
         emit(summary)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+# -- context parallelism across the hybrid mesh (context_hybrid) -------------
+# Eight gloo ranks share the card, first at sharding 2 x sep 2 x mp 2 after
+# fleet.init (rank = 4 sharding + 2 sep + mp): GPTForPretraining with
+# tensor_parallel, sequence_parallel and context_parallel under
+# group_sharded_parallel; then at pp 2 x sharding 2 x sep 2 (rank = 4 pp +
+# 2 sharding + sep): GPTForPretrainingPipe, every sep rank on the whole
+# sequence. The fp32 gates are held on the ranks to this process's
+# one-process steps; the timed steps run GPT-124M at O2 bf16 with the ring.
+# (CH_RANKS and the shapes stand beside FLASH_CASES)
+CH_EXACT = (("ring", "p_g_os"), ("ulysses", "p_g_os"), ("ring", "os_g"))
+CH_PIPE_LAYERS = 2
+CH_WARMUP, CH_TIMED = 1, 2
+
+
+def _ch_exact_batch(torch):
+    """The fp32 gates' 2 x 4096, a row a data rank: the labels of each
+    row's first 1536 tokens ignored (as ``_cp_exact_batch``'s), so sep
+    rank 0 keeps 512 of its 2048 and rank 1 all."""
+    ids, labels = _seeded_ids(torch, 50304, (CH_EXACT_BATCH, CP_EXACT_SEQ),
+                              seed=64)
+    labels[:, :CP_EXACT_SEQ * 3 // 8] = -100
+    return ids, labels
+
+
+def _ch_model(torch, cfg, level, seed=0):
+    """``GPTForPretraining(cfg)`` on ``CH_DEVICE``, AdamW lr 1e-4 over its
+    named parameters, placed by ``group_sharded_parallel`` at ``level``:
+    (the model, its ZeRO wrapper, the inner optimizer)."""
+    from paddle_tpu_torch.distributed.fleet.meta_parallel.sharding import \
+        group_sharded_parallel
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.text.gpt import GPTForPretraining
+    model = GPTForPretraining(cfg, device=CH_DEVICE, seed=seed)
+    opt = AdamW(learning_rate=1e-4, parameters=model.named_parameters())
+    net, zopt, _ = group_sharded_parallel(model, opt, level)
+    return model, net, getattr(zopt, "_optim", zopt)
+
+
+def ch_exact_rank(torch, ck, dist, rank, mesh, out_dir, mode, level, one):
+    """One fp32 AdamW step (lr 1e-4) of GPT-124M's widths at 2 layers with
+    SP and CP ``mode`` under ZeRO ``level`` through ``CompiledTrainStep``,
+    each data rank on its row of ``_ch_exact_batch`` and each sep rank on
+    its 2048 tokens of it, twice from the same build
+    (``_twice_bit_identical``); the sep and mp ranks of a data rank on
+    bit-equal losses; held piece by piece to the parent's one-process step
+    ``one`` (``ch_one.pt``, ``_held_pieces``). The ring ``p_g_os`` model
+    then makes the checkpoint round trip (``_mesh_checkpoint``)."""
+    from paddle_tpu_torch.distributed.sharding_api import sep_local_batch
+    from paddle_tpu_torch.text.gpt import GPTConfig
+    rows = _data_rows(mesh, CH_EXACT_BATCH)
+    ids, labels = (sep_local_batch(t[rows]).contiguous().to(CH_DEVICE)
+                   for t in _ch_exact_batch(torch))
+    cfg = GPTConfig(hidden_size=768, num_layers=2, num_heads=12,
+                    max_seq_len=CP_EXACT_SEQ, tensor_parallel=True,
+                    sequence_parallel=True, context_parallel=mode)
+    before = {k.name: k.route_launches["fp32"] for k in ck.KERNELS}
+    model, loss, grads = _twice_bit_identical(
+        torch, lambda: _ch_model(torch, cfg, level), (ids, labels),
+        f"{mode} {level}")
+    launches = [ck.FLASH_FWD.route_launches["fp32"] - before["flash_fwd"],
+                ck.FLASH_BWD.route_launches["fp32"] - before["flash_bwd"]]
+    losses, mean = _data_rank_losses(dist, [loss], (1, 2), (0, 4))
+    out = _held_pieces(torch, dist, mean[0], list(model.named_parameters()),
+                       grads, one)
+    out.update(phase=f"context_hybrid_exactness_fp32_{mode}_{level}",
+               tf32=False, rerun_bit_identical=True,
+               losses=[x[0] for x in losses],
+               flash_launches_fp32_two_runs=launches,
+               model=f"GPT-124M widths, 2 layers, fp32, AdamW lr 1e-4; "
+                     f"tensor_parallel, sequence_parallel and {mode} at "
+                     f"sharding 2 x sep 2 x mp 2 under {level} against one "
+                     f"process on {CH_EXACT_BATCH} x {CP_EXACT_SEQ}, labels "
+                     "of each row's first 1536 tokens ignored")
+    if (mode, level) == ("ring", "p_g_os"):
+        out.update(_mesh_checkpoint(
+            torch, rank, out_dir, "ch_ckpt", model,
+            lambda: _ch_model(torch, cfg, level, seed=1)[0]))
+    del model, grads
+    if CH_DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def ch_pipe_exact_rank(torch, dist, rank, mesh, out_dir):
+    """One fp32 AdamW step (lr 1e-4) of ``GPTForPretrainingPipe`` at
+    GPT-124M's widths and ``CH_PIPE_LAYERS`` layers under ``p_g_os`` at pp
+    2 x sharding 2 x sep 2, each data rank on its row of
+    ``_ch_exact_batch`` in one microbatch and every sep rank on the whole
+    sequence, twice from the same build; the pp and sep ranks of a data
+    rank on bit-equal losses, the two sep ranks on bit-equal gradients (no
+    sum over sep); held piece by piece to the parent's unpipelined step
+    (``ch_pipe_one.pt``)."""
+    from paddle_tpu_torch.distributed.fleet.meta_parallel.sharding import \
+        group_sharded_parallel
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.text.gpt import GPTConfig, GPTForPretrainingPipe
+    cfg = GPTConfig(hidden_size=768, num_layers=CH_PIPE_LAYERS, num_heads=12,
+                    max_seq_len=CP_EXACT_SEQ)
+    rows = _data_rows(mesh, CH_EXACT_BATCH)
+    ids, labels = (t[rows].to(CH_DEVICE) for t in _ch_exact_batch(torch))
+
+    def build():
+        model = GPTForPretrainingPipe(cfg, n_microbatch=1, device=CH_DEVICE,
+                                      seed=0)
+        opt = AdamW(learning_rate=1e-4, parameters=model.parameters())
+        net, zopt, _ = group_sharded_parallel(model, opt, "p_g_os")
+        return model, net, getattr(zopt, "_optim", zopt)
+
+    model, loss, grads = _twice_bit_identical(torch, build, (ids, labels),
+                                              "pipe on pp x sep")
+    losses, mean = _data_rank_losses(dist, [loss])
+    digests = []
+    dist.all_gather_object(digests, _digest(grads))
+    if digests[rank] != digests[rank ^ 1]:
+        raise AssertionError("the sep ranks' gradients differ")
+    out = _held_pieces(torch, dist, mean[0], list(model.named_parameters()),
+                       grads, torch.load(f"{out_dir}/ch_pipe_one.pt",
+                                         mmap=True))
+    out.update(phase="context_hybrid_exactness_fp32_pipe", tf32=False,
+               rerun_bit_identical=True, losses=[x[0] for x in losses],
+               sep_gradients_bit_equal=True,
+               model=f"GPTForPretrainingPipe at GPT-124M widths, "
+                     f"{CH_PIPE_LAYERS} layers, fp32, AdamW lr 1e-4, p_g_os; "
+                     f"pp 2 x sharding 2 x sep 2, every sep rank on the "
+                     f"whole sequence, against the unpipelined model in "
+                     f"one process on {CH_EXACT_BATCH} x {CP_EXACT_SEQ}")
+    del model, grads
+    if CH_DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def ch_gpt124m_rank(torch, ck, dist, mesh):
+    """GPT-124M (``gpt_small(max_seq_len=8192)``) with ``tensor_parallel``,
+    ``sequence_parallel`` and ``context_parallel="ring"`` under
+    ``p_g_os``, AdamW lr 1e-4, O2 bf16 through ``CompiledTrainStep`` on the
+    global 2 x 8192 (a row a data rank, 4096 tokens a sep rank, 6 heads a
+    rank): ``CH_WARMUP`` + ``CH_TIMED`` steps (K2 and K3 twice a layer),
+    the mp collectives metered over the warm-up. The sep exchanges, bytes and
+    ms, the comm plane's other works (ZeRO-3's gathers and reduce-scatters,
+    the gradient sums) and ms a step, peak memory, parameter + AdamW bytes
+    against one process's; every rank reports the same global losses."""
+    from paddle_tpu_torch.distributed import comm_plane as cp
+    from paddle_tpu_torch.distributed import sep_transport
+    from paddle_tpu_torch.distributed.fleet.meta_parallel import mp_layers
+    from paddle_tpu_torch.distributed.sharding_api import sep_local_batch
+    from paddle_tpu_torch.jit import CompiledTrainStep
+    from paddle_tpu_torch.text.gpt import gpt_small
+    cfg = gpt_small(max_seq_len=CP_SEQ, tensor_parallel=True,
+                    sequence_parallel=True, context_parallel="ring")
+    model, net, opt = _ch_model(torch, cfg, "p_g_os")
+    step = CompiledTrainStep(lambda i, lb: net(i, labels=lb)[1], net, opt,
+                             amp_level="O2")
+    rows = _data_rows(mesh, CH_BATCH)
+    ids, labels = (sep_local_batch(t[rows]).contiguous().to(CH_DEVICE)
+                   for t in _seeded_ids(torch, cfg.vocab_size,
+                                        (CH_BATCH, CP_SEQ), seed=65))
+    per = CP_BLOCKS_PER_LAYER["ring"] * cfg.num_layers
+    losses, secs, slowest, (metered_s,) = _pp_timed(
+        torch, ck, dist, lambda: step(ids, labels), (per, per),
+        warmup=CH_WARMUP, timed=CH_TIMED, meter_warmup=True)
+    comm = mp_layers.comm_meter()
+    peak = torch.cuda.max_memory_allocated()
+    ex, plane = sep_transport.stats(), cp.get_plane().stats()
+    _, global_losses = _data_rank_losses(dist, losses, (1, 2), (0, 4))
+    params = list(model.parameters())
+    states = _state_tensors_of(opt, params)
+    pb = sum(p.numel() * p.element_size() for p in params)
+    ob = sum(v.numel() * v.element_size() for v, _ in states)
+    one_pb, one_ob = _whole_bytes(params), _whole_bytes(states)
+    out = {"phase": "context_hybrid_gpt124m_ring",
+           "batch_global": [CH_BATCH, CP_SEQ], "batch_rank": list(ids.shape),
+           "heads_per_rank": cfg.num_heads // mesh.shape["mp"],
+           "step_ms_each": [1e3 * s for s in secs],
+           "step_ms_slowest_rank": slowest,
+           "global_tokens_per_s": CH_BATCH * CP_SEQ / (slowest / 1e3),
+           "global_losses": global_losses,
+           "sep_exchanges_per_step": ex["exchanges"] / CH_TIMED,
+           "sep_bytes_per_step": ex["bytes"] / CH_TIMED,
+           "sep_ms_per_step": ex["ms"] / CH_TIMED,
+           "mp_calls_per_step": comm["calls"],
+           "mp_bytes_per_step": comm["bytes"],
+           "mp_ms_per_step": comm["ms"], "metered_step_ms": 1e3 * metered_s,
+           "comm_plane_works_per_step":
+               (plane["works"] - ex["exchanges"]) / CH_TIMED,
+           "comm_plane_ms_per_step":
+               (plane["comm_ms"] - ex["ms"]) / CH_TIMED,
+           "peak_memory_bytes": peak,
+           "param_bytes": pb, "optimizer_bytes": ob,
+           "one_process_param_bytes": one_pb,
+           "one_process_optimizer_bytes": one_ob,
+           "param_plus_adamw_ratio": (pb + ob) / (one_pb + one_ob),
+           "flash_launches_per_step": [per, per]}
+    del model, net, opt, step
+    torch.cuda.empty_cache()
+    return out
+
+
+def context_hybrid_rank(torch, out_dir):
+    """One rank of the context_hybrid path (started by the launcher):
+    sharding 2 x sep 2 x mp 2 after ``fleet.init`` (the fp32 gates, rank 0
+    printing their rows, then GPT-124M's timed steps), then pp 2 x sharding
+    2 x sep 2 (the pipe gate). Prints one JSON line per phase and last its
+    launches by route."""
+    import paddle_tpu_torch.distributed as dist
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.ops import cuda_kernels as ck
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    env = dist.init_parallel_env(timeout=DP_RANK_TIMEOUT_S)
+    _wait_ready(out_dir)
+    rank, world = env.rank, env.world_size
+    if dist.get_backend() != "gloo" or world != CH_RANKS:
+        raise AssertionError(f"backend {dist.get_backend()}, world {world}")
+    ck.reset_launch_counts()
+    mesh = _hp_fleet(fleet, sharding_degree=2, sep_degree=2, mp_degree=2)
+    c = [mesh.coord[a] for a in ("sharding", "sep", "mp")]
+    if rank != 4 * c[0] + 2 * c[1] + c[2]:
+        raise AssertionError(f"mesh {mesh}")
+    one = torch.load(f"{out_dir}/ch_one.pt", mmap=True)
+
+    def timed(run):
+        t0 = time.perf_counter()
+        row = run()
+        return dict(row, seconds=time.perf_counter() - t0)
+
+    for mode, level in CH_EXACT:
+        row = timed(lambda: ch_exact_rank(torch, ck, dist, rank, mesh,
+                                          out_dir, mode, level, one))
+        if rank == 0:
+            _rank_emit(rank, row)
+    del one
+    _rank_emit(rank, timed(lambda: ch_gpt124m_rank(torch, ck, dist, mesh)))
+    mesh = _hp_fleet(fleet, pp_degree=2, sharding_degree=2, sep_degree=2)
+    c = [mesh.coord[a] for a in ("pp", "sharding", "sep")]
+    if rank != 4 * c[0] + 2 * c[1] + c[2]:
+        raise AssertionError(f"mesh {mesh}")
+    row = timed(lambda: ch_pipe_exact_rank(torch, dist, rank, mesh, out_dir))
+    if rank == 0:
+        _rank_emit(rank, row)
+    _rank_emit(rank, {"rank_launches": {k.name: dict(k.route_launches)
+                                        for k in ck.KERNELS}})
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def _ch_one_process(torch, tmp):
+    """The one-process fp32 steps the ranks' gates are held to, from the
+    same weights on the whole ``_ch_exact_batch``: GPT-124M's widths at 2
+    layers (``ch_one.pt``) and the unpipelined ``GPTForPretrainingPipe`` at
+    ``CH_PIPE_LAYERS`` (``ch_pipe_one.pt``)."""
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.text.gpt import (GPTConfig, GPTForPretraining,
+                                           GPTForPretrainingPipe)
+    ids, labels = _ch_exact_batch(torch)
+    cfg = GPTConfig(hidden_size=768, num_layers=2, num_heads=12,
+                    max_seq_len=CP_EXACT_SEQ)
+    model = GPTForPretraining(cfg, device=CH_DEVICE, seed=0)
+    opt = AdamW(learning_rate=1e-4, parameters=model.named_parameters())
+    _one_process_step(torch, model, opt, ids, labels, f"{tmp}/ch_one.pt")
+    del model, opt
+    cfg = GPTConfig(hidden_size=768, num_layers=CH_PIPE_LAYERS, num_heads=12,
+                    max_seq_len=CP_EXACT_SEQ)
+    model = GPTForPretrainingPipe(cfg, device=CH_DEVICE, seed=0)
+    opt = AdamW(learning_rate=1e-4, parameters=model.parameters())
+    _one_process_step(torch, model, opt, ids, labels,
+                      f"{tmp}/ch_pipe_one.pt")
+    del model, opt
+    if CH_DEVICE == "cuda":
+        torch.cuda.empty_cache()
+
+
+def phase_context_hybrid(torch, ck, smi):
+    """The context_hybrid path: this process's one-process fp32 steps,
+    eight gloo ranks (the SP + CP gates under ZeRO and the checkpoint round
+    trip at sharding 2 x sep 2 x mp 2, GPT-124M's timed ring steps, the
+    pipe gate at pp 2 x sharding 2 x sep 2), then the ranks' checkpoint
+    loaded whole here. The ranks' kernel launches are added to this
+    process's counts."""
+    import shutil
+    import tempfile
+
+    from paddle_tpu_torch.text.gpt import GPTConfig, GPTForPretraining
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ch_")
+    try:
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        ranks = _run_ranks(CH_RANKS, "--context-hybrid-rank", tmp,
+                           {"PADDLE_DISTRI_BACKEND": "gloo",
+                            "OMP_NUM_THREADS": "1"},
+                           prepare=lambda: _ch_one_process(torch, tmp))
+        t_ranks = time.perf_counter() - t0
+        for rows in ranks.values():
+            for row in rows[:-1]:
+                emit(row)
+            ck.add_launches(rows[-1]["rank_launches"])
+        _exactness_held(ranks, "context_hybrid_exactness_fp32_",
+                        len(CH_EXACT) + 1)
+        ckpt = _checkpoint_loaded_whole(
+            torch, tmp, "ch_ckpt", GPTForPretraining(
+                GPTConfig(hidden_size=768, num_layers=2, num_heads=12,
+                          max_seq_len=CP_EXACT_SEQ),
+                device=CH_DEVICE, seed=1),
+            CH_RANKS, "context_hybrid_checkpoint_whole")
+        got = [next(r for r in rows
+                    if r.get("phase") == "context_hybrid_gpt124m_ring")
+               for rows in ranks.values()]
+        slowest = max(g["step_ms_slowest_rank"] for g in got)
+        emit(dict(
+            {k: [g[k] for g in got] for k in (
+                "sep_exchanges_per_step", "sep_bytes_per_step",
+                "sep_ms_per_step", "mp_calls_per_step", "mp_bytes_per_step",
+                "mp_ms_per_step", "comm_plane_works_per_step",
+                "comm_plane_ms_per_step", "peak_memory_bytes",
+                "param_bytes", "optimizer_bytes", "param_plus_adamw_ratio")},
+            phase="context_hybrid", nvidia_smi=smi, ranks=CH_RANKS,
+            backend="gloo", mesh={"sharding": 2, "sep": 2, "mp": 2},
+            transport="sep exchanges, mp sums and ZeRO's collectives staged "
+                      "through the host (gloo, CUDA tensors)",
+            batch_global=[CH_BATCH, CP_SEQ], step_ms_slowest_rank=slowest,
+            global_tokens_per_s=CH_BATCH * CP_SEQ / (slowest / 1e3),
+            global_losses=got[0]["global_losses"],
+            flash_launches_per_step=got[0]["flash_launches_per_step"],
+            one_process_param_bytes=got[0]["one_process_param_bytes"],
+            one_process_optimizer_bytes=got[0][
+                "one_process_optimizer_bytes"],
+            ranks_s=t_ranks, checkpoint_whole_load_s=ckpt["load_s"]))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -7259,7 +7651,9 @@ def phase_timing(torch, ck, launches, path_launches, routes, smi):
                          for case in CP_ATTENTION),
                        *((case, "pipeline") for case in PP_ATTENTION),
                        *((case, "grad_comm") for case in GC_ATTENTION),
-                       (P3_ATTENTION[0], "pipeline_3d")):
+                       (P3_ATTENTION[0], "pipeline_3d"),
+                       *((case, "context_hybrid")
+                         for case in CH_ATTENTION)):
         counts = path_launches[path]
         for row in (time_flash(torch, ck, case, bf16, counts["flash_fwd"]),
                     time_flash_bwd(torch, ck, case, bf16,
@@ -7352,11 +7746,15 @@ def main():
         return auto_parallel_rank(torch, sys.argv[2])
     if sys.argv[1:2] == ["--pipeline3d-rank"]:
         return pipeline3d_rank(torch, sys.argv[2])
+    if sys.argv[1:2] == ["--context-hybrid-rank"]:
+        return context_hybrid_rank(torch, sys.argv[2])
     from paddle_tpu_torch.ops import cuda_kernels as ck
 
     t0 = time.perf_counter()
     smi = phase_environment(torch, ck)
+    t_held = time.perf_counter()
     phase_kernels_vs_plain(torch, ck)
+    held_s = time.perf_counter() - t_held
     # the main paths, each counted from zero: serving (K1) with the fp32
     # model phase (K2), training (K2, K3), eager fp16 AMP training (K2, K3
     # on their fp16 route), training with the schedule, nan check and
@@ -7434,7 +7832,12 @@ def main():
              # to_static (K2, and K3 in its step), jit.save, the predictor's
              # CUDA graphs, the CPU-saved program and the static Executor
              ("jit_inference", ("flash_fwd", "flash_bwd"),
-              lambda: phase_jit_inference(torch, ck, smi)))
+              lambda: phase_jit_inference(torch, ck, smi)),
+             # the eight ranks of sharding 2 x sep 2 x mp 2 (SP + CP under
+             # ZeRO: K2/K3 on every ring block), then of pp 2 x sharding 2
+             # x sep 2 (the pipe GPT's fp32 gate)
+             ("context_hybrid", ("flash_fwd", "flash_bwd"),
+              lambda: phase_context_hybrid(torch, ck, smi)))
     launches = {k.name: 0 for k in ck.KERNELS}
     path_launches, path_routes, path_seconds = {}, {}, {}
     for path, kernels, drive in paths:
@@ -7456,9 +7859,12 @@ def main():
             launches[name] += c
     emit({"phase": "path_launches", "launches": path_launches,
           "by_route": path_routes, "seconds": path_seconds})
+    t_timing = time.perf_counter()
     kernels = phase_timing(torch, ck, launches, path_launches, path_routes,
                            smi)
-    emit({"phase": "done", "seconds": time.perf_counter() - t0})
+    emit({"phase": "done", "seconds": time.perf_counter() - t0,
+          "kernels_vs_plain_s": held_s,
+          "timing_s": time.perf_counter() - t_timing})
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -36,7 +36,10 @@ inside the pipeline each stacked leaf's mp range (``text.gpt.
 stacked_placement``), the embeddings, ``ln_f`` and the head whole.
 ZeRO-3 then keeps rows [i*n0/s, (i+1)*n0/s) of each piece whose
 dimension 0 divides. ``slice_pipe_gpt_state`` is the same function with
-the pipeline's arguments first.
+the pipeline's arguments first. The sep axis replicates every parameter,
+so a rank's piece on a mesh with sep (sharding x sep x mp, or pp x sep
+with sharding or mp) is its (pp, sharding, mp) piece, whatever its sep
+coordinate.
 """
 from __future__ import annotations
 

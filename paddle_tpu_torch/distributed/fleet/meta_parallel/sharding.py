@@ -517,11 +517,17 @@ def sync_gradients(params, grads, mesh, sync_plain=True, bucket_mb=25):
     gradient all-reduced over all of them (``sync_plain``), a ZeRO-2 one
     reduce-scattered onto its rows over sharding, a ZeRO-3 one (already
     averaged over sharding by its gather's backward) and the ZeRO-2 rows
-    averaged over the rest (dcn and dp). On a mesh with a sep axis the
-    whole gradients are first summed over sep, whether or not a DataParallel
-    averaged them over the data axes: each sep rank differentiated the
-    global loss through its own chunk of the sequence (``text/gpt.py``
-    under ``context_parallel``). ZeRO with sep raises (ROADMAP A7).
+    averaged over the rest (dcn and dp).
+
+    On a mesh with a sep axis, the gradient of a parameter the model
+    marks ``_sep_partial`` (``text/gpt.py``'s ``GPTForPretraining`` under
+    ``context_parallel``: each sep rank differentiated the global loss
+    through its own chunk of the sequence) is first summed over sep,
+    whether or not a DataParallel averaged it over the data axes: a whole
+    gradient before ZeRO-2's reduce-scatter, a ZeRO-3 one as its rows
+    (the sep ranks of a sharding coordinate hold the same rows). Any other
+    model's sep ranks hold the whole sequence and the whole gradient, so
+    it takes no sum over sep.
 
     On a mesh with a pp axis, a parameter outside the pipeline
     (``_pp_replicated``: replicated over pp, each rank holding its 1/pp
@@ -547,12 +553,13 @@ def sync_gradients(params, grads, mesh, sync_plain=True, bucket_mb=25):
                 grads[i] = g
     sep = mesh.group("sep")
     if sep.nranks > 1:
-        if any(getattr(p, "_zero", None) is not None for p in params):
-            raise NotImplementedError(
-                "ZeRO sharding with context parallelism (sep_degree > 1) "
-                "is not ported yet (ROADMAP A7)")
-        grads = all_reduce_gradients(list(grads), sep, bucket_mb,
-                                     op=ReduceOp.SUM)
+        split = [i for i, p in enumerate(params)
+                 if getattr(p, "_sep_partial", False)]
+        if split:
+            summed = all_reduce_gradients([grads[i] for i in split], sep,
+                                          bucket_mb, op=ReduceOp.SUM)
+            for i, g in zip(split, summed):
+                grads[i] = g
     out = list(grads)
     plain, rs, z3 = [], [], []
     for i, p in enumerate(params):
@@ -601,8 +608,10 @@ def hybrid_clip(clip, params, grads, mesh):
     ``ClipGradByNorm`` scales each gradient by the norm of its whole
     logical gradient, its squares summed the same way
     (``_clip_by_norm``).
-    Every parameter is replicated over sep, with its gradient summed over
-    sep before the clip, so no sum runs over sep: each counts once."""
+    Every parameter is replicated over sep, and every sep rank holds its
+    whole gradient by the clip (summed over sep by ``sync_gradients``
+    where the model split the sequence), so no sum runs over sep: each
+    counts once."""
     from ....nn.clip import ClipGradByGlobalNorm, ClipGradByNorm, \
         ClipGradByValue
     if clip is None:

@@ -39,8 +39,10 @@ mp sums (``text/gpt.py`` ``StackedGPTBlocks``). Those collectives run
 inside the tick loop, in its forward, its recompute (``remat``) and its
 backward, on every mp rank of a (pp, sharding) coordinate in one order:
 the ranks of an mp group share a stage, so they share the schedule. The
-exchanges stay over the rank's pp group, the ranks of its (sharding, mp)
-coordinate. The tick loop's graphs keep what they save as it is: a
+exchanges stay over the rank's pp group, the ranks of its (sharding,
+sep, mp) coordinate; on a mesh with sep the batch stays split over the
+data axes only, as in the reference, so every sep rank pipelines the
+whole sequence. The tick loop's graphs keep what they save as it is: a
 ZeRO-3 leaf gathered for the step stays whole until the backward (the
 loop holds it for its chunks anyway), where ``GroupShardedStage3``'s
 hooks would gather it again for every saved product.

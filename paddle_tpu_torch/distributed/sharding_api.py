@@ -27,8 +27,9 @@ its ranks share a batch's rows and split its sequence
 share a batch's rows, each holding one stage's layers, and so do the mp
 ranks of a data rank (the reference's ``P(("sharding",), None)`` batch),
 so ``data_rank_world`` and ``process_local_batch`` stay over the data
-axes. A mesh with both pp and sep above 1 raises ``NotImplementedError``
-naming ROADMAP A7.
+axes. On a mesh with both pp and sep above 1 the pipeline keeps the
+reference's batch over the data axes only: every sep rank runs the whole
+sequence through its pp group, and its gradients take no sum over sep.
 
 A ``Placement`` names the piece of a global tensor a rank holds and the
 axes it is split over, by dimension: a stacked pipeline leaf under tensor
@@ -65,10 +66,6 @@ DATA_AXES = ("dp", "sharding")
 _CHECK_AXES = ("pp", "sharding", "sep", "mp")
 
 _default_mesh = None
-
-
-def _a7(what):
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP A7)")
 
 
 def _prod(xs):
@@ -180,9 +177,6 @@ def build_mesh(dp=1, pp=1, sharding=1, sep=1, mp=1, devices=None, dcn_dp=1):
             raise ValueError(
                 f"mesh degrees {degrees} x dcn_dp={dcn_dp} do not multiply "
                 f"to {n} devices")
-    if degrees["pp"] > 1 and degrees["sep"] > 1:
-        raise _a7("the pipeline with context parallelism (pp_degree > 1 "
-                  "and sep_degree > 1)")
     if dcn_dp > 1:
         return Mesh([dcn_dp] + [degrees[a] for a in AXES],
                     axis_names=("dcn",) + AXES)

@@ -49,11 +49,21 @@ positions start at ``sep_rank · s_loc``, attention runs through
 schedule, or Ulysses; on the rank's heads under ``tensor_parallel``) and
 the loss is the reference's global mean over the labels that are not
 ignored: the rank's sum over the count summed over sep, summed over sep
-(``sep_transport.loss_sum``), so ``sharding.sync_gradients`` (in
-``CompiledTrainStep`` and in the fleet optimizer's step) sums the
-parameter gradients over sep. A cached call (``generate``) keeps plain
-attention, as in the reference; without a sep axis the model is the
-plain one. With ``sequence_parallel`` it raises (ROADMAP A7).
+(``sep_transport.loss_sum``). Its parameters are marked ``_sep_partial``,
+so ``sharding.sync_gradients`` (in ``CompiledTrainStep`` and in the fleet
+optimizer's step) sums their gradients over sep, ZeRO's rows included; a
+model without ``context_parallel`` on a sep mesh runs the whole sequence
+on every sep rank and its gradients take no such sum. A cached call
+(``generate``) keeps plain attention, as in the reference; without a sep
+axis the model is the plain one. With ``sequence_parallel`` as well (the
+reference's sequence split over ("sep", "mp")) each sep rank's chunk is
+split again over mp between the blocks: ``ScatterOp`` cuts it after the
+embeddings, each column projection all-gathers it back over mp before
+``sep_parallel_attention`` and the MLP, each row projection
+reduce-scatters over mp, and ``GatherOp`` restores the chunk after
+``ln_f``; the norms' and row biases' gradients are summed over mp by
+their hooks and, with every other gradient, over sep by
+``sync_gradients``, each sum once.
 """
 from __future__ import annotations
 
@@ -142,10 +152,6 @@ class GPTConfig:
 class GPTAttention(Layer):
     def __init__(self, cfg, device=None, dtype=None):
         super().__init__()
-        if cfg.context_parallel and cfg.sequence_parallel:
-            raise NotImplementedError(
-                "context_parallel with sequence_parallel (the sequence "
-                "split over sep and mp) is not ported yet (ROADMAP A7)")
         mp = _mp_degree(cfg)
         if cfg.num_heads % mp:
             raise ValueError(f"{cfg.num_heads} heads do not split over mp "
@@ -298,6 +304,11 @@ class GPTForPretraining(Layer):
             self.lm_head = Linear(config.hidden_size, config.vocab_size,
                                   bias=False, device=device, dtype=dtype)
         self._init_weights(seed)
+        if config.context_parallel:
+            # on a sep mesh each rank's gradient is its chunk's share of
+            # the global loss's: sharding.sync_gradients sums it over sep
+            for p in self.parameters():
+                p._sep_partial = True
         if config.sequence_parallel:
             from ..distributed.fleet.utils.sequence_parallel_utils import (
                 mark_as_sequence_parallel_parameter,
@@ -745,9 +756,15 @@ class GPTForPretrainingPipe(Layer):
     embeddings, ``ln_f`` and the head stay whole on every pp and mp rank:
     every mp rank computes the same loss, so their gradients take no sum
     over mp, and ZeRO (``group_sharded_parallel``) shards them over
-    sharding. Weights are drawn from ``seed`` in parameter order on the
-    CPU (normal(0, ``initializer_range``), biases zero, norms one), the
-    same on every rank."""
+    sharding. On a mesh with sep as well (pp x sep, with sharding or mp)
+    the batch stays split over the data axes only, as in the reference's
+    SPMD pipeline: every sep rank runs the whole sequence through its pp
+    group, so its gradients are the whole ones and take no sum over sep
+    (the parameters are not marked ``_sep_partial``). ``context_parallel``
+    is not read by the pipelined blocks, as in the reference. Weights are
+    drawn from ``seed`` in parameter order on the CPU (normal(0,
+    ``initializer_range``), biases zero, norms one), the same on every
+    rank."""
 
     def __init__(self, config, n_microbatch=None, n_chunks=1, remat=False,
                  device=None, dtype=torch.float32, seed=0):

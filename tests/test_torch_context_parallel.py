@@ -26,8 +26,13 @@ weights reach the port through ``convert.py``.
   the reference's text; ``generate`` of a context-parallel model equals
   the plain model's; ``build_mesh(sep=2)`` builds; ``sep_local_batch``
   takes the rank's chunk and refuses a sequence that does not split;
-  ``sequence_parallel`` with ``context_parallel`` raises naming ROADMAP
-  A7, and so does ZeRO with sep.
+  ``sequence_parallel`` with ``context_parallel`` builds, and
+  ``sync_gradients`` takes a ZeRO-3 parameter on a sep mesh.
+- A model that does not split the sequence on the dp 2 x sep 2 mesh,
+  every rank fed the whole of it (a GPT without ``context_parallel``,
+  and ERNIE): one fp32 step's loss, gradients and updated parameters
+  equal the reference's step on its sep-2 mesh; its gradients take no
+  sum over sep, which would double them.
 - The fleet's eager loop (``distributed_model``, ``distributed_
   optimizer``, ``backward``, ``step``) on the ring GPT at both layouts:
   loss, the gradients its step synced over sep, updated parameters.
@@ -42,12 +47,15 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_helpers import TINY_ENCODER, token_batch
 from _torch_hybrid_helpers import (GPT_KW, assert_check, param_rule_err,
                                    rel_err, run_ranks, save_npz)
 
 TOL = 1e-5
 MODES = ("ring", "ulysses")
 LAYOUTS = ("sep2", "sep2_mp2")
+# models that do not split the sequence, run on a sep mesh whole
+WHOLE = ("gpt", "ernie")
 
 _WORKER = """
 from paddle_tpu_torch.convert import load_jax_state, slice_gpt_state
@@ -147,10 +155,42 @@ def run_eager(layout, mp):
     ok(key)
 
 
+def run_whole(name):
+    # a model that does not split the sequence, every sep rank fed the
+    # whole of it: its gradient is the rank's own and takes no sum over sep
+    state = {k[len(f"whole/{name}/state/"):]: G[k] for k in G.files
+             if k.startswith(f"whole/{name}/state/")}
+    if name == "gpt":
+        m = GPTForPretraining(GPTConfig(**KW), device="cpu")
+        batch = ids, labels
+    else:
+        from paddle_tpu_torch.text.ernie import (ErnieConfig,
+                                                 ErnieForPretraining)
+        m = ErnieForPretraining(ErnieConfig(**json.loads(str(G["ernie_kw"]))),
+                                device="cpu")
+        batch = (torch.from_numpy(G["ernie_ids"]),
+                 torch.from_numpy(G["ernie_labels"]))
+    load_jax_state(m, state)
+    opt = AdamW(learning_rate=1e-3, parameters=m.parameters())
+    step = CompiledTrainStep(lambda a, b: m(a, labels=b)[1], m, opt)
+    real, seen = step._sync, {}
+    step._sync = lambda g: seen.setdefault("grads", real(g))
+    key = f"whole/{name}"
+    out[f"{key}/loss"] = np.float64(step(*batch))
+    named = list(m.named_parameters())
+    for (n, p), g in zip(named, seen["grads"]):
+        out[f"{key}/grad/{n}"] = g.numpy().copy()
+    for n, p in named:
+        out[f"{key}/param/{n}"] = p.detach().numpy().copy()
+    ok(key)
+
+
 for mode in ("ring", "ulysses"):
     run("sep2", mode, 1)
 MESH = get_default_mesh()
 run_eager("sep2", 1)
+for name in ("gpt", "ernie"):
+    run_whole(name)
 
 strategy = fleet.DistributedStrategy()
 strategy.hybrid_configs = {"dp_degree": 1, "sep_degree": 2, "mp_degree": 2}
@@ -217,6 +257,49 @@ def _reference(layout, mode, ids, labels):
             "loss2": loss2}
 
 
+def _whole_reference(ids, labels, e_ids, e_labels):
+    """The JAX GPT without ``context_parallel`` and the tiny ERNIE on their
+    own sep-2 mesh, each fed the whole sequence: weights, loss, gradients
+    and the parameters after an eager AdamW step."""
+    import jax
+
+    import paddle_tpu as paddle
+    from paddle_tpu.distributed.sharding_api import (build_mesh,
+                                                     set_default_mesh)
+    from paddle_tpu.text.ernie import ErnieConfig, ErnieForPretraining
+    from paddle_tpu.text.gpt import GPTConfig, GPTForPretraining
+    set_default_mesh(build_mesh(dp=1, sep=2, devices=jax.devices()[:2]))
+    ref = {}
+    try:
+        for name in WHOLE:
+            paddle.seed(0)
+            if name == "gpt":
+                jm, batch = GPTForPretraining(GPTConfig(**GPT_KW)), \
+                    (ids, labels)
+            else:
+                jm, batch = ErnieForPretraining(ErnieConfig(
+                    **TINY_ENCODER)), (e_ids, e_labels)
+            state = _jax_state(jm)
+            _, loss = jm(*(paddle.to_tensor(a) for a in batch[:1]),
+                         labels=paddle.to_tensor(batch[1]))
+            loss.backward()
+            for p in jm.parameters():
+                if p.grad is None:
+                    # ERNIE's MLM loss never reads the pooler: the
+                    # compiled step updates it from a zero gradient
+                    p.grad = paddle.zeros_like(p)
+            grads = {n: np.asarray(p.grad._value)
+                     for n, p in jm.named_parameters()}
+            paddle.optimizer.AdamW(learning_rate=1e-3,
+                                   parameters=jm.parameters()).step()
+            ref[name] = {"state": state, "grads": grads,
+                         "params": _jax_state(jm),
+                         "loss": float(np.asarray(loss._value))}
+    finally:
+        set_default_mesh(None)
+    return ref
+
+
 @pytest.fixture(scope="module")
 def run(tmp_path_factory):
     d = tmp_path_factory.mktemp("context_parallel")
@@ -230,6 +313,8 @@ def run(tmp_path_factory):
     try:
         ref = {(lay, mode): _reference(lay, mode, ids, labels)
                for lay in LAYOUTS for mode in MODES}
+        e_ids, e_labels = token_batch(7)
+        whole = _whole_reference(ids, labels, e_ids, e_labels)
     finally:
         if old is None:
             os.environ.pop("PDTPU_PALLAS_INTERPRET", None)
@@ -237,12 +322,17 @@ def run(tmp_path_factory):
             os.environ["PDTPU_PALLAS_INTERPRET"] = old
     save_npz(d / "gpt.npz", ids=ids, labels=labels,
              kw=np.array(json.dumps(GPT_KW)),
+             ernie_kw=np.array(json.dumps(TINY_ENCODER)), ernie_ids=e_ids,
+             ernie_labels=e_labels,
              **{f"{lay}/state/{k}": v
                 for lay in LAYOUTS
-                for k, v in ref[(lay, "ring")]["state"].items()})
+                for k, v in ref[(lay, "ring")]["state"].items()},
+             **{f"whole/{name}/state/{k}": v
+                for name in WHOLE for k, v in whole[name]["state"].items()})
     logs = run_ranks(d, _WORKER, {"dp_degree": 2, "sep_degree": 2},
                      nproc=4)
-    return {"logs": logs, "ref": ref, "port": dict(np.load(d / "port.npz"))}
+    return {"logs": logs, "ref": ref, "whole": whole,
+            "port": dict(np.load(d / "port.npz"))}
 
 
 @pytest.mark.parametrize("mode", MODES)
@@ -273,6 +363,39 @@ def test_loss_is_the_global_mean_not_a_mean_of_rank_means(run, layout):
     assert abs(port[f"{key}/loss1"] - ref["loss0"]) <= TOL * ref["loss0"]
     assert abs(port[f"{key}/mean_of_means"] - ref["loss0"]) > \
         1e-2 * ref["loss0"]
+
+
+@pytest.mark.parametrize("name", WHOLE)
+def test_whole_sequence_on_a_sep_mesh_takes_no_sum_over_sep(run, name):
+    """A GPT without ``context_parallel``, and ERNIE, on the dp 2 x sep 2
+    mesh with every rank fed the whole sequence (each data rank a dp 1 x
+    sep 2 mesh): one fp32 ``CompiledTrainStep`` holds its loss, synced
+    gradients and AdamW-updated parameters to the reference's step on its
+    sep-2 mesh. Each sep rank's gradient is already the whole one, so a
+    sum over sep would double it. A gradient zero up to rounding in the
+    reference (ERNIE's k biases, which softmax cancels: below 1e-6 of the
+    model's largest entry) must be so in the port as well."""
+    assert_check(run["logs"], f"whole/{name}", nproc=4)
+    ref, port = run["whole"][name], run["port"]
+    key = f"whole/{name}"
+    assert abs(port[f"{key}/loss"] - ref["loss"]) <= TOL * ref["loss"]
+    top = max(float(np.abs(g).max()) for g in ref["grads"].values())
+    for n, want in ref["grads"].items():
+        got = port[f"{key}/grad/{n}"]
+        assert got.shape == want.shape, n
+        if float(np.abs(want).max()) <= 1e-6 * top:
+            assert float(np.abs(got).max()) <= 1e-6 * top, n
+            continue
+        assert rel_err(got, want) <= TOL, (n, rel_err(got, want))
+    for n, want in ref["params"].items():
+        got = port[f"{key}/param/{n}"]
+        if not want.any():
+            # a zero bias the loss never reads (ERNIE's pooler) stays zero
+            assert not got.any(), n
+            continue
+        err = param_rule_err(got, want, port[f"{key}/grad/{n}"],
+                             ref["grads"][n])
+        assert err <= TOL, (n, err)
 
 
 @pytest.mark.parametrize("layout", LAYOUTS)
@@ -381,15 +504,24 @@ def test_sep_local_batch_takes_the_rank_chunk():
 
 
 def test_the_rest_of_sep_raises_naming_a7(default_mesh):
+    """What once raised naming ROADMAP A7 composes with sep now (the
+    eight-rank steps are ``tests/test_torch_context_hybrid.py``'s): a
+    context-parallel GPT with ``sequence_parallel`` builds, its parameters
+    marked for the sum over sep and its norms sequence-parallel, and
+    ``sync_gradients`` takes a ZeRO-3 parameter on a sep mesh (a layout:
+    its groups have no process group, so the sums are the identity)."""
     from paddle_tpu_torch.distributed.fleet.meta_parallel.sharding import (
-        sync_gradients)
+        ZeroShard, sync_gradients)
     from paddle_tpu_torch.text.gpt import GPTConfig, GPTForPretraining
     mesh = default_mesh(_sep_layout())
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        GPTForPretraining(GPTConfig(context_parallel="ring",
+    m = GPTForPretraining(GPTConfig(context_parallel="ring",
                                     sequence_parallel=True, **GPT_KW),
                           device="cpu")
+    assert all(p._sep_partial for p in m.parameters())
+    assert all(getattr(p, "sequence_parallel", False)
+               for n, p in m.named_parameters() if ".ln" in n)
     p = torch.nn.Parameter(torch.zeros(2))
-    p._zero = object()
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        sync_gradients([p], [torch.zeros(2)], mesh)
+    p._zero = ZeroShard("p_g_os", mesh.group("sharding"), 0, (2,), None)
+    p._sep_partial = True
+    g = torch.arange(2.0)
+    assert torch.equal(sync_gradients([p], [g], mesh)[0], g)

@@ -1,8 +1,8 @@
 """Import hygiene of the port: ``paddle_tpu_torch``, ``chip_smoke.py``,
 ``scripts/profile_torch_train_step.py``, ``scripts/ab_eager_amp.py``,
 ``scripts/ab_data_parallel.py``, ``scripts/chip_grad_comm.py``,
-``scripts/chip_auto_parallel.py``, ``scripts/chip_pipeline_3d.py`` and
-``scripts/chip_jit.py`` import
+``scripts/chip_auto_parallel.py``, ``scripts/chip_pipeline_3d.py``,
+``scripts/chip_jit.py`` and ``scripts/chip_context_hybrid.py`` import
 neither ``jax`` nor anything of ``paddle_tpu`` — not even its modules that
 do not import JAX. Later slices that reach into the JAX package fail
 here."""
@@ -27,7 +27,8 @@ def _port_files():
                     ROOT / "scripts" / "chip_grad_comm.py",
                     ROOT / "scripts" / "chip_auto_parallel.py",
                     ROOT / "scripts" / "chip_pipeline_3d.py",
-                    ROOT / "scripts" / "chip_jit.py"]
+                    ROOT / "scripts" / "chip_jit.py",
+                    ROOT / "scripts" / "chip_context_hybrid.py"]
 
 
 def _imported_roots(path):

@@ -15,9 +15,10 @@ In one process:
   checks raise; ``tensor_parallel`` warns once where the mesh cannot
   honour it, and inside the pipeline (a pp 2 x mp 2 layout) commits each
   stacked leaf to the reference's ``_tp_param_specs`` axes; the pipeline
-  with sep, ZeRO with sep and ``Model`` over a ``PipelineParallel`` raise
-  naming A7 (ZeRO with the pipeline runs: ``tests/
-  test_torch_pipeline_3d.py``).
+  with sep builds and ZeRO with sep syncs (their steps:
+  ``tests/test_torch_context_hybrid.py``), while ``Model`` over a
+  ``PipelineParallel`` raises naming A7 (ZeRO with the pipeline runs:
+  ``tests/test_torch_pipeline_3d.py``).
 
 Across four gloo ranks on the CPU (launched once for the file,
 ``fleet.init`` at dp 2 x pp 2, each data rank on half of an 8 x 32
@@ -204,16 +205,22 @@ def test_refusals_match_reference(recwarn):
 
 
 def test_pipeline_compositions_left_raise_naming_a7():
+    """The pipeline on a sep mesh builds (its pp groups at one sep
+    coordinate), and ``sync_gradients`` takes a ZeRO-3 parameter there;
+    a ``Model`` over a ``PipelineParallel`` still raises naming ROADMAP
+    A7."""
     from paddle_tpu_torch.distributed.fleet.meta_parallel import (
         PipelineLayer, PipelineParallel, sharding)
     from paddle_tpu_torch.hapi.model import Model
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        build_mesh(pp=2, sep=2, devices=4)
+    mesh = build_mesh(pp=2, sep=2, devices=4)
+    assert mesh.comm_lists(("pp",)) == [[0, 2], [1, 3]]
+    assert mesh.comm_lists(("sep",)) == [[0, 1], [2, 3]]
     mesh = Mesh([1, 1, 1, 2, 1], rank=0)
     p = torch.nn.Parameter(torch.zeros(2))
-    p._zero = object()
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        sharding.sync_gradients([p], [torch.zeros(2)], mesh)
+    p._zero = sharding.ZeroShard("p_g_os", mesh.group("sharding"), 0, (2,),
+                                 None)
+    g = torch.ones(2)
+    assert torch.equal(sharding.sync_gradients([p], [g], mesh)[0], g)
 
     class Hcg:
         def get_pipe_parallel_world_size(self):

@@ -9,11 +9,11 @@ eight ranks is a layout whose groups are rank lists.
   rank override): every group's rank list and every rank and world-size
   query equal to the reference's.
 - ``build_mesh``: the remainder goes to dp, a degree set that cannot
-  multiply to the world raises ``ValueError`` in both packages, and the
-  pipeline on a mesh with a sep axis raises ``NotImplementedError``
-  naming ROADMAP A7 (the DCN axis builds: ``tests/test_torch_dcn.py``). A sep axis alone builds
+  multiply to the world raises ``ValueError`` in both packages (the DCN
+  axis builds: ``tests/test_torch_dcn.py``). A sep axis alone builds
   (context parallelism, ``tests/test_torch_context_parallel.py``), and so
-  does a pp axis: its groups equal the reference's.
+  does a pp axis, and pp with sep (pp 4 x sep 2, dp 2 x pp 2 x sep 2):
+  their groups equal the reference's.
 - ``fleet.init``'s mesh for dp 4 x mp 2 (``tests/test_fleet_e2e.py:68``):
   the reference's axis order and sizes.
 - What is not ported raises, naming ROADMAP A7: a ``Model`` over a
@@ -144,8 +144,16 @@ def test_build_mesh_refuses_degrees_that_do_not_divide(degrees):
 
 @pytest.mark.parametrize("degrees", [dict(pp=4, sep=2), dict(pp=2, sep=2)])
 def test_the_rest_raises_naming_a7(degrees):
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        sa.build_mesh(devices=8, **degrees)
+    """The pipeline on a sep mesh, once refused naming ROADMAP A7, builds:
+    the reference's axis sizes (the remainder to dp) and, on every axis,
+    the reference topology's comm lists."""
+    import jax
+    mesh = sa.build_mesh(devices=8, **degrees)
+    jmesh = jbuild_mesh(devices=jax.devices()[:8], **degrees)
+    assert mesh.shape == {a: jmesh.shape.get(a, 1) for a in sa.AXES}
+    topo = JTopology(dims=list(mesh.dims))
+    for axis, name in zip(sa.AXES, NAMES):
+        assert mesh.comm_lists((axis,)) == topo.get_comm_list(name), axis
 
 
 @pytest.mark.parametrize("degrees", [dict(pp=2), dict(pp=4),
