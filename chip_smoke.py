@@ -259,7 +259,25 @@ by route) set to 0 just before it and read just after:
   again at pp 2 x sharding 2 x sep 2: ``GPTForPretrainingPipe`` at 2
   layers in fp32 under ``p_g_os``, every sep rank on the whole sequence,
   run twice bit-identical, the sep pair's gradients bit-equal and held
-  to this process's unpipelined step.
+  to this process's unpipelined step;
+- the elastic control plane (``elastic``): GPT-124M at bench.py's widths
+  (O2 bf16, AdamW lr 1e-4, the global 16 x 1024 a step, a function of the
+  step alone) under the port's elastic launcher, two agents (``--elastic
+  --nnodes 2 --min_nnodes 1 --nproc_per_node 1``, agent 0 hosting the
+  membership store) whose trainers are this script again
+  (``--elastic-rank``), gloo ranks sharing the card, each on its rows, a
+  ``distributed.checkpoint`` every 2 steps: node 0's trainer exits
+  non-zero after step 5 (a planted fault), its agent restarts generation
+  1 at world 2 from the step-4 checkpoint, whose step 5 must equal
+  generation 0's bit for bit (each rank's loss and the global gradient
+  norm); after step 6's checkpoint node 1's agent and trainer are killed,
+  node 0's agent detects the stale heartbeat, bumps the generation and
+  resumes at world 1, whose step 7 must equal, bit for bit (loss, norm,
+  every parameter), one ``CompiledTrainStep`` in this process from the
+  same checkpoint; node 0's restart count stays 1 and its agent exits 0
+  (each generation's world, first step and restart counts, detection and
+  restart seconds, checkpoint save seconds, step ms and tokens/s at world
+  2 and 1, peak memory; K2 and K3 12 a step in every trainer).
 
 Last, it times each kernel beside its bound, its plain version and,
 where one exists, a PyTorch call that computes the same function (also
@@ -300,9 +318,13 @@ import json
 import math
 import os
 import re
+import statistics
 import subprocess
 import sys
+import threading
 import time
+
+_PROCESS_T0 = time.time()   # the elastic trainers' start, for their timeline
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
 PEAK_OPS_PER_S = {"bfloat16": 989e12, "float16": 989e12,
@@ -3197,51 +3219,108 @@ def _rank_emit(rank, obj):
     emit(dict(obj, rank=rank))
 
 
+_TORCH_COLLECTIVES = (
+    "all_reduce", "all_gather", "all_gather_into_tensor", "broadcast",
+    "reduce", "scatter", "gather", "reduce_scatter", "reduce_scatter_tensor",
+    "reduce_scatter_single", "all_to_all", "all_to_all_single",
+    "all_gather_object", "broadcast_object_list", "scatter_object_list",
+    "barrier")
+
+
+def _count_backend_calls(tdist):
+    """Wrap ``torch.distributed``'s collectives so each call adds one to
+    the returned dict's ``n``: a port collective that reached the backend
+    raised it."""
+    seen = {"n": 0}
+
+    def counted(fn):
+        def call(*args, **kwargs):
+            seen["n"] += 1
+            return fn(*args, **kwargs)
+        return call
+
+    for name in _TORCH_COLLECTIVES:
+        if hasattr(tdist, name):
+            setattr(tdist, name, counted(getattr(tdist, name)))
+    return seen
+
+
 def nccl_world_one_rank(torch):
     """One rank under ``init_parallel_env()`` with its default backend,
-    which must be NCCL on the card; each collective on CUDA tensors."""
+    which must be NCCL on the card; each collective on CUDA tensors, and
+    each must reach the NCCL process group (a world of one is no
+    identity: it runs its collectives through the backend)."""
+    import torch.distributed as tdist
+
     import paddle_tpu_torch.distributed as dist
     env = dist.init_parallel_env()
     backend = dist.get_backend()
     if backend != "nccl" or env.world_size != 1:
         raise AssertionError(f"backend {backend}, world {env.world_size}")
+    seen = _count_backend_calls(tdist)
     x = torch.arange(1.0, 7.0, device="cuda")
     checks = {}
+
+    def check(name, run, ok):
+        before = seen["n"]
+        got = run()
+        checks[name] = bool(ok(got)) and seen["n"] > before
+
+    def reduced(op):
+        t = x.clone()
+        dist.all_reduce(t, op)
+        return t
+
     for name, op in (("sum", dist.ReduceOp.SUM), ("max", dist.ReduceOp.MAX),
                      ("min", dist.ReduceOp.MIN), ("prod", dist.ReduceOp.PROD),
                      ("avg", dist.ReduceOp.AVG)):
-        t = x.clone()
-        dist.all_reduce(t, op)
-        checks[f"all_reduce_{name}"] = torch.equal(t, x)
-    rows = []
-    dist.all_gather(rows, x)
-    checks["all_gather"] = len(rows) == 1 and torch.equal(rows[0], x)
-    t = x.clone()
-    dist.broadcast(t, 0)
-    checks["broadcast"] = torch.equal(t, x)
-    t = x.clone()
-    dist.reduce(t, 0, dist.ReduceOp.SUM)
-    checks["reduce"] = torch.equal(t, x)
-    t = torch.zeros_like(x)
-    dist.scatter(t, [x], src=0)
-    checks["scatter"] = torch.equal(t, x)
-    t = torch.zeros_like(x)
-    dist.reduce_scatter(t, [x])
-    checks["reduce_scatter"] = torch.equal(t, x)
-    got = []
-    dist.alltoall(got, [x])
-    checks["alltoall"] = torch.equal(got[0], x)
-    t = torch.zeros_like(x)
-    dist.alltoall_single(t, x)
-    checks["alltoall_single"] = torch.equal(t, x)
-    objs = []
-    dist.all_gather_object(objs, {"rank": 0})
-    checks["all_gather_object"] = objs == [{"rank": 0}]
-    dist.barrier()
-    checks["barrier"] = True
+        check(f"all_reduce_{name}", lambda op=op: reduced(op),
+              lambda t: torch.equal(t, x))
+
+    def gathered():
+        rows = []
+        dist.all_gather(rows, x)
+        return rows
+
+    check("all_gather", gathered,
+          lambda rows: len(rows) == 1 and torch.equal(rows[0], x))
+
+    def into(fn, start):
+        def go():
+            t = start()
+            fn(t)
+            return t
+        return go
+
+    copy, zeros = x.clone, (lambda: torch.zeros_like(x))
+    for name, fn, start in (
+            ("broadcast", lambda t: dist.broadcast(t, 0), copy),
+            ("reduce", lambda t: dist.reduce(t, 0, dist.ReduceOp.SUM), copy),
+            ("scatter", lambda t: dist.scatter(t, [x], src=0), zeros),
+            ("reduce_scatter", lambda t: dist.reduce_scatter(t, [x]), zeros),
+            ("alltoall_single", lambda t: dist.alltoall_single(t, x),
+             zeros)):
+        check(name, into(fn, start), lambda t: torch.equal(t, x))
+
+    def alltoall():
+        got = []
+        dist.alltoall(got, [x])
+        return got
+
+    check("alltoall", alltoall, lambda got: torch.equal(got[0], x))
+
+    def gathered_objects():
+        objs = []
+        dist.all_gather_object(objs, {"rank": 0})
+        return objs
+
+    check("all_gather_object", gathered_objects,
+          lambda objs: objs == [{"rank": 0}])
+    check("barrier", dist.barrier, lambda _: True)
     torch.cuda.synchronize()
     emit({"phase": "nccl_world_one", "backend": backend,
-          "device": str(env.device), "checks": checks})
+          "device": str(env.device), "backend_calls": seen["n"],
+          "checks": checks})
     dist.destroy_process_group()
     if not all(checks.values()):
         raise AssertionError(f"NCCL world-1 collectives: {checks}")
@@ -3617,8 +3696,12 @@ def _run_ranks(n, flag, out_dir, extra_env=None, prepare=None):
     launcher (``prepare()`` runs here while they start); returns each
     rank's JSON lines. A rank that fails, times out or prints no launch
     record fails the path."""
-    rc, stderr, logs = _start_ranks(n, flag, out_dir, extra_env,
-                                    prepare=prepare)
+    return _rank_lines(flag, *_start_ranks(n, flag, out_dir, extra_env,
+                                           prepare=prepare))
+
+
+def _rank_lines(flag, rc, stderr, logs):
+    """Each rank's JSON lines of a finished launch, or the failure."""
     if rc != 0:
         tails = {r: text[-4000:] for r, text in logs.items()}
         raise AssertionError(f"{flag} ranks failed (rc {rc}): "
@@ -3641,26 +3724,42 @@ def _start_ranks(n, flag, out_dir, extra_env=None,
     ``ready`` marker in ``out_dir`` lets them past ``_wait_ready``. The
     launcher and its ranks run in a session of their own, killed whole if
     they outlive the timeout or this process fails while waiting."""
-    import os
-    import signal
-    root = os.path.dirname(os.path.abspath(__file__))
-    log_dir = os.path.join(out_dir, f"logs{flag}")
-    env = dict(os.environ, PYTHONPATH=root, **(extra_env or {}))
-    env.pop("PADDLE_MASTER", None)
     ready = os.path.join(out_dir, "ready")
     if os.path.exists(ready):
         os.remove(ready)
-    proc = subprocess.Popen(
-        [sys.executable, "-m", "paddle_tpu_torch.distributed.launch",
-         "--nproc_per_node", str(n), "--log_dir", log_dir,
-         os.path.join(root, "chip_smoke.py"), flag, out_dir],
-        cwd=root, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-        text=True, start_new_session=True)
-    rc, stderr = None, ""
+    proc = _spawn_ranks(n, flag, out_dir, extra_env)
     try:
         if prepare is not None:
             prepare()
         open(ready, "w").close()
+    except BaseException:
+        _reap_ranks(proc, n, flag, out_dir, 0)
+        raise
+    return _reap_ranks(proc, n, flag, out_dir, timeout)
+
+
+def _spawn_ranks(n, flag, out_dir, extra_env=None):
+    """This script's ``flag`` mode on ``n`` ranks through the port's
+    launcher, started in a session of its own; returns the launcher."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root, **(extra_env or {}))
+    env.pop("PADDLE_MASTER", None)
+    return subprocess.Popen(
+        [sys.executable, "-m", "paddle_tpu_torch.distributed.launch",
+         "--nproc_per_node", str(n), "--log_dir",
+         os.path.join(out_dir, f"logs{flag}"),
+         os.path.join(root, "chip_smoke.py"), flag, out_dir],
+        cwd=root, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True, start_new_session=True)
+
+
+def _reap_ranks(proc, n, flag, out_dir, timeout):
+    """Wait up to ``timeout`` seconds for a ``_spawn_ranks`` launcher (its
+    session is killed whole if it is still running or failed): (return
+    code or None, its stderr, {rank: its log})."""
+    import signal
+    rc, stderr = None, ""
+    try:
         _, stderr = proc.communicate(timeout=timeout)
         rc = proc.returncode
     except subprocess.TimeoutExpired:
@@ -3672,6 +3771,7 @@ def _start_ranks(n, flag, out_dir, extra_env=None,
             except ProcessLookupError:
                 pass
             proc.wait()
+    log_dir = os.path.join(out_dir, f"logs{flag}")
     logs = {}
     for r in range(n):
         path = os.path.join(log_dir, f"workerlog.{r}")
@@ -3873,13 +3973,19 @@ def phase_data_parallel(torch, ck, smi):
     tmp = tempfile.mkdtemp(prefix="chip_smoke_dp_")
     try:
         torch.cuda.empty_cache()
+        # the NCCL rank runs beside the gloo ranks (it takes a few
+        # collectives; its start is what costs)
         t0 = time.perf_counter()
-        nccl = _run_ranks(1, "--nccl-world-one", tmp)
-        t_nccl = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        ranks = _run_ranks(DP_RANKS, "--data-parallel-rank", tmp,
-                           {"PADDLE_DISTRI_BACKEND": "gloo"},
-                           prepare=lambda: _dp_one_process(torch, tmp))
+        nccl_proc = _spawn_ranks(1, "--nccl-world-one", tmp)
+        try:
+            ranks = _run_ranks(DP_RANKS, "--data-parallel-rank", tmp,
+                               {"PADDLE_DISTRI_BACKEND": "gloo"},
+                               prepare=lambda: _dp_one_process(torch, tmp))
+        except BaseException:
+            _reap_ranks(nccl_proc, 1, "--nccl-world-one", tmp, 0)
+            raise
+        nccl = _rank_lines("--nccl-world-one", *_reap_ranks(
+            nccl_proc, 1, "--nccl-world-one", tmp, DP_RANK_TIMEOUT_S))
         t_ranks = time.perf_counter() - t0
         for rows in list(nccl.values()) + list(ranks.values()):
             for row in rows[:-1]:
@@ -3906,7 +4012,7 @@ def phase_data_parallel(torch, ck, smi):
                                               for g in gpt],
               "buckets": gpt[0]["buckets"],
               "allreduced_bytes_per_step": gpt[0]["allreduced_bytes_per_step"],
-              "nccl_world_one_s": t_nccl, "gloo_ranks_s": t_ranks})
+              "ranks_s": t_ranks})
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -7051,6 +7157,476 @@ def phase_context_hybrid(torch, ck, smi):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# -- the elastic path -------------------------------------------------------------
+# GPT-124M at bench.py's widths under the port's elastic launcher: two agents
+# (--nnodes 2 --min_nnodes 1, one trainer each, gloo ranks sharing the card),
+# agent 0 hosting the membership store. Generation 0 runs at world 2 until
+# node 0's trainer exits after step EL_FAIL_AFTER (the planted fault: it
+# consumes node 0's restart budget); generation 1 resumes at world 2 from the
+# step-4 checkpoint and parks after step EL_PARK_AT's; then node 1's agent and
+# trainer are killed and node 0 goes on alone at world 1 from the step-6
+# checkpoint, the whole 16 x 1024 on one rank.
+EL_NODES, EL_STEPS, EL_CKPT_EVERY = 2, 8, 2
+EL_FAIL_AFTER, EL_PARK_AT, EL_GATE_STEP = 5, 6, 7
+EL_FAIL_RC = 13
+EL_TIMEOUT_S = 300
+# the agents' tuning (the reference's knobs, small as its chaos tests set
+# them): a heartbeat every 0.2 s, a peer dead after 1.2 s of silence, a
+# round at fewer than nnodes closed 2 s after min_nnodes arrived (longer
+# than the two agents' start-up can drift apart, so generation 0 forms at
+# world 2)
+EL_ENV = {"PADDLE_ELASTIC_HB_INTERVAL": "0.2",
+          "PADDLE_ELASTIC_HB_TIMEOUT": "1.2",
+          "PADDLE_ELASTIC_LAST_CALL": "2.0",
+          "PADDLE_ELASTIC_RDZV_TIMEOUT": "120",
+          "PADDLE_ELASTIC_GRACE": "5.0",
+          "PADDLE_ELASTIC_KEEP_CKPTS": "2"}
+EL_NODE_ENV = "CHIP_SMOKE_ELASTIC_NODE"
+
+
+def _el_batch(torch, cfg, step, device):
+    """Step ``step``'s global batch, [TRAIN_BATCH, seq] ids and labels, a
+    function of the step alone."""
+    ids, labels = _seeded_ids(torch, cfg.vocab_size,
+                              (TRAIN_BATCH, cfg.max_seq_len),
+                              seed=1000 + step)
+    return ids.to(device), labels.to(device)
+
+
+def _norm_probe():
+    """A global-norm clip with no bound (``ClipGradByGlobalNorm(inf)``: it
+    scales by exactly 1) that keeps the step's global gradient norm in
+    ``.norm``."""
+    from paddle_tpu_torch.nn.clip import ClipGradByGlobalNorm
+
+    class Probe(ClipGradByGlobalNorm):
+        def global_scale(self, grads):
+            import torch
+            sq = sum(torch.sum(torch.square(g.float())) for g in grads)
+            self.norm = torch.sqrt(sq)
+            return super().global_scale(grads)
+
+    return Probe(math.inf)
+
+
+def _el_build(torch, seed, device):
+    """GPT-124M (``gpt_small``), AdamW lr 1e-4 with the norm probe, from
+    ``seed``; the step is built after any load (``_el_step``)."""
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.text.gpt import GPTForPretraining, gpt_small
+    cfg = gpt_small()
+    model = GPTForPretraining(cfg, device=device, seed=seed)
+    probe = _norm_probe()
+    opt = AdamW(learning_rate=1e-4, parameters=model.parameters(),
+                grad_clip=probe)
+    return cfg, model, opt, probe
+
+
+def _el_step(model, opt):
+    from paddle_tpu_torch.jit import CompiledTrainStep
+    return CompiledTrainStep(lambda i, lb: model(i, labels=lb)[1], model,
+                             opt, amp_level="O2")
+
+
+def _el_load(model, opt, path):
+    """``distributed.checkpoint`` of ``path`` into the model and the
+    optimizer (the skeleton's accumulators made first)."""
+    from paddle_tpu_torch.distributed import checkpoint as dck
+    for q in model.parameters():
+        opt._get_accumulators(q)
+    skeleton = {"model": model.state_dict(), "opt": opt.state_dict()}
+    dck.load_state_dict(skeleton, path)
+    opt.set_state_dict(skeleton["opt"])
+
+
+def _el_sync(torch, t):
+    """Wait for the work queued on ``t``'s card (nothing on the CPU)."""
+    if t.is_cuda:
+        torch.cuda.synchronize(t.device)
+
+
+def elastic_rank(torch, out_dir, device="cuda"):
+    """One trainer of the elastic path, started by an agent: resumes from
+    ``latest_checkpoint()`` (or step 1), keeps its rank's rows of each
+    step's global batch, checkpoints every ``EL_CKPT_EVERY`` steps through
+    ``distributed.checkpoint`` and ``mark_complete``. The planted faults:
+    on node 0 in a process of restart 0, exit ``EL_FAIL_RC`` after step
+    ``EL_FAIL_AFTER``; at world 2, park after step ``EL_PARK_AT``'s
+    checkpoint until torn down. Prints one JSON line per step (loss, global
+    gradient norm, ms, wall clock, its K2/K3 launches), and at world 1
+    after ``EL_GATE_STEP`` the parameters' digest."""
+    import paddle_tpu_torch.distributed as dist
+    from paddle_tpu_torch.distributed import checkpoint as dck
+    from paddle_tpu_torch.distributed import elastic
+    from paddle_tpu_torch.ops import cuda_kernels as ck
+    walls = {"process": _PROCESS_T0, "main": time.time()}
+    rank = int(os.environ["PADDLE_TRAINER_ID"])
+    world = int(os.environ["PADDLE_TRAINERS_NUM"])
+    gen = int(os.environ.get(elastic.GENERATION_ENV, "0"))
+    restarts = elastic.restart_count()
+    node = int(os.environ[EL_NODE_ENV])
+    if world > 1:
+        dist.init_parallel_env(device=device, timeout=EL_TIMEOUT_S)
+    walls["group"] = time.time()
+    # the newest intact checkpoint (its digests checked) is found while the
+    # model builds
+    found = []
+    finder = threading.Thread(
+        target=lambda: found.append(elastic.latest_checkpoint()))
+    finder.start()
+    cfg, model, opt, probe = _el_build(torch, 1, device)
+    some = next(model.parameters())
+    _el_sync(torch, some)
+    walls["built"] = time.time()
+    finder.join()
+    found = found[0]
+    walls["found"] = time.time()
+    first = 1
+    if found is not None:
+        _el_load(model, opt, found)
+        first = int(found.rsplit("_", 1)[1]) + 1
+    _el_sync(torch, some)
+    walls["loaded"] = time.time()
+    step = _el_step(model, opt)
+    ck.reset_launch_counts()
+    rows = TRAIN_BATCH // world
+    emit({"phase": "elastic_rank", "rank": rank, "world": world,
+          "generation": gen, "restarts": restarts, "node": node,
+          "first_step": first, "resumed_from": found, "walls": walls})
+    pending = []
+
+    def settle(row):
+        """The pending checkpoints on disk on every rank (their writers
+        joined, then a barrier), then marked complete by rank 0, oldest
+        first."""
+        if not pending:
+            return
+        for _, handle, _ in pending:
+            handle.wait(timeout=EL_TIMEOUT_S)
+        if world > 1:
+            dist.barrier()
+        for path, _, t0 in pending:
+            if rank == 0:
+                elastic.mark_complete(path)
+            row.setdefault("checkpoint_done_s", []).append(
+                (int(path.rsplit("_", 1)[1]), time.perf_counter() - t0))
+        pending.clear()
+
+    for s in range(first, EL_STEPS + 1):
+        ids, labels = _el_batch(torch, cfg, s, device)
+        ids, labels = (t[rank * rows:(rank + 1) * rows] for t in (ids, labels))
+        before = _route_counts(ck)
+        _el_sync(torch, ids)
+        t0 = time.perf_counter()
+        loss = step(ids, labels)
+        _el_sync(torch, loss)
+        ms = (time.perf_counter() - t0) * 1e3
+        row = {"phase": "elastic_step", "rank": rank, "world": world,
+               "generation": gen, "node": node, "step": s,
+               "loss": loss.item(), "grad_norm": probe.norm.item(),
+               "ms": ms, "wall": time.time(),
+               "launches": {n: {r: c - before[n][r]
+                                for r, c in routes.items()}
+                            for n, routes in _route_counts(ck).items()}}
+        if s % EL_CKPT_EVERY == 0 and s < EL_STEPS:
+            # written while the next steps run; settled at the fault, the
+            # park or the end
+            path = elastic.checkpoint_path(s)
+            t0 = time.perf_counter()
+            handle = dck.save_state_dict(
+                {"model": model.state_dict(), "opt": opt.state_dict()},
+                path, async_save=True)
+            row["checkpoint_blocked_s"] = time.perf_counter() - t0
+            pending.append((path, handle, t0))
+        if world == 1 and s == EL_GATE_STEP:
+            row["params_digest"] = _digest(model.parameters())
+        if loss.is_cuda:
+            row["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+        # settled on every rank at the same steps: the fault's, the park's
+        # and the last
+        if s == EL_FAIL_AFTER or (world > 1 and s == EL_PARK_AT) or \
+                s == EL_STEPS:
+            settle(row)
+        faulty = node == 0 and restarts == 0 and s == EL_FAIL_AFTER
+        emit(row)
+        if faulty:
+            emit({"phase": "elastic_fault", "rank": rank, "step": s,
+                  "wall": time.time()})
+            os._exit(EL_FAIL_RC)   # the planted fault: no teardown
+        if world > 1 and s == EL_PARK_AT:
+            emit({"phase": "elastic_parked", "rank": rank, "step": s,
+                  "wall": time.time()})
+            while True:           # until the agent tears this pod down
+                time.sleep(0.05)
+    return 0
+
+
+def _el_logs(tmp):
+    """Every JSON line of every trainer's log under ``tmp``, by (node,
+    generation)."""
+    out = {}
+    for node in range(EL_NODES):
+        base = os.path.join(tmp, f"node{node}")
+        if not os.path.isdir(base):
+            continue
+        for gdir in sorted(os.listdir(base)):
+            for name in os.listdir(os.path.join(base, gdir)):
+                with open(os.path.join(base, gdir, name)) as f:
+                    rows = out.setdefault((node, int(gdir[3:])), [])
+                    for line in f:
+                        if line.startswith("{") and line.endswith("\n"):
+                            try:
+                                rows.append(json.loads(line))
+                            except ValueError:
+                                pass   # a killed trainer's torn line
+    return out
+
+
+def _el_wait(what, pred, deadline, procs):
+    """Poll ``pred()`` until it holds; fail at ``deadline`` or when an
+    agent in ``procs`` has exited."""
+    while not pred():
+        for i, p in procs.items():
+            if p.poll() is not None:
+                raise AssertionError(f"elastic: agent {i} exited rc "
+                                     f"{p.returncode} waiting for {what}")
+        if time.monotonic() > deadline:
+            raise AssertionError(f"elastic: timed out waiting for {what}")
+        time.sleep(0.02)
+
+
+def _el_one_process(torch, ckdir, device):
+    """Step ``EL_GATE_STEP`` in this process from the step-``EL_PARK_AT``
+    checkpoint on the whole global batch: (loss, gradient norm, the
+    parameters' digest)."""
+    from paddle_tpu_torch.distributed import elastic
+    cfg, model, opt, probe = _el_build(torch, 2, device)
+    _el_load(model, opt, elastic.checkpoint_path(EL_PARK_AT, ckdir))
+    loss = _el_step(model, opt)(*_el_batch(torch, cfg, EL_GATE_STEP,
+                                           device))
+    out = (loss.item(), probe.norm.item(), _digest(model.parameters()))
+    del model, opt
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_elastic(torch, ck, smi, script=None, device="cuda"):
+    """The elastic path: two agents through ``python -m paddle_tpu_torch.
+    distributed.launch --elastic`` (agent 0 hosting the store), the local
+    failure and its restart, node 1 killed and the scale-in to world 1, the
+    world-1 step held here to one process's step from the same checkpoint.
+    The trainers' kernel launches are added to this process's counts.
+    ``script`` is the trainers' program (this file by default), and
+    ``device`` where this process's one-process step runs."""
+    import shutil
+    import signal
+    import tempfile
+
+    from paddle_tpu_torch.distributed.env import find_free_port
+    from paddle_tpu_torch.distributed.store import TCPStore
+    from paddle_tpu_torch.text.gpt import gpt_small
+    cfg = gpt_small()
+    root = os.path.dirname(os.path.abspath(__file__))
+    script = script or os.path.join(root, "chip_smoke.py")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_el_")
+    ckdir = os.path.join(tmp, "ckpt")
+    master = f"127.0.0.1:{find_free_port()}"
+    env = dict(os.environ, PYTHONPATH=root, PADDLE_DISTRI_BACKEND="gloo",
+               PADDLE_ELASTIC_CKPT_DIR=ckdir, **EL_ENV)
+    env.pop("PADDLE_MASTER", None)
+    agents, logs = {}, []
+    t0 = time.monotonic()
+    wall0 = time.time()
+    deadline = t0 + EL_TIMEOUT_S
+    torch.cuda.empty_cache()
+    try:
+        # node 1 first: its store client waits for node 0's server, so both
+        # join generation 0 together
+        for node in (1, 0):
+            log = open(os.path.join(tmp, f"agent{node}.log"), "w")
+            logs.append(log)
+            agents[node] = subprocess.Popen(
+                [sys.executable, "-m", "paddle_tpu_torch.distributed.launch",
+                 "--elastic", "--nnodes", str(EL_NODES), "--min_nnodes", "1",
+                 "--nproc_per_node", "1", "--max_restarts", "3",
+                 "--master", master, *(["--host_store"] if node == 0 else []),
+                 "--log_dir", os.path.join(tmp, f"node{node}"),
+                 script, "--elastic-rank", tmp],
+                cwd=root, env=dict(env, **{EL_NODE_ENV: str(node)}),
+                stdout=log, stderr=subprocess.STDOUT,
+                start_new_session=True)
+
+        def parked():
+            return sum(r.get("phase") == "elastic_parked"
+                       for rows in _el_logs(tmp).values()
+                       for r in rows) == EL_NODES
+
+        _el_wait("generation 1's trainers to park", parked, deadline,
+                 agents)
+        host, port = master.split(":")
+        store = TCPStore(host=host, port=int(port), timeout=30)
+        try:
+            gen_parked = int(store.get("__el/gen"))
+            os.killpg(agents[1].pid, signal.SIGKILL)
+            t_kill = time.time()
+            agents[1].wait()
+            _el_wait("the survivor's generation bump",
+                     lambda: int(store.get("__el/gen")) > gen_parked,
+                     deadline, {0: agents[0]})
+            detect_s = time.time() - t_kill
+        finally:
+            store.close()
+        one_loss, one_norm, one_digest = _el_one_process(torch, ckdir,
+                                                         device)
+        rc0 = agents[0].wait(timeout=max(1.0, deadline - time.monotonic()))
+        path_s = time.monotonic() - t0
+        by = _el_logs(tmp)
+        agent_logs = [open(os.path.join(tmp, f"agent{n}.log")).read()
+                      for n in range(EL_NODES)]
+    finally:
+        for p in agents.values():
+            if p.poll() is None:
+                try:
+                    os.killpg(p.pid, signal.SIGKILL)
+                except ProcessLookupError:
+                    pass
+                p.wait()
+        for log in logs:
+            log.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+    rows = [r for rs in by.values() for r in rs]
+    starts = sorted((r for r in rows if r.get("phase") == "elastic_rank"),
+                    key=lambda r: (r["generation"], r["rank"]))
+    steps = [r for r in rows if r.get("phase") == "elastic_step"]
+    faults = [r for r in rows if r.get("phase") == "elastic_fault"]
+    gens = sorted({r["generation"] for r in starts})
+    per_gen = []
+    for g in gens:
+        mine = [r for r in starts if r["generation"] == g]
+        per_gen.append({"generation": g, "world": mine[0]["world"],
+                        "first_step": mine[0]["first_step"],
+                        "resumed_from": mine[0]["resumed_from"] and
+                        os.path.basename(mine[0]["resumed_from"]),
+                        "restarts_by_node": {r["node"]: r["restarts"]
+                                             for r in mine},
+                        "rank_by_node": {r["node"]: r["rank"]
+                                         for r in mine}})
+
+    def at(gen, s):
+        return {r["rank"]: r for r in steps
+                if r["generation"] == gen and r["step"] == s}
+
+    failures = []
+    if [(g["world"], g["first_step"]) for g in per_gen] != \
+            [(2, 1), (2, EL_FAIL_AFTER), (1, EL_PARK_AT + 1)]:
+        failures.append(f"generations {per_gen}: not world 2 from step 1, "
+                        f"world 2 from step {EL_FAIL_AFTER}, world 1 from "
+                        f"step {EL_PARK_AT + 1}")
+        gens = (gens + [None] * 3)[:3]
+    g0, g1, g2 = gens[:3]
+    before = {r: (v["loss"], v["grad_norm"])
+              for r, v in at(g0, EL_FAIL_AFTER).items()}
+    after = {r: (v["loss"], v["grad_norm"])
+             for r, v in at(g1, EL_FAIL_AFTER).items()}
+    if len(before) != EL_NODES or before != after:
+        failures.append(f"step {EL_FAIL_AFTER} after the restart {after} "
+                        f"!= before it {before}")
+    gate = at(g2, EL_GATE_STEP).get(0)
+    one = (one_loss, one_norm, one_digest)
+    if gate is None or (gate["loss"], gate["grad_norm"],
+                        gate["params_digest"]) != one:
+        failures.append(f"world-1 step {EL_GATE_STEP} {gate} != one "
+                        f"process's from the step-{EL_PARK_AT} checkpoint "
+                        f"{one}")
+    restarts = [g["restarts_by_node"] for g in per_gen]
+    if restarts[1:] != [{0: 1, 1: 0}, {0: 1}]:
+        failures.append(f"restart counts by generation and node {restarts}:"
+                        " not node 0's 1 after its fault and after the "
+                        "scale-in")
+    if rc0 != 0:
+        failures.append(f"agent 0 exited {rc0}")
+    if len(faults) != 1:
+        failures.append(f"planted faults {faults}")
+    # K2 and K3 once per layer and step on the card; the plain versions
+    # on the CPU count nothing
+    n = cfg.num_layers if torch.device(device).type == "cuda" else 0
+    bad = [(r["generation"], r["rank"], r["step"]) for r in steps
+           if (r["launches"]["flash_fwd"]["bf16"],
+               r["launches"]["flash_bwd"]["bf16"]) != (n, n)]
+    if bad:
+        failures.append(f"K2/K3 bf16 launches not {n} a step at "
+                        f"(generation, rank, step) {bad}")
+    for r in steps:
+        ck.add_launches(r["launches"])
+
+    def warm_ms(world):
+        """The median over warm steps (not a process's first) of the
+        slowest rank's step ms."""
+        first = {g["generation"]: g["first_step"] for g in per_gen}
+        by_step = {}
+        for r in steps:
+            if r["world"] == world and r["step"] > first[r["generation"]]:
+                key = (r["generation"], r["step"])
+                by_step[key] = max(by_step.get(key, 0.0), r["ms"])
+        return statistics.median(by_step.values()) if by_step else None
+
+    g1_walls = [r["wall"] for r in steps if r["generation"] == g1]
+    # each trainer's start-up and steps, in seconds from the path's start
+    timeline = [dict({k: round(v - wall0, 3)
+                      for k, v in r["walls"].items()},
+                     generation=r["generation"], rank=r["rank"],
+                     steps=[(x["step"], round(x["wall"] - wall0, 3))
+                            for x in steps
+                            if (x["generation"], x["rank"]) ==
+                            (r["generation"], r["rank"])])
+                for r in starts]
+    timeline.append({"kill": round(t_kill - wall0, 3),
+                     "fault": faults and round(faults[0]["wall"] - wall0,
+                                               3)})
+    tokens = TRAIN_BATCH * cfg.max_seq_len
+    ms2, ms1 = warm_ms(2), warm_ms(1)
+    emit({"phase": "elastic", "nvidia_smi": smi,
+          "model": "gpt_small (GPT-124M), CompiledTrainStep O2 bf16, AdamW "
+                   "lr 1e-4, 16 x 1024 global a step, seed 1",
+          "launcher": "--elastic --nnodes 2 --min_nnodes 1 "
+                      "--nproc_per_node 1 --max_restarts 3, agent 0 "
+                      "--host_store", "env": EL_ENV,
+          "generations": per_gen,
+          "fault": faults[0] if faults else None,
+          "detection_s": detect_s,
+          "restart_s": (min(g1_walls) - faults[0]["wall"]
+                        if faults and g1_walls else None),
+          "checkpoint_blocked_s": [(r["generation"], r["rank"], r["step"],
+                                    r["checkpoint_blocked_s"])
+                                   for r in steps
+                                   if "checkpoint_blocked_s" in r],
+          "checkpoint_done_s": [(r["generation"], r["rank"], saved, s)
+                                for r in steps
+                                for saved, s in r.get("checkpoint_done_s",
+                                                      [])],
+          "timeline_s": timeline,
+          "step_ms_world2": ms2, "step_ms_world1": ms1,
+          "tokens_per_s_world2": ms2 and tokens / ms2 * 1e3,
+          "tokens_per_s_world1": ms1 and tokens / ms1 * 1e3,
+          "peak_memory_bytes_per_rank": max(
+              (r.get("peak_memory_bytes", 0) for r in steps), default=None),
+          "losses": sorted((r["generation"], r["rank"], r["step"], r["loss"],
+                            r["grad_norm"]) for r in steps),
+          f"step_{EL_FAIL_AFTER}_before_after": [before, after],
+          "world1_gate": {"trainer": gate and [gate["loss"],
+                                               gate["grad_norm"]],
+                          "one_process": [one_loss, one_norm],
+                          "params_bit_equal": gate is not None and
+                          gate.get("params_digest") == one_digest},
+          "flash_launches": {k: sum(r["launches"][k]["bf16"] for r in steps)
+                             for k in ("flash_fwd", "flash_bwd")},
+          "trainer_steps": len(steps), "agent0_rc": rc0, "path_s": path_s})
+    if failures:
+        raise AssertionError("; ".join(failures) + "\nagent 0: "
+                             f"{agent_logs[0][-3000:]}\nagent 1: "
+                             f"{agent_logs[1][-3000:]}")
+
+
 def paged_bound(torch, q, kp, bt, cl):
     """Least time for K1 on these inputs: bytes each slot's visible rows
     need (K and V once, the table entries it reads, q, lens, out) versus
@@ -7719,12 +8295,27 @@ def phase_timing(torch, ck, launches, path_launches, routes, smi):
     return main
 
 
+def _share_bytecode():
+    """This process and every process it starts (ranks, agents, trainers,
+    loader workers) keep the bytecode of what they import in the
+    checkout's ``build/pycache``: the environment may forbid writing it
+    beside the sources, and then each process compiles torch and the port
+    again."""
+    prefix = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "build", "pycache")
+    os.environ["PYTHONPYCACHEPREFIX"] = prefix
+    os.environ.pop("PYTHONDONTWRITEBYTECODE", None)
+    sys.pycache_prefix = prefix
+    sys.dont_write_bytecode = False
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card; this script measures the port on "
               "one", file=sys.stderr)
         return 2
+    _share_bytecode()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     # the data-parallel path's ranks: this script under the port's launcher
@@ -7748,6 +8339,9 @@ def main():
         return pipeline3d_rank(torch, sys.argv[2])
     if sys.argv[1:2] == ["--context-hybrid-rank"]:
         return context_hybrid_rank(torch, sys.argv[2])
+    # the elastic path's trainers: this script under an elastic agent
+    if sys.argv[1:2] == ["--elastic-rank"]:
+        return elastic_rank(torch, sys.argv[2])
     from paddle_tpu_torch.ops import cuda_kernels as ck
 
     t0 = time.perf_counter()
@@ -7772,7 +8366,9 @@ def main():
     # then the pipeline_3d path (K2, K3 per layer of a stage and microbatch
     # in each of its eight ranks, on an mp rank's heads), then the
     # jit_inference path (K2 per layer of every captured or served forward,
-    # K3 per layer of the to_static step)
+    # K3 per layer of the to_static step), then the context_hybrid path,
+    # then the elastic path (K2, K3 per layer and step in every trainer of
+    # every generation)
     paths = (("serving", ("paged_attention", "flash_fwd"),
               lambda: (phase_serving(torch, ck, smi),
                        phase_exactness_fp32(torch, ck))),
@@ -7837,7 +8433,12 @@ def main():
              # ZeRO: K2/K3 on every ring block), then of pp 2 x sharding 2
              # x sep 2 (the pipe GPT's fp32 gate)
              ("context_hybrid", ("flash_fwd", "flash_bwd"),
-              lambda: phase_context_hybrid(torch, ck, smi)))
+              lambda: phase_context_hybrid(torch, ck, smi)),
+             # two elastic agents and their trainers: a restart after a
+             # local failure, then a scale-in to world 1 (K2/K3 12 a step
+             # in every trainer)
+             ("elastic", ("flash_fwd", "flash_bwd"),
+              lambda: phase_elastic(torch, ck, smi)))
     launches = {k.name: 0 for k in ck.KERNELS}
     path_launches, path_routes, path_seconds = {}, {}, {}
     for path, kernels, drive in paths:

@@ -20,12 +20,13 @@
   ``shard_layer``/``unshard_dtensor``, ``Engine``, ``shard_dataloader``)
   and the fleet executor (``fleet_executor``: a DAG of stage callables
   over microbatches).
-- The control plane's pieces ported so far: the membership ``TCPStore``
-  over ``native/store/tcp_store.cpp`` (``store``), the clock and
-  transport seam (``substrate``), the checkpoint digest gate
-  (``elastic.verify_checkpoint``) and ``checkpoint``.
-
-Still to port (ROADMAP A8): elastic launch and RPC.
+- The control plane: the membership ``TCPStore`` over
+  ``native/store/tcp_store.cpp`` (``store``) and its replicated client
+  with failover (``store_ha``), the clock and transport seam
+  (``substrate``), elastic training (``elastic``: the checkpoint
+  lifecycle, the one-node relaunch manager, the failure detector, the
+  store-backed rendezvous and the per-node agent, driven by the
+  launcher's ``--elastic``), ``checkpoint``, and ``rpc`` over TCP sockets.
 """
 from .env import (ParallelEnv, ParallelMode, init_parallel_env,  # noqa: F401
                   is_available, is_initialized, get_rank, get_world_size,
@@ -54,6 +55,10 @@ from .auto_parallel import (ProcessMesh, Placement, Shard,  # noqa: F401
                             to_static)
 from . import fleet_executor  # noqa: F401
 from .fleet_executor import FleetExecutor, TaskNode, Carrier  # noqa: F401
+from . import rpc  # noqa: F401
+from . import elastic  # noqa: F401
+from .elastic import (ElasticManager, elastic_launch,  # noqa: F401
+                      enable_preemption_checkpoint)
 
 
 def get_device():

@@ -23,10 +23,13 @@ per-process shard files and one global ``metadata.json`` (counterpart:
   destination in place, in its dtype and on its device: a checkpoint
   written by mp 2 loads into one process, one process's into mp 2, and
   one the JAX package wrote sharded over 8 devices into either.
-- ``save_state_dict(..., async_save=True)`` copies every tensor to the
-  host before it returns (a blocking copy: the next step may overwrite
-  the values) and writes the files on a background thread; the returned
-  ``AsyncSaveHandle.wait()`` joins it.
+- ``save_state_dict(..., async_save=True)`` takes every tensor's values
+  before it returns (the next step may overwrite them): a host tensor by
+  a host copy, a card tensor (whole or this rank's piece) by a copy on
+  the card (the same stream's work, so it costs no host wait), which the
+  background thread copies to the host on a stream of its own before it
+  writes the files; the returned ``AsyncSaveHandle.wait()`` joins it. A
+  replicated tensor is copied by the coordinator only.
 
 The rank is ``torch.distributed.get_rank()`` when a process group is up,
 else 0; with more than one rank a synchronous save ends in a barrier, so
@@ -77,9 +80,9 @@ def _flatten_state(state_dict, prefix=""):
 
 
 class AsyncSaveHandle:
-    """Returned by ``save_state_dict(async_save=True)``: the device-to-host
-    copy has already happened; ``wait()`` joins the background file write
-    and raises its error, if any."""
+    """Returned by ``save_state_dict(async_save=True)``: the values have
+    been taken; ``wait()`` joins the background copy to the host and file
+    write and raises its error, if any."""
 
     def __init__(self, thread):
         self._thread = thread
@@ -99,10 +102,11 @@ class AsyncSaveHandle:
         return not self._thread.is_alive()
 
 
-def _gather_host_shards(state_dict, coordinator_rank=0):
-    """The metadata and this process's shards, every tensor copied to the
-    host now (values may be overwritten in place by the next step, so
-    this part is never deferred)."""
+def _gather_host_shards(state_dict, coordinator_rank=0, snapshot=False):
+    """The metadata and this process's shards, each value taken now (the
+    next step may overwrite it in place): copied to the host, or with
+    ``snapshot`` a card tensor copied on the card, for ``_to_host`` to
+    bring over later."""
     meta = {"tensors": {}, "python_state": {}}
     shards = {}
     mesh = peek_default_mesh()
@@ -113,18 +117,22 @@ def _gather_host_shards(state_dict, coordinator_rank=0):
             # a replica another rank writes: only its global shape
             meta["tensors"][key] = {
                 "shape": list(placement.global_shape),
-                "dtype": "bfloat16" if v.dtype == torch.bfloat16 else
-                str(v.dtype).replace("torch.", "")}
+                "dtype": _dtype_tag(v.dtype)}
             continue
         if isinstance(v, torch.Tensor):
-            array, tag = host_array(v, copy=True)
+            if placement is None and not coordinator:
+                continue   # replicated: the coordinator writes it
+            if snapshot and v.is_cuda:
+                array, tag = v.detach().clone(), _dtype_tag(v.dtype)
+            else:
+                array, tag = host_array(v, copy=True)
         elif isinstance(v, np.ndarray):
             array, tag = np.array(v), None
         else:
             meta["python_state"][key] = v
             continue
         shape = placement.global_shape if placement is not None \
-            else array.shape
+            else tuple(array.shape)
         meta["tensors"][key] = {"shape": list(shape),
                                 "dtype": tag or str(array.dtype)}
         if placement is not None:
@@ -133,6 +141,42 @@ def _gather_host_shards(state_dict, coordinator_rank=0):
         elif coordinator:
             shards[key] = [(tuple((0, s) for s in array.shape), array)]
     return meta, shards
+
+
+def _dtype_tag(dtype):
+    """A torch dtype's name in the metadata (NumPy's, or "bfloat16")."""
+    if dtype == torch.bfloat16:
+        return "bfloat16"
+    return str(torch.empty((), dtype=dtype).numpy().dtype)
+
+
+def _to_host(shards):
+    """The card snapshots among ``shards`` copied to the host, on a stream
+    of this thread's own (the caller's stream keeps computing)."""
+    snaps = [d for pieces in shards.values() for _, d in pieces
+             if isinstance(d, torch.Tensor)]
+    if not snaps:
+        return shards
+    stream = torch.cuda.Stream(snaps[0].device)
+    with torch.cuda.stream(stream):
+        return {key: [(idx, host_array(d)[0]
+                       if isinstance(d, torch.Tensor) else d)
+                      for idx, d in pieces]
+                for key, pieces in shards.items()}
+
+
+class _HashingWriter:
+    """A file's ``write`` that also feeds each chunk to a sha256."""
+
+    def __init__(self, f):
+        self._f = f
+        self.sha = hashlib.sha256()
+        self.nbytes = 0
+
+    def write(self, chunk):
+        self.sha.update(chunk)
+        self.nbytes += memoryview(chunk).nbytes
+        return self._f.write(chunk)
 
 
 def _write_atomic(path, data, mode="wb"):
@@ -148,20 +192,33 @@ def save_state_dict(state_dict, path, process_group=None, coordinator_rank=0,
     ``AsyncSaveHandle`` once the values are on the host."""
     os.makedirs(path, exist_ok=True)
     rank = _process_index()
-    meta, shards = _gather_host_shards(state_dict, coordinator_rank)
+    meta, shards = _gather_host_shards(state_dict, coordinator_rank,
+                                       snapshot=async_save)
+    if async_save and any(isinstance(d, torch.Tensor)
+                          for pieces in shards.values() for _, d in pieces):
+        # the writer's stream waits for the card copies just queued
+        ready = torch.cuda.Event()
+        ready.record()
+    else:
+        ready = None
 
     def write():
         with _obs_trace.span("checkpoint.save", path=path, rank=rank,
                              async_save=async_save) as sp:
             shard_name = f"shard_{rank}.pkl"
             shard_path = os.path.join(path, shard_name)
-            payload = pickle.dumps(shards, protocol=4)
-            sp.set_attrs(bytes=len(payload), tensors=len(meta["tensors"]))
+            if ready is not None:
+                ready.synchronize()
             # the digest of the bytes on disk: load and latest_checkpoint
             # verify it, so a torn or bit-flipped shard is named, not
-            # unpickled
-            digest = hashlib.sha256(payload).hexdigest()
-            _write_atomic(shard_path, payload)
+            # unpickled. The pickle streams to the file (the bytes of
+            # pickle.dumps), hashed as it is written.
+            with open(shard_path + ".tmp", "wb") as f:
+                out = _HashingWriter(f)
+                pickle.Pickler(out, protocol=4).dump(_to_host(shards))
+            digest = out.sha.hexdigest()
+            os.replace(shard_path + ".tmp", shard_path)
+            sp.set_attrs(bytes=out.nbytes, tensors=len(meta["tensors"]))
             _write_atomic(shard_path + _DIGEST_SUFFIX, digest + "\n", "w")
             if rank == coordinator_rank:
                 meta["shard_digests"] = {shard_name: digest}

@@ -156,6 +156,15 @@ def _live():
     return dist.is_initialized()
 
 
+def _solo(g):
+    """True when a collective over ``g`` involves this rank alone and is an
+    identity: no world, or a group of one rank in a larger world (a mesh
+    axis of degree 1), whose process group is None, which
+    ``torch.distributed`` would take for the world. A live world of one
+    process still runs its collectives through the backend."""
+    return not _live() or (g.nranks == 1 and get_world_size() > 1)
+
+
 def get_backend(group=None):
     if not dist.is_initialized():
         return "gloo"
@@ -183,10 +192,13 @@ def _divide(t, n):
         t.floor_divide_(n)
 
 
-# torch renamed reduce_scatter_tensor to reduce_scatter_single; the card's
-# torch has only the old name
-_reduce_scatter_single = getattr(dist, "reduce_scatter_single",
-                                 dist.reduce_scatter_tensor)
+def _reduce_scatter_single(*args, **kwargs):
+    # torch renamed reduce_scatter_tensor to reduce_scatter_single; the
+    # card's torch has only the old name (looked up at each call, as every
+    # other collective is)
+    fn = getattr(dist, "reduce_scatter_single", None) or \
+        dist.reduce_scatter_tensor
+    return fn(*args, **kwargs)
 
 
 class _Done:
@@ -234,7 +246,7 @@ def all_gather(tensor_list, tensor, group=None, sync_op=True, quant=None):
     t = _raw(tensor)
     quant_cfg = cq.resolve_config(quant)
     tensor_list.clear()
-    if not _live():
+    if _solo(g):
         v = t if quant_cfg is None else cq.quantization_roundtrip(
             t, quant_cfg)
         tensor_list.extend(_like(tensor, v.clone()) for _ in range(g.nranks))
@@ -266,7 +278,7 @@ def _gather_codes(qs, ss, q, s, g):
 def all_gather_object(object_list, obj, group=None):
     g = _get_group(group)
     object_list.clear()
-    if not _live():
+    if _solo(g):
         object_list.extend([obj] * g.nranks)
         return
     out = [None] * g.nranks
@@ -278,7 +290,7 @@ def all_gather_object(object_list, obj, group=None):
 def broadcast(tensor, src=0, group=None, sync_op=True):
     """``src``'s tensor (``src`` a global rank) into every rank's."""
     g = _get_group(group)
-    if _live():
+    if not _solo(g):
         t = _raw(tensor)
         _run("broadcast", g, [t],
              lambda: dist.broadcast(t, src, group=g.pg))
@@ -287,7 +299,7 @@ def broadcast(tensor, src=0, group=None, sync_op=True):
 
 def broadcast_object_list(object_list, src=0, group=None):
     g = _get_group(group)
-    if _live():
+    if not _solo(g):
         _run("broadcast_object_list", g, [],
              lambda: dist.broadcast_object_list(object_list, src,
                                                 group=g.pg))
@@ -299,7 +311,7 @@ def scatter_object_list(out_object_list, in_object_list=None, src=0,
     """``src``'s k-th object lands on group rank k."""
     g = _get_group(group)
     objs = list(in_object_list or [])
-    if not _live():
+    if _solo(g):
         if len(objs) != g.nranks:
             raise ValueError(
                 f"scatter_object_list: got {len(objs)} objects for a "
@@ -322,7 +334,7 @@ def reduce(tensor, dst=0, op=ReduceOp.SUM, group=None, sync_op=True):
     """The reduction over ``group`` lands on ``dst`` (a global rank); the
     other ranks keep their tensors."""
     g = _get_group(group)
-    if not _live():
+    if _solo(g):
         return _Done()
     t = _raw(tensor)
     keep = None if get_rank() == dst else t.clone()
@@ -342,7 +354,7 @@ def scatter(tensor, tensor_list=None, src=0, group=None, sync_op=True):
     """Group rank k receives ``src``'s ``tensor_list[k]``."""
     g = _get_group(group)
     t = _raw(tensor)
-    if not _live():
+    if _solo(g):
         if tensor_list:
             t.copy_(_raw(tensor_list[max(g.rank, 0)]))
         return _Done()
@@ -370,7 +382,7 @@ def reduce_scatter(tensor, tensor_list, op=ReduceOp.SUM, group=None,
         if op not in (ReduceOp.SUM, ReduceOp.AVG):
             raise NotImplementedError(
                 "quantized reduce_scatter supports SUM/AVG only")
-        if not _live():
+        if _solo(g):
             out = cq.quantization_roundtrip(parts[max(g.rank, 0)].float(),
                                             quant_cfg)
         else:
@@ -381,7 +393,7 @@ def reduce_scatter(tensor, tensor_list, op=ReduceOp.SUM, group=None,
             out = out / g.nranks
         t.copy_(out.reshape(t.shape))
         return _Done()
-    if not _live():
+    if _solo(g):
         t.copy_(parts[max(g.rank, 0)])
         return _Done()
     flat = torch.cat([p.reshape(-1) for p in parts])
@@ -407,7 +419,7 @@ def alltoall(out_tensor_list, in_tensor_list, group=None, sync_op=True):
     g = _get_group(group)
     ins = [_raw(x) for x in in_tensor_list]
     out_tensor_list.clear()
-    if not _live():
+    if _solo(g):
         out_tensor_list.extend(_like(in_tensor_list[0], x.clone())
                                for x in ins)
         return _Done()
@@ -429,7 +441,7 @@ def alltoall_single(out_tensor, in_tensor, in_split_sizes=None,
     go one to each rank; ``out_tensor`` receives theirs in rank order."""
     g = _get_group(group)
     out, x = _raw(out_tensor), _raw(in_tensor)
-    if not _live():
+    if _solo(g):
         out.copy_(x)
         return _Done()
     if in_split_sizes is None and x.shape[0] % g.nranks:
@@ -529,7 +541,7 @@ def irecv(tensor, src=0, group=None, sync_op=True):
 
 def barrier(group=None):
     g = _get_group(group)
-    if _live():
+    if not _solo(g):
         kw = {}
         if get_backend(g) == "nccl":
             from .env import get_device

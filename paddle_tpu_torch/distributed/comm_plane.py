@@ -341,17 +341,17 @@ def drain(timeout=None):
 
 def reduce_array(t, group, op, quant_cfg=None):
     """All-reduce ``t`` over ``group``: in place in fp32 (the result is
-    ``t``), or through the quantized schedule (a new tensor). In a world
-    of one process it is ``t`` itself (one codec round trip when
-    quantized)."""
+    ``t``), or through the quantized schedule (a new tensor). With no
+    world, or over a group of one rank in a larger world, it is ``t``
+    itself; quantized over any group of one rank, one codec round
+    trip."""
     from . import collective as c
     from . import comm_quant as cq
     if quant_cfg is not None and op not in (c.ReduceOp.SUM, c.ReduceOp.AVG):
         raise NotImplementedError(
             "quantized all_reduce supports SUM/AVG only (max/min/prod do "
             "not commute with block-scaled integer accumulation)")
-    if not dist.is_initialized() or (quant_cfg is not None
-                                     and group.nranks == 1):
+    if c._solo(group) or (quant_cfg is not None and group.nranks == 1):
         if quant_cfg is not None:
             return cq.quantization_roundtrip(t, quant_cfg)
         return t
@@ -382,7 +382,7 @@ def async_all_reduce(tensor, group, op, quant_cfg=None, then=None,
             then(tensor)
         return tensor
 
-    if not dist.is_initialized():
+    if c._solo(group):
         return CollectiveWork(label, result=settle(
             reduce_array(tensor, group, op, quant_cfg)))
     if group.rank < 0:

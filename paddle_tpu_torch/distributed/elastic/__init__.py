@@ -1,23 +1,38 @@
-"""Elastic training's checkpoint lifecycle (counterpart:
-``paddle_tpu/distributed/elastic/__init__.py``): where a step's checkpoint
-lives (``checkpoint_path``), the digest gate (``verify_checkpoint``), the
-completion marker and retention (``mark_complete``, ``gc_checkpoints``),
-the newest complete and intact checkpoint (``latest_checkpoint``), the
-SIGTERM hook that takes a final checkpoint (``enable_preemption_checkpoint``)
-and the relaunch count (``restart_count``). The serving replica gates
-every model bundle through ``verify_checkpoint``. The relaunch manager
-(``ElasticManager``, ``elastic_launch``), the agent and the failure
-detector wait for the control plane (ROADMAP A8).
+"""Elastic training (counterpart: ``paddle_tpu/distributed/elastic/
+__init__.py``; upstream's elastic launch controller).
+
+- The checkpoint lifecycle: where a step's checkpoint lives
+  (``checkpoint_path``), the digest gate (``verify_checkpoint``), the
+  completion marker and retention (``mark_complete``, ``gc_checkpoints``),
+  the newest complete and intact checkpoint (``latest_checkpoint``), the
+  SIGTERM hook that takes a final checkpoint
+  (``enable_preemption_checkpoint``) and the relaunch count
+  (``restart_count``). The serving replica gates every model bundle
+  through ``verify_checkpoint``.
+- The one-node relaunch manager (``ElasticManager``, ``elastic_launch``):
+  the pod runs through the launcher's ``run_pod``; when it fails it runs
+  again, with ``PADDLE_RESTART_COUNT`` raised and a doubling backoff, up to
+  ``max_restarts``, and the trainers resume from ``latest_checkpoint()``
+  under ``PADDLE_ELASTIC_CKPT_DIR``.
+- ``FailureDetector``: a thread that heartbeats this rank into the store
+  and reports the ranks whose last beat (by the server's clock) is older
+  than ``timeout``, once each death; ``pause_heartbeats`` makes this
+  process look wedged to its peers.
+
+The multi-node agent over the store is ``elastic.agent``, its rendezvous
+``elastic.rendezvous``.
 """
 from __future__ import annotations
 
 import os
 import signal
 import sys
+import time
 
 from ...observability import trace as _obs_trace
 
-__all__ = ["enable_preemption_checkpoint", "latest_checkpoint",
+__all__ = ["ElasticManager", "elastic_launch", "FailureDetector",
+           "enable_preemption_checkpoint", "latest_checkpoint",
            "verify_checkpoint", "checkpoint_path", "mark_complete",
            "gc_checkpoints", "restart_count", "CKPT_DIR_ENV", "RESTART_ENV",
            "KEEP_CKPTS_ENV", "GENERATION_ENV"]
@@ -182,6 +197,59 @@ def gc_checkpoints(ckpt_dir=None, keep_last_k=3):
     return deleted
 
 
+class ElasticManager:
+    """Relaunch with restore: run the pod; when it fails, run it again with
+    ``PADDLE_RESTART_COUNT`` raised, so the trainers resume from
+    ``latest_checkpoint()``. Tearing the rest of the pod down when one rank
+    fails is ``run_pod``'s job; this loop owns the restarts."""
+
+    def __init__(self, max_restarts=3, min_backoff=1.0, max_backoff=30.0,
+                 ckpt_dir=None):
+        self.max_restarts = max_restarts
+        self.min_backoff = min_backoff
+        self.max_backoff = max_backoff
+        self.ckpt_dir = ckpt_dir
+        self.restarts = 0
+
+    def run(self, cmd, nranks=1, master=None, log_dir=None, base_env=None):
+        from ..env import find_free_port
+        from ..launch.main import run_pod
+        backoff = self.min_backoff
+        while True:
+            env = dict(base_env or os.environ)
+            env[RESTART_ENV] = str(self.restarts)
+            if self.ckpt_dir:
+                env[CKPT_DIR_ENV] = self.ckpt_dir
+            m = master or (f"127.0.0.1:{find_free_port()}"
+                           if nranks > 1 else "")
+            rd = None if log_dir is None else os.path.join(
+                log_dir, f"restart_{self.restarts}")
+            rc = run_pod(cmd, range(nranks), nranks, m, log_dir=rd,
+                         base_env=env)
+            if rc == 0:
+                return 0
+            if self.restarts >= self.max_restarts:
+                print(f"elastic: giving up after {self.restarts} restarts "
+                      f"(last rc={rc})", file=sys.stderr)
+                return rc
+            self.restarts += 1
+            ckpt = latest_checkpoint(self.ckpt_dir)
+            print(f"elastic: pod failed (rc={rc}); restart "
+                  f"{self.restarts}/{self.max_restarts} from "
+                  f"{ckpt or 'scratch'} in {backoff:.1f}s", file=sys.stderr)
+            time.sleep(backoff)
+            backoff = min(backoff * 2, self.max_backoff)
+
+
+def elastic_launch(cmd, nranks=1, max_restarts=3, master=None, log_dir=None,
+                   ckpt_dir=None, min_backoff=1.0):
+    """One call: the pod under ``ElasticManager``, relaunched with restore
+    up to ``max_restarts`` times."""
+    return ElasticManager(max_restarts=max_restarts, ckpt_dir=ckpt_dir,
+                          min_backoff=min_backoff).run(
+        cmd, nranks=nranks, master=master, log_dir=log_dir)
+
+
 _preempt_state = {"installed": False, "save_fn": None, "prev": None,
                   "exit_code": 0}
 
@@ -233,3 +301,110 @@ def restart_count():
     """How many times a relaunching manager has restarted this trainer
     (``PADDLE_RESTART_COUNT``, 0 when unset)."""
     return int(os.environ.get(RESTART_ENV, "0"))
+
+
+class FailureDetector:
+    """Heartbeat-based failure detection over the ``TCPStore``: a thread
+    heartbeats this rank every ``interval`` seconds and asks the server
+    for the ranks whose last beat (by the server's monotonic clock) is
+    older than ``timeout``, calling ``on_failure(dead_ranks)`` once for
+    each newly dead set. A rank that comes back and dies again is
+    reported again."""
+
+    def __init__(self, store, interval=1.0, timeout=5.0, on_failure=None,
+                 clock=None):
+        from ..substrate import SYSTEM_CLOCK
+        self.store = store
+        self.interval = interval
+        self.timeout = timeout
+        self.on_failure = on_failure
+        self._clock = clock if clock is not None else SYSTEM_CLOCK
+        self._reported = set()
+        self._stop = None
+        self._thread = None
+        self._hb_store = None
+        self._hb_paused = False
+        self.last_error = None
+        self.failed = False
+
+    def pause_heartbeats(self):
+        """Stop sending heartbeats while the detector keeps polling: to
+        its peers this process now looks wedged (socket alive, liveness
+        silent). Safe in a signal handler (it sets a flag)."""
+        self._hb_paused = True
+
+    def resume_heartbeats(self):
+        self._hb_paused = False
+
+    def _prepare(self):
+        """The loop's state without its thread: the stop event and a
+        connection of its own (the main connection's lock is held across
+        a blocking ``wait``, which would starve the heartbeats)."""
+        import threading
+        if self.store.rank is None:
+            raise ValueError(
+                "FailureDetector needs a rank-aware store "
+                "(TCPStore(rank=...))")
+        self._stop = threading.Event()
+        self.last_error = None
+        self.failed = False
+        # clone(), so a ReplicatedStore's detector keeps its endpoints
+        # and follows a failover too
+        self._hb_store = self.store.clone()
+
+    def _detector_loop(self):
+        from ..store import StoreOpTimeout
+        errors = 0
+        while not self._stop.is_set():
+            try:
+                if not self._hb_paused:
+                    self._hb_store.heartbeat()
+                dead = set(self._hb_store.dead_ranks(self.timeout))
+                errors = 0
+            except (RuntimeError, StoreOpTimeout) as e:
+                # a passing store error is retried; the third in a row
+                # marks the store gone (``failed``), never a silent death
+                errors += 1
+                self.last_error = e
+                if errors >= 3:
+                    self.failed = True
+                    break
+                self._clock.wait(self._stop, self.interval)
+                continue
+            self._reported &= dead
+            fresh = dead - self._reported
+            if fresh and self.on_failure is not None:
+                self._reported |= fresh
+                try:
+                    self.on_failure(sorted(fresh))
+                except Exception as e:
+                    # a raising callback must not end the thread; the
+                    # ranks are reported again on the next sweep
+                    self.last_error = e
+                    self._reported -= fresh
+            self._clock.wait(self._stop, self.interval)
+
+    def start(self):
+        import threading
+        if self._thread is not None:
+            return self
+        self._prepare()
+        self._thread = threading.Thread(target=self._detector_loop,
+                                        daemon=True)
+        self._thread.start()
+        return self
+
+    def stop(self, deregister=True):
+        if self._stop is not None:
+            self._stop.set()
+        if self._thread is not None:
+            self._thread.join(timeout=5)
+            self._thread = None
+        if deregister and self._hb_store is not None:
+            try:
+                self._hb_store.deregister()
+            except Exception:
+                pass  # the store may be gone; peers reap the entry
+        if self._hb_store is not None:
+            self._hb_store.close()
+            self._hb_store = None

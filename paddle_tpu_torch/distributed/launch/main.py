@@ -3,6 +3,7 @@
 
     python -m paddle_tpu_torch.distributed.launch --nproc_per_node N \
         [--nnodes M --rank R --master HOST:PORT --log_dir DIR] \
+        [--elastic [--min_nnodes M] [--max_restarts K] [--host_store]] \
         script.py [args]
 
 starts one fresh interpreter per rank of this node (never a fork), each
@@ -12,9 +13,19 @@ with the reference's env contract (``PADDLE_TRAINER_ID``,
 ``<log_dir>/workerlog.<rank>`` (to this process's own output without
 ``--log_dir``), and watches the ranks: when one exits non-zero the others
 get SIGTERM, then SIGKILL after a grace period, and the launcher exits
-with that rank's code. ``--elastic``, ``--max_restarts``,
-``--min_nnodes`` and ``--host_store`` belong to the elastic control plane,
-which is not ported yet, and raise (ROADMAP A8).
+with that rank's code.
+
+``--elastic`` on one node (no ``--min_nnodes``) reruns the pod through
+``elastic.ElasticManager`` up to ``--max_restarts`` times, with
+``PADDLE_RESTART_COUNT`` raised each time. With ``--nnodes`` above 1 or
+``--min_nnodes`` it runs this node's ``elastic.agent.ElasticAgent``: the
+agents rendezvous through the ``TCPStore`` at ``--master`` (hosted by the
+agent given ``--host_store``, or by ``python -m
+paddle_tpu_torch.distributed.elastic.agent --serve_store``; a comma list of
+endpoints names a replicated store), recompute the world on scale-in and
+scale-out and restart the trainers from the latest checkpoint. With
+``--min_nnodes`` and no ``--master`` the agent hosts the store on a free
+local port. A bad ``--min_nnodes`` or ``--master`` exits 2.
 """
 from __future__ import annotations
 
@@ -27,14 +38,12 @@ import time
 from ...observability import flight as _obs_flight
 from ..env import find_free_port
 
-_CONTROL_PLANE = ("--elastic", "--max_restarts", "--min_nnodes",
-                  "--host_store")
-
 
 def _parse(argv):
     opts = {"nnodes": 1, "nproc_per_node": 1, "rank": None,
             "master": os.environ.get("PADDLE_MASTER", ""),
-            "log_dir": None, "script": []}
+            "log_dir": None, "script": [], "elastic": False,
+            "max_restarts": 3, "min_nnodes": None, "host_store": False}
     i = 0
     while i < len(argv):
         a = argv[i]
@@ -48,10 +57,14 @@ def _parse(argv):
             opts["rank"] = int(argv[i + 1]); i += 2
         elif a == "--log_dir":
             opts["log_dir"] = argv[i + 1]; i += 2
-        elif a in _CONTROL_PLANE:
-            raise NotImplementedError(
-                f"{a} needs the elastic control plane, which the port has "
-                "not yet (ROADMAP A8)")
+        elif a == "--elastic":
+            opts["elastic"] = True; i += 1
+        elif a == "--max_restarts":
+            opts["max_restarts"] = int(argv[i + 1]); i += 2
+        elif a == "--min_nnodes":
+            opts["min_nnodes"] = int(argv[i + 1]); i += 2
+        elif a == "--host_store":
+            opts["host_store"] = True; i += 1
         elif a in ("--devices", "--gpus", "--xpus"):
             i += 2   # accepted for compatibility: rank k takes card k
         else:
@@ -152,11 +165,29 @@ def launch():
     if not opts["script"]:
         print("usage: python -m paddle_tpu_torch.distributed.launch "
               "[--nnodes N --nproc_per_node P --master H:P --rank R "
-              "--log_dir D] script.py [args]", file=sys.stderr)
+              "--log_dir D] [--elastic --min_nnodes M --max_restarts K "
+              "--host_store] script.py [args]", file=sys.stderr)
         sys.exit(2)
     nnodes, nproc = opts["nnodes"], opts["nproc_per_node"]
     world = nnodes * nproc
     master = opts["master"]
+    elastic_multinode = opts["elastic"] and (
+        nnodes > 1 or opts["min_nnodes"] is not None)
+    if opts["min_nnodes"] is not None and not \
+            (1 <= opts["min_nnodes"] <= nnodes):
+        print(f"--min_nnodes must satisfy 1 <= M <= nnodes "
+              f"(got M={opts['min_nnodes']}, nnodes={nnodes})",
+              file=sys.stderr)
+        sys.exit(2)
+    if elastic_multinode and not master:
+        if nnodes > 1:
+            print("--master host:port is required for multi-node launch",
+                  file=sys.stderr)
+            sys.exit(2)
+        # one elastic node with --min_nnodes: host the membership store
+        # here, on a port decided before the fallback below takes one
+        master = f"127.0.0.1:{find_free_port()}"
+        opts["host_store"] = True
     if world > 1 and not master:
         if nnodes > 1:
             print("--master host:port is required for multi-node launch",
@@ -169,6 +200,30 @@ def launch():
             "PADDLE_NODE_RANK", os.environ.get("PADDLE_TRAINER_ID", "0")))
     ranks = range(node_rank * nproc, node_rank * nproc + nproc)
     cmd = [sys.executable] + opts["script"]
+    if elastic_multinode:
+        from ..elastic.agent import ElasticAgent
+        from ..store_ha import parse_endpoints
+        try:
+            endpoints = parse_endpoints(master)
+        except ValueError as e:
+            print(f"--master must be host:port[,host:port...] "
+                  f"(got {master!r}: {e})", file=sys.stderr)
+            sys.exit(2)
+        host, port = endpoints[0]
+        sys.exit(ElasticAgent(
+            cmd, nproc_per_node=nproc,
+            store_host=host or "127.0.0.1", store_port=port,
+            nnodes=nnodes, min_nnodes=opts["min_nnodes"] or nnodes,
+            max_restarts=opts["max_restarts"],
+            log_dir=opts["log_dir"],
+            host_store=opts["host_store"],
+            store_endpoints=endpoints if len(endpoints) > 1 else None)
+            .run())
+    if opts["elastic"]:
+        from ..elastic import ElasticManager
+        sys.exit(ElasticManager(max_restarts=opts["max_restarts"]).run(
+            cmd, nranks=nproc, master=master or None,
+            log_dir=opts["log_dir"]))
     sys.exit(run_pod(cmd, ranks, world, master, log_dir=opts["log_dir"]))
 
 

@@ -23,11 +23,18 @@ across the ranks before the clip and the update, in
 loader is sharded over the data axes only (dp x sharding): the ranks of
 one mp group take the same batches. ``save`` writes ``path.pdparams``
 and ``path.pdopt`` through ``paddle.save`` and ``load`` reads them back
-in place; ``save(training=False)``, an inference export, waits for the
-jit surface (ROADMAP A10). When the optimizer's learning rate is
+in place; ``save(training=False)`` writes an inference export through
+``jit.save``. When the optimizer's learning rate is
 an ``LRScheduler``, ``fit`` steps it once per epoch, after the epoch's
 batches and before the evaluation, as the reference does (the
 ``LRScheduler`` callback can step it per batch as well).
+
+Over a ``PipelineParallel`` in one process, ``fit``, ``evaluate`` and
+``predict`` run the network as the reference does: ``network(*ins)`` is the
+whole ``PipelineLayer`` through ``PipelineParallel.forward``, compiled into
+the ``CompiledTrainStep`` like any other layer. Where the pp group spans
+processes (each rank holds one stage's segment) that would take one
+segment for the whole network, so it raises (ROADMAP A7).
 """
 from __future__ import annotations
 
@@ -52,11 +59,12 @@ class Model:
     def __init__(self, network, inputs=None, labels=None):
         from ..distributed.fleet.meta_parallel.pipeline_parallel import \
             PipelineParallel
-        if isinstance(network, PipelineParallel):
+        if isinstance(network, PipelineParallel) and network._multi:
             raise NotImplementedError(
-                "Model over a PipelineParallel (fit, evaluate and predict "
-                "through the pipeline's schedule) is not ported yet "
-                "(ROADMAP A7); call its train_batch and eval_batch")
+                "Model over a PipelineParallel whose pp group spans "
+                "processes (each rank holds one stage's segment) is not "
+                "ported yet (ROADMAP A7); call its train_batch and "
+                "eval_batch")
         self.network = network
         self._inputs = inputs
         self._labels = labels

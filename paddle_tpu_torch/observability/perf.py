@@ -1,6 +1,6 @@
 """The StepMeter: per-step accounting of the train step into the metrics
-registry (counterpart: ``paddle_tpu/observability/perf.py``, its
-single-process part).
+registry, and cross-rank straggler detection over the membership store
+(counterpart: ``paddle_tpu/observability/perf.py``).
 
 ``StepMeter`` wraps a step (``with perf.METER.step(tokens=, flops=):``)
 and records, per step, the wall ms (histogram ``perf_step_ms``), the step
@@ -27,22 +27,55 @@ the step blocked waiting for them) and ``perf_step_hidden_ms`` (the
 rest, hidden behind compute). A provider that raises at the end of a
 step is counted (``perf_straggler_check_errors_total``), not raised.
 
-Not in this slice: the reference's cross-rank straggler detection over
-the membership store with triggered tracing: ``configure_straggler``
-raises ``NotImplementedError`` (ROADMAP A8).
+Straggler detection rides the membership store the elastic stack shares
+(duck-typed ``set``/``get``/``compare_set``), as in the reference:
+``configure_straggler(store, rank, ...)`` makes every ``check_every``-th
+step publish the rank's rolling-median step ms under
+``__perf/step_ms/r{rank}`` (the rank index ``__perf/ranks`` kept by
+``metrics.cas_index``) and fold the fleet's published medians; with three
+or more warm ranks, a rank whose median exceeds ``fleet_median + k * MAD``
+and ``min_ratio`` times the median is flagged. The first detector wins a
+``compare_set`` on ``__perf/straggler``, and every rank that sees the flag
+arms triggered tracing: the next ``trace_steps`` steps are traced, then the
+trace is exported and a flight-recorder dump names the straggler. A flag
+expires after ``PADDLE_STEP_METER_FLAG_TTL`` seconds. A failing store is
+counted in ``perf_straggler_check_errors_total``, never raised into the
+training loop.
 """
 from __future__ import annotations
 
+import collections
+import json
 import os
+import statistics
 import sys
 import threading
 import time
 
 import torch
 
-from . import metrics, trace
+from . import flight, metrics, trace
 
 METER_ENV = "PADDLE_STEP_METER"
+K_ENV = "PADDLE_STEP_METER_K"                    # MAD multiplier
+WINDOW_ENV = "PADDLE_STEP_METER_WINDOW"          # rolling median window
+CHECK_EVERY_ENV = "PADDLE_STEP_METER_CHECK_EVERY"
+TRACE_STEPS_ENV = "PADDLE_STEP_METER_TRACE_STEPS"
+MIN_RATIO_ENV = "PADDLE_STEP_METER_MIN_RATIO"
+FLAG_TTL_ENV = "PADDLE_STEP_METER_FLAG_TTL"      # seconds a flag stays live
+
+_PERF_PREFIX = "__perf"
+_FLAG_KEY = f"{_PERF_PREFIX}/straggler"
+
+_DEFAULTS = {"k": 4.0, "window": 8, "check_every": 2, "trace_steps": 5,
+             "min_ratio": 1.3, "flag_ttl": 600.0}
+
+
+def _env_float(env, default):
+    try:
+        return float(os.environ.get(env, default))
+    except ValueError:
+        return default
 
 
 class _NullStep:
@@ -112,9 +145,32 @@ class StepMeter:
         self.enabled = str(os.environ.get(METER_ENV, "")).strip().lower() \
             not in ("", "0", "false", "off", "no")
         self._tls = threading.local()
+        self._lock = threading.Lock()
         self._ceiling_tflops = None
         self._metrics = None
         self._comm_stats = _default_comm_stats
+        self._steps = 0
+        self._window = collections.deque(
+            maxlen=max(int(_env_float(WINDOW_ENV, _DEFAULTS["window"])),
+                       2))
+        # the straggler check's state (no store until configure_straggler);
+        # intervals from the environment are clamped to 1 and more, as the
+        # arguments are
+        self._store = None
+        self._rank = None
+        self._k = _env_float(K_ENV, _DEFAULTS["k"])
+        self._check_every = max(int(_env_float(CHECK_EVERY_ENV,
+                                               _DEFAULTS["check_every"])),
+                                1)
+        self._trace_steps = max(int(_env_float(TRACE_STEPS_ENV,
+                                               _DEFAULTS["trace_steps"])),
+                                1)
+        self._min_ratio = _env_float(MIN_RATIO_ENV, _DEFAULTS["min_ratio"])
+        self._flag_ttl = _env_float(FLAG_TTL_ENV, _DEFAULTS["flag_ttl"])
+        self._trace_dir = None
+        self._armed = None           # {"straggler", "steps_left", ...}
+        self._last_handled = None    # the flag already traced
+        self.last_trigger = None     # the last dump's artifacts
 
     def enable(self):
         self.enabled = True
@@ -137,10 +193,30 @@ class StepMeter:
         self._comm_stats = fn
         return self
 
-    def configure_straggler(self, store, rank, **kwargs):
-        raise NotImplementedError(
-            "cross-rank straggler detection needs the membership store, "
-            "which the port has not yet (ROADMAP A8)")
+    def configure_straggler(self, store, rank, k=None, check_every=None,
+                            trace_steps=None, trace_dir=None,
+                            min_ratio=None, window=None):
+        """Arm cross-rank straggler detection over the shared membership
+        ``store``: every ``check_every`` steps this rank publishes its
+        rolling-median step ms and folds the fleet's (three or more
+        published ranks needed). Enables the meter."""
+        self._store = store
+        self._rank = rank
+        if k is not None:
+            self._k = float(k)
+        if check_every is not None:
+            self._check_every = max(int(check_every), 1)
+        if trace_steps is not None:
+            self._trace_steps = max(int(trace_steps), 1)
+        if min_ratio is not None:
+            self._min_ratio = float(min_ratio)
+        if window is not None:
+            self._window = collections.deque(self._window,
+                                             maxlen=max(int(window), 2))
+        self._trace_dir = trace_dir
+        metrics.cas_index(store, f"{_PERF_PREFIX}/ranks", rank,
+                          what="perf publish rank index")
+        return self.enable()
 
     def step(self, tokens=None, flops=None, **attrs):
         """Open a metered step (context manager). Disabled: one attribute
@@ -166,8 +242,11 @@ class StepMeter:
                 "comm_ms": metrics.gauge("perf_step_comm_ms"),
                 "exposed_ms": metrics.gauge("perf_step_exposed_ms"),
                 "hidden_ms": metrics.gauge("perf_step_hidden_ms"),
+                "detections": metrics.counter(
+                    "perf_straggler_detections_total"),
                 "check_errors": metrics.counter(
                     "perf_straggler_check_errors_total"),
+                "straggler_rank": metrics.gauge("perf_straggler_rank"),
             }
             if self._ceiling_tflops:
                 m["ceiling_tflops"].set(self._ceiling_tflops)
@@ -211,6 +290,175 @@ class StepMeter:
         if exc_type is not None:
             span_attrs["error"] = exc_type.__name__
         trace.complete_span("perf.step", step.t0, t1, **span_attrs)
+        with self._lock:
+            self._window.append(step_ms)
+            self._steps += 1
+            nsteps = self._steps
+            armed = self._armed
+        if armed is not None:
+            armed["steps_left"] -= 1
+            if armed["steps_left"] <= 0:
+                self._finish_trigger(armed)
+        elif self._store is not None and \
+                nsteps % self._check_every == 0:
+            try:
+                self._check_straggler()
+            except Exception:  # counted: a sick store must not end training
+                m["check_errors"].inc()
+
+    # -- straggler detection --------------------------------------------------
+    def _check_straggler(self):
+        med = statistics.median(self._window)
+        store, rank = self._store, self._rank
+        warm = len(self._window) >= (self._window.maxlen or 1)
+        store.set(f"{_PERF_PREFIX}/step_ms/r{rank}",
+                  json.dumps({"median_ms": med, "steps": self._steps,
+                              "warm": warm}))
+        # a raised flag wins over recomputing, so every rank (the
+        # straggler too) converges on one trigger; a flag older than its
+        # TTL (by the wall clock, the one clock comparable across
+        # processes) is cleared and detection resumes
+        flag = _read_flag(store)
+        if flag is not None:
+            if time.time() - float(flag.get("ts", 0)) <= self._flag_ttl:
+                self._arm(flag)
+                return
+            _clear_flag(store, flag)
+        if not warm:
+            return  # a cold window would flag warm-up noise
+        vals = {}
+        for r in _published_ranks(store):
+            try:
+                d = json.loads(
+                    store.get(f"{_PERF_PREFIX}/step_ms/r{r}").decode())
+                if d.get("warm"):
+                    vals[r] = float(d["median_ms"])
+            except KeyError:
+                continue  # registered, not yet published
+        if len(vals) < 3:
+            return  # a MAD over fewer than three ranks cannot tell noise
+        fleet_med = statistics.median(vals.values())
+        mad = statistics.median(
+            [abs(v - fleet_med) for v in vals.values()])
+        threshold = max(fleet_med + self._k * mad,
+                        fleet_med * self._min_ratio)
+        worst = max(vals, key=lambda r: vals[r])
+        if vals[worst] <= threshold:
+            return
+        info = {"rank": worst, "step_ms": round(vals[worst], 3),
+                "fleet_median_ms": round(fleet_med, 3),
+                "mad_ms": round(mad, 3), "k": self._k,
+                "detector": str(rank), "ts": time.time()}
+        _, won = store.compare_set(_FLAG_KEY, "", json.dumps(info))
+        if not won:  # another detector won: take the agreed flag
+            info = _read_flag(store) or info
+        self._arm(info)
+
+    def _arm(self, info):
+        """Start triggered tracing: the next ``trace_steps`` steps are
+        traced, then exported and flight-dumped naming the straggler."""
+        if self._armed is not None or info == self._last_handled:
+            return
+        m = self._ensure_metrics()
+        m["detections"].inc()
+        m["straggler_rank"].set(int(info.get("rank", -1))
+                                if str(info.get("rank", "")).isdigit()
+                                else -1)
+        enabled_trace = not trace.TRACER.enabled
+        if enabled_trace:
+            trace.enable(dir=self._trace_dir)
+        enabled_flight = not flight.RECORDER.enabled
+        if enabled_flight:
+            flight.RECORDER.enabled = True
+        trace.event("perf.straggler_flagged", **info)
+        self._armed = {"straggler": info,
+                       "steps_left": self._trace_steps,
+                       "enabled_trace": enabled_trace,
+                       "enabled_flight": enabled_flight}
+
+    def _finish_trigger(self, armed):
+        info = armed["straggler"]
+        d = self._trace_dir
+        if d is None:
+            d = os.environ.get(trace.TRACE_DIR_ENV) or None
+        trace_path = None
+        try:
+            if d is not None:
+                os.makedirs(d, exist_ok=True)
+                trace_path = trace.TRACER.export(
+                    os.path.join(d, f"trace.{os.getpid()}.json"))
+            else:
+                trace_path = trace.TRACER.export()
+        except Exception:
+            pass  # a full disk must not end training; the dump follows
+        flight_path = None
+        path = None if d is None else os.path.join(
+            d, f"flight.straggler.{os.getpid()}.{self._rank}.json")
+        was_flight = flight.RECORDER.enabled
+        try:
+            # the dump is the trigger's point: force it even if another
+            # meter turned the shared recorder off meanwhile
+            flight.RECORDER.enabled = True
+            flight_path = flight.RECORDER.dump(
+                path=path, reason=f"straggler: rank {info.get('rank')}",
+                straggler=info, detector_rank=str(self._rank))
+        except Exception:
+            pass
+        finally:
+            flight.RECORDER.enabled = was_flight
+        if armed["enabled_trace"]:
+            trace.disable()
+        if armed["enabled_flight"]:
+            flight.RECORDER.enabled = False
+        self.last_trigger = {"straggler": info, "trace_path": trace_path,
+                             "flight_path": flight_path}
+        self._last_handled = info
+        self._armed = None
+
+    def armed(self):
+        return self._armed is not None
+
+    def reset(self):
+        """Forget steps, window and trigger state (the metrics' series
+        stay: clear the registry apart)."""
+        with self._lock:
+            self._steps = 0
+            self._window.clear()
+            self._armed = None
+            self._last_handled = None
+            self.last_trigger = None
+
+
+def _published_ranks(store):
+    try:
+        raw = store.get(f"{_PERF_PREFIX}/ranks").decode()
+    except KeyError:
+        return []
+    return sorted(r for r in raw.split(",") if r)
+
+
+def _read_flag(store):
+    try:
+        raw = store.get(_FLAG_KEY).decode()
+    except KeyError:
+        return None
+    if not raw:
+        return None  # a cleared flag
+    try:
+        return json.loads(raw)
+    except ValueError:
+        return None  # a torn write: no flag
+
+
+def _clear_flag(store, expected):
+    """Best effort: an expired flag back to empty by ``compare_set`` (a
+    new flag raised meanwhile wins and stays)."""
+    try:
+        raw = store.get(_FLAG_KEY).decode()
+        if json.loads(raw) == expected:
+            store.compare_set(_FLAG_KEY, raw, "")
+    except Exception:
+        pass  # at worst a stale flag the TTL check keeps ignoring
 
 
 def _default_comm_stats():

@@ -233,9 +233,17 @@ def test_launcher_tears_down_when_a_rank_fails(tmp_path):
 @pytest.mark.parametrize("flag", ["--elastic", "--max_restarts",
                                   "--host_store", "--min_nnodes"])
 def test_launcher_refuses_the_control_plane(flag):
+    """The control plane's flags, once refused naming ROADMAP A8, parse as
+    the reference's launcher parses them."""
+    from paddle_tpu.distributed.launch.main import _parse as jparse
+
     from paddle_tpu_torch.distributed.launch.main import _parse
-    with pytest.raises(NotImplementedError, match="A8"):
-        _parse([flag, "2", "train.py"])
+    argv = [flag, "2", "train.py"]
+    want = jparse(argv)
+    got = _parse(argv)
+    assert {k: got[k] for k in want} == want
+    assert got[flag[2:]] == want[flag[2:]] != \
+        _parse(["train.py"])[flag[2:]]
 
 
 def test_launcher_parses_the_reference_options():
@@ -282,6 +290,38 @@ def test_world_of_one_process_is_an_identity():
     dist.all_gather(rows, t)
     assert len(rows) == 1 and torch.equal(rows[0], t)
     assert dist.all_reduce(t, sync_op=False).wait()
+
+
+_WORLD_OF_ONE = """
+import torch
+import torch.distributed as tdist
+import paddle_tpu_torch.distributed as dist
+dist.init_parallel_env(device="cpu")
+calls = []
+for name in ("all_reduce", "all_gather", "broadcast", "barrier"):
+    def counted(*a, _fn=getattr(tdist, name), _name=name, **k):
+        calls.append(_name)
+        return _fn(*a, **k)
+    setattr(tdist, name, counted)
+t = torch.arange(4.0)
+dist.all_reduce(t)
+dist.broadcast(t, 0)
+rows = []
+dist.all_gather(rows, t)
+dist.barrier()
+assert t.tolist() == [0, 1, 2, 3] and len(rows) == 1, (t, rows)
+print("calls", sorted(calls), flush=True)
+print(f"rank{dist.get_rank()} ok", flush=True)
+"""
+
+
+def test_live_world_of_one_runs_collectives_through_the_backend(tmp_path):
+    """A process group of one rank is live: its collectives reach the
+    backend (only a sub-group of one in a larger world is an identity)."""
+    proc, logs = launch(tmp_path, _WORLD_OF_ONE, nproc=1)
+    assert_ranks_ok(proc, logs, nproc=1)
+    assert "calls ['all_gather', 'all_reduce', 'barrier', 'broadcast']" in \
+        logs["workerlog.0"], logs
 
 
 def test_init_without_a_card_names_the_cpu(monkeypatch):

@@ -2,10 +2,10 @@
 ``scripts/profile_torch_train_step.py``, ``scripts/ab_eager_amp.py``,
 ``scripts/ab_data_parallel.py``, ``scripts/chip_grad_comm.py``,
 ``scripts/chip_auto_parallel.py``, ``scripts/chip_pipeline_3d.py``,
-``scripts/chip_jit.py`` and ``scripts/chip_context_hybrid.py`` import
-neither ``jax`` nor anything of ``paddle_tpu`` — not even its modules that
-do not import JAX. Later slices that reach into the JAX package fail
-here."""
+``scripts/chip_jit.py``, ``scripts/chip_context_hybrid.py`` and
+``scripts/chip_elastic.py`` import neither ``jax`` nor anything of
+``paddle_tpu`` — not even its modules that do not import JAX. Later
+slices that reach into the JAX package fail here."""
 import ast
 import os
 import subprocess
@@ -28,7 +28,8 @@ def _port_files():
                     ROOT / "scripts" / "chip_auto_parallel.py",
                     ROOT / "scripts" / "chip_pipeline_3d.py",
                     ROOT / "scripts" / "chip_jit.py",
-                    ROOT / "scripts" / "chip_context_hybrid.py"]
+                    ROOT / "scripts" / "chip_context_hybrid.py",
+                    ROOT / "scripts" / "chip_elastic.py"]
 
 
 def _imported_roots(path):
@@ -73,6 +74,10 @@ def test_importing_the_port_loads_neither_package():
         "import paddle_tpu_torch.distributed.store\n"
         "import paddle_tpu_torch.distributed.substrate\n"
         "import paddle_tpu_torch.distributed.elastic\n"
+        "import paddle_tpu_torch.distributed.elastic.agent\n"
+        "import paddle_tpu_torch.distributed.elastic.rendezvous\n"
+        "import paddle_tpu_torch.distributed.store_ha\n"
+        "import paddle_tpu_torch.distributed.rpc\n"
         "import paddle_tpu_torch.distributed.checkpoint\n"
         "import paddle_tpu_torch.framework.io\n"
         "import paddle_tpu_torch.utils.dlpack\n"

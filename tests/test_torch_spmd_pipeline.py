@@ -16,8 +16,9 @@ In one process:
   honour it, and inside the pipeline (a pp 2 x mp 2 layout) commits each
   stacked leaf to the reference's ``_tp_param_specs`` axes; the pipeline
   with sep builds and ZeRO with sep syncs (their steps:
-  ``tests/test_torch_context_hybrid.py``), while ``Model`` over a
-  ``PipelineParallel`` raises naming A7 (ZeRO with the pipeline runs:
+  ``tests/test_torch_context_hybrid.py``), and ``Model`` over a
+  one-process ``PipelineParallel`` builds while one over pp ranks that are
+  processes raises naming A7 (ZeRO with the pipeline runs:
   ``tests/test_torch_pipeline_3d.py``).
 
 Across four gloo ranks on the CPU (launched once for the file,
@@ -207,8 +208,8 @@ def test_refusals_match_reference(recwarn):
 def test_pipeline_compositions_left_raise_naming_a7():
     """The pipeline on a sep mesh builds (its pp groups at one sep
     coordinate), and ``sync_gradients`` takes a ZeRO-3 parameter there;
-    a ``Model`` over a ``PipelineParallel`` still raises naming ROADMAP
-    A7."""
+    a ``Model`` over a one-process ``PipelineParallel`` builds, and over
+    one whose pp ranks are processes still raises naming ROADMAP A7."""
     from paddle_tpu_torch.distributed.fleet.meta_parallel import (
         PipelineLayer, PipelineParallel, sharding)
     from paddle_tpu_torch.hapi.model import Model
@@ -230,6 +231,8 @@ def test_pipeline_compositions_left_raise_naming_a7():
             return 0
 
     pipe = PipelineParallel(PipelineLayer([torch.nn.Tanh()]), Hcg(), None)
+    assert Model(pipe).network is pipe
+    pipe._multi = True     # as built when the pp ranks are processes
     with pytest.raises(NotImplementedError, match="ROADMAP A7"):
         Model(pipe)
 

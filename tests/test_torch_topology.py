@@ -16,8 +16,8 @@ eight ranks is a layout whose groups are rank lists.
   their groups equal the reference's.
 - ``fleet.init``'s mesh for dp 4 x mp 2 (``tests/test_fleet_e2e.py:68``):
   the reference's axis order and sizes.
-- What is not ported raises, naming ROADMAP A7: a ``Model`` over a
-  ``PipelineParallel``. Every name the reference exports from
+- A ``Model`` over a one-process ``PipelineParallel`` builds; over one
+  whose pp group spans processes it raises, naming ROADMAP A7. Every name the reference exports from
   ``auto_parallel`` and the fleet executor resolves on
   ``paddle_tpu_torch.distributed``.
 """
@@ -230,13 +230,17 @@ def test_semi_auto_and_executor_names_resolve(module, name):
 
 
 def test_pipeline_classes_raise_naming_a7():
-    """The pipeline's classes are ported; what of the pipeline is left
-    raises naming ROADMAP A7: a ``Model`` over a ``PipelineParallel``."""
+    """The pipeline's classes are ported; a ``Model`` over a one-process
+    ``PipelineParallel`` builds, and what of the pipeline is left raises
+    naming ROADMAP A7: a ``Model`` over one whose stages are processes."""
     import torch
 
     from paddle_tpu_torch.distributed.fleet import meta_parallel as mpar
     from paddle_tpu_torch.hapi.model import Model
     layer = mpar.PipelineLayer([mpar.LayerDesc(torch.nn.Tanh)],
                                num_stages=1)
+    pipe = mpar.PipelineParallel(layer, None, None)
+    assert Model(pipe).network is pipe
+    pipe._multi = True     # as built when the pp ranks are processes
     with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        Model(mpar.PipelineParallel(layer, None, None))
+        Model(pipe)
