@@ -277,9 +277,24 @@ by route) set to 0 just before it and read just after:
   same checkpoint; node 0's restart count stays 1 and its agent exits 0
   (each generation's world, first step and restart counts, detection and
   restart seconds, checkpoint save seconds, step ms and tokens/s at world
-  2 and 1, peak memory; K2 and K3 12 a step in every trainer).
+  2 and 1, peak memory; K2 and K3 12 a step in every trainer);
+- observability (``observability``): GPT-124M O2 AdamW training at
+  bench.py's width, its batches through the threaded ``DataLoader`` on
+  the native queue, 2 warm-up and 3 steps under
+  ``paddle_tpu_torch.profiler.Profiler`` (CPU and GPU targets, a
+  ``RecordEvent("train_step")`` around each step, the StepMeter and the
+  tracer on, ``export_chrome_tracing``): K2 and K3 in the profiler's
+  device table with the launches the counters saw and a mean per launch
+  at or above the bound, the host spans, the perf-base trace spans and
+  the kernels on one timeline (every K2 kernel inside its step's span),
+  the native ring not empty; the device table, the busy share and
+  tokens/s printed; then ``metrology.run_probes("quick")`` within the
+  card's peaks, the StepMeter's ceiling from its bf16 GEMM probe and one
+  metered step's ``perf_ceiling_frac``; the path within 35 s.
 
-Last, it times each kernel beside its bound, its plain version and,
+Last, in a process of its own (``--timing``: late in a long process
+CUPTI loses kernel records), it times each kernel beside its bound, its
+plain version and,
 where one exists, a PyTorch call that computes the same function (also
 by their device time alone, which leaves out the host's launch gaps);
 K1 also at a bytes-heavy shape (64 slots of 1024 tokens), K2 and K3
@@ -297,7 +312,12 @@ causal bf16) and K2 and K3 on their fp32 route at the jit gates' [2, 1024,
 blocks and Ulysses' whole sequence (``CH_ATTENTION``), and each
 kernel's fp16 route (K2 and K3 at the fp16 AMP path's shape); then K2
 and K3 in bf16 called straight (K2's ctypes entry, the K3 wrapper) and
-through their ``torch.library`` ops, in turns (``custom_op_cost``). Each
+through their ``torch.library`` ops, in turns (``custom_op_cost``), and
+K2 and K3 at [16, 1024, 12, 64] causal bf16 by CUDA events, by the
+profiler's device time and by a CUDA graph of 100 calls
+(``kernel_readings``). The profiler's device time comes from
+``paddle_tpu_torch.profiler`` (``device_time_ms``), which raises when a
+kernel of the call is missing from its table. Each
 phase prints one JSON line; any failure raises and the script exits
 non-zero. It needs a CUDA card: without one it exits 2 and prints no
 result.
@@ -351,23 +371,53 @@ def cuda_time_ms(fn, iters, warmup=3):
     return start.elapsed_time(stop) / iters
 
 
-def device_time_ms(fn, iters=20):
-    """Mean device ms per call: every kernel and memset the calls put on
-    the card, from ``torch.profiler`` over ``iters`` calls after one
-    warm-up. Unlike ``cuda_time_ms`` it leaves out the host's launch gaps,
-    which dominate calls shorter than their own launch path."""
+PROFILER_RETAKES = []   # device_time_ms sessions taken again, and why
+PROFILER_ATTEMPTS = 5   # device_time_ms sessions at most a reading
+
+
+def device_time_ms(fn, iters=20, kernels=None):
+    """Mean device ms per call: every kernel, memset and copy the calls put
+    on the card, from the port's profiler over ``iters`` calls after one
+    warm-up (``paddle_tpu_torch.profiler``'s device table: CUPTI's own
+    records, not ``key_averages()``). Unlike ``cuda_time_ms`` it leaves out
+    the host's launch gaps, which dominate calls shorter than their own
+    launch path.
+
+    A session counts only when the profiler calls its table whole
+    (``Profiler.whole``: every launch call with its device record), the
+    table is not empty, ``iters`` divides its count of device events, and
+    each name in ``kernels`` ({name part: launches a call}) has exactly
+    ``iters`` times its launches. Another session is noted in
+    ``PROFILER_RETAKES`` and taken again, up to ``PROFILER_ATTEMPTS`` in
+    all; then this raises."""
     import torch
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
+    from paddle_tpu_torch import profiler
+    kernels = kernels or {}
     fn()
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=acts) as prof:
+    for attempt in range(PROFILER_ATTEMPTS):
+        prof = profiler.Profiler(targets=[profiler.ProfilerTarget.CPU,
+                                          profiler.ProfilerTarget.GPU])
+        prof.start()
         for _ in range(iters):
             fn()
-        torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == torch.autograd.DeviceType.CUDA)
-    return us / 1e3 / iters
+        prof.stop()
+        table = prof.device_ops
+        events = sum(c for c, _ in table.values())
+        counts = {k: sum(c for name, (c, _) in table.items() if k in name)
+                  for k in kernels}
+        wrong = {k: c for k, c in counts.items() if c != iters * kernels[k]}
+        if prof.whole and events and not events % iters and not wrong:
+            return sum(sec for _, sec in table.values()) * 1e3 / iters
+        PROFILER_RETAKES.append({
+            "attempt": attempt, "device_events": events, "iters": iters,
+            "wrong": wrong, "want": kernels, **prof.clock,
+            "process_s": time.time() - _PROCESS_T0})
+    raise AssertionError(
+        f"the profiler's device table was not whole in "
+        f"{PROFILER_ATTEMPTS} sessions: "
+        f"{PROFILER_RETAKES[-PROFILER_ATTEMPTS:]}; last table "
+        f"{sorted(table)}")
 
 
 def max_err(a, b):
@@ -7627,6 +7677,268 @@ def phase_elastic(torch, ck, smi, script=None, device="cuda"):
                              f"{agent_logs[1][-3000:]}")
 
 
+# -- the observability path ---------------------------------------------------
+OBS_WARMUP, OBS_PROFILED = 2, 3
+# how far a K2 event may lie outside its step's train_step span beyond the
+# slacks the profiler measured (its host clock against perf_counter,
+# ``clock["slack_us"]``; CUPTI's device clock against its host clock, by
+# the device anchors and by kernels placed before their launch calls,
+# ``clock["placement_slack_us"]``)
+OBS_SLACK_US = 10.0
+OBS_BUDGET_S = 35.0
+HBM_PEAK_GBPS = HBM_BYTES_PER_S / 1e9
+# each kernel's device functions ({name part: launches a wrapper call})
+K2_KERNELS = {"flash_fwd_kernel": 1}
+K3_KERNELS = {"flash_bwd_dq_kernel": 1, "flash_bwd_dkdv_kernel": 1}
+
+
+def paged_kernels(dtype):
+    """K1's device functions: split and combine on the 16-bit routes, the
+    scalar kernel on fp32."""
+    if str(dtype) == "torch.float32":
+        return {"paged_attention_kernel": 1}
+    return {"paged_split_kernel": 1, "paged_combine_kernel": 1}
+
+
+def _busy_us(events, lo, hi):
+    """Microseconds of [lo, hi] that some device event covers."""
+    spans = sorted((max(e["ts"], lo), min(e["ts"] + e["dur"], hi))
+                   for e in events if e["ts"] < hi and e["ts"] + e["dur"] > lo)
+    busy, end = 0.0, lo
+    for a, b in spans:
+        a = max(a, end)
+        if b > a:
+            busy += b - a
+            end = b
+    return busy
+
+
+def _kernel_rows(table, pattern):
+    """(calls, seconds) summed over the device table's rows whose kernel
+    name holds ``pattern``."""
+    rows = [r for name, r in table.items() if pattern in name]
+    return sum(c for c, _ in rows), sum(s for _, s in rows)
+
+
+def _obs_timeline(exported, window_us, clock):
+    """The gate on one timeline: the ``train_step`` spans (native ring),
+    the StepMeter's ``perf.step`` spans (``observability.trace`` on the perf
+    base) each inside its step, a device anchor read (the stop's; the
+    start's kernel record is among those CUPTI loses at a session's head
+    late in a long process), every K2 kernel inside its step's span
+    within OBS_SLACK_US beyond the slacks the profiler measured. Returns
+    the facts, with ``failures``."""
+    steps = sorted((e for e in exported if e["name"] == "train_step"),
+                   key=lambda e: e["ts"])
+    meter = sorted((e for e in exported if e["name"] == "perf.step"
+                    and e.get("cat") == "paddle.span"),
+                   key=lambda e: e["ts"])
+    device = [e for e in exported if str(e.get("pid", "")).startswith("cuda")]
+    k2 = [e for e in device if "flash_fwd_kernel" in e["name"]]
+    failures = []
+    if not clock["device_offsets_us"]:
+        failures.append("no device anchor's kernel in the trace")
+    slack_us = OBS_SLACK_US + clock["slack_us"] + clock["placement_slack_us"]
+    if len(steps) != OBS_PROFILED or len(meter) != OBS_PROFILED:
+        failures.append(f"{len(steps)} train_step and {len(meter)} "
+                        f"perf.step spans, want {OBS_PROFILED} each")
+    lo, hi = window_us
+    for s, m in zip(steps, meter):
+        if not (lo <= s["ts"] and _span_end(s) <= hi
+                and s["ts"] <= m["ts"] and _span_end(m) <= _span_end(s)):
+            failures.append(f"perf.step {m['ts']}+{m['dur']} outside "
+                            f"train_step {s['ts']}+{s['dur']} or the "
+                            f"profiled window {window_us}")
+    per_step = [0] * len(steps)
+    margins = []
+    for e in k2:
+        best = max(((min(e["ts"] - s["ts"], _span_end(s) - _span_end(e)), i)
+                    for i, s in enumerate(steps)), default=(None, None))
+        margins.append(best[0])
+        if best[0] is not None and best[0] >= -slack_us:
+            per_step[best[1]] += 1
+    if per_step != [12] * len(steps):
+        failures.append(f"K2 events inside each train_step span (slack "
+                        f"{slack_us} us): {per_step}, want 12 each")
+    delays = sorted(e["args"]["launch_delay_us"] for e in k2
+                    if "launch_delay_us" in e.get("args", {}))
+    early = min(((e["args"]["launch_delay_us"], e["name"]) for e in device
+                 if "launch_delay_us" in e.get("args", {})), default=None)
+    span_s = sum(s["dur"] for s in steps) / 1e6
+    busy_s = sum(_busy_us(device, s["ts"], _span_end(s)) for s in steps) / 1e6
+    return {"train_step_ms": [s["dur"] / 1e3 for s in steps],
+            "perf_step_ms": [m["dur"] / 1e3 for m in meter],
+            "k2_events": len(k2), "k2_per_step": per_step,
+            "k2_worst_margin_us": min(margins) if margins else None,
+            "k2_launch_delay_us": {"min": delays[0], "median":
+                                   delays[len(delays) // 2],
+                                   "max": delays[-1]} if delays else None,
+            "least_launch_delay_us": early, "slack_us": slack_us,
+            "busy_share": busy_s / span_s if span_s else None,
+            "steps_s": span_s, "failures": failures}
+
+
+def _span_end(e):
+    return e["ts"] + e.get("dur", 0.0)
+
+
+def _obs_metrology(metrology):
+    """``run_probes("quick")`` on the card and its gate: the stream above 0
+    and at most 1.05 x the HBM peak, the bf16 GEMM at most 1.05 x the bf16
+    peak, the per-dispatch GEMM below the chained one of its type and
+    size, the collective on the local plane at world 1."""
+    report = metrology.run_probes("quick")
+    stream = metrology.probe_value(report, "hbm_stream")
+    bf16 = metrology.probe_value(report, "gemm_bfloat16")
+    chained = metrology.probe_value(report, "gemm_float32")
+    per_dispatch = metrology.probe_value(report, "gemm_per_dispatch")
+    bus = metrology.probe_value(report, "collective_bus")
+    failures = []
+    if not 0 < stream["value"] <= 1.05 * HBM_PEAK_GBPS:
+        failures.append(f"stream {stream['value']} GB/s")
+    if not 0 < bf16["value"] <= 1.05 * PEAK_BF16_FLOPS / 1e12:
+        failures.append(f"bf16 GEMM {bf16['value']} TF/s")
+    if not per_dispatch["value"] < chained["value"]:
+        failures.append(f"per-dispatch GEMM {per_dispatch['value']} TF/s not "
+                        f"below the chained {chained['value']}")
+    if bus["plane"] != "local" or bus["world"] != 1:
+        failures.append(f"collective {bus['plane']} at world {bus['world']}")
+    return report, bf16, failures
+
+
+def phase_observability(torch, ck, smi):
+    """The observability path: GPT-124M O2 AdamW training at bench.py's
+    width (``gpt124m_training``), its batches through the threaded
+    ``DataLoader`` (two worker threads on the native queue), 2 warm-up and
+    3 profiled steps under ``paddle_tpu_torch.profiler.Profiler`` (CPU and
+    GPU targets, a ``RecordEvent("train_step")`` around each step, the
+    StepMeter and the tracer on), exported by ``export_chrome_tracing``.
+    Gates: K2 and K3 in the device table with the launches the counters
+    saw (36 each) and a mean at or above the bound; the chrome export's
+    host spans, perf-base trace spans and kernels on one timeline
+    (``_obs_timeline``); the native ring not empty; metrology's quick
+    probes within the card's peaks; then the StepMeter's ceiling from the
+    bf16 GEMM probe and one metered step's ``perf_ceiling_frac``; the path
+    within OBS_BUDGET_S. Whether the profiler's table is whole for the
+    other kernels (CUPTI loses records late in a long process) is printed
+    with the summary's device table, not gated."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    from paddle_tpu_torch import profiler as pf
+    from paddle_tpu_torch.io import DataLoader, TensorDataset
+    from paddle_tpu_torch.observability import (metrics, metrology, perf,
+                                                trace)
+    from paddle_tpu_torch.text.gpt import gpt_small
+    from paddle_tpu_torch.utils import native_runtime
+    t_path = time.perf_counter()
+    cfg = gpt_small()
+    model, step, _ = gpt124m_training(torch)
+    b, seq = TRAIN_BATCH, cfg.max_seq_len
+    tokens = b * seq
+    step.set_meter_info(
+        tokens_per_step=tokens,
+        flops_per_step=tokens * flops_per_token(model, 12, 768, seq))
+    rng = np.random.default_rng(0)
+    data = [rng.integers(0, cfg.vocab_size,
+                         ((OBS_WARMUP + OBS_PROFILED) * b, seq))
+            for _ in range(2)]
+    loader = DataLoader(TensorDataset(data), batch_size=b, num_workers=2,
+                        use_shared_memory=False, timeout=60)
+    it = iter(loader)
+
+    def batch():
+        with trace.span("observability.fetch"):
+            return tuple(t.to("cuda") for t in next(it))
+
+    tmp = tempfile.mkdtemp()
+    prof = pf.Profiler(targets=[pf.ProfilerTarget.CPU,
+                                pf.ProfilerTarget.GPU],
+                       on_trace_ready=pf.export_chrome_tracing(tmp))
+    try:
+        for _ in range(OBS_WARMUP):
+            step(*batch())
+        torch.cuda.synchronize()
+        trace.enable()
+        perf.enable()
+        before = {k.name: k.launches for k in ck.KERNELS}
+        prof.start()
+        t_lo = time.perf_counter_ns()
+        losses = []
+        for _ in range(OBS_PROFILED):
+            ids, labels = batch()
+            with pf.RecordEvent("train_step"):
+                losses.append(step(ids, labels))   # the meter syncs
+            prof.step()
+        t_hi = time.perf_counter_ns()
+        prof.stop()
+        launches = {k.name: k.launches - before[k.name] for k in ck.KERNELS}
+        ring = native_runtime.events_snapshot()
+        exported = pf.load_profiler_result(
+            os.path.join(tmp, "worker_trace.json"))["traceEvents"]
+        summary = prof.summary(op_detail=True)
+        timeline = _obs_timeline(exported, (t_lo / 1e3, t_hi / 1e3),
+                                 prof.clock)
+        report, bf16, probe_failures = _obs_metrology(metrology)
+        perf.set_ceiling_tflops(bf16["value"])
+        step(ids, labels)
+        ceiling_frac = metrics.gauge("perf_ceiling_frac").series()[()]
+    finally:
+        perf.disable()
+        perf.set_ceiling_tflops(None)
+        trace.disable()
+        trace.clear()
+        it.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+    q = torch.empty((b, seq, 12, 64), dtype=torch.bfloat16, device="meta")
+    bounds = {"flash_fwd": flash_bound(q, q, True),
+              "flash_bwd": flash_bwd_bound(q, q, True)}
+    table = prof.device_ops
+    rows, failures = {}, list(timeline.pop("failures")) + probe_failures
+    want = 12 * OBS_PROFILED
+    for name, patterns in (("flash_fwd", K2_KERNELS),
+                           ("flash_bwd", K3_KERNELS)):
+        got = [_kernel_rows(table, p) for p in patterns]   # name parts
+        total_s = sum(s for _, s in got)
+        mean_ms = total_s * 1e3 / max(launches[name], 1)
+        rows[name] = {"kernels": dict(zip(patterns, got)),
+                      "launches": launches[name], "device_ms": total_s * 1e3,
+                      "mean_ms": mean_ms, "bound_ms": bounds[name][0],
+                      "bound_by": bounds[name][1]}
+        if launches[name] != want or any(c != want for c, _ in got):
+            failures.append(f"{name}: counters {launches[name]}, device "
+                            f"table {[c for c, _ in got]}, want {want}")
+        if not total_s > 0 or mean_ms < bounds[name][0]:
+            failures.append(f"{name}: mean {mean_ms} ms a launch against "
+                            f"its bound {bounds[name][0]} ms")
+    if not any(name == "train_step" for name, *_ in ring):
+        failures.append(f"the native ring holds no train_step: {ring}")
+    losses = [float(x) for x in losses]
+    if not all(math.isfinite(x) for x in losses):
+        failures.append(f"a loss is not finite: {losses}")
+    device_lines = summary.split("---- Device Op Summary")[1].split(
+        "\n\n")[0]
+    seconds = time.perf_counter() - t_path
+    if seconds > OBS_BUDGET_S:
+        failures.append(f"the path took {seconds} s of its {OBS_BUDGET_S}")
+    emit({"phase": "observability", "nvidia_smi": smi,
+          "model": "gpt_small (GPT-124M), O2 bf16, AdamW lr 1e-4, batches "
+                   "through DataLoader(num_workers=2, "
+                   "use_shared_memory=False)",
+          "batch": [b, seq], "profiled_steps": OBS_PROFILED, "losses": losses,
+          "tokens_per_s": OBS_PROFILED * tokens / timeline["steps_s"],
+          "kernels": rows, "clock": prof.clock, "whole": prof.whole,
+          "device_table_rows": len(table), "timeline": timeline,
+          "native_ring_events": len(ring),
+          "exported_events": len(exported),
+          "metrology": report, "ceiling_tflops": bf16["value"],
+          "perf_ceiling_frac": ceiling_frac, "seconds": seconds,
+          "device_table": device_lines, "failures": failures})
+    if failures:
+        raise AssertionError(f"observability: {failures}")
+
+
 def paged_bound(torch, q, kp, bt, cl):
     """Least time for K1 on these inputs: bytes each slot's visible rows
     need (K and V once, the table entries it reads, q, lens, out) versus
@@ -7671,7 +7983,7 @@ def time_paged(torch, ck, ctxs, kq, dtype, launches, label):
         return ck.paged_attention_verify_decode(q, kp, vp, bt, cl)
 
     ms = cuda_time_ms(kernel, 200)
-    dev_ms = device_time_ms(kernel)
+    dev_ms = device_time_ms(kernel, kernels=paged_kernels(dtype))
     plain_ms = cuda_time_ms(
         lambda: ck.paged_attention_verify_reference(q, kp, vp, bt, cl), 20)
     bound_ms, bound_by = paged_bound(torch, q, kp, bt, cl)
@@ -7695,7 +8007,8 @@ def time_flash(torch, ck, case, dtype, launches):
     ms = cuda_time_ms(
         lambda: ck.flash_attention_with_lse(q, k, v, causal=causal), 100)
     dev_ms = device_time_ms(
-        lambda: ck.flash_attention_with_lse(q, k, v, causal=causal))
+        lambda: ck.flash_attention_with_lse(q, k, v, causal=causal),
+        kernels=K2_KERNELS)
     plain_ms = cuda_time_ms(
         lambda: ck.flash_attention_reference(q, k, v, causal=causal), 10)
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
@@ -7746,7 +8059,8 @@ def time_flash_bwd(torch, ck, case, dtype, launches):
                       20)
     # the wrapper's device time: delta = rowsum(do * o), then the two passes
     dev_ms = device_time_ms(
-        lambda: ck.flash_attention_bwd(*args, causal=causal))
+        lambda: ck.flash_attention_bwd(*args, causal=causal),
+        kernels=K3_KERNELS)
     plain_ms = cuda_time_ms(
         lambda: ck.flash_attention_bwd_reference(*args, causal=causal), 5,
         warmup=1)
@@ -7851,7 +8165,8 @@ def time_packed(torch, ck, launches, dtype=None):
          "library_call": "torch.ops.aten._flash_attention_forward "
                          "(cum_seq_q, cum_seq_k)",
          "library_max_abs_err": max_err(lib[0], ro),
-         "device_ms": device_time_ms(kernel_fwd),
+         "device_ms": device_time_ms(
+             kernel_fwd, kernels={"flash_varlen_fwd_kernel": 1}),
          "library_device_ms": device_time_ms(library_fwd),
          "plan_ms": plan_ms, "visible_pairs_per_head": pairs,
          "shape": shape},
@@ -7872,7 +8187,9 @@ def time_packed(torch, ck, launches, dtype=None):
                                     for a, r in zip(library_bwd(), dref)),
          # the wrapper's device time: delta = rowsum(do * o), then the two
          # passes; the library's its own preprocessing and passes
-         "device_ms": device_time_ms(kernel_bwd),
+         "device_ms": device_time_ms(
+             kernel_bwd, kernels={"flash_varlen_bwd_dq_kernel": 1,
+                                  "flash_varlen_bwd_dkdv_kernel": 1}),
          "library_device_ms": device_time_ms(library_bwd),
          "visible_pairs_per_head": pairs, "shape": shape}]
     return rows
@@ -8148,7 +8465,9 @@ def _custom_op_cost(torch, ck):
         for _ in range(2):
             for key, fn in (("straight", direct), ("op", op)):
                 ms[key].append(cuda_time_ms(fn, 50))
-                dev[key].append(device_time_ms(fn))
+                dev[key].append(device_time_ms(
+                    fn, kernels=K2_KERNELS if name == "flash_fwd"
+                    else K3_KERNELS))
         out.append({"kernel": name, "case": label,
                     **{f"{key}_ms": sum(v) / 2 for key, v in ms.items()},
                     **{f"{key}_device_ms": sum(v) / 2
@@ -8203,6 +8522,46 @@ def phase_jit_inference(torch, ck, smi):
     emit({"phase": "jit_inference", "nvidia_smi": smi,
           "model": "GPT-124M (gpt_small, 12 layers)",
           "gates": [g1, g2, g3, g4, g5]})
+
+
+GRAPH_CALLS = 100   # calls in graph_time_ms's CUDA graph
+
+
+def graph_time_ms(torch, ck, fn):
+    """Mean ms per call of ``fn`` with no launch in the timing: one CUDA
+    graph of ``GRAPH_CALLS`` calls replayed between two CUDA events, as
+    metrology's chains run (``metrology.chain_sampler``, ``scan_chain``:
+    warm-up discarded, the median of the reps). The capture's launches go
+    to a tally, not to the counts."""
+    from paddle_tpu_torch.observability import metrology
+    with ck.recording_launches():
+        sample = metrology.chain_sampler(fn, GRAPH_CALLS,
+                                         torch.device("cuda"))
+    stats = metrology.scan_chain(sample, probe="graph_time_ms")
+    return stats["median_s"] * 1e3 / GRAPH_CALLS
+
+
+def kernel_readings(torch, ck):
+    """K2 and K3 at [16, 1024, 12, 64] causal bf16 by the three methods,
+    side by side: CUDA events around back-to-back calls (``cuda_time_ms``,
+    launch gaps included), the profiler's device time (``device_time_ms``)
+    and a CUDA graph of 100 calls timed by events (``graph_time_ms``)."""
+    label, b, sq, sk, h, kh, d, causal = TRAIN_ATTENTION
+    bf16 = torch.bfloat16
+    q, k, v = flash_case(torch, b, sq, sk, h, kh, d, bf16)
+    args = flash_bwd_inputs(torch, ck, b, sq, sk, h, kh, d, causal, bf16,
+                            dlse=False)
+    calls = {"flash_fwd": (lambda: ck.flash_attention_with_lse(
+                 q, k, v, causal=causal), K2_KERNELS),
+             "flash_bwd": (lambda: ck.flash_attention_bwd(
+                 *args, causal=causal), K3_KERNELS)}
+    rows = []
+    for name, (fn, kernels) in calls.items():
+        rows.append({"kernel": name, "case": label,
+                     "events_ms": cuda_time_ms(fn, 100),
+                     "device_ms": device_time_ms(fn, kernels=kernels),
+                     "graph_ms": graph_time_ms(torch, ck, fn)})
+    return rows
 
 
 def phase_timing(torch, ck, launches, path_launches, routes, smi):
@@ -8292,7 +8651,50 @@ def phase_timing(torch, ck, launches, path_launches, routes, smi):
           "kernels": variants})
     emit({"phase": "custom_op_cost", "nvidia_smi": smi,
           "cases": _custom_op_cost(torch, ck)})
+    emit({"phase": "kernel_readings", "nvidia_smi": smi,
+          "cases": kernel_readings(torch, ck)})
     return main
+
+
+TIMING_TIMEOUT_S = 600
+
+
+def _timing_in_fresh_process(launches, path_launches, routes, smi):
+    """``phase_timing`` in a process of its own (``chip_smoke.py --timing
+    DIR``; its phase lines go to this stdout). Late in this long process
+    CUPTI loses kernel records, whole sessions of them, while it keeps the
+    launch calls' records, and retakes did not bring them back; in a
+    fresh process a loss is rare and a retake repairs it (PERF.md §6).
+    Returns {"kernels", "profiler_retakes"}."""
+    import shutil
+    import tempfile
+    tmp = tempfile.mkdtemp()
+    try:
+        with open(os.path.join(tmp, "counts.json"), "w") as f:
+            json.dump({"launches": launches, "path_launches": path_launches,
+                       "routes": routes, "smi": smi}, f)
+        subprocess.run([sys.executable, os.path.abspath(__file__),
+                        "--timing", tmp], check=True,
+                       timeout=TIMING_TIMEOUT_S)
+        with open(os.path.join(tmp, "kernels.json")) as f:
+            return json.load(f)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def timing_rank(torch, out_dir):
+    """The body of ``chip_smoke.py --timing DIR``: ``phase_timing`` on the
+    counts in DIR/counts.json, its result and ``PROFILER_RETAKES`` written
+    to DIR/kernels.json."""
+    from paddle_tpu_torch.ops import cuda_kernels as ck
+    with open(os.path.join(out_dir, "counts.json")) as f:
+        c = json.load(f)
+    kernels = phase_timing(torch, ck, c["launches"], c["path_launches"],
+                           c["routes"], c["smi"])
+    with open(os.path.join(out_dir, "kernels.json"), "w") as f:
+        json.dump({"kernels": kernels, "profiler_retakes": PROFILER_RETAKES},
+                  f)
+    return 0
 
 
 def _share_bytecode():
@@ -8342,6 +8744,9 @@ def main():
     # the elastic path's trainers: this script under an elastic agent
     if sys.argv[1:2] == ["--elastic-rank"]:
         return elastic_rank(torch, sys.argv[2])
+    # the kernel timings, in a process of their own
+    if sys.argv[1:2] == ["--timing"]:
+        return timing_rank(torch, sys.argv[2])
     from paddle_tpu_torch.ops import cuda_kernels as ck
 
     t0 = time.perf_counter()
@@ -8368,7 +8773,8 @@ def main():
     # jit_inference path (K2 per layer of every captured or served forward,
     # K3 per layer of the to_static step), then the context_hybrid path,
     # then the elastic path (K2, K3 per layer and step in every trainer of
-    # every generation)
+    # every generation), then the observability path (K2, K3 per layer and
+    # step, profiled)
     paths = (("serving", ("paged_attention", "flash_fwd"),
               lambda: (phase_serving(torch, ck, smi),
                        phase_exactness_fp32(torch, ck))),
@@ -8438,7 +8844,11 @@ def main():
              # local failure, then a scale-in to world 1 (K2/K3 12 a step
              # in every trainer)
              ("elastic", ("flash_fwd", "flash_bwd"),
-              lambda: phase_elastic(torch, ck, smi)))
+              lambda: phase_elastic(torch, ck, smi)),
+             # GPT-124M's steps under paddle.profiler (K2, K3 12 a step),
+             # then metrology's probes and a metered step
+             ("observability", ("flash_fwd", "flash_bwd"),
+              lambda: phase_observability(torch, ck, smi)))
     launches = {k.name: 0 for k in ck.KERNELS}
     path_launches, path_routes, path_seconds = {}, {}, {}
     for path, kernels, drive in paths:
@@ -8461,12 +8871,13 @@ def main():
     emit({"phase": "path_launches", "launches": path_launches,
           "by_route": path_routes, "seconds": path_seconds})
     t_timing = time.perf_counter()
-    kernels = phase_timing(torch, ck, launches, path_launches, path_routes,
-                           smi)
+    timed = _timing_in_fresh_process(launches, path_launches, path_routes,
+                                     smi)
     emit({"phase": "done", "seconds": time.perf_counter() - t0,
           "kernels_vs_plain_s": held_s,
-          "timing_s": time.perf_counter() - t_timing})
-    emit({"kernels": kernels})
+          "timing_s": time.perf_counter() - t_timing,
+          "profiler_retakes": timed["profiler_retakes"]})
+    emit({"kernels": timed["kernels"]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

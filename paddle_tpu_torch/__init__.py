@@ -85,5 +85,7 @@ from .distributed import DataParallel  # noqa: E402
 # the graph and deployment path: dy2static, jit.to_static/save/load,
 # paddle.static's lazy graph and Executor, paddle.inference's predictor
 from . import jit, static, inference  # noqa: E402
+# paddle.profiler: host annotations, CUPTI device events, one timeline
+from . import profiler  # noqa: E402
 from .jit.api import (enable_static, disable_static,  # noqa: E402
                       in_dynamic_mode)

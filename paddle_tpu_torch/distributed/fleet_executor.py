@@ -15,22 +15,20 @@ caller gets a ``RuntimeError`` naming the stage, never a hung join.
 Grad mode and autocast are per thread in PyTorch: a callable that must
 run without autograd enters ``torch.no_grad()`` itself.
 
-The mailbox is ``queue.Queue``, the reference's own fallback; its native
-``BlockingQueue`` (``native/runtime/runtime.cpp``) is not ported
-(ROADMAP A9).
+The mailboxes are ``NativeBlockingQueue``s (``utils/native_runtime``:
+the condition-variable ``BlockingQueue`` of ``native/runtime/runtime.cpp``,
+as in the reference): a stage waiting for a message waits in native code
+with the interpreter lock released.
 """
 from __future__ import annotations
 
-import queue as _pyqueue
 import threading
+
+from ..utils.native_runtime import NativeBlockingQueue
 
 __all__ = ["TaskNode", "Interceptor", "Carrier", "FleetExecutor"]
 
 _STOP = object()
-
-
-def _make_queue(capacity):
-    return _pyqueue.Queue(maxsize=capacity)
 
 
 class TaskNode:
@@ -132,9 +130,9 @@ class Carrier:
         edge_q = {}  # (up, down) -> queue
         for n in self.nodes:
             for d in n.downstreams:
-                edge_q[(n, d)] = _make_queue(self.capacity)
-        source_q = {s: _make_queue(self.capacity) for s in sources}
-        sink_q = {s: _make_queue(0) for s in sinks}
+                edge_q[(n, d)] = NativeBlockingQueue(self.capacity)
+        source_q = {s: NativeBlockingQueue(self.capacity) for s in sources}
+        sink_q = {s: NativeBlockingQueue(0) for s in sinks}
 
         interceptors = []
         for n in self.nodes:

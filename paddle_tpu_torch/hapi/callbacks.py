@@ -6,8 +6,8 @@ batch, ``by_step``, or per epoch, ``by_epoch``) and ``ReduceLROnPlateau``
 ``patience`` epochs without a better monitored value, and leaves a
 scheduler alone) and ``ModelCheckpoint`` (``Model.save`` to
 ``save_dir/{epoch}`` every ``save_freq`` epochs and to
-``save_dir/final`` when training ends). ``VisualDL`` waits for the
-observability plane (ROADMAP A9) and raises when built."""
+``save_dir/final`` when training ends) and ``VisualDL`` (scalars of each
+training batch appended to ``log_dir/scalars.tsv``)."""
 from __future__ import annotations
 
 import numbers
@@ -173,15 +173,6 @@ class EarlyStopping(Callback):
                     print(f"Early stopping at epoch {epoch}")
 
 
-def _not_ported(what, item):
-    class NotPorted(Callback):
-        def __init__(self, *args, **kwargs):
-            raise NotImplementedError(
-                f"the {what} callback is not ported yet (ROADMAP {item})")
-    NotPorted.__name__ = NotPorted.__qualname__ = what
-    return NotPorted
-
-
 class LRScheduler(Callback):
     def __init__(self, by_step=True, by_epoch=False):
         super().__init__()
@@ -238,4 +229,20 @@ class ReduceLROnPlateau(Callback):
                 self.wait = 0
 
 
-VisualDL = _not_ported("VisualDL", "A9")
+class VisualDL(Callback):
+    """Scalar logger: appends ``step\tkey\tvalue`` rows, one for each
+    number in a training batch's logs, to ``log_dir/scalars.tsv`` (the
+    VisualDL package itself is not bundled)."""
+
+    def __init__(self, log_dir):
+        super().__init__()
+        self.log_dir = log_dir
+        self._step = 0
+
+    def on_train_batch_end(self, step, logs=None):
+        os.makedirs(self.log_dir, exist_ok=True)
+        self._step += 1
+        with open(os.path.join(self.log_dir, "scalars.tsv"), "a") as f:
+            for k, v in (logs or {}).items():
+                if isinstance(v, numbers.Number):
+                    f.write(f"{self._step}\t{k}\t{v}\n")

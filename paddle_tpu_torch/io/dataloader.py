@@ -19,8 +19,10 @@ Workers, as in the reference:
   ``worker_init_fn`` cannot be pickled, the loader falls back to
   threads.
 - ``use_shared_memory=False``: worker threads over a bounded
-  ``queue.Queue`` (the reference's native ``BlockingQueue`` waits for
-  ROADMAP A9).
+  ``NativeBlockingQueue`` (``utils/native_runtime``: the condition-variable
+  queue of ``native/runtime/runtime.cpp``, as in the reference); the
+  consumer closes it when it stops, which wakes a worker blocked on a
+  full queue.
 
 The consumer restores the sampler's order. Every read of a worker's
 result waits at most ``timeout`` seconds (300 when ``timeout`` is 0),
@@ -45,6 +47,7 @@ import time
 import numpy as np
 import torch
 
+from ..utils.native_runtime import NativeBlockingQueue
 from .dataset import IterableDataset
 from .sampler import BatchSampler
 
@@ -249,9 +252,9 @@ class DataLoader:
 
     def _iter_threaded(self):
         """``num_workers`` threads take index lists in turn and put
-        collated batches on a bounded queue."""
+        collated batches on a bounded native queue."""
         tasks = list(self.batch_sampler)
-        out_q = queue.Queue(maxsize=self.prefetch_factor * self.num_workers)
+        out_q = NativeBlockingQueue(self.prefetch_factor * self.num_workers)
         next_task = iter(enumerate(tasks))
         task_lock = threading.Lock()
         stop = threading.Event()
@@ -296,18 +299,22 @@ class DataLoader:
             yield from self._ordered(len(tasks), get)
         finally:
             stop.set()
+            out_q.close()
             for t in threads:
                 t.join(timeout=1.0)
 
 
 def _put(q, item, stop):
-    """Put ``item`` on the bounded ``q`` unless the consumer has stopped."""
+    """Put ``item`` on the bounded ``q`` unless the consumer has stopped
+    (or closed ``q``)."""
     while not stop.is_set():
         try:
             q.put(item, timeout=0.1)
             return
         except queue.Full:
             continue
+        except ValueError:   # closed: the consumer is done
+            return
 
 
 def _start_all(workers):

@@ -26,11 +26,18 @@ tensors alone, as the models call it, it returns torch tensors and
 costs one more type check per input. ``nondiff`` is the same seam for
 ops that are never differentiable (comparisons, indices): it runs the
 impl under ``torch.no_grad()`` and applies no amp cast.
+
+``set_op_profiler(cb)`` installs the reference's op-profiler hook
+(``paddle.profiler.Profiler(serialize=True)`` does, while it records):
+each op is then timed on the host clock through a synchronise on its
+outputs' devices, and ``cb(op_name, seconds)`` receives it. With no hook
+the cost is one module attribute read per op.
 """
 from __future__ import annotations
 
 import contextlib
 import threading
+import time
 
 import numpy as np
 import torch
@@ -43,6 +50,27 @@ from ..utils import flags as _flags
 
 _scan = threading.local()
 
+# the op-level profiling hook (None: one attribute read per op)
+_op_profiler = None
+
+
+def set_op_profiler(cb):
+    """``cb(op_name, seconds)`` or None. While installed, every op that
+    passes the seam is timed through a synchronise on its outputs."""
+    global _op_profiler
+    _op_profiler = cb
+
+
+def _timed(op_name, fn, tensors, attrs, cb):
+    t0 = time.perf_counter()
+    out = fn(*tensors, **attrs)
+    outs = out if isinstance(out, (tuple, list)) else (out,)
+    for dev in {o.device for o in outs
+                if isinstance(o, torch.Tensor) and o.is_cuda}:
+        torch.cuda.synchronize(dev)
+    cb(op_name, time.perf_counter() - t0)
+    return out
+
 
 def dispatch(op_name, fn, *tensors, **attrs):
     """``fn(*tensors, **attrs)`` with the amp casts applied to
@@ -54,7 +82,8 @@ def dispatch(op_name, fn, *tensors, **attrs):
             return _surface(op_name, fn, tensors, attrs, True)
     if getattr(_amp_tls, "enabled", False):
         tensors = maybe_cast_inputs(op_name, tensors)
-    out = fn(*tensors, **attrs)
+    out = fn(*tensors, **attrs) if _op_profiler is None else \
+        _timed(op_name, fn, tensors, attrs, _op_profiler)
     if _flags.FAST.check_nan_inf and not getattr(_scan, "off", False):
         _check_nan_inf(op_name, out)
     return out
@@ -98,7 +127,8 @@ def nondiff(op_name, fn, *tensors, **attrs):
         if isinstance(t, Tensor):
             return _surface(op_name, fn, tensors, attrs, False)
     with torch.no_grad():
-        out = fn(*tensors, **attrs)
+        out = fn(*tensors, **attrs) if _op_profiler is None else \
+            _timed(op_name, fn, tensors, attrs, _op_profiler)
     if _flags.FAST.check_nan_inf and not getattr(_scan, "off", False):
         _check_nan_inf(op_name, out)
     return out
@@ -109,10 +139,12 @@ def _surface(op_name, fn, tensors, attrs, diff):
     if diff:
         if getattr(_amp_tls, "enabled", False):
             vals = maybe_cast_inputs(op_name, vals)
-        out = fn(*vals, **attrs)
+        out = fn(*vals, **attrs) if _op_profiler is None else \
+            _timed(op_name, fn, vals, attrs, _op_profiler)
     else:
         with torch.no_grad():
-            out = fn(*vals, **attrs)
+            out = fn(*vals, **attrs) if _op_profiler is None else \
+                _timed(op_name, fn, vals, attrs, _op_profiler)
     if _flags.FAST.check_nan_inf and not getattr(_scan, "off", False):
         _check_nan_inf(op_name, out)
     return wrap(out)

@@ -18,8 +18,8 @@ networks' weights.
   ResNet-18 in eval mode within 1e-5 of JAX's (continuous random logits,
   so no ties reorder the top-k).
 - ``DataLoader``: order, ``shuffle`` under ``np.random.seed`` (the same
-  permutation as JAX's), ``drop_last``, the collate; the refusals left
-  (``Model.save(training=False)``, ``VisualDL``).
+  permutation as JAX's), ``drop_last``, the collate; the export's refusal
+  of a ``Model`` without inputs, and ``VisualDL``'s rows.
 """
 import numpy as np
 import pytest
@@ -286,8 +286,8 @@ def test_refusals(tmp_path):
     net = models.LeNet(device="cpu", seed=14)
     model = Model(net).prepare(port_opt.SGD(parameters=net.parameters()),
                                pnn.CrossEntropyLoss())
-    # what is left after checkpoints, workers and the inference export
-    # were ported: the VisualDL callback. The export refuses a Model
+    # nothing is refused since checkpoints, workers, the inference export
+    # and the VisualDL callback were ported. The export refuses a Model
     # without inputs, as the reference's jit.save does, and exports one
     # with them
     with pytest.raises(ValueError, match="jit.save needs input_spec"):
@@ -301,8 +301,9 @@ def test_refusals(tmp_path):
     with torch.no_grad():
         assert torch.equal(jit.load(str(tmp_path / "lenet"),
                                     device="cpu")(x), net(x))
-    with pytest.raises(NotImplementedError, match="A9"):
-        VisualDL()
+    vdl = VisualDL(str(tmp_path / "vdl"))
+    vdl.on_train_batch_end(0, {"loss": 0.5, "note": "x"})
+    assert (tmp_path / "vdl" / "scalars.tsv").read_text() == "1\tloss\t0.5\n"
     assert isinstance(ModelCheckpoint(), Callback)
     loader = DataLoader(TensorDataset([np.zeros((2, 1))]), num_workers=2,
                         use_shared_memory=False, timeout=60)

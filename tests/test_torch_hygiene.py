@@ -2,10 +2,11 @@
 ``scripts/profile_torch_train_step.py``, ``scripts/ab_eager_amp.py``,
 ``scripts/ab_data_parallel.py``, ``scripts/chip_grad_comm.py``,
 ``scripts/chip_auto_parallel.py``, ``scripts/chip_pipeline_3d.py``,
-``scripts/chip_jit.py``, ``scripts/chip_context_hybrid.py`` and
-``scripts/chip_elastic.py`` import neither ``jax`` nor anything of
-``paddle_tpu`` — not even its modules that do not import JAX. Later
-slices that reach into the JAX package fail here."""
+``scripts/chip_jit.py``, ``scripts/chip_context_hybrid.py``,
+``scripts/chip_elastic.py`` and ``scripts/chip_observability.py`` import
+neither ``jax`` nor anything of ``paddle_tpu`` — not even its modules that
+do not import JAX. Later slices that reach into the JAX package fail
+here."""
 import ast
 import os
 import subprocess
@@ -29,7 +30,8 @@ def _port_files():
                     ROOT / "scripts" / "chip_pipeline_3d.py",
                     ROOT / "scripts" / "chip_jit.py",
                     ROOT / "scripts" / "chip_context_hybrid.py",
-                    ROOT / "scripts" / "chip_elastic.py"]
+                    ROOT / "scripts" / "chip_elastic.py",
+                    ROOT / "scripts" / "chip_observability.py"]
 
 
 def _imported_roots(path):
